@@ -1,0 +1,531 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``photon_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root; needs one CUDA GPU
+
+Phases, each printing one JSON line; any failure ends the run with a nonzero
+exit code and no result line:
+
+0. card: ``nvidia-smi`` name and power limit, and the kernels' build
+   (``nvcc`` into ``photon_tpu_torch/_build``, from the sources here).
+1. kernels at full width (2^19 rows x 32 entries over 262,144 global + a
+   per-user block of features, the repository's headline single-chip shape):
+   ``ell_matvec``, ``csc_rmatvec`` and ``csc_sq_rmatvec`` against their
+   plain PyTorch versions on the card (f32: rtol 1e-5, atol 1e-5 x max|ref|),
+   a hot-and-duplicate-column case, an f64 case (atol 1e-12), bit-equal
+   repeats of the transpose, and times: kernel, plain version, one library
+   call as a yardstick (cuSPARSE through ``torch.sparse_csr_tensor``; never
+   called by the port) and the bound from bytes moved.
+2. transformer at full width: ``GameTransformer.transform`` of an in-memory
+   bundle (4,096 users x 128 rows, fixed effect + ``perUser``) on cuda and
+   on cpu; the scores agree within the stated tolerance and ``ell_matvec``
+   launched.
+3. driver end to end: Avro data, index store and model directory written by
+   the port's own writers (same widths, 32,768 rows: the per-record Avro
+   reader is pure Python, so depth is cut here), scored by
+   ``photon_tpu_torch.cli.game_scoring_driver`` with ``--device cuda`` and
+   ``--device cpu``; both ``scores.avro`` agree and ``ell_matvec`` launched.
+
+Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Model weights and data are random, made
+from fixed seeds. Work files go to ``photon_tpu_torch/_build/chip_smoke/``
+and are removed on success; nvcc's log stays beside the built library.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(REPO, "photon_tpu_torch", "_build", "chip_smoke")
+
+FULL = dict(n_users=4096, rows_per_user=128, d_global=262144, d_user=16,
+            k_global=28, k_user=4, driver_rows_per_user=8)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # outside tensor cores
+REPLACES = "photon_tpu/ops/pallas_sparse.py:248"        # _gather_onehot_kernel
+TPU_ENTRY = {"ell_matvec": "matvec_pallas (pallas_sparse.py:331)",
+             "csc_rmatvec": "rmatvec_pallas (pallas_sparse.py:313)",
+             "csc_sq_rmatvec": "rmatvec_pallas(square_vals=True) (pallas_sparse.py:313)"}
+RTOL_F32, ATOL_F32_REL, ATOL_F64 = 1e-5, 1e-5, 1e-12
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+# ------------------------------------------------------------------ data
+
+
+def game_arrays(n_users, rows_per_user, d_global, d_user, k_global, k_user,
+                col0=0, seed=2, **_):
+    """Rows laid out as bench.py's ``_game_bundle``: ``k_global`` entries
+    from a global block and ``k_user`` from the row's user block; columns
+    start at ``col0`` (1 when column 0 is the intercept)."""
+    rng = np.random.default_rng(seed)
+    n = n_users * rows_per_user
+    users = np.repeat(np.arange(n_users), rows_per_user)
+    rng.shuffle(users)
+    gi = col0 + rng.integers(0, d_global, size=(n, k_global))
+    gv = rng.normal(size=(n, k_global)) / np.sqrt(k_global)
+    ul = rng.integers(0, d_user, size=(n, k_user))
+    ui = col0 + d_global + users[:, None] * d_user + ul
+    uv = rng.normal(size=(n, k_user)) / 2.0
+    idx = np.concatenate([gi, ui], axis=1).astype(np.int32)
+    val = np.concatenate([gv, uv], axis=1).astype(np.float32)
+    dim = col0 + d_global + n_users * d_user
+    keys = np.array([f"u{u}" for u in users], object)
+    return idx, val, dim, users, keys
+
+
+def model_spec(n_users, d_global, d_user, intercept: bool, seed=9, **_) -> dict:
+    """A fixed effect over every column and a ``perUser`` random effect
+    for the numpy-to-port converter. Users with ``u % 16 == 15`` are not in
+    the model (they score through the zero model); the rest carry their whole
+    user block (u % 3 != 0) or its first half, plus the intercept when there
+    is one — two bucket widths."""
+    rng = np.random.default_rng(seed)
+    col0 = 1 if intercept else 0
+    dim = col0 + d_global + n_users * d_user
+    seen = [u for u in range(n_users) if u % 16 != 15]
+    groups: dict = {}
+    for u in seen:
+        width = d_user if u % 3 else d_user // 2
+        cols = col0 + d_global + u * d_user + np.arange(width)
+        if intercept:
+            cols = np.concatenate([[0], cols])
+        p = 1 << (len(cols) - 1).bit_length()
+        groups.setdefault(p, []).append((u, cols))
+    keys, coefs, proj, ids = [], [], [], []
+    for p, members in sorted(groups.items()):
+        c = np.zeros((len(members), p), np.float64)
+        pr = np.full((len(members), p), dim, np.int32)
+        e = np.zeros(len(members), np.int32)
+        for lane, (u, cols) in enumerate(members):
+            pr[lane, :len(cols)] = cols
+            c[lane, :len(cols)] = rng.normal(size=len(cols)) * 0.5
+            e[lane] = len(keys)
+            keys.append(f"u{u}")
+        coefs.append(c)
+        proj.append(pr)
+        ids.append(e)
+    return {
+        "fixed": {"type": "fixed", "feature_shard": "global",
+                  "task": "LOGISTIC_REGRESSION",
+                  "means": rng.normal(size=dim) * 0.1, "variances": None},
+        "perUser": {"type": "random", "re_type": "userId",
+                    "task": "LOGISTIC_REGRESSION", "global_dim": dim,
+                    "entity_keys": keys, "bucket_coefs": coefs,
+                    "bucket_proj": proj, "bucket_entity_ids": ids,
+                    "bucket_variances": None},
+    }
+
+
+def kernel_bound(name: str, n: int, k: int, dim: int, nnz: int, dtype: str) -> dict:
+    """Least time the card could take: each input read once, each output
+    written once, over 3.35 TB/s; operations over the peak for the type."""
+    vb = 4 if dtype == "float32" else 8
+    if name == "ell_matvec":
+        nbytes = n * k * (4 + vb) + dim * vb + n * vb
+        ops = 2 * n * k
+    else:
+        nbytes = (dim + 1) * 8 + nnz * (4 + vb) + n * vb + dim * vb
+        ops = (3 if name == "csc_sq_rmatvec" else 2) * nnz
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+# ------------------------------------------------------------------ timing
+
+
+def time_ms(torch, fn, warmup=3, reps=25) -> float:
+    """Median of ``reps`` CUDA-event timings of one call, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def _close(torch, got, ref, dtype: str) -> float:
+    err = (got.double() - ref.double()).abs().max().item() if got.numel() else 0.0
+    if dtype == "float32":
+        atol = ATOL_F32_REL * max(ref.abs().max().item(), 1e-30)
+        ok = torch.allclose(got, ref, rtol=RTOL_F32, atol=atol)
+    else:
+        ok = torch.allclose(got, ref, rtol=ATOL_F64, atol=ATOL_F64)
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version ({dtype}): "
+                             f"max abs err {err}")
+    return err
+
+
+# ------------------------------------------------------------------ phases
+
+
+def phase_kernels(torch, dev) -> dict:
+    from photon_tpu_torch.ops import cuda_sparse as cs
+
+    idx_np, val_np, dim, _, _ = game_arrays(**FULL)
+    n, k = idx_np.shape
+    rng = np.random.default_rng(4)
+    out = {}
+    for dtype, tdt in (("float32", torch.float32), ("float64", torch.float64)):
+        idx = torch.from_numpy(idx_np).to(dev)
+        val = torch.from_numpy(val_np).to(dev, tdt)
+        w = torch.from_numpy(rng.normal(size=dim)).to(dev, tdt)
+        v = torch.from_numpy(rng.normal(size=n)).to(dev, tdt)
+        t0 = time.perf_counter()
+        csc = cs.build_csc(idx, val, dim)
+        csc_s = time.perf_counter() - t0
+        calls = {
+            "ell_matvec": (lambda: cs.ell_matvec(idx, val, w, dim),
+                           lambda: cs.ell_matvec_plain(idx, val, w, dim)),
+            "csc_rmatvec": (lambda: cs.csc_rmatvec(csc, v),
+                            lambda: cs.csc_rmatvec_plain(csc, v)),
+            "csc_sq_rmatvec": (lambda: cs.csc_rmatvec(csc, v, square=True),
+                               lambda: cs.csc_rmatvec_plain(csc, v, square=True)),
+        }
+        res = {}
+        for name, (kern, plain) in calls.items():
+            got = kern()
+            torch.cuda.synchronize()
+            res[name] = {"max_abs_err": _close(torch, got, plain(), dtype)}
+            if name != "ell_matvec":
+                again = kern()
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name}: two runs differ ({dtype})")
+                res[name]["bit_equal_repeat"] = True
+        if dtype == "float32":
+            # one library call per kernel as a yardstick (cuSPARSE SpMV)
+            keep = idx < dim
+            crow = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+            crow[1:] = torch.cumsum(keep.sum(1), 0)
+            a = torch.sparse_csr_tensor(crow, idx[keep], val[keep], size=(n, dim))
+            at = torch.sparse_csr_tensor(csc.colptr.int(), csc.rows, csc.vals,
+                                         size=(dim, n))
+            at2 = torch.sparse_csr_tensor(csc.colptr.int(), csc.rows,
+                                          csc.vals * csc.vals, size=(dim, n))
+            library = {"ell_matvec": lambda: a @ w, "csc_rmatvec": lambda: at @ v,
+                       "csc_sq_rmatvec": lambda: at2 @ v}
+            for name, (kern, plain) in calls.items():
+                lib_err = (library[name]().double() - plain().double()).abs().max()
+                res[name].update(
+                    library_max_abs_err=lib_err.item(),
+                    ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                    library_ms=time_ms(torch, library[name]),
+                    **kernel_bound(name, n, k, dim, csc.nnz, dtype))
+        out[dtype] = {"build_csc_s": csc_s, "nnz": csc.nnz, "kernels": res}
+
+    # hot and duplicate columns at full width (as test_pallas_sparse.py)
+    hot_idx = idx_np.copy()
+    hot_idx[:, 0] = 7                       # a column in every row
+    hot_idx[:, 1] = hot_idx[:, 2]           # duplicates within rows
+    idx = torch.from_numpy(hot_idx).to(dev)
+    val = torch.from_numpy(val_np).to(dev)
+    w = torch.from_numpy(rng.normal(size=dim).astype(np.float32)).to(dev)
+    v = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    csc = cs.build_csc(idx, val, dim)
+    hot = {}
+    for name, kern, plain in (
+        ("ell_matvec", lambda: cs.ell_matvec(idx, val, w, dim),
+         lambda: cs.ell_matvec_plain(idx, val, w, dim)),
+        ("csc_rmatvec", lambda: cs.csc_rmatvec(csc, v),
+         lambda: cs.csc_rmatvec_plain(csc, v)),
+        ("csc_sq_rmatvec", lambda: cs.csc_rmatvec(csc, v, square=True),
+         lambda: cs.csc_rmatvec_plain(csc, v, square=True)),
+    ):
+        got = kern()
+        torch.cuda.synchronize()
+        hot[name] = {"max_abs_err": _close(torch, got, plain(), "float32"),
+                     "ms": time_ms(torch, kern, warmup=1, reps=5)}
+    out["hot_dup_float32"] = hot
+    out["shape"] = {"n": n, "k": k, "dim": dim}
+    return out
+
+
+def _bundle(torch, sizes, dev, dtype):
+    from photon_tpu_torch.data.batch import SparseFeatures
+    from photon_tpu_torch.io.data_reader import GameDataBundle
+
+    idx, val, dim, _, keys = game_arrays(**sizes)
+    n = len(keys)
+    rng = np.random.default_rng(6)
+    return GameDataBundle(
+        features={"global": SparseFeatures(
+            torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev, dtype), dim)},
+        labels=(rng.random(n) < 0.5).astype(np.float64),
+        offsets=rng.normal(size=n) * 0.1,
+        weights=np.ones(n),
+        uids=np.arange(n).astype(object),
+        id_tags={"userId": keys},
+    )
+
+
+def phase_transformer(torch, sizes, dev, ref_dev) -> dict:
+    """Score one in-memory bundle on ``dev`` and on ``ref_dev``."""
+    from photon_tpu_torch.estimators.config import (
+        FixedEffectDataConfig,
+        RandomEffectDataConfig,
+    )
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+    from photon_tpu_torch.io.convert import game_model_from_numpy
+
+    spec = model_spec(intercept=False, **sizes)
+    cfgs = {"fixed": FixedEffectDataConfig("global"),
+            "perUser": RandomEffectDataConfig("userId", "global")}
+    scores, seconds = {}, {}
+    for d in (dev, ref_dev):
+        model = game_model_from_numpy(spec, d, torch.float32)
+        bundle = _bundle(torch, sizes, d, torch.float32)
+        t0 = time.perf_counter()
+        s = GameTransformer(model, cfgs).transform(bundle)
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+        seconds[d.type] = time.perf_counter() - t0
+        scores[d.type] = s.cpu()
+    got, ref = scores[dev.type], scores[ref_dev.type]
+    n = sizes["n_users"] * sizes["rows_per_user"]
+    if got.shape != (n,) or not torch.isfinite(got).all():
+        raise AssertionError(f"transform gave shape {tuple(got.shape)} / non-finite")
+    err = _close(torch, got, ref, "float32")
+    return {"rows": n, "max_abs_err_vs_ref": err, "score_std": got.std().item(),
+            "transform_s": seconds}
+
+
+def transform_breakdown(torch, sizes, dev) -> dict:
+    """Seconds of the transform's pieces, run one by one on ``dev`` (after
+    the counted transform, so nothing is cold): the fixed-effect matvec, the
+    random-effect dataset build (host) and the random-effect projection +
+    bucket scoring."""
+    from photon_tpu_torch.estimators.config import RandomEffectDataConfig
+    from photon_tpu_torch.estimators.game_estimator import build_re_dataset_from_bundle
+    from photon_tpu_torch.io.convert import game_model_from_numpy
+
+    model = game_model_from_numpy(model_spec(intercept=False, **sizes), dev,
+                                  torch.float32)
+    bundle = _bundle(torch, sizes, dev, torch.float32)
+    cfg = RandomEffectDataConfig("userId", "global")
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    _, t_fixed = timed(lambda: model["fixed"].score_batch(bundle.batch("global")))
+    ds, t_build = timed(lambda: build_re_dataset_from_bundle(bundle, cfg))
+    _, t_score = timed(lambda: model["perUser"].score_new_dataset(ds))
+    return {"fixed_matvec": t_fixed, "re_dataset_build": t_build,
+            "re_project_and_score": t_score}
+
+
+def write_driver_inputs(torch, sizes, root: str) -> dict:
+    """Avro data, index store and model directory, written by the port's
+    own writers: ``root/data.avro``, ``root/out/index/global``,
+    ``root/out/best``."""
+    from photon_tpu_torch.index.index_map import (
+        INTERCEPT_NAME,
+        DefaultIndexMap,
+        MmapIndexMap,
+        build_mmap_index,
+        feature_key,
+    )
+    from photon_tpu_torch.io.avro import ContainerWriter
+    from photon_tpu_torch.io.convert import game_model_from_numpy
+    from photon_tpu_torch.io.data_reader import FeatureShardConfig
+    from photon_tpu_torch.io.model_io import save_game_model
+    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
+
+    d_global, d_user, n_users = sizes["d_global"], sizes["d_user"], sizes["n_users"]
+    rows = dict(sizes, rows_per_user=sizes["driver_rows_per_user"])
+    idx, val, dim, users, keys = game_arrays(col0=1, seed=3, **rows)
+    names = [feature_key(INTERCEPT_NAME, "")]
+    names += [feature_key("g", str(j)) for j in range(d_global)]
+    names += [feature_key("u", f"{u}_{j}") for u in range(n_users) for j in range(d_user)]
+    assert len(names) == dim
+    t0 = time.perf_counter()
+    index_dir = os.path.join(root, "out", "index", "global")
+    build_mmap_index(DefaultIndexMap(names), index_dir)
+    imap = MmapIndexMap(index_dir)
+    t_index = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    name_term = [n.split("\x01") for n in names]
+    with ContainerWriter(os.path.join(root, "data.avro"), TRAINING_EXAMPLE_AVRO) as w:
+        for r in range(len(users)):
+            w.write({
+                "uid": f"r{r}",
+                "label": float(rng.random() < 0.5),
+                "weight": None,
+                "offset": float(rng.normal()) * 0.1,
+                "features": [
+                    {"name": name_term[c][0], "term": name_term[c][1],
+                     "value": float(x)}
+                    for c, x in zip(idx[r], val[r])
+                ],
+                "metadataMap": {"userId": keys[r]},
+            })
+    t_data = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    model = game_model_from_numpy(
+        model_spec(intercept=True, **sizes), torch.device("cpu"), torch.float32)
+    save_game_model(os.path.join(root, "out", "best"), model, {"global": imap},
+                    {"fixed": "global", "perUser": "global"},
+                    {"global": FeatureShardConfig(("features",), True)})
+    t_model = time.perf_counter() - t0
+    return {"rows": len(users), "dim": dim, "write_index_s": t_index,
+            "write_data_s": t_data, "write_model_s": t_model}
+
+
+def _stage_seconds(log_path: str) -> dict:
+    out = {}
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r": ([a-z ]+): done in ([0-9.]+)s", line)
+            if m:
+                out[m.group(1).replace(" ", "_") + "_s"] = float(m.group(2))
+    return out
+
+
+def phase_driver(torch, sizes, dev, ref_dev, root: str, inputs: dict) -> dict:
+    """Score ``root/data.avro`` with the port's scoring driver on ``dev``
+    and ``ref_dev``; compare the two ``scores.avro``."""
+    from photon_tpu_torch.cli import game_scoring_driver
+    from photon_tpu_torch.io.avro import read_records
+
+    runs = {}
+    for d in (dev, ref_dev):
+        dest = os.path.join(root, f"scores_{d.type}")
+        t0 = time.perf_counter()
+        summary = game_scoring_driver.run([
+            "--data", os.path.join(root, "data.avro"),
+            "--model-dir", os.path.join(root, "out", "best"),
+            "--output-dir", dest, "--device", d.type,
+        ])
+        wall = time.perf_counter() - t0
+        if summary != {"n_rows": inputs["rows"], "evaluation": None}:
+            raise AssertionError(f"unexpected driver summary {summary}")
+        recs = read_records(os.path.join(dest, "scores.avro"))
+        runs[d.type] = {"recs": recs, "wall_s": wall,
+                        **_stage_seconds(os.path.join(dest, "photon.log"))}
+    a, b = runs[dev.type]["recs"], runs[ref_dev.type]["recs"]
+    if [r["uid"] for r in a] != [r["uid"] for r in b] or len(a) != inputs["rows"]:
+        raise AssertionError("scores.avro rows differ between devices")
+    got = torch.tensor([r["predictionScore"] for r in a], dtype=torch.float64)
+    ref = torch.tensor([r["predictionScore"] for r in b], dtype=torch.float64)
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite scores")
+    err = _close(torch, got.float(), ref.float(), "float32")
+    for r in runs.values():
+        del r["recs"]
+    return {"rows": len(a), "max_abs_err_vs_ref": err,
+            "score_std": got.std().item(), "runs": runs}
+
+
+# ------------------------------------------------------------------ main
+
+
+def card_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return proc.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(REPO, "photon_tpu_torch")):
+        print("chip_smoke: photon_tpu_torch/ is not beside this script; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script measures "
+              "the port on the card and has no CPU mode", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from photon_tpu_torch.device import resolve_device
+    from photon_tpu_torch.ops import cuda_sparse as cs
+
+    t_start = time.perf_counter()
+    dev, cpu = resolve_device(), torch.device("cpu")
+    card = card_line()
+    build = cs.build_library()
+    os.makedirs(WORK, exist_ok=True)
+    emit({"phase": "card", "nvidia_smi": card,
+          "kind": torch.cuda.get_device_name(0), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "build_s": build["seconds"],
+          "built": build["built"], "library": os.path.relpath(build["path"], REPO)})
+
+    kern = phase_kernels(torch, dev)
+    emit({"phase": "kernels", **kern})
+
+    cs.reset_launch_counts()
+    tr = phase_transformer(torch, FULL, dev, cpu)
+    tr_launches = cs.launch_counts()
+    tr["breakdown_s"] = transform_breakdown(torch, FULL, dev)
+    emit({"phase": "transformer", "launches": tr_launches, **tr})
+    if tr_launches["ell_matvec"] < 1:
+        raise AssertionError("transformer phase never launched ell_matvec")
+
+    inputs = write_driver_inputs(torch, FULL, WORK)
+    emit({"phase": "driver_inputs", **inputs})
+    cs.reset_launch_counts()
+    dr = phase_driver(torch, FULL, dev, cpu, WORK, inputs)
+    dr_launches = cs.launch_counts()
+    emit({"phase": "driver", "launches": dr_launches, **dr})
+    if dr_launches["ell_matvec"] < 1:
+        raise AssertionError("driver phase never launched ell_matvec")
+
+    sources = "photon_tpu_torch/csrc/ell_sparse.cu"
+    rows = []
+    for name in cs.KERNELS:
+        f32 = kern["float32"]["kernels"][name]
+        rows.append({
+            "name": name, "route": "cuda", "source": sources,
+            "replaces": REPLACES, "via": TPU_ENTRY[name],
+            "launches": dr_launches[name],
+            "launches_by_phase": {"transformer": tr_launches[name],
+                                  "driver": dr_launches[name]},
+            "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+            "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+            "max_abs_err_f64": kern["float64"]["kernels"][name]["max_abs_err"],
+            "hot_dup_ms": kern["hot_dup_float32"][name]["ms"],
+        })
+    emit({"kernels": rows})
+    shutil.rmtree(WORK, ignore_errors=True)
+    print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,336 @@
+"""ELL sparse passes: the Hopper kernels, their wrappers and plain versions.
+
+Port of ``photon_tpu/ops/pallas_sparse.py``. The TPU kernel there,
+``_gather_onehot_kernel`` (launched by ``_run_op``), computes all three
+sparse passes through ``matvec_pallas`` and ``rmatvec_pallas``; here they are
+two CUDA kernels in ``csrc/ell_sparse.cu``:
+
+* ``ell_matvec``      z[r] = Σ_k val[r,k]·w[idx[r,k]]           (scores)
+* ``csc_rmatvec``     g[c] = Σ_{entries of column c} val·v[row]  (gradient)
+  with ``square=True`` the same sum with val² (Hessian diagonal).
+
+The port keeps the function, not the TPU's 128-lane slot tables: the matvec
+reads the ELL arrays directly, and the transpose reads a column-sorted entry
+list (``build_csc``) so that every column is summed by one warp in a fixed
+order, with no float atomics — two runs give bit-identical results.
+
+Each wrapper checks device, dtype, shape and contiguity. A CPU tensor takes
+the plain PyTorch version beside it; a CUDA tensor launches the kernel or
+raises. ``LAUNCHES`` counts kernel launches per kernel, so a run can show
+that its path went through the kernel.
+
+The kernels build at first use with ``nvcc`` into ``photon_tpu_torch/_build``
+(one shared library per source content, plain C interface, loaded with
+``ctypes``).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+Tensor = torch.Tensor
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "ell_sparse.cu")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+KERNELS = ("ell_matvec", "csc_rmatvec", "csc_sq_rmatvec")
+# Launches per kernel since the last reset_launch_counts(); a wrapper adds one
+# where it launches its kernel and nowhere else.
+LAUNCHES = {name: 0 for name in KERNELS}
+_COUNT_LOCK = threading.Lock()
+_LIB_LOCK = threading.Lock()
+_LIB = None
+
+_FLOAT_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def reset_launch_counts() -> None:
+    with _COUNT_LOCK:
+        for name in KERNELS:
+            LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    with _COUNT_LOCK:
+        return dict(LAUNCHES)
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
+# ----------------------------------------------------------------- build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+            "photon_tpu_torch build at first use and need the CUDA toolkit"
+        )
+    return path
+
+
+def library_path() -> str:
+    """Where the build of the current source lives (content-addressed)."""
+    with open(SOURCE, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"libell_sparse.{tag}.so")
+
+
+def build_library() -> dict:
+    """Compile ``csrc/ell_sparse.cu`` unless this source's build exists.
+
+    Returns ``{"path", "built", "seconds", "log"}``; ``log`` is nvcc's output
+    (``-Xptxas -v``: registers, shared memory and spills per kernel), also
+    kept beside the library as ``<lib>.log``.
+    """
+    out = library_path()
+    log_path = out + ".log"
+    if os.path.exists(out):
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        return {"path": out, "built": False, "seconds": 0.0, "log": log}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{' '.join(cmd)}\n{log}"
+        )
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, out)
+    return {"path": out, "built": True, "seconds": seconds, "log": log}
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build_library()["path"])
+            vp, i64 = ctypes.c_void_p, ctypes.c_int64
+            for sfx in ("f32", "f64"):
+                fn = getattr(lib, f"ell_matvec_{sfx}")
+                fn.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
+                fn.restype = ctypes.c_int
+                for name in ("csc_rmatvec", "csc_sq_rmatvec"):
+                    fn = getattr(lib, f"{name}_{sfx}")
+                    fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, vp]
+                    fn.restype = ctypes.c_int
+            lib.ell_sparse_error_string.argtypes = [ctypes.c_int]
+            lib.ell_sparse_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def _raise_on_error(lib: ctypes.CDLL, code: int, name: str) -> None:
+    if code != 0:
+        msg = lib.ell_sparse_error_string(code).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+
+
+# ----------------------------------------------------------------- checks
+
+
+def _check_float(t: Tensor, what: str) -> None:
+    if t.dtype not in _FLOAT_SUFFIX:
+        raise TypeError(f"{what} must be float32 or float64, got {t.dtype}")
+
+
+def _check_same_device(*named) -> torch.device:
+    dev = named[0][1].device
+    for what, t in named[1:]:
+        if t.device != dev:
+            raise ValueError(f"{what} is on {t.device}, expected {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}: the kernels run on cuda")
+    return dev
+
+
+def _check_contiguous(*named) -> None:
+    for what, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+
+
+def _check_ell(idx: Tensor, val: Tensor, dim: int) -> None:
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if idx.dim() != 2 or val.shape != idx.shape:
+        raise ValueError(
+            f"idx and val must be [N, K] of one shape, got {tuple(idx.shape)} "
+            f"and {tuple(val.shape)}"
+        )
+    _check_float(val, "val")
+    if dim < 0:
+        raise ValueError(f"dim must be >= 0, got {dim}")
+
+
+# ----------------------------------------------------------------- matvec
+
+
+def ell_matvec_plain(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
+    """z = A·w over ELL arrays, as ``photon_tpu/data/batch.py`` computes it:
+    gather through w extended by a zero ghost column. Entries whose column
+    lies outside [0, dim) read the ghost and contribute 0. Sums in float64
+    and rounds once, as the kernel does."""
+    w_ext = torch.cat([w, w.new_zeros(1)]).double()
+    safe = torch.where((idx >= 0) & (idx < dim), idx, dim).long()
+    return (w_ext[safe] * val.double()).sum(dim=-1).to(val.dtype)
+
+
+def ell_matvec(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
+    """z[r] = Σ_k val[r,k]·w[idx[r,k]] — kernel ``ell_matvec`` on CUDA.
+
+    ``idx [N, K]`` int32 (ghost column == dim, value 0), ``val [N, K]`` and
+    ``w [dim]`` float32 or float64 of one dtype → ``z [N]``. Replaces
+    ``matvec_pallas`` (photon_tpu/ops/pallas_sparse.py).
+    """
+    _check_ell(idx, val, dim)
+    if w.dim() != 1 or w.shape[0] != dim:
+        raise ValueError(f"w must be [{dim}], got {tuple(w.shape)}")
+    if w.dtype != val.dtype:
+        raise TypeError(f"w dtype {w.dtype} != val dtype {val.dtype}")
+    dev = _check_same_device(("idx", idx), ("val", val), ("w", w))
+    _check_contiguous(("idx", idx), ("val", val), ("w", w))
+    if dev.type == "cpu":
+        return ell_matvec_plain(idx, val, w, dim)
+    n, k = idx.shape
+    z = torch.empty(n, dtype=val.dtype, device=dev)
+    if n == 0:
+        return z
+    lib = _lib()
+    fn = getattr(lib, f"ell_matvec_{_FLOAT_SUFFIX[val.dtype]}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(idx.data_ptr(), val.data_ptr(), w.data_ptr(), z.data_ptr(),
+                  n, k, dim, stream)
+    _raise_on_error(lib, code, "ell_matvec")
+    _count("ell_matvec")
+    return z
+
+
+# ----------------------------------------------------------------- rmatvec
+
+
+@dataclasses.dataclass(frozen=True)
+class CscLayout:
+    """Column-sorted entry list of an ELL matrix, for the transpose pass.
+
+    ``colptr [dim+1]`` int64: column c owns entries ``colptr[c]:colptr[c+1]``;
+    ``rows [nnz]`` int32 and ``vals [nnz]``: each entry's row and value,
+    stable by column (within a column, entries keep their row-major ELL
+    order). Ghost and out-of-range entries are dropped.
+    """
+
+    colptr: Tensor
+    rows: Tensor
+    vals: Tensor
+    n_rows: int
+    dim: int
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+
+def build_csc(idx: Tensor, val: Tensor, dim: int) -> CscLayout:
+    """Build the column-sorted entry list on the host (once per dataset) and
+    place it on ``idx``'s device. Stable by column, as
+    ``photon_tpu/ops/fast_sparse.py``'s column-sorted table."""
+    _check_ell(idx, val, dim)
+    _check_same_device(("idx", idx), ("val", val))
+    n, k = idx.shape
+    if n >= 2**31:
+        raise ValueError(f"{n} rows exceed the int32 row ids of the CSC list")
+    flat = idx.detach().cpu().reshape(-1).long()
+    keep = (flat >= 0) & (flat < dim)
+    cols = flat[keep]
+    rows = torch.arange(n, dtype=torch.int32).repeat_interleave(k)[keep]
+    vals = val.detach().cpu().reshape(-1)[keep]
+    order = torch.sort(cols, stable=True).indices
+    colptr = torch.zeros(dim + 1, dtype=torch.int64)
+    colptr[1:] = torch.cumsum(torch.bincount(cols, minlength=dim), 0)
+    dev = idx.device
+    return CscLayout(
+        colptr=colptr.to(dev),
+        rows=rows[order].contiguous().to(dev),
+        vals=vals[order].contiguous().to(dev),
+        n_rows=n,
+        dim=dim,
+    )
+
+
+def csc_rmatvec_plain(csc: CscLayout, v: Tensor, square: bool = False) -> Tensor:
+    """g = Aᵀ·v (with ``square``, (A∘A)ᵀ·v) as a segment sum of per-entry
+    contributions by column, as ``photon_tpu/data/batch.py`` computes it.
+    Sums in float64 and rounds once, as the kernel does."""
+    cols = torch.repeat_interleave(
+        torch.arange(csc.dim, device=csc.device), csc.colptr.diff()
+    )
+    x = csc.vals.double()
+    if square:
+        x = x * x
+    out = torch.zeros(csc.dim, dtype=torch.float64, device=v.device)
+    out.index_add_(0, cols, v.double()[csc.rows.long()] * x)
+    return out.to(v.dtype)
+
+
+def csc_rmatvec(csc: CscLayout, v: Tensor, square: bool = False) -> Tensor:
+    """g[c] = Σ_{entries of column c} val·v[row] (val² with ``square``) —
+    kernels ``csc_rmatvec`` / ``csc_sq_rmatvec`` on CUDA. Replaces
+    ``rmatvec_pallas`` (photon_tpu/ops/pallas_sparse.py). Deterministic:
+    one warp sums each column in a fixed order, no atomics."""
+    if v.dim() != 1 or v.shape[0] != csc.n_rows:
+        raise ValueError(f"v must be [{csc.n_rows}], got {tuple(v.shape)}")
+    _check_float(v, "v")
+    if v.dtype != csc.vals.dtype:
+        raise TypeError(f"v dtype {v.dtype} != CSC value dtype {csc.vals.dtype}")
+    named = (("colptr", csc.colptr), ("rows", csc.rows), ("vals", csc.vals),
+             ("v", v))
+    dev = _check_same_device(*named)
+    _check_contiguous(*named)
+    if dev.type == "cpu":
+        return csc_rmatvec_plain(csc, v, square)
+    name = "csc_sq_rmatvec" if square else "csc_rmatvec"
+    g = torch.empty(csc.dim, dtype=v.dtype, device=dev)
+    if csc.dim == 0:
+        return g
+    lib = _lib()
+    fn = getattr(lib, f"{name}_{_FLOAT_SUFFIX[v.dtype]}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(csc.colptr.data_ptr(), csc.rows.data_ptr(),
+                  csc.vals.data_ptr(), v.data_ptr(), g.data_ptr(),
+                  csc.dim, csc.n_rows, stream)
+    _raise_on_error(lib, code, name)
+    _count(name)
+    return g
