@@ -154,9 +154,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         )
         scores_path = os.path.join(args.output_dir, "scores.avro")
         with Timed("read data", logger) as t_read:
-            bundle = reader.read(
-                args.data, dtype=dtype, device=device, require_labels=False
-            )
+            bundle = reader.read(args.data, dtype=dtype, device=device)
         logger.info("scoring %d rows on %s", bundle.n_rows, device)
         with Timed("score", logger) as t_score:
             scores = transformer.transform(bundle)

@@ -51,7 +51,6 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;              // 8 warps per block
 constexpr int kWarpsPerBlock = kThreads / kWarp;
-constexpr int kRowsPerWarp = 4;            // matvec rows in flight per warp
 constexpr int64_t kMaxBlocks = 132 * 32;   // grid-stride beyond this
 
 // Sums accumulate in double for both value types: a float product is exact
@@ -75,35 +74,19 @@ __global__ void __launch_bounds__(kThreads)
 ell_matvec_kernel(const int32_t* __restrict__ idx, const T* __restrict__ val,
                   const T* __restrict__ w, T* __restrict__ z, int64_t n,
                   int64_t k, int64_t dim) {
-  // Each warp owns kRowsPerWarp consecutive rows per step: their index and
-  // value loads are issued together before the dependent gathers of w, so
-  // one warp keeps several rows' loads in flight.
   const int lane = threadIdx.x % kWarp;
-  const int64_t warp = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  const int64_t step = (int64_t)gridDim.x * kWarpsPerBlock * kRowsPerWarp;
-  for (int64_t r0 = warp * kRowsPerWarp; r0 < n; r0 += step) {
-    Acc acc[kRowsPerWarp];
-#pragma unroll
-    for (int u = 0; u < kRowsPerWarp; ++u) acc[u] = Acc(0);
+  const int64_t first = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
+  const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
+  for (int64_t r = first; r < n; r += stride) {
+    const int32_t* ri = idx + r * k;
+    const T* rv = val + r * k;
+    Acc acc = Acc(0);
     for (int64_t j = lane; j < k; j += kWarp) {
-      int64_t c[kRowsPerWarp];
-      T x[kRowsPerWarp];
-#pragma unroll
-      for (int u = 0; u < kRowsPerWarp; ++u) {
-        const int64_t r = r0 + u;
-        c[u] = r < n ? (int64_t)idx[r * k + j] : -1;
-        x[u] = r < n ? val[r * k + j] : T(0);
-      }
-#pragma unroll
-      for (int u = 0; u < kRowsPerWarp; ++u) {
-        if (c[u] >= 0 && c[u] < dim) acc[u] += (Acc)x[u] * (Acc)w[c[u]];
-      }
+      const int64_t c = ri[j];
+      if (c >= 0 && c < dim) acc += (Acc)rv[j] * (Acc)w[c];
     }
-#pragma unroll
-    for (int u = 0; u < kRowsPerWarp; ++u) {
-      const Acc sum = warp_sum(acc[u]);
-      if (lane == 0 && r0 + u < n) z[r0 + u] = (T)sum;
-    }
+    acc = warp_sum(acc);
+    if (lane == 0) z[r] = (T)acc;
   }
 }
 
@@ -142,8 +125,7 @@ int64_t blocks_for(int64_t warps) {
 template <typename T>
 int launch_matvec(const void* idx, const void* val, const void* w, void* z,
                   int64_t n, int64_t k, int64_t dim, void* stream) {
-  const int64_t warps = (n + kRowsPerWarp - 1) / kRowsPerWarp;
-  ell_matvec_kernel<T><<<(unsigned)blocks_for(warps), kThreads, 0,
+  ell_matvec_kernel<T><<<(unsigned)blocks_for(n), kThreads, 0,
                          (cudaStream_t)stream>>>(
       (const int32_t*)idx, (const T*)val, (const T*)w, (T*)z, n, k, dim);
   return (int)cudaGetLastError();

@@ -13,7 +13,6 @@ column-sorted layout they read in ``with_accelerator_paths``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import numpy as np
 import torch
@@ -77,24 +76,17 @@ class LabeledBatch:
 def ell_from_rows(
     rows: list[tuple],
     dim: int,
-    max_nnz: Optional[int] = None,
     *,
     dtype: torch.dtype,
     device: torch.device,
 ) -> SparseFeatures:
-    """Pack per-row (indices, values) pairs into padded ELL arrays (built on
-    the host, then placed on ``device``)."""
+    """Pack per-row (indices, values) pairs into padded ELL arrays as wide
+    as the longest row (built on the host, then placed on ``device``)."""
     n = len(rows)
-    k = max_nnz or max((len(r[0]) for r in rows), default=1)
-    k = max(k, 1)
+    k = max(max((len(r[0]) for r in rows), default=1), 1)
     idx = np.full((n, k), dim, dtype=np.int32)
     val = np.zeros((n, k), dtype=np.float64)
     for i, (ri, rv) in enumerate(rows):
-        if len(ri) > k:
-            raise ValueError(
-                f"row {i} has {len(ri)} nonzeros > max_nnz={k}; raise max_nnz "
-                "(silent truncation would corrupt features)"
-            )
         idx[i, : len(ri)] = np.asarray(ri)
         val[i, : len(rv)] = np.asarray(rv)
     return SparseFeatures(

@@ -100,7 +100,6 @@ def build_random_effect_dataset(
     global_dim: int,
     weights: Optional[np.ndarray] = None,
     intercept_index: Optional[int] = None,
-    max_bucket_entities: Optional[int] = None,
     *,
     dtype: torch.dtype,
     device: torch.device,
@@ -111,18 +110,13 @@ def build_random_effect_dataset(
     Inputs are global ELL arrays (``idx[N, K]`` with ghost == ``global_dim``)
     plus one entity key per row; every entity is kept.
     ``intercept_index``, when given, is force-included in every entity's
-    subspace. ``max_bucket_entities`` splits each size-class bucket into
-    slices of at most that many entities.
+    subspace. Each size class makes one bucket.
 
     Vectorized over entities as the JAX builder is: per-entity subspaces
     come from uniques over (entity, column) pair keys, the local remap is a
     ``searchsorted`` against those keys, and bucket packing is flat
     fancy-index writes.
     """
-    if max_bucket_entities is not None and max_bucket_entities < 1:
-        raise ValueError(
-            f"max_bucket_entities must be >= 1, got {max_bucket_entities}"
-        )
     np_dt = numpy_dtype(dtype)
     n, k = idx.shape
     idx = np.asarray(idx)
@@ -225,9 +219,8 @@ def build_random_effect_dataset(
     within_col = np.arange(len(col_order)) - cstarts[col_dense[col_order]]
     cols_flat = upairs % stride
 
-    def put(a: np.ndarray, torch_dtype: Optional[torch.dtype] = None) -> Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.to(device=device, dtype=torch_dtype or t.dtype)
+    def put(a: np.ndarray) -> Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     buckets = []
     entity_keys_out = list(keys[ent_sort])
@@ -257,18 +250,14 @@ def build_random_effect_dataset(
         centries = col_order[csl]
         b_proj[col_dense[centries] - mb, within_col[csl]] = cols_flat[centries]
 
-        cap = max_bucket_entities or ecount
-        for lo in range(0, ecount, cap):
-            hi = min(lo + cap, ecount)
-            bi = len(buckets)
-            for lane in range(lo, hi):
-                entity_to_slot[int(mb + lane)] = (bi, lane - lo)
-            buckets.append(EntityBucket(
-                idx=put(b_idx[lo:hi]), val=put(b_val[lo:hi]),
-                labels=put(b_lab[lo:hi]), weights=put(b_w[lo:hi]),
-                row_ids=put(b_rows[lo:hi]), proj=put(b_proj[lo:hi]),
-                entity_ids=put(np.arange(mb + lo, mb + hi, dtype=np.int32)),
-            ))
+        bi = len(buckets)
+        for lane in range(ecount):
+            entity_to_slot[int(mb + lane)] = (bi, lane)
+        buckets.append(EntityBucket(
+            idx=put(b_idx), val=put(b_val), labels=put(b_lab),
+            weights=put(b_w), row_ids=put(b_rows), proj=put(b_proj),
+            entity_ids=put(np.arange(mb, me, dtype=np.int32)),
+        ))
 
     return RandomEffectDataset(
         re_type=re_type,

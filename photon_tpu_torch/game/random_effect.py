@@ -60,11 +60,6 @@ class RandomEffectModel:
             _host(s[b][lane])[valid] for s in stacks
         ]
 
-    def coefficients_for(self, entity_key) -> tuple[np.ndarray, np.ndarray]:
-        """(global_indices, values) sparse coefficient vector for one entity."""
-        gi, (gv,) = self._sparse_for(entity_key, [self.bucket_coefs])
-        return gi, gv
-
     def export_for(
         self, entity_key
     ) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:

@@ -4,7 +4,7 @@ Port of ``photon_tpu/io/data_reader.py`` through its per-record path
 (``read_per_record``), plus ``InputColumnNames``, ``FeatureShardConfig`` and
 ``GameDataBundle``. The JAX ``read()`` first tries its streaming block engine
 and native decoder, with the same semantics; that engine is ingest work and
-not ported yet, so here ``read()`` is the per-record path.
+not ported yet, so here ``read()`` is the per-record path itself.
 
 Records are ``TrainingExampleAvro``-shaped: every ``(name, term)`` feature is
 looked up in the shard's index map and one sparse row is assembled per shard,
@@ -145,21 +145,11 @@ class AvroDataReader:
         self.id_tag_columns = tuple(id_tag_columns)
 
     def read(
-        self, paths, *, dtype: torch.dtype, device: torch.device,
-        require_labels: bool = True,
+        self, paths, *, dtype: torch.dtype, device: torch.device
     ) -> GameDataBundle:
-        """The per-record path (``read_per_record``); the streaming engine
-        of the JAX package is not ported yet."""
-        return self.read_per_record(
-            paths, dtype=dtype, device=device, require_labels=require_labels
-        )
-
-    def read_per_record(
-        self, paths, *, dtype: torch.dtype, device: torch.device,
-        require_labels: bool = True,
-    ) -> GameDataBundle:
-        """Per-record pure-Python decode. ``require_labels=False`` admits
-        unlabeled records (label → NaN)."""
+        """Per-record pure-Python decode, as the JAX ``read_per_record``.
+        Scoring reads unlabeled records too (label → NaN); the JAX reader's
+        ``require_labels`` check comes with the training slice."""
         cols = self.columns
         labels, offsets, weights, uids = [], [], [], []
         tags: dict[str, list] = {t: [] for t in self.id_tag_columns}
@@ -172,7 +162,7 @@ class AvroDataReader:
         }
 
         for rec in _iter_records(_expand_paths(paths)):
-            lab = _first(rec, response_cols, required=require_labels)
+            lab = _first(rec, response_cols)
             labels.append(float("nan") if lab is None else lab)
             offsets.append(rec.get(cols.offset) or 0.0)
             w = rec.get(cols.weight)
@@ -227,11 +217,9 @@ def _iter_records(files: list[str]) -> Iterable[dict]:
         yield from it
 
 
-def _first(rec: dict, names, required: bool = False):
+def _first(rec: dict, names):
     for n in names:
         v = rec.get(n)
         if v is not None:
             return v
-    if required:
-        raise ValueError(f"record missing required column (any of {names}): {rec}")
     return None

@@ -67,8 +67,11 @@ def test_port_and_chip_smoke_run_without_jax(tmp_path):
 
 
 def _sources():
+    """The package's own .py files (not its gitignored ``_build`` output)
+    and chip_smoke.py."""
     root = os.path.dirname(photon_tpu_torch.__file__)
-    for dirpath, _, files in os.walk(root):
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d != "_build"]
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)

@@ -194,17 +194,19 @@ def test_unseen_entities_score_zero(dtype):
     assert np.all(np.abs(total[~unseen] - fe[~unseen]) > 0)
 
 
-@pytest.mark.parametrize("intercept,max_bucket", [(INTERCEPT, None), (None, None), (INTERCEPT, 2)],
-                         ids=["intercept", "no_intercept", "split_buckets"])
-def test_scoring_re_dataset_equals_jax(intercept, max_bucket):
+@pytest.mark.parametrize(
+    "intercept,dtype",
+    [(INTERCEPT, "f32"), (None, "f32"), (INTERCEPT, "f64"), (None, "f64")],
+    ids=["intercept", "no_intercept", "intercept_f64", "no_intercept_f64"])
+def test_scoring_re_dataset_equals_jax(intercept, dtype):
     """The port's scoring dataset builder gives the JAX builder's buckets,
     entity order and slots exactly."""
-    idx, val, dim, keys, _, labels = _score_arrays(np.float32)
+    np_dt, _, t_dt, _ = DTYPES[dtype]
+    idx, val, dim, keys, _, labels = _score_arrays(np_dt)
     kw = dict(re_type="userId", entity_keys_per_row=keys, idx=idx, val=val,
-              labels=labels, global_dim=dim, intercept_index=intercept,
-              max_bucket_entities=max_bucket)
-    want = jax_build_re_dataset(**kw, dtype=np.float32)
-    got = build_random_effect_dataset(**kw, dtype=torch.float32, device=CPU)
+              labels=labels, global_dim=dim, intercept_index=intercept)
+    want = jax_build_re_dataset(**kw, dtype=np_dt)
+    got = build_random_effect_dataset(**kw, dtype=t_dt, device=CPU)
     assert list(got.entity_keys) == list(want.entity_keys)
     assert got.entity_to_slot == want.entity_to_slot
     assert len(got.buckets) == len(want.buckets)
@@ -226,7 +228,8 @@ def test_game_model_from_numpy_places_and_types():
     jre = _jax_model(np.float32, jnp.float32)["perUser"]
     assert re.entity_to_slot == jre.entity_to_slot
     for key in ("user0", "user5", "nobody"):
-        gi, gv = re.coefficients_for(key)
+        gi, gv, gvar = re.export_for(key)
         wi, wv = jre.coefficients_for(key)
+        assert gvar is None
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_array_equal(gv.astype(np.float32), wv)
