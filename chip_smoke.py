@@ -11,11 +11,13 @@ exit code and no result line:
 1. kernels at full width (2^19 rows x 32 entries over 262,144 global + a
    per-user block of features, the repository's headline single-chip shape):
    ``ell_matvec``, ``csc_rmatvec`` and ``csc_sq_rmatvec`` against their
-   plain PyTorch versions on the card (f32: rtol 1e-5, atol 1e-5 x max|ref|),
-   a hot-and-duplicate-column case, an f64 case (atol 1e-12), bit-equal
-   repeats of the transpose, and times: kernel, plain version, one library
-   call as a yardstick (cuSPARSE through ``torch.sparse_csr_tensor``; never
-   called by the port) and the bound from bytes moved.
+   plain PyTorch versions on the card (f32: rtol 1e-5, atol 1e-5 x max|ref|;
+   f64: 1e-12) on three layouts: the GAME layout, a hot-and-duplicate-column
+   case, and a long-column case (a column of every row plus columns at the
+   transpose kernel's tile size and one off it). Each transpose repeats
+   bit-equal in f32 and f64. Times in f32: kernel, one library call as a
+   yardstick (cuSPARSE through ``torch.sparse_csr_tensor``; never called by
+   the port), plain version and the bound from bytes moved, on each layout.
 2. transformer at full width: ``GameTransformer.transform`` of an in-memory
    bundle (4,096 users x 128 rows, fixed effect + ``perUser``) on cuda and
    on cpu; the scores agree within the stated tolerance and ``ell_matvec``
@@ -149,20 +151,25 @@ def kernel_bound(name: str, n: int, k: int, dim: int, nnz: int, dtype: str) -> d
 # ------------------------------------------------------------------ timing
 
 
-def time_ms(torch, fn, warmup=3, reps=25) -> float:
-    """Median of ``reps`` CUDA-event timings of one call, after warm-up."""
+def time_ms(torch, fn, warmup=3, reps=20, rounds=5) -> float:
+    """Device time of one call: the median over ``rounds`` of a CUDA-event
+    timing of ``reps`` back-to-back calls, divided by ``reps``, after
+    warm-up. Back-to-back calls keep the card busy, so the host's launch
+    overhead stays hidden wherever a call takes longer on the card than on
+    the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(reps):
+            fn()
         e1.record()
         e1.synchronize()
-        times.append(e0.elapsed_time(e1))
+        times.append(e0.elapsed_time(e1) / reps)
     return statistics.median(times)
 
 
@@ -182,29 +189,52 @@ def _close(torch, got, ref, dtype: str) -> float:
 # ------------------------------------------------------------------ phases
 
 
-def phase_kernels(torch, dev) -> dict:
-    from photon_tpu_torch.ops import cuda_sparse as cs
+def library_calls(torch, idx, val, w, v, csc, dim) -> dict:
+    """One library call per kernel as a yardstick, never called by the port:
+    cuSPARSE's CSR SpMV (through ``torch.sparse_csr_tensor``) of A for the
+    matvec and of Aᵀ (from the same CSC arrays; values squared for the
+    Hessian diagonal) for the transposes."""
+    n = idx.shape[0]
+    keep = (idx >= 0) & (idx < dim)
+    crow = torch.zeros(n + 1, dtype=torch.int32, device=idx.device)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    a = torch.sparse_csr_tensor(crow, idx[keep], val[keep], size=(n, dim))
+    at = torch.sparse_csr_tensor(csc.colptr.int(), csc.rows, csc.vals, size=(dim, n))
+    at2 = torch.sparse_csr_tensor(csc.colptr.int(), csc.rows, csc.vals * csc.vals,
+                                  size=(dim, n))
+    return {"ell_matvec": lambda: a @ w, "csc_rmatvec": lambda: at @ v,
+            "csc_sq_rmatvec": lambda: at2 @ v}
 
-    idx_np, val_np, dim, _, _ = game_arrays(**FULL)
+
+def kernel_calls(cs, idx, val, w, v, csc, dim) -> dict:
+    """Each kernel's wrapper and its plain version, on the same inputs."""
+    return {
+        "ell_matvec": (lambda: cs.ell_matvec(idx, val, w, dim),
+                       lambda: cs.ell_matvec_plain(idx, val, w, dim)),
+        "csc_rmatvec": (lambda: cs.csc_rmatvec(csc, v),
+                        lambda: cs.csc_rmatvec_plain(csc, v)),
+        "csc_sq_rmatvec": (lambda: cs.csc_rmatvec(csc, v, square=True),
+                           lambda: cs.csc_rmatvec_plain(csc, v, square=True)),
+    }
+
+
+def check_case(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
+    """The three kernels on one layout, in f32 and f64: each against its
+    plain version, each transpose run twice and bit-equal. In f32: times of
+    the kernel, its plain version and the library call, and the bound."""
     n, k = idx_np.shape
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed)
+    w_np, v_np = rng.normal(size=dim), rng.normal(size=n)
+    idx = torch.from_numpy(idx_np).to(dev)
     out = {}
     for dtype, tdt in (("float32", torch.float32), ("float64", torch.float64)):
-        idx = torch.from_numpy(idx_np).to(dev)
         val = torch.from_numpy(val_np).to(dev, tdt)
-        w = torch.from_numpy(rng.normal(size=dim)).to(dev, tdt)
-        v = torch.from_numpy(rng.normal(size=n)).to(dev, tdt)
+        w = torch.from_numpy(w_np).to(dev, tdt)
+        v = torch.from_numpy(v_np).to(dev, tdt)
         t0 = time.perf_counter()
         csc = cs.build_csc(idx, val, dim)
         csc_s = time.perf_counter() - t0
-        calls = {
-            "ell_matvec": (lambda: cs.ell_matvec(idx, val, w, dim),
-                           lambda: cs.ell_matvec_plain(idx, val, w, dim)),
-            "csc_rmatvec": (lambda: cs.csc_rmatvec(csc, v),
-                            lambda: cs.csc_rmatvec_plain(csc, v)),
-            "csc_sq_rmatvec": (lambda: cs.csc_rmatvec(csc, v, square=True),
-                               lambda: cs.csc_rmatvec_plain(csc, v, square=True)),
-        }
+        calls = kernel_calls(cs, idx, val, w, v, csc, dim)
         res = {}
         for name, (kern, plain) in calls.items():
             got = kern()
@@ -217,17 +247,7 @@ def phase_kernels(torch, dev) -> dict:
                     raise AssertionError(f"{name}: two runs differ ({dtype})")
                 res[name]["bit_equal_repeat"] = True
         if dtype == "float32":
-            # one library call per kernel as a yardstick (cuSPARSE SpMV)
-            keep = idx < dim
-            crow = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-            crow[1:] = torch.cumsum(keep.sum(1), 0)
-            a = torch.sparse_csr_tensor(crow, idx[keep], val[keep], size=(n, dim))
-            at = torch.sparse_csr_tensor(csc.colptr.int(), csc.rows, csc.vals,
-                                         size=(dim, n))
-            at2 = torch.sparse_csr_tensor(csc.colptr.int(), csc.rows,
-                                          csc.vals * csc.vals, size=(dim, n))
-            library = {"ell_matvec": lambda: a @ w, "csc_rmatvec": lambda: at @ v,
-                       "csc_sq_rmatvec": lambda: at2 @ v}
+            library = library_calls(torch, idx, val, w, v, csc, dim)
             for name, (kern, plain) in calls.items():
                 lib_err = (library[name]().double() - plain().double()).abs().max()
                 res[name].update(
@@ -235,32 +255,41 @@ def phase_kernels(torch, dev) -> dict:
                     ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
                     library_ms=time_ms(torch, library[name]),
                     **kernel_bound(name, n, k, dim, csc.nnz, dtype))
-        out[dtype] = {"build_csc_s": csc_s, "nnz": csc.nnz, "kernels": res}
+        out[dtype] = {"build_csc_s": csc_s, "nnz": csc.nnz,
+                      "tiles": csc.tiles.shape[0] - 1,
+                      "split_columns": csc.splits.shape[0], "kernels": res}
+    return out
 
+
+def long_column_arrays(idx_np, dim, tile_items):
+    """A column of every row (column 7) plus three new columns whose
+    lengths sit exactly at the transpose kernel's tile size and one off it
+    on either side: ``(idx, dim + 3, lengths)``."""
+    idx = idx_np.copy()
+    idx[:, 0] = 7
+    lengths = (tile_items, tile_items - 1, tile_items + 1)
+    start = 0
+    for j, length in enumerate(lengths):
+        idx[start:start + length, 1] = dim + j
+        start += length
+    return idx, dim + len(lengths), lengths
+
+
+def phase_kernels(torch, dev) -> dict:
+    from photon_tpu_torch.ops import cuda_sparse as cs
+
+    idx_np, val_np, dim, _, _ = game_arrays(**FULL)
+    n, k = idx_np.shape
+    out = {"shape": {"n": n, "k": k, "dim": dim},
+           "game": check_case(torch, cs, dev, idx_np, val_np, dim, 4)}
     # hot and duplicate columns at full width (as test_pallas_sparse.py)
     hot_idx = idx_np.copy()
     hot_idx[:, 0] = 7                       # a column in every row
     hot_idx[:, 1] = hot_idx[:, 2]           # duplicates within rows
-    idx = torch.from_numpy(hot_idx).to(dev)
-    val = torch.from_numpy(val_np).to(dev)
-    w = torch.from_numpy(rng.normal(size=dim).astype(np.float32)).to(dev)
-    v = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
-    csc = cs.build_csc(idx, val, dim)
-    hot = {}
-    for name, kern, plain in (
-        ("ell_matvec", lambda: cs.ell_matvec(idx, val, w, dim),
-         lambda: cs.ell_matvec_plain(idx, val, w, dim)),
-        ("csc_rmatvec", lambda: cs.csc_rmatvec(csc, v),
-         lambda: cs.csc_rmatvec_plain(csc, v)),
-        ("csc_sq_rmatvec", lambda: cs.csc_rmatvec(csc, v, square=True),
-         lambda: cs.csc_rmatvec_plain(csc, v, square=True)),
-    ):
-        got = kern()
-        torch.cuda.synchronize()
-        hot[name] = {"max_abs_err": _close(torch, got, plain(), "float32"),
-                     "ms": time_ms(torch, kern, warmup=1, reps=5)}
-    out["hot_dup_float32"] = hot
-    out["shape"] = {"n": n, "k": k, "dim": dim}
+    out["hot_dup"] = check_case(torch, cs, dev, hot_idx, val_np, dim, 5)
+    long_idx, long_dim, lengths = long_column_arrays(idx_np, dim, cs.TILE_ITEMS)
+    out["long_col"] = check_case(torch, cs, dev, long_idx, val_np, long_dim, 6)
+    out["long_col"]["tile_length_columns"] = lengths
     return out
 
 
@@ -504,7 +533,9 @@ def main() -> int:
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
     rows = []
     for name in cs.KERNELS:
-        f32 = kern["float32"]["kernels"][name]
+        f32 = kern["game"]["float32"]["kernels"][name]
+        hot = kern["hot_dup"]["float32"]["kernels"][name]
+        long = kern["long_col"]["float32"]["kernels"][name]
         rows.append({
             "name": name, "route": "cuda", "source": sources,
             "replaces": REPLACES, "via": TPU_ENTRY[name],
@@ -514,8 +545,10 @@ def main() -> int:
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-            "max_abs_err_f64": kern["float64"]["kernels"][name]["max_abs_err"],
-            "hot_dup_ms": kern["hot_dup_float32"][name]["ms"],
+            "max_abs_err_f64": kern["game"]["float64"]["kernels"][name]["max_abs_err"],
+            "hot_dup_ms": hot["ms"], "hot_dup_library_ms": hot["library_ms"],
+            "hot_dup_over_game": hot["ms"] / f32["ms"],
+            "long_col_ms": long["ms"], "long_col_library_ms": long["library_ms"],
         })
     emit({"kernels": rows})
     shutil.rmtree(WORK, ignore_errors=True)

@@ -11,8 +11,10 @@ two CUDA kernels in ``csrc/ell_sparse.cu``:
 
 The port keeps the function, not the TPU's 128-lane slot tables: the matvec
 reads the ELL arrays directly, and the transpose reads a column-sorted entry
-list (``build_csc``) so that every column is summed by one warp in a fixed
-order, with no float atomics — two runs give bit-identical results.
+list (``build_csc``) cut into merge-path tiles of equal work, so a column of
+any length is summed by as many blocks as its entries fill, in an order
+fixed by the layout, with no float atomics — two runs give bit-identical
+results.
 
 Each wrapper checks device, dtype, shape and contiguity. A CPU tensor takes
 the plain PyTorch version beside it; a CUDA tensor launches the kernel or
@@ -139,7 +141,7 @@ def _lib() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
                 for name in ("csc_rmatvec", "csc_sq_rmatvec"):
                     fn = getattr(lib, f"{name}_{sfx}")
-                    fn.argtypes = [vp, vp, vp, vp, vp, i64, i64, vp]
+                    fn.argtypes = [vp] * 8 + [i64] * 4 + [vp]
                     fn.restype = ctypes.c_int
             lib.ell_sparse_error_string.argtypes = [ctypes.c_int]
             lib.ell_sparse_error_string.restype = ctypes.c_char_p
@@ -236,6 +238,14 @@ def ell_matvec(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
 
 # ----------------------------------------------------------------- rmatvec
 
+# The transpose kernel's tile: CSC_THREADS threads, each walking
+# CSC_ITEMS_PER_THREAD consecutive merge-path items (column ends and
+# entries). Must equal kCscThreads / kCscItemsPerThread in ell_sparse.cu;
+# the launcher refuses any other tile size.
+CSC_THREADS = 256
+CSC_ITEMS_PER_THREAD = 4
+TILE_ITEMS = CSC_THREADS * CSC_ITEMS_PER_THREAD
+
 
 @dataclasses.dataclass(frozen=True)
 class CscLayout:
@@ -245,6 +255,10 @@ class CscLayout:
     ``rows [nnz]`` int32 and ``vals [nnz]``: each entry's row and value,
     stable by column (within a column, entries keep their row-major ELL
     order). Ghost and out-of-range entries are dropped.
+
+    ``tiles [T+1, 2]`` and ``splits [S, 3]`` int64 are the kernel's
+    merge-path partition (``merge_path_tiles``, ``split_columns``), built
+    once with the layout on its device.
     """
 
     colptr: Tensor
@@ -252,6 +266,8 @@ class CscLayout:
     vals: Tensor
     n_rows: int
     dim: int
+    tiles: Tensor
+    splits: Tensor
 
     @property
     def nnz(self) -> int:
@@ -262,10 +278,46 @@ class CscLayout:
         return self.rows.device
 
 
+def merge_path_tiles(colptr: Tensor) -> Tensor:
+    """Cut the merge of column ends and entries into tiles of equal work.
+
+    Merge-path (Merrill and Garland, SC'16) over ``dim + nnz`` items: column
+    c's end sits at merged position ``colptr[c+1] + c``, after its entries.
+    Tile t covers positions ``[t·TILE_ITEMS, (t+1)·TILE_ITEMS)``; row t of
+    the result is its start coordinate (columns ended, entries consumed)
+    and the last row is ``(dim, nnz)``. ``[T+1, 2]`` int64 on colptr's
+    device; T = ceil((dim + nnz) / TILE_ITEMS).
+    """
+    dim = colptr.shape[0] - 1
+    nnz = int(colptr[-1])
+    total = dim + nnz
+    n_tiles = -(-total // TILE_ITEMS)
+    dev = colptr.device
+    k = torch.clamp(torch.arange(n_tiles + 1, device=dev) * TILE_ITEMS, max=total)
+    ends = colptr[1:] + torch.arange(dim, device=dev)
+    col = torch.searchsorted(ends, k)
+    return torch.stack([col, k - col], dim=1).contiguous()
+
+
+def split_columns(colptr: Tensor, tiles: Tensor) -> Tensor:
+    """The columns that cross a tile boundary, one row ``(c, a, h)`` each:
+    column c ends in tile h and began in an earlier tile; tiles a..h-1 each
+    hold a partial sum of it (their tail). ``[S, 3]`` int64."""
+    start_col, start_entry = tiles[:-1, 0], tiles[:-1, 1]
+    end_col = tiles[1:, 0].contiguous()
+    safe = torch.clamp(start_col, max=colptr.shape[0] - 2)
+    heads = torch.nonzero(
+        (end_col > start_col) & (colptr[safe] < start_entry)
+    ).reshape(-1)
+    cols = start_col[heads]
+    first = torch.searchsorted(end_col, cols)
+    return torch.stack([cols, first, heads], dim=1).contiguous()
+
+
 def build_csc(idx: Tensor, val: Tensor, dim: int) -> CscLayout:
-    """Build the column-sorted entry list on the host (once per dataset) and
-    place it on ``idx``'s device. Stable by column, as
-    ``photon_tpu/ops/fast_sparse.py``'s column-sorted table."""
+    """Build the column-sorted entry list on the host (once per dataset),
+    place it on ``idx``'s device and partition it there. Stable by column,
+    as ``photon_tpu/ops/fast_sparse.py``'s column-sorted table."""
     _check_ell(idx, val, dim)
     _check_same_device(("idx", idx), ("val", val))
     n, k = idx.shape
@@ -280,12 +332,16 @@ def build_csc(idx: Tensor, val: Tensor, dim: int) -> CscLayout:
     colptr = torch.zeros(dim + 1, dtype=torch.int64)
     colptr[1:] = torch.cumsum(torch.bincount(cols, minlength=dim), 0)
     dev = idx.device
+    colptr = colptr.to(dev)
+    tiles = merge_path_tiles(colptr)
     return CscLayout(
-        colptr=colptr.to(dev),
+        colptr=colptr,
         rows=rows[order].contiguous().to(dev),
         vals=vals[order].contiguous().to(dev),
         n_rows=n,
         dim=dim,
+        tiles=tiles,
+        splits=split_columns(colptr, tiles),
     )
 
 
@@ -307,15 +363,21 @@ def csc_rmatvec_plain(csc: CscLayout, v: Tensor, square: bool = False) -> Tensor
 def csc_rmatvec(csc: CscLayout, v: Tensor, square: bool = False) -> Tensor:
     """g[c] = Σ_{entries of column c} val·v[row] (val² with ``square``) —
     kernels ``csc_rmatvec`` / ``csc_sq_rmatvec`` on CUDA. Replaces
-    ``rmatvec_pallas`` (photon_tpu/ops/pallas_sparse.py). Deterministic:
-    one warp sums each column in a fixed order, no atomics."""
+    ``rmatvec_pallas`` (photon_tpu/ops/pallas_sparse.py).
+
+    One block per merge-path tile of ``csc.tiles``, so no block's work
+    depends on a column's length; columns split across tiles are finished
+    by a second launch over ``csc.splits`` from float64 partials in a
+    scratch buffer allocated here. Deterministic: the summation order
+    depends only on the layout and the tile size, and no atomics are used.
+    """
     if v.dim() != 1 or v.shape[0] != csc.n_rows:
         raise ValueError(f"v must be [{csc.n_rows}], got {tuple(v.shape)}")
     _check_float(v, "v")
     if v.dtype != csc.vals.dtype:
         raise TypeError(f"v dtype {v.dtype} != CSC value dtype {csc.vals.dtype}")
     named = (("colptr", csc.colptr), ("rows", csc.rows), ("vals", csc.vals),
-             ("v", v))
+             ("tiles", csc.tiles), ("splits", csc.splits), ("v", v))
     dev = _check_same_device(*named)
     _check_contiguous(*named)
     if dev.type == "cpu":
@@ -324,13 +386,16 @@ def csc_rmatvec(csc: CscLayout, v: Tensor, square: bool = False) -> Tensor:
     g = torch.empty(csc.dim, dtype=v.dtype, device=dev)
     if csc.dim == 0:
         return g
+    n_tiles, n_splits = csc.tiles.shape[0] - 1, csc.splits.shape[0]
     lib = _lib()
     fn = getattr(lib, f"{name}_{_FLOAT_SUFFIX[v.dtype]}")
     with torch.cuda.device(dev):
+        partials = torch.empty(2 * n_tiles, dtype=torch.float64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(csc.colptr.data_ptr(), csc.rows.data_ptr(),
-                  csc.vals.data_ptr(), v.data_ptr(), g.data_ptr(),
-                  csc.dim, csc.n_rows, stream)
+                  csc.vals.data_ptr(), v.data_ptr(), csc.tiles.data_ptr(),
+                  csc.splits.data_ptr(), partials.data_ptr(), g.data_ptr(),
+                  n_tiles, n_splits, csc.n_rows, TILE_ITEMS, stream)
     _raise_on_error(lib, code, name)
     _count(name)
     return g
