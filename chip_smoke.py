@@ -7,26 +7,29 @@ Phases, each printing one JSON line; any failure ends the run with a nonzero
 exit code and no result line:
 
 0. card: ``nvidia-smi`` name and power limit, and the kernels' build
-   (``nvcc`` into ``photon_tpu_torch/_build``, from the sources here).
+   (``nvcc`` into ``photon_tpu_torch/_build``, from the sources here), with
+   each kernel's registers, shared memory and spills from nvcc's log.
 1. kernels at full width (2^19 rows x 32 entries over 262,144 global + a
    per-user block of features, the repository's headline single-chip shape):
-   ``ell_matvec``, ``csc_rmatvec`` and ``csc_sq_rmatvec`` against their
-   plain PyTorch versions on the card (f32: rtol 1e-5, atol 1e-5 x max|ref|;
-   f64: 1e-12) on three layouts: the GAME layout, a hot-and-duplicate-column
-   case, and a long-column case (a column of every row plus columns at the
-   transpose kernel's tile size and one off it). Each transpose repeats
-   bit-equal in f32 and f64. Times in f32: kernel, one library call as a
-   yardstick (cuSPARSE through ``torch.sparse_csr_tensor``; never called by
-   the port), plain version and the bound from bytes moved, on each layout.
+   ``ell_panel_matvec`` (over ``build_panels``' layout), ``ell_matvec``,
+   ``csc_rmatvec`` and ``csc_sq_rmatvec`` against their plain PyTorch
+   versions on the card (f32: rtol 1e-5, atol 1e-5 x max|ref|; f64: 1e-12)
+   on three layouts: the GAME layout, a hot-and-duplicate-column case, and a
+   long-column case (a column of every row plus columns at the transpose
+   kernel's tile size and one off it). Every kernel repeats bit-equal in f32
+   and f64. Times in f32: kernel, one library call as a yardstick (cuSPARSE
+   through ``torch.sparse_csr_tensor``; never called by the port), plain
+   version and the bound from bytes moved, on each layout.
 2. transformer at full width: ``GameTransformer.transform`` of an in-memory
    bundle (4,096 users x 128 rows, fixed effect + ``perUser``) on cuda and
-   on cpu; the scores agree within the stated tolerance and ``ell_matvec``
-   launched.
+   on cpu; the scores agree within the stated tolerance and
+   ``ell_panel_matvec`` launched.
 3. driver end to end: Avro data, index store and model directory written by
    the port's own writers (same widths, 32,768 rows: the per-record Avro
    reader is pure Python, so depth is cut here), scored by
    ``photon_tpu_torch.cli.game_scoring_driver`` with ``--device cuda`` and
-   ``--device cpu``; both ``scores.avro`` agree and ``ell_matvec`` launched.
+   ``--device cpu``; both ``scores.avro`` agree and the matvec kernel that
+   ``build_panels``' rule picks for these rows launched.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
@@ -54,7 +57,8 @@ FULL = dict(n_users=4096, rows_per_user=128, d_global=262144, d_user=16,
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # outside tensor cores
 REPLACES = "photon_tpu/ops/pallas_sparse.py:248"        # _gather_onehot_kernel
-TPU_ENTRY = {"ell_matvec": "matvec_pallas (pallas_sparse.py:331)",
+TPU_ENTRY = {"ell_panel_matvec": "matvec_pallas (pallas_sparse.py:331)",
+             "ell_matvec": "matvec_pallas (pallas_sparse.py:331)",
              "csc_rmatvec": "rmatvec_pallas (pallas_sparse.py:313)",
              "csc_sq_rmatvec": "rmatvec_pallas(square_vals=True) (pallas_sparse.py:313)"}
 RTOL_F32, ATOL_F32_REL, ATOL_F64 = 1e-5, 1e-5, 1e-12
@@ -135,7 +139,7 @@ def kernel_bound(name: str, n: int, k: int, dim: int, nnz: int, dtype: str) -> d
     """Least time the card could take: each input read once, each output
     written once, over 3.35 TB/s; operations over the peak for the type."""
     vb = 4 if dtype == "float32" else 8
-    if name == "ell_matvec":
+    if name in ("ell_matvec", "ell_panel_matvec"):
         nbytes = n * k * (4 + vb) + dim * vb + n * vb
         ops = 2 * n * k
     else:
@@ -202,13 +206,15 @@ def library_calls(torch, idx, val, w, v, csc, dim) -> dict:
     at = torch.sparse_csr_tensor(csc.colptr.int(), csc.rows, csc.vals, size=(dim, n))
     at2 = torch.sparse_csr_tensor(csc.colptr.int(), csc.rows, csc.vals * csc.vals,
                                   size=(dim, n))
-    return {"ell_matvec": lambda: a @ w, "csc_rmatvec": lambda: at @ v,
-            "csc_sq_rmatvec": lambda: at2 @ v}
+    return {"ell_panel_matvec": lambda: a @ w, "ell_matvec": lambda: a @ w,
+            "csc_rmatvec": lambda: at @ v, "csc_sq_rmatvec": lambda: at2 @ v}
 
 
-def kernel_calls(cs, idx, val, w, v, csc, dim) -> dict:
+def kernel_calls(cs, idx, val, w, v, csc, panels, dim) -> dict:
     """Each kernel's wrapper and its plain version, on the same inputs."""
     return {
+        "ell_panel_matvec": (lambda: cs.ell_panel_matvec(panels, w),
+                             lambda: cs.ell_panel_matvec_plain(panels, w)),
         "ell_matvec": (lambda: cs.ell_matvec(idx, val, w, dim),
                        lambda: cs.ell_matvec_plain(idx, val, w, dim)),
         "csc_rmatvec": (lambda: cs.csc_rmatvec(csc, v),
@@ -219,9 +225,9 @@ def kernel_calls(cs, idx, val, w, v, csc, dim) -> dict:
 
 
 def check_case(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
-    """The three kernels on one layout, in f32 and f64: each against its
-    plain version, each transpose run twice and bit-equal. In f32: times of
-    the kernel, its plain version and the library call, and the bound."""
+    """The four kernels on one layout, in f32 and f64: each against its
+    plain version, each run twice and bit-equal. In f32: times of the
+    kernel, its plain version and the library call, and the bound."""
     n, k = idx_np.shape
     rng = np.random.default_rng(seed)
     w_np, v_np = rng.normal(size=dim), rng.normal(size=n)
@@ -234,18 +240,23 @@ def check_case(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
         t0 = time.perf_counter()
         csc = cs.build_csc(idx, val, dim)
         csc_s = time.perf_counter() - t0
-        calls = kernel_calls(cs, idx, val, w, v, csc, dim)
+        t0 = time.perf_counter()
+        panels = cs.build_panels(idx, val, dim)
+        torch.cuda.synchronize()
+        panels_s = time.perf_counter() - t0
+        if panels is None:
+            raise AssertionError(f"build_panels found no gain at {n} rows ({dtype})")
+        calls = kernel_calls(cs, idx, val, w, v, csc, panels, dim)
         res = {}
         for name, (kern, plain) in calls.items():
             got = kern()
             torch.cuda.synchronize()
             res[name] = {"max_abs_err": _close(torch, got, plain(), dtype)}
-            if name != "ell_matvec":
-                again = kern()
-                torch.cuda.synchronize()
-                if not torch.equal(got, again):
-                    raise AssertionError(f"{name}: two runs differ ({dtype})")
-                res[name]["bit_equal_repeat"] = True
+            again = kern()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two runs differ ({dtype})")
+            res[name]["bit_equal_repeat"] = True
         if dtype == "float32":
             library = library_calls(torch, idx, val, w, v, csc, dim)
             for name, (kern, plain) in calls.items():
@@ -257,7 +268,13 @@ def check_case(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
                     **kernel_bound(name, n, k, dim, csc.nnz, dtype))
         out[dtype] = {"build_csc_s": csc_s, "nnz": csc.nnz,
                       "tiles": csc.tiles.shape[0] - 1,
-                      "split_columns": csc.splits.shape[0], "kernels": res}
+                      "split_columns": csc.splits.shape[0],
+                      "build_panels_s": panels_s, "row_tiles": panels.n_tiles,
+                      "tile_rows": panels.tile_rows, "panels": panels.n_panels,
+                      "panel_entries": panels.codes.shape[0],
+                      "panel_dynamic_smem_bytes": cs.panel_smem_bytes(
+                          panels.tile_rows, panels.n_panels),
+                      "kernels": res}
     return out
 
 
@@ -344,9 +361,9 @@ def phase_transformer(torch, sizes, dev, ref_dev) -> dict:
 
 def transform_breakdown(torch, sizes, dev) -> dict:
     """Seconds of the transform's pieces, run one by one on ``dev`` (after
-    the counted transform, so nothing is cold): the fixed-effect matvec, the
-    random-effect dataset build (host) and the random-effect projection +
-    bucket scoring."""
+    the counted transform, so nothing is cold): the fixed-effect layout
+    attach (``build_panels``) and matvec, the random-effect dataset build
+    (host) and the random-effect projection + bucket scoring."""
     from photon_tpu_torch.estimators.config import RandomEffectDataConfig
     from photon_tpu_torch.estimators.game_estimator import build_re_dataset_from_bundle
     from photon_tpu_torch.io.convert import game_model_from_numpy
@@ -363,10 +380,12 @@ def transform_breakdown(torch, sizes, dev) -> dict:
             torch.cuda.synchronize(dev)
         return out, time.perf_counter() - t0
 
-    _, t_fixed = timed(lambda: model["fixed"].score_batch(bundle.batch("global")))
+    batch, t_attach = timed(lambda: bundle.batch("global").with_accelerator_paths())
+    _, t_fixed = timed(lambda: model["fixed"].score_batch(batch))
     ds, t_build = timed(lambda: build_re_dataset_from_bundle(bundle, cfg))
     _, t_score = timed(lambda: model["perUser"].score_new_dataset(ds))
-    return {"fixed_matvec": t_fixed, "re_dataset_build": t_build,
+    return {"fixed_attach": t_attach, "fixed_matvec": t_fixed,
+            "re_dataset_build": t_build,
             "re_project_and_score": t_score}
 
 
@@ -478,6 +497,43 @@ def phase_driver(torch, sizes, dev, ref_dev, root: str, inputs: dict) -> dict:
 # ------------------------------------------------------------------ main
 
 
+KERNEL_SYMBOLS = {"ell_panel_kernel": "ell_panel_matvec",
+                  "ell_matvec_kernel": "ell_matvec",
+                  "csc_tile_kernel": "csc_rmatvec", "csc_fixup_kernel": "csc_fixup"}
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers, shared memory (static bytes) and spills of each compiled
+    kernel, from nvcc's ``-Xptxas -v`` log, keyed ``name<type>`` (the
+    transposes' tile kernel as ``csc_rmatvec<f32>`` and
+    ``csc_sq_rmatvec<f32>``)."""
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = None
+            k = re.search(r"(ell_panel_kernel|ell_matvec_kernel|csc_tile_kernel|"
+                          r"csc_fixup_kernel)I([fd])E?(Lb([01])E)?", m.group(1))
+            if k:
+                name = KERNEL_SYMBOLS[k.group(1)]
+                if k.group(4) == "1":
+                    name = "csc_sq_rmatvec"
+                current = f"{name}<{'f32' if k.group(2) == 'f' else 'f64'}>"
+                out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[current].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[current]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -508,7 +564,8 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": card,
           "kind": torch.cuda.get_device_name(0), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build["seconds"],
-          "built": build["built"], "library": os.path.relpath(build["path"], REPO)})
+          "built": build["built"], "library": os.path.relpath(build["path"], REPO),
+          "ptxas": ptxas_usage(build["log"])})
 
     kern = phase_kernels(torch, dev)
     emit({"phase": "kernels", **kern})
@@ -518,17 +575,21 @@ def main() -> int:
     tr_launches = cs.launch_counts()
     tr["breakdown_s"] = transform_breakdown(torch, FULL, dev)
     emit({"phase": "transformer", "launches": tr_launches, **tr})
-    if tr_launches["ell_matvec"] < 1:
-        raise AssertionError("transformer phase never launched ell_matvec")
+    if tr_launches["ell_panel_matvec"] < 1:
+        raise AssertionError("transformer phase never launched ell_panel_matvec")
 
     inputs = write_driver_inputs(torch, FULL, WORK)
     emit({"phase": "driver_inputs", **inputs})
     cs.reset_launch_counts()
     dr = phase_driver(torch, FULL, dev, cpu, WORK, inputs)
     dr_launches = cs.launch_counts()
-    emit({"phase": "driver", "launches": dr_launches, **dr})
-    if dr_launches["ell_matvec"] < 1:
-        raise AssertionError("driver phase never launched ell_matvec")
+    # build_panels' rule for the driver's rows (f32)
+    nnz = (FULL["k_global"] + FULL["k_user"]) * inputs["rows"]
+    chosen = ("ell_panel_matvec" if cs.panels_pay_off(inputs["rows"], inputs["dim"], nnz, 4)
+              else "ell_matvec")
+    emit({"phase": "driver", "launches": dr_launches, "matvec_kernel": chosen, **dr})
+    if dr_launches[chosen] < 1:
+        raise AssertionError(f"driver phase never launched {chosen}")
 
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
     rows = []
@@ -539,7 +600,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": sources,
             "replaces": REPLACES, "via": TPU_ENTRY[name],
-            "launches": dr_launches[name],
+            "launches": tr_launches[name] + dr_launches[name],
             "launches_by_phase": {"transformer": tr_launches[name],
                                   "driver": dr_launches[name]},
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],

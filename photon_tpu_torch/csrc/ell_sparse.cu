@@ -7,8 +7,13 @@
 // into 128-lane slot tables and reduces them with a one-hot MXU product;
 // all of that is a TPU layout. Here the function is ported, not the layout:
 //
-//   ell_matvec<T>        z[r] = sum_k val[r,k] * w[idx[r,k]]
-//                        one warp per row, lanes striding over K.
+//   ell_panel_matvec<T>  z[r] = sum_k val[r,k] * w[idx[r,k]]
+//                        over a panel-sorted entry list (below): w staged
+//                        in shared memory one column panel at a time.
+//   ell_matvec<T>        the same sum straight from the ELL arrays, one
+//                        warp per row, lanes striding over K; for layouts
+//                        where reloading w for every row tile would cost
+//                        more than its gathers.
 //   csc_rmatvec<T, SQ>   g[c] = sum over entries e of column c of
 //                        val[e] (val[e]^2 when SQ) * v[rows[e]]
 //                        over a host-built, column-sorted entry list
@@ -30,10 +35,44 @@
 // What bounds them on an H100: device-memory bytes in principle. Each
 // entry streams 8 bytes (a 4-byte index and a 4-byte f32 value; 12 for
 // f64) once, and the outputs are written once: at ~3.35 TB/s, 2^19 rows x
-// 32 entries is about 40 us. In practice the random 4-byte gathers of the
-// vector (w or v, a few MB, held in the 50 MB L2) bound them: each costs a
-// 32-byte L2 sector. The arithmetic (two flops an entry) is far below any
-// compute bound.
+// 32 entries is about 40 us. Gathering the vector (w or v, a few MB, held
+// in the 50 MB L2) at random costs one 32-byte L2 sector per 4-byte read,
+// which the bytes bound cannot see: on the GAME layout 537 MB of sector
+// traffic against 134 MB of streamed entries. The arithmetic (two flops an
+// entry) is far below any compute bound.
+//
+// The matvec over column panels. The rows are cut into tiles of R rows
+// (a power of two in [1,024, 8,192], so that the tiles cover the 132 SMs)
+// and the columns into panels of kPanelBytes / sizeof(T) columns, one
+// shared-memory stage. The host sorts the entries once per layout
+// (`build_panels`) by (tile, panel), stably, so that within a segment the
+// rows ascend and each row keeps its ELL order; each entry is one 32-bit
+// code (row in tile << 16 | column in panel) and its value, and each
+// segment is padded with skip entries (kPadRow, value 0) to a multiple of 4
+// so that every segment starts 16-byte aligned. One block takes one tile:
+//   1. the panels of w holding the tile's entries come into a two-stage
+//      ring in shared memory by TMA bulk copies (cp.async.bulk, completing
+//      on an mbarrier): panel p+1 loads while panel p is gathered, and a
+//      panel with no entries in the tile is skipped. The gathers of w then
+//      hit shared memory; w crosses L2 once per tile in whole lines;
+//   2. the segment's entries stream in chunks of kPanelChunk, each thread
+//      loading its kPanelItems consecutive entries with 16-byte loads into
+//      registers: the next chunk's loads go out as soon as this one's
+//      entries are walked and are in flight during its scan, and the chunk
+//      after it is on its way into L2 (cp.async.bulk.prefetch); the tile's
+//      segment offsets, read at every chunk, sit in shared memory;
+//   3. each row's partial in the panel comes from the transpose's walk and
+//      block segmented scan (SegmentWalk, block_segmented_scan), with the
+//      row as the key: a row that crosses a chunk boundary carries into
+//      the next chunk's first thread;
+//   4. exactly one thread adds each row's panel partial into the row's
+//      double accumulator in shared memory, in panel order; at the end
+//      each row rounds once and writes z.
+// Reloading w costs ceil(N/R) * dim * sizeof(T) bytes of L2 traffic
+// against nnz * 32 bytes of sectors for the gathers; the host keeps
+// ell_matvec where the reloads cost more. Measured on an H100 at 2^19 rows
+// x 32 entries (f32): the reloads cost ~5% of the kernel's time and the
+// block scan ~15%; the rest is streaming the entries and the walk.
 //
 // The transpose as a merge-path segmented reduction (Merrill and Garland,
 // "Merge-based Parallel Sparse Matrix-Vector Multiplication", SC'16). The
@@ -72,7 +111,7 @@
 // Interface: plain C, loaded with ctypes. Every pointer and the stream are
 // passed as void*; each entry point launches on the caller's stream,
 // allocates nothing (the caller passes the transpose's scratch buffer),
-// and returns cudaGetLastError() (0 on success).
+// and returns a CUDA error code (0 on success).
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -96,6 +135,26 @@ constexpr int kCscMinBlocks = 8;
 constexpr int kCscWarps = kCscThreads / kWarp;
 constexpr int kTileItems = kCscThreads * kCscItemsPerThread;
 
+// Panel matvec (PANEL_THREADS, PANEL_ITEMS, PANEL_BYTES, MAX_TILE_ROWS,
+// PAD_ROW in cuda_sparse.py): kPanelThreads threads each take kPanelItems
+// consecutive entries of a chunk (16-byte loads of codes). Shared memory
+// per block: two w stages of kPanelBytes, R doubles of row accumulators
+// (64 KB at R = 8,192), the tile's P + 1 segment offsets and 8 bytes a
+// thread of scan scratch, ~200 KB at most, so one block an SM. On an H100,
+// 8 items a thread ran faster than 4 with 1,024 threads or 8 and 16 with
+// 512; one chunk of L2 prefetch faster than 0, 2 or 3; and loading the next
+// chunk after the walk (one set of registers) faster than before it.
+constexpr int kPanelThreads = 1024;
+constexpr int kPanelItems = 8;             // a multiple of 4
+constexpr int kPanelPrefetch = 1;          // chunks prefetched into L2 ahead
+constexpr int kPanelWarps = kPanelThreads / kWarp;
+constexpr int kPanelChunk = kPanelThreads * kPanelItems;
+constexpr int kPanelBytes = 64 * 1024;
+constexpr int kMaxTileRows = 8192;
+constexpr int kCodeShift = 16;             // code = row << 16 | column
+constexpr uint32_t kColMask = (1u << kCodeShift) - 1;
+constexpr int kPadRow = 0xFFFF;            // row field of a skip entry
+
 // Sums accumulate in double for both value types: a float product is exact
 // in double, so a float result is the correctly rounded sum in all but rare
 // ties, and a hot column's long sum loses no digits. It costs nothing
@@ -110,6 +169,182 @@ __device__ __forceinline__ T warp_sum(T acc) {
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   }
   return acc;
+}
+
+// One thread's walk over its consecutive items, shared by the transpose's
+// merge-path tiles (key: column) and the matvec's panel chunks (key: row).
+// `run` sums the open segment; close() ends it. The first segment a thread
+// closes may have begun in an earlier thread: its part here is kept as
+// `head` and finished after the block scan (head_value). Every later one
+// lies whole in this thread's run and goes to `emit` at once.
+struct SegmentWalk {
+  Acc run = Acc(0), head = Acc(0);
+  bool emitted = false;
+
+  template <typename Emit>
+  __device__ __forceinline__ void close(int key, Emit&& emit) {
+    if (emitted) {
+      emit(key, run);
+    } else {
+      head = run;
+      emitted = true;
+    }
+    run = Acc(0);
+  }
+
+  // The first closed segment's total: the open partials of the threads
+  // before this one (which all ended on its key) plus this thread's head.
+  __device__ __forceinline__ Acc head_value(const Acc* s_scan) const {
+    return (threadIdx.x > 0 ? s_scan[threadIdx.x - 1] : Acc(0)) + head;
+  }
+};
+
+// Block-wide segmented inclusive scan of the threads' open partials `s`
+// under `key` (the segment each thread ends in): warp shuffles at distances
+// 1..16, then the earlier warps' totals, nearest first — a fixed tree.
+// Keys never decrease from thread to thread, so equal keys at a distance
+// mean equal keys in between: once no lane of a warp matches at distance
+// `off`, none does further off, and the warp leaves the shuffles early
+// with the same sums. Returns this thread's inclusive sum and leaves every
+// thread's in s_scan (readable on return).
+__device__ __forceinline__ Acc block_segmented_scan(Acc s, int key, Acc* s_wsum,
+                                                    int* s_wkey, Acc* s_scan) {
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+#pragma unroll
+  for (int off = 1; off < kWarp; off <<= 1) {
+    const int okey = __shfl_up_sync(0xffffffffu, key, off);
+    const bool same = lane >= off && okey == key;
+    if (!__any_sync(0xffffffffu, same)) break;
+    const Acc o = __shfl_up_sync(0xffffffffu, s, off);
+    if (same) s = o + s;
+  }
+  if (lane == kWarp - 1) {
+    s_wsum[warp] = s;
+    s_wkey[warp] = key;
+  }
+  __syncthreads();
+  Acc carry = Acc(0);
+  for (int u = warp - 1; u >= 0 && s_wkey[u] == key; --u) carry += s_wsum[u];
+  s = s + carry;
+  s_scan[tid] = s;
+  __syncthreads();
+  return s;
+}
+
+// ---- TMA bulk copies and mbarriers (PTX, sm_90)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Wait for the barrier's phase `parity` to complete. A copy that never
+// lands (a fault the launcher's checks missed) traps after ~2^24 polls, so
+// the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 24)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+
+// Bring panel p of w (columns p*C .. min(dim, (p+1)*C)) into `dst`,
+// completing on `bar`. The 16-byte-aligned body goes by one bulk copy
+// issued by thread 0; the last panel's tail (fewer than 16 bytes) by plain
+// loads of the first threads, visible to the block after its next
+// __syncthreads(). w must be 16-byte aligned (the wrapper checks).
+template <typename T>
+__device__ __forceinline__ void load_panel(T* dst, const T* __restrict__ w,
+                                           int64_t dim, int p, uint64_t* bar) {
+  constexpr int kCols = kPanelBytes / (int)sizeof(T);
+  const int64_t c0 = (int64_t)p * kCols;
+  const int cols = (int)min((int64_t)kCols, dim - c0);
+  const uint32_t bulk = (uint32_t)(cols * (int)sizeof(T)) & ~15u;
+  const int n_bulk = (int)(bulk / sizeof(T));
+  if (threadIdx.x == 0) {
+    // order this stage's earlier generic-proxy reads before the async write
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bulk) : "memory");
+    if (bulk > 0) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n"
+          :: "r"(smem_addr(dst)), "l"(w + c0), "r"(bulk), "r"(smem_addr(bar))
+          : "memory");
+    }
+  }
+  if ((int)threadIdx.x < cols - n_bulk) {
+    dst[n_bulk + threadIdx.x] = w[c0 + n_bulk + threadIdx.x];
+  }
+}
+
+// The next panel after p with entries in this tile (n_panels if none).
+__device__ __forceinline__ int next_panel(const int64_t* off, int p, int n_panels) {
+  for (++p; p < n_panels && off[p + 1] == off[p]; ++p) {
+  }
+  return p;
+}
+
+// One thread's entries of a chunk (registers), and the code of the entry
+// just before them: the key its walk starts in.
+template <typename T>
+struct PanelChunk {
+  uint32_t code[kPanelItems];
+  T val[kPanelItems];
+  uint32_t prev;
+};
+
+__device__ __forceinline__ void load_vals4(float* v, const float* p) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+__device__ __forceinline__ void load_vals4(double* v, const double* p) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// Chunk [pos, pos + n) of a segment: n and pos are multiples of 4 (the
+// segments are padded), so each group of 4 entries of a thread is one
+// aligned 16-byte load of codes.
+template <typename T>
+__device__ __forceinline__ void load_chunk(PanelChunk<T>& c,
+                                           const uint32_t* __restrict__ codes,
+                                           const T* __restrict__ vals,
+                                           int64_t pos, int n) {
+  const int d = (int)threadIdx.x * kPanelItems;
+#pragma unroll
+  for (int g = 0; g < kPanelItems; g += 4) {
+    if (d + g < n) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(codes + pos + d + g));
+      c.code[g] = q.x; c.code[g + 1] = q.y; c.code[g + 2] = q.z; c.code[g + 3] = q.w;
+      load_vals4(c.val + g, vals + pos + d + g);
+    }
+  }
+  c.prev = (pos + min(d, n) > 0) ? codes[pos + min(d, n) - 1] : 0u;
+}
+
+// Ask L2 for entries [a, b) of the stream ahead of the register loads
+// (a, b multiples of 4: 16-byte aligned in both arrays).
+template <typename T>
+__device__ __forceinline__ void prefetch_entries(const uint32_t* codes, const T* vals,
+                                                 int64_t a, int64_t b) {
+  if (b <= a) return;
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               :: "l"(codes + a), "r"((uint32_t)((b - a) * 4)) : "memory");
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               :: "l"(vals + a), "r"((uint32_t)((b - a) * sizeof(T))) : "memory");
 }
 
 template <typename T>
@@ -131,6 +366,135 @@ ell_matvec_kernel(const int32_t* __restrict__ idx, const T* __restrict__ val,
     acc = warp_sum(acc);
     if (lane == 0) z[r] = (T)acc;
   }
+}
+
+// One block per row tile; see "The matvec over column panels" above.
+// offsets[tile, p] .. offsets[tile, p + 1] is segment (tile, p).
+template <typename T>
+__global__ void __launch_bounds__(kPanelThreads, 1)
+ell_panel_kernel(const uint32_t* __restrict__ codes, const T* __restrict__ vals,
+                 const int64_t* __restrict__ offsets, const T* __restrict__ w,
+                 T* __restrict__ z, int64_t n_rows, int64_t dim, int tile_rows,
+                 int n_panels) {
+  constexpr int kCols = kPanelBytes / (int)sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* s_w = reinterpret_cast<T*>(smem);                           // [2][kCols]
+  Acc* s_acc = reinterpret_cast<Acc*>(smem + 2 * kPanelBytes);   // [tile_rows]
+  int64_t* off = reinterpret_cast<int64_t*>(s_acc + tile_rows);  // [n_panels+1]
+  __shared__ __align__(8) uint64_t s_full[2];
+  __shared__ Acc s_scan[kPanelThreads];
+  __shared__ Acc s_wsum[kPanelWarps];
+  __shared__ int s_wkey[kPanelWarps];
+
+  const int tid = threadIdx.x;
+  const int64_t row0 = (int64_t)blockIdx.x * tile_rows;
+  const int rows = (int)min((int64_t)tile_rows, n_rows - row0);
+
+  if (tid == 0) {
+    mbar_init(&s_full[0], 1);
+    mbar_init(&s_full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int r = tid; r < tile_rows; r += kPanelThreads) s_acc[r] = Acc(0);
+  // the tile's segment offsets, read at every chunk: kept in shared memory
+  for (int q = tid; q <= n_panels; q += kPanelThreads) {
+    off[q] = offsets[(int64_t)blockIdx.x * (n_panels + 1) + q];
+  }
+  __syncthreads();
+
+  // p: the panel being summed, j: its ordinal among the tile's non-empty
+  // panels (stage j & 1, barrier phase (j >> 1) & 1).
+  int p = next_panel(off, -1, n_panels);
+  if (p < n_panels) {
+    load_panel(s_w, w, dim, p, &s_full[0]);
+    const int q = next_panel(off, p, n_panels);
+    if (q < n_panels) load_panel(s_w + kCols, w, dim, q, &s_full[1]);
+  }
+  __syncthreads();
+
+  // A row's panel partial goes into its accumulator once; skip entries
+  // (kPadRow) and the "no row yet" key -1 emit nothing.
+  auto emit = [&](int row, Acc value) {
+    if ((unsigned)row < (unsigned)tile_rows) s_acc[row] += value;
+  };
+
+  if (p < n_panels) {
+    int j = 0;
+    int64_t s0 = off[p], s1 = off[p + 1], pos = s0;   // segment, chunk start
+    const int64_t tile_end = off[n_panels];
+    int64_t fetched = pos;   // thread 0: entries asked of L2 so far
+    PanelChunk<T> chunk;
+    load_chunk(chunk, codes, vals, pos, (int)min((int64_t)kPanelChunk, s1 - pos));
+    mbar_wait(&s_full[0], 0);
+    for (;;) {
+      const int n = (int)min((int64_t)kPanelChunk, s1 - pos);
+      const bool last = pos + n == s1;
+      int p2 = p;
+      int64_t pos2 = pos + n, s0_2 = s0, s1_2 = s1;
+      if (last) {
+        p2 = next_panel(off, p, n_panels);
+        if (p2 < n_panels) {
+          s0_2 = pos2 = off[p2];
+          s1_2 = off[p2 + 1];
+        }
+      }
+      // Walk this thread's entries; the key starts at the entry before
+      // them (the previous thread's last row), -1 at a segment's start.
+      const T* wp = s_w + (j & 1) * kCols;
+      const int d = tid * kPanelItems;
+      int key = (pos + min(d, n) - 1 >= s0) ? (int)(chunk.prev >> kCodeShift) : -1;
+      const int first_key = key;
+      SegmentWalk walk;
+      if (tid == 0 && pos > s0) walk.run = s_scan[kPanelThreads - 1];   // carry
+#pragma unroll
+      for (int k = 0; k < kPanelItems; ++k) {
+        if (d + k < n) {
+          const uint32_t c = chunk.code[k];
+          const int row = (int)(c >> kCodeShift);
+          if (row != key) {
+            walk.close(key, emit);
+            key = row;
+          }
+          if (row != kPadRow) {
+            walk.run = walk.run + __dmul_rn((Acc)chunk.val[k], (Acc)wp[c & kColMask]);
+          }
+        }
+      }
+      // This chunk's entries are walked: load the next one into the same
+      // registers, in flight during the scan.
+      if (p2 < n_panels) {
+        const int n2 = (int)min((int64_t)kPanelChunk, s1_2 - pos2);
+        load_chunk(chunk, codes, vals, pos2, n2);
+        // the tile's segments are contiguous: keep kPanelPrefetch chunks
+        // of the stream beyond the register loads on their way into L2
+        if (kPanelPrefetch > 0 && tid == 0) {
+          const int64_t want = min(pos2 + n2 + (int64_t)kPanelPrefetch * kPanelChunk,
+                                   tile_end);
+          prefetch_entries(codes, vals, max(fetched, pos2 + n2), want);
+          fetched = max(fetched, want);
+        }
+      }
+
+      const Acc s = block_segmented_scan(walk.run, key, s_wsum, s_wkey, s_scan);
+      if (walk.emitted) emit(first_key, walk.head_value(s_scan));
+      if (last && tid == kPanelThreads - 1) emit(key, s);   // the open row
+
+      if (last) {
+        __syncthreads();   // panel p summed: its stage is free
+        const int p3 = p2 < n_panels ? next_panel(off, p2, n_panels) : n_panels;
+        if (p3 < n_panels) load_panel(s_w + (j & 1) * kCols, w, dim, p3, &s_full[j & 1]);
+        ++j;
+        if (p2 >= n_panels) break;
+        mbar_wait(&s_full[j & 1], (j >> 1) & 1);
+      }
+      p = p2;
+      pos = pos2;
+      s0 = s0_2;
+      s1 = s1_2;
+    }
+  }
+  __syncthreads();
+  for (int r = tid; r < rows; r += kPanelThreads) z[row0 + r] = (T)s_acc[r];
 }
 
 template <typename T, bool SQUARE>
@@ -197,50 +561,25 @@ csc_tile_kernel(const int64_t* __restrict__ colptr,
   int col = lo, y = d - lo;
   const int first_col = col;
   const int d_end = min(d + kCscItemsPerThread, n_items);
-  Acc run = Acc(0), head = Acc(0);
-  bool emitted = false;
+  SegmentWalk walk;
+  auto write = [&](int c, Acc value) { g[i0 + c] = (T)value; };
   for (int item = d; item < d_end; ++item) {
     const int end = col < nc ? s_ends[col] : INT_MAX;
     if (y < end) {
-      run += s_prod[y];
+      walk.run += s_prod[y];
       ++y;
     } else {
-      if (emitted) {
-        g[i0 + col] = (T)run;
-      } else {
-        head = run;
-        emitted = true;
-      }
-      run = Acc(0);
+      walk.close(col, write);
       ++col;
     }
   }
 
   // 3. Segmented inclusive scan of the open-column partials (key: column).
-  // Keys never decrease from thread to thread, so equal keys at a distance
-  // mean equal keys in between.
-  const int lane = tid % kWarp, warp = tid / kWarp;
-  Acc s = run;
-#pragma unroll
-  for (int off = 1; off < kWarp; off <<= 1) {
-    const Acc o = __shfl_up_sync(0xffffffffu, s, off);
-    const int okey = __shfl_up_sync(0xffffffffu, col, off);
-    if (lane >= off && okey == col) s = o + s;
-  }
-  if (lane == kWarp - 1) {
-    s_wsum[warp] = s;
-    s_wkey[warp] = col;
-  }
-  __syncthreads();
-  Acc carry = Acc(0);
-  for (int u = warp - 1; u >= 0 && s_wkey[u] == col; --u) carry += s_wsum[u];
-  s = s + carry;
-  s_scan[tid] = s;
-  __syncthreads();
+  const Acc s = block_segmented_scan(walk.run, col, s_wsum, s_wkey, s_scan);
 
   // The thread before this one ended on this thread's first column.
-  if (emitted) {
-    const Acc value = (tid > 0 ? s_scan[tid - 1] : Acc(0)) + head;
+  if (walk.emitted) {
+    const Acc value = walk.head_value(s_scan);
     if (first_col == 0 && colptr[i0] < j0) {
       partials[2 * tile] = value;          // head of a split column
     } else {
@@ -284,6 +623,32 @@ int launch_matvec(const void* idx, const void* val, const void* w, void* z,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_panel_matvec(const void* codes, const void* vals, const void* offsets,
+                        const void* w, void* z, int64_t n_rows, int64_t dim,
+                        int64_t tile_rows, int64_t n_tiles, int64_t n_panels,
+                        int64_t panel_cols, void* stream) {
+  constexpr int64_t kCols = kPanelBytes / (int64_t)sizeof(T);
+  if (panel_cols != kCols || tile_rows < 1 || tile_rows > kMaxTileRows ||
+      n_tiles < 1 || n_tiles > INT_MAX || n_panels < 0 ||
+      n_panels != (dim + kCols - 1) / kCols || (n_tiles - 1) * tile_rows >= n_rows ||
+      n_tiles * tile_rows < n_rows ||
+      ((uintptr_t)codes | (uintptr_t)vals | (uintptr_t)w) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t smem = 2 * kPanelBytes + tile_rows * (int64_t)sizeof(Acc) +
+                       (n_panels + 1) * (int64_t)sizeof(int64_t);
+  if (smem > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ell_panel_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ell_panel_kernel<T><<<(unsigned)n_tiles, kPanelThreads, (size_t)smem,
+                        (cudaStream_t)stream>>>(
+      (const uint32_t*)codes, (const T*)vals, (const int64_t*)offsets,
+      (const T*)w, (T*)z, n_rows, dim, (int)tile_rows, (int)n_panels);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool SQUARE>
 int launch_rmatvec(const void* colptr, const void* rows, const void* vals,
                    const void* v, const void* tiles, const void* splits,
@@ -316,6 +681,22 @@ int ell_matvec_f32(const void* idx, const void* val, const void* w, void* z,
 int ell_matvec_f64(const void* idx, const void* val, const void* w, void* z,
                    int64_t n, int64_t k, int64_t dim, void* stream) {
   return launch_matvec<double>(idx, val, w, z, n, k, dim, stream);
+}
+
+int ell_panel_matvec_f32(const void* codes, const void* vals,
+    const void* offsets, const void* w, void* z, int64_t n_rows, int64_t dim,
+    int64_t tile_rows, int64_t n_tiles, int64_t n_panels, int64_t panel_cols,
+    void* stream) {
+  return launch_panel_matvec<float>(codes, vals, offsets, w, z, n_rows, dim,
+      tile_rows, n_tiles, n_panels, panel_cols, stream);
+}
+
+int ell_panel_matvec_f64(const void* codes, const void* vals,
+    const void* offsets, const void* w, void* z, int64_t n_rows, int64_t dim,
+    int64_t tile_rows, int64_t n_tiles, int64_t n_panels, int64_t panel_cols,
+    void* stream) {
+  return launch_panel_matvec<double>(codes, vals, offsets, w, z, n_rows, dim,
+      tile_rows, n_tiles, n_panels, panel_cols, stream);
 }
 
 int csc_rmatvec_f32(const void* colptr, const void* rows, const void* vals,

@@ -5,19 +5,27 @@ Port of ``photon_tpu/data/batch.py`` (the scoring half:
 
 ``SparseFeatures`` is padded ELL: ``idx[N, K] int32`` / ``val[N, K]`` with
 K = max nnz per row; padding slots point at column ``dim`` (the zero "ghost"
-column) with value 0. ``matvec`` on a CUDA tensor launches the ``ell_matvec``
-kernel (``ops/cuda_sparse.py``); on a CPU tensor it runs the plain version.
-``rmatvec``/``sq_rmatvec`` come with the training slice, which attaches the
-column-sorted layout they read in ``with_accelerator_paths``.
+column) with value 0. On CUDA, ``with_accelerator_paths`` attaches the panel
+layout (``build_panels``) where it pays, and ``matvec`` then launches the
+``ell_panel_matvec`` kernel, else ``ell_matvec`` (``ops/cuda_sparse.py``); on
+a CPU tensor it runs the plain version. ``rmatvec``/``sq_rmatvec`` come with
+the training slice, which attaches the column-sorted layout they read in
+``with_accelerator_paths`` too.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from photon_tpu_torch.ops.cuda_sparse import ell_matvec
+from photon_tpu_torch.ops.cuda_sparse import (
+    PanelLayout,
+    build_panels,
+    ell_matvec,
+    ell_panel_matvec,
+)
 
 Tensor = torch.Tensor
 
@@ -27,12 +35,14 @@ class SparseFeatures:
     """Padded ELL sparse matrix: per-row index/value lists of width K.
 
     ``idx[N, K]`` holds column ids in [0, dim]; id == dim marks padding (its
-    value must be 0). ``dim`` is the true feature dimension D.
+    value must be 0). ``dim`` is the true feature dimension D. ``panels``
+    is the matvec's panel layout of the same entries, once attached.
     """
 
     idx: Tensor
     val: Tensor
     dim: int
+    panels: Optional[PanelLayout] = None
 
     @property
     def device(self) -> torch.device:
@@ -43,14 +53,24 @@ class SparseFeatures:
         return self.val.dtype
 
     def with_accelerator_paths(self) -> "SparseFeatures":
-        """No layout to attach for the matvec, which reads the ELL arrays
-        directly: a no-op for now. The training slice attaches the
-        column-sorted layout of the transpose passes here."""
-        return self
+        """On CUDA, attach the panel layout of the matvec (built once, on
+        the card), unless ``build_panels`` finds that reloading w per row
+        tile costs more than its gathers. On the CPU nothing is attached.
+        The training slice attaches the transposes' column-sorted layout
+        here too."""
+        if self.device.type != "cuda" or self.panels is not None:
+            return self
+        panels = build_panels(self.idx, self.val, self.dim)
+        if panels is None:
+            return self
+        return dataclasses.replace(self, panels=panels)
 
     def matvec(self, w: Tensor) -> Tensor:
-        """z = A·w: the ``ell_matvec`` kernel on CUDA, its plain version on
-        the CPU."""
+        """z = A·w: on CUDA the ``ell_panel_matvec`` kernel when a panel
+        layout is attached, else ``ell_matvec``; their plain versions on the
+        CPU."""
+        if self.panels is not None:
+            return ell_panel_matvec(self.panels, w)
         return ell_matvec(self.idx, self.val, w, self.dim)
 
 

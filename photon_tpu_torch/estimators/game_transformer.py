@@ -6,8 +6,9 @@ fixed-effect scoring without a mesh; ``transform_rows`` and the shared
 coordinate, the data is scored and the scores summed additively; rows whose
 entity was unseen at training fall back to the zero model.
 
-Fixed-effect scoring is one sparse matvec on the whole batch — the
-``ell_matvec`` kernel on CUDA. Random-effect scoring projects the trained
+Fixed-effect scoring is one sparse matvec on the whole batch — on CUDA the
+``ell_panel_matvec`` kernel over the attached panel layout (``ell_matvec``
+where the layout does not pay). Random-effect scoring projects the trained
 per-entity coefficients into the scoring dataset's bucket structure on the
 host, then scores each bucket with one batched gather-dot.
 """
@@ -47,8 +48,8 @@ class GameTransformer:
         return self.intercept_indices.get(shard)
 
     def _score_fixed(self, m: FixedEffectModel, batch) -> Tensor:
-        # The accelerator layouts attach before the scoring matvec (nothing
-        # to attach for the matvec yet; see SparseFeatures).
+        # The accelerator layouts attach before the scoring matvec: on CUDA
+        # the panel layout of ell_panel_matvec (see SparseFeatures).
         return m.score_batch(batch.with_accelerator_paths())
 
     def transform(self, data: GameDataBundle) -> Tensor:

@@ -3,18 +3,23 @@
 Port of ``photon_tpu/ops/pallas_sparse.py``. The TPU kernel there,
 ``_gather_onehot_kernel`` (launched by ``_run_op``), computes all three
 sparse passes through ``matvec_pallas`` and ``rmatvec_pallas``; here they are
-two CUDA kernels in ``csrc/ell_sparse.cu``:
+CUDA kernels in ``csrc/ell_sparse.cu``:
 
-* ``ell_matvec``      z[r] = Σ_k val[r,k]·w[idx[r,k]]           (scores)
+* ``ell_panel_matvec`` z[r] = Σ_k val[r,k]·w[idx[r,k]]          (scores)
+  over a panel-sorted entry list (``build_panels``), w staged in shared
+  memory one column panel at a time;
+* ``ell_matvec``      the same sum straight from the ELL arrays, for
+  layouts where ``build_panels`` finds the panels not worth their reloads;
 * ``csc_rmatvec``     g[c] = Σ_{entries of column c} val·v[row]  (gradient)
   with ``square=True`` the same sum with val² (Hessian diagonal).
 
-The port keeps the function, not the TPU's 128-lane slot tables: the matvec
-reads the ELL arrays directly, and the transpose reads a column-sorted entry
-list (``build_csc``) cut into merge-path tiles of equal work, so a column of
-any length is summed by as many blocks as its entries fill, in an order
-fixed by the layout, with no float atomics — two runs give bit-identical
-results.
+The port keeps the function, not the TPU's 128-lane slot tables. The panel
+matvec cuts rows into tiles and columns into panels that fit a shared-memory
+stage, so its gathers of w hit shared memory instead of 32-byte L2 sectors.
+The transpose reads a column-sorted entry list (``build_csc``) cut into
+merge-path tiles of equal work, so a column of any length is summed by as
+many blocks as its entries fill. Every sum runs in an order fixed by the
+layout, with no float atomics — two runs give bit-identical results.
 
 Each wrapper checks device, dtype, shape and contiguity. A CPU tensor takes
 the plain PyTorch version beside it; a CUDA tensor launches the kernel or
@@ -48,7 +53,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("ell_matvec", "csc_rmatvec", "csc_sq_rmatvec")
+KERNELS = ("ell_panel_matvec", "ell_matvec", "csc_rmatvec", "csc_sq_rmatvec")
 # Launches per kernel since the last reset_launch_counts(); a wrapper adds one
 # where it launches its kernel and nowhere else.
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -138,6 +143,9 @@ def _lib() -> ctypes.CDLL:
             for sfx in ("f32", "f64"):
                 fn = getattr(lib, f"ell_matvec_{sfx}")
                 fn.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
+                fn.restype = ctypes.c_int
+                fn = getattr(lib, f"ell_panel_matvec_{sfx}")
+                fn.argtypes = [vp] * 5 + [i64] * 6 + [vp]
                 fn.restype = ctypes.c_int
                 for name in ("csc_rmatvec", "csc_sq_rmatvec"):
                     fn = getattr(lib, f"{name}_{sfx}")
@@ -233,6 +241,230 @@ def ell_matvec(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
                   n, k, dim, stream)
     _raise_on_error(lib, code, "ell_matvec")
     _count("ell_matvec")
+    return z
+
+
+# ----------------------------------------------------------- panel matvec
+
+# The panel kernel's chunk: PANEL_THREADS threads, each summing
+# PANEL_ITEMS consecutive entries. PANEL_BYTES is one shared-memory stage of
+# w. Must equal kPanelThreads / kPanelItems / kPanelBytes / kMaxTileRows /
+# kPadRow in ell_sparse.cu; the launcher refuses other panel widths.
+PANEL_THREADS = 1024
+PANEL_ITEMS = 8
+PANEL_BYTES = 64 * 1024
+MIN_TILE_ROWS, MAX_TILE_ROWS = 1024, 8192
+SEGMENT_ALIGN = 4            # entries: 16 bytes of codes
+CODE_SHIFT = 16              # code = row in tile << 16 | column in panel
+PAD_ROW = 0xFFFF             # row field of a skip entry (value 0)
+H100_SMS = 132
+L2_SECTOR_BYTES = 32
+# Dynamic shared memory the panel kernel may ask for: the H100's 227 KB a
+# block, less 16 KB kept for its static scan scratch (8.5 KB today).
+PANEL_SMEM_BYTES = 232448 - 16 * 1024
+
+
+def panel_cols(dtype: torch.dtype) -> int:
+    """Columns of one panel: one shared-memory stage of w (16,384 in f32,
+    8,192 in f64)."""
+    if dtype not in _FLOAT_SUFFIX:
+        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    return PANEL_BYTES // (torch.finfo(dtype).bits // 8)
+
+
+def tile_rows_for(n_rows: int) -> int:
+    """Rows of one tile: the smallest power of two ≥ n_rows / 132, so that
+    the tiles cover the H100's 132 SMs where n_rows allows, clamped to
+    [1,024, 8,192] (a tile's double accumulators share the SM's shared
+    memory with the two w stages)."""
+    per_sm = -(-n_rows // H100_SMS)
+    return min(max(1 << max(per_sm - 1, 0).bit_length(), MIN_TILE_ROWS),
+               MAX_TILE_ROWS)
+
+
+def panel_smem_bytes(tile_rows: int, n_panels: int) -> int:
+    """The panel kernel's dynamic shared memory: two w stages, a float64
+    accumulator a row and the tile's segment offsets."""
+    return 2 * PANEL_BYTES + 8 * tile_rows + 8 * (n_panels + 1)
+
+
+def panels_pay_off(n_rows: int, dim: int, nnz: int, itemsize: int) -> bool:
+    """Whether staging w panel by panel moves fewer L2 bytes than gathering
+    it: each tile reloads all of w, ceil(N/R)·dim·itemsize bytes, against
+    one 32-byte sector per gathered entry, nnz·32 bytes. (And whether the
+    tile fits the kernel's shared memory: dim up to ~39M f32 columns.)"""
+    tile_rows = tile_rows_for(n_rows)
+    n_tiles = -(-n_rows // tile_rows)
+    n_panels = -(-dim // (PANEL_BYTES // itemsize))
+    return (n_tiles * dim * itemsize < nnz * L2_SECTOR_BYTES
+            and panel_smem_bytes(tile_rows, n_panels) <= PANEL_SMEM_BYTES)
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelLayout:
+    """An ELL matrix's entries sorted by (row tile, column panel), for the
+    panel matvec.
+
+    Rows are cut into tiles of ``tile_rows`` and columns into panels of
+    ``panel_cols``. Segment (t, p) holds the entries of tile t's rows whose
+    column falls in panel p, stable by row (a row's entries keep their ELL
+    order), at ``offsets[t, p] : offsets[t, p + 1]`` (``[T, P+1]`` int64;
+    ``offsets[t, P] == offsets[t + 1, 0]``). Each entry is one 32-bit code
+    in ``codes`` (int32 storage), row in tile << 16 | column in panel, and
+    its value in ``vals``. Every segment is padded with skip entries (row
+    field ``PAD_ROW``, column 0, value 0) to a multiple of
+    ``SEGMENT_ALIGN``, so that each starts 16-byte aligned. Ghost and
+    out-of-range entries are dropped.
+    """
+
+    codes: Tensor
+    vals: Tensor
+    offsets: Tensor
+    n_rows: int
+    dim: int
+    tile_rows: int
+    panel_cols: int
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.offsets.shape[0])
+
+    @property
+    def n_panels(self) -> int:
+        return int(self.offsets.shape[1]) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+
+def panel_layout(idx: Tensor, val: Tensor, dim: int, tile_rows: int,
+                 panel_cols: int) -> PanelLayout:
+    """Sort the ELL entries into (tile, panel) segments, with torch ops on
+    ``idx``'s device. Any ``tile_rows`` and ``panel_cols`` below 2^16 make a
+    valid layout; the kernel takes ``tile_rows`` up to MAX_TILE_ROWS and
+    only its own ``panel_cols(dtype)`` (``build_panels`` picks both)."""
+    _check_ell(idx, val, dim)
+    _check_same_device(("idx", idx), ("val", val))
+    if not (1 <= tile_rows < PAD_ROW and 1 <= panel_cols <= 1 << CODE_SHIFT):
+        raise ValueError(f"tile_rows {tile_rows} / panel_cols {panel_cols} "
+                         "do not fit the 16-bit fields of a code")
+    n, k = idx.shape
+    dev = idx.device
+    n_tiles = -(-n // tile_rows)
+    n_panels = -(-dim // panel_cols)
+    n_seg = n_tiles * n_panels
+    flat = idx.reshape(-1).long()
+    pos = torch.nonzero((flat >= 0) & (flat < dim)).reshape(-1)
+    cols = flat[pos]
+    rows = pos // max(k, 1)
+    seg = (rows // tile_rows) * n_panels + cols // panel_cols
+    seg, order = torch.sort(seg, stable=True)
+    counts = torch.bincount(seg, minlength=n_seg)
+    padded = (counts + SEGMENT_ALIGN - 1) // SEGMENT_ALIGN * SEGMENT_ALIGN
+    start = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+    start[1:] = torch.cumsum(padded, 0)
+    first = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+    first[1:] = torch.cumsum(counts, 0)
+    dest = start[seg] + torch.arange(seg.shape[0], device=dev) - first[seg]
+    rows, cols = rows[order], cols[order]
+    total = int(start[-1])
+    codes = torch.full((total,), PAD_ROW << CODE_SHIFT, dtype=torch.int64, device=dev)
+    codes[dest] = (rows % tile_rows) << CODE_SHIFT | cols % panel_cols
+    vals = torch.zeros(total, dtype=val.dtype, device=dev)
+    vals[dest] = val.reshape(-1)[pos[order]]
+    if n_seg:
+        windows = (torch.arange(n_tiles, device=dev)[:, None] * n_panels
+                   + torch.arange(n_panels + 1, device=dev))
+        offsets = start[windows]
+    else:
+        offsets = torch.zeros((n_tiles, n_panels + 1), dtype=torch.int64, device=dev)
+    codes = torch.where(codes >= 1 << 31, codes - (1 << 32), codes)   # as uint32
+    return PanelLayout(
+        codes=codes.to(torch.int32), vals=vals, offsets=offsets.contiguous(),
+        n_rows=n, dim=dim, tile_rows=tile_rows, panel_cols=panel_cols,
+    )
+
+
+def build_panels(idx: Tensor, val: Tensor, dim: int) -> PanelLayout | None:
+    """The panel layout at the kernel's own tile and panel sizes, or
+    ``None`` where reloading w for every tile would cost more L2 bytes than
+    the gathers it saves (``panels_pay_off``): the caller then keeps
+    ``ell_matvec``. Built once per layout, on ``idx``'s device."""
+    _check_ell(idx, val, dim)
+    nnz = int(((idx >= 0) & (idx < dim)).sum())
+    n = idx.shape[0]
+    if n == 0 or not panels_pay_off(n, dim, nnz, val.element_size()):
+        return None
+    return panel_layout(idx, val, dim, tile_rows_for(n), panel_cols(val.dtype))
+
+
+def _decode(panels: PanelLayout) -> tuple[Tensor, Tensor, Tensor]:
+    """Each stored entry's (row, column, is a real entry)."""
+    lengths = panels.offsets.diff(dim=1).reshape(-1)
+    seg = torch.repeat_interleave(
+        torch.arange(lengths.shape[0], device=panels.device), lengths)
+    code = panels.codes.long() & 0xFFFFFFFF
+    local_row, local_col = code >> CODE_SHIFT, code & ((1 << CODE_SHIFT) - 1)
+    real = local_row != PAD_ROW
+    n_panels = max(panels.n_panels, 1)
+    row = (seg // n_panels) * panels.tile_rows + local_row
+    col = (seg % n_panels) * panels.panel_cols + local_col
+    return row, col, real
+
+
+def ell_panel_matvec_plain(panels: PanelLayout, w: Tensor) -> Tensor:
+    """z = A·w from the panel layout's entries, decoded: a float64 segment
+    sum by row, rounded once, as the kernel does."""
+    row, col, real = _decode(panels)
+    prod = panels.vals.double()[real] * w.double()[col[real]]
+    out = torch.zeros(panels.n_rows, dtype=torch.float64, device=w.device)
+    out.index_add_(0, row[real], prod)
+    return out.to(w.dtype)
+
+
+def ell_panel_matvec(panels: PanelLayout, w: Tensor) -> Tensor:
+    """z[r] = Σ_k val[r,k]·w[idx[r,k]] — kernel ``ell_panel_matvec`` on
+    CUDA, over a layout from ``build_panels``. Replaces ``matvec_pallas``
+    (photon_tpu/ops/pallas_sparse.py).
+
+    One block per row tile: the panels of w come into shared memory by TMA
+    bulk copies, each row's panel partial comes from a block segmented
+    reduction, and one thread adds it to the row's float64 accumulator in
+    panel order. Deterministic: the order depends only on the layout.
+    """
+    if w.dim() != 1 or w.shape[0] != panels.dim:
+        raise ValueError(f"w must be [{panels.dim}], got {tuple(w.shape)}")
+    _check_float(w, "w")
+    if w.dtype != panels.vals.dtype:
+        raise TypeError(f"w dtype {w.dtype} != panel value dtype {panels.vals.dtype}")
+    named = (("codes", panels.codes), ("vals", panels.vals),
+             ("offsets", panels.offsets), ("w", w))
+    dev = _check_same_device(*named)
+    _check_contiguous(*named)
+    if dev.type == "cpu":
+        return ell_panel_matvec_plain(panels, w)
+    if panels.panel_cols != panel_cols(w.dtype):
+        raise ValueError(f"panel_cols {panels.panel_cols} is not the kernel's "
+                         f"{panel_cols(w.dtype)} for {w.dtype}")
+    if not 1 <= panels.tile_rows <= MAX_TILE_ROWS:
+        raise ValueError(f"tile_rows {panels.tile_rows} outside [1, {MAX_TILE_ROWS}]")
+    for what, t in named[:2] + named[3:]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} must be 16-byte aligned for the TMA copies")
+    z = torch.empty(panels.n_rows, dtype=w.dtype, device=dev)
+    if panels.n_rows == 0:
+        return z
+    lib = _lib()
+    fn = getattr(lib, f"ell_panel_matvec_{_FLOAT_SUFFIX[w.dtype]}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(panels.codes.data_ptr(), panels.vals.data_ptr(),
+                  panels.offsets.data_ptr(), w.data_ptr(), z.data_ptr(),
+                  panels.n_rows, panels.dim, panels.tile_rows, panels.n_tiles,
+                  panels.n_panels, panels.panel_cols, stream)
+    _raise_on_error(lib, code, "ell_panel_matvec")
+    _count("ell_panel_matvec")
     return z
 
 

@@ -42,7 +42,8 @@ assert b["bound_by"] == "bytes" and 0.03 < b["bound_ms"] < 0.05, b
 tr = chip_smoke.phase_transformer(torch, tiny, cpu, cpu)
 assert tr["rows"] == 32 * 6 and tr["max_abs_err_vs_ref"] == 0.0, tr
 parts = chip_smoke.transform_breakdown(torch, tiny, cpu)
-assert set(parts) == {"fixed_matvec", "re_dataset_build", "re_project_and_score"}, parts
+assert set(parts) == {"fixed_attach", "fixed_matvec", "re_dataset_build",
+                     "re_project_and_score"}, parts
 root = os.path.join(os.getcwd(), "smoke")
 inputs = chip_smoke.write_driver_inputs(torch, tiny, root)
 dr = chip_smoke.phase_driver(torch, tiny, cpu, cpu, root, inputs)

@@ -1,7 +1,8 @@
 """Kernel K1 of the PyTorch port against the JAX package, on the CPU.
 
-``photon_tpu_torch.ops.cuda_sparse`` holds the Hopper kernels ``ell_matvec``
-and ``csc_rmatvec`` (plain and squared) and their plain PyTorch versions.
+``photon_tpu_torch.ops.cuda_sparse`` holds the Hopper kernels
+``ell_panel_matvec``, ``ell_matvec`` and ``csc_rmatvec`` (plain and squared)
+and their plain PyTorch versions.
 Here the plain versions, which the wrappers run for CPU tensors, are held
 against the JAX Pallas kernel in interpret mode (``matvec_pallas`` /
 ``rmatvec_pallas``), the JAX ``SparseFeatures`` plain path and a dense numpy
@@ -15,7 +16,12 @@ The transpose kernel's tile partition is checked for its invariants, and
 ``_emulate_csc_kernel`` repeats the kernel's summation order (per-thread
 walks, block segmented scan, fix-up of split columns) in plain torch: it is
 held against the same references here, and the kernel must equal it bit for
-bit on the card.
+bit on the card. Likewise the panel matvec: ``build_panels``' tile-and-panel
+layout is checked for its invariants on the grid and on edge layouts (dim
+not a multiple of the panel, one panel, a short last tile, an empty panel,
+a column in every row, no entries), its cost rule on both sides, and
+``_emulate_panel_kernel`` repeats the kernel's chunked walks, block scans
+and per-panel accumulation.
 
 The kernels themselves run only on the card: ``test_kernels_match_plain_on_card``
 is marked ``cuda`` and skips without one.
@@ -34,7 +40,7 @@ from photon_tpu.ops.pallas_sparse import (
     matvec_pallas,
     rmatvec_pallas,
 )
-from photon_tpu_torch.data.batch import SparseFeatures, ell_from_rows
+from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures, ell_from_rows
 from photon_tpu_torch.ops import cuda_sparse as cs
 
 ATOL_F32 = 5e-5
@@ -60,7 +66,7 @@ def _dense(idx, val, d, square=False):
     a = np.zeros((n, d), np.float64)
     v = val.astype(np.float64) ** 2 if square else val.astype(np.float64)
     rows = np.repeat(np.arange(n), k)
-    keep = idx.ravel() < d
+    keep = (idx.ravel() >= 0) & (idx.ravel() < d)
     np.add.at(a, (rows[keep], idx.ravel()[keep]), v.ravel()[keep])
     return a
 
@@ -117,6 +123,29 @@ def _case(name):
     return idx, val, d, w, dz
 
 
+def _emulate_block_scan(s, key):
+    """The kernels' ``block_segmented_scan``: an inclusive scan of the
+    threads' partials ``s`` segmented by ``key``, within a warp by shuffles
+    at distances 1..16, then the earlier warps' totals, nearest first."""
+    warp = 32
+    nthreads = s.shape[0]
+    tid = torch.arange(nthreads)
+    lane, wid = tid % warp, tid // warp
+    for off in (1, 2, 4, 8, 16):
+        src = torch.clamp(tid - off, min=0)
+        s = torch.where((lane >= off) & (key[src] == key), s[src] + s, s)
+    wsum, wkey = s[warp - 1::warp], key[warp - 1::warp]
+    carry = torch.zeros(nthreads, dtype=s.dtype)
+    going = torch.ones(nthreads, dtype=torch.bool)
+    for m in range(1, nthreads // warp):
+        u = torch.clamp(wid - m, min=0)
+        going = going & (wid - m >= 0) & (wkey[u] == key)
+        if not going.any():
+            break
+        carry = torch.where(going, carry + wsum[u], carry)
+    return s + carry
+
+
 def _emulate_csc_kernel(csc, v, square=False):
     """The transpose kernel's summation order, in plain torch (float64).
 
@@ -145,7 +174,6 @@ def _emulate_csc_kernel(csc, v, square=False):
     g = torch.zeros(csc.dim, dtype=f64)
     partials = torch.zeros(2 * (len(tiles) - 1), dtype=f64)
     tid = torch.arange(nthreads)
-    lane, wid = tid % warp, tid // warp
     zero = torch.zeros(nthreads, dtype=f64)
     for t in range(len(tiles) - 1):
         (i0, j0), (i1, j1) = tiles[t], tiles[t + 1]
@@ -173,17 +201,7 @@ def _emulate_csc_kernel(csc, v, square=False):
             run = torch.where(is_end, zero, run)
             y = y + is_entry.long()
             col = col + is_end.long()
-        s = run
-        for off in (1, 2, 4, 8, 16):
-            src = torch.clamp(tid - off, min=0)
-            s = torch.where((lane >= off) & (col[src] == col), s[src] + s, s)
-        wsum, wkey = s[warp - 1::warp], col[warp - 1::warp]
-        carry, going = zero.clone(), torch.ones(nthreads, dtype=torch.bool)
-        for m in range(1, nthreads // warp):
-            u = torch.clamp(wid - m, min=0)
-            going = going & (wid - m >= 0) & (wkey[u] == col)
-            carry = torch.where(going, carry + wsum[u], carry)
-        s = s + carry
+        s = _emulate_block_scan(run, col)
         value = torch.cat([torch.zeros(1, dtype=f64), s[:-1]]) + head
         split_head = bool(nc > 0 and colptr[i0] < j0)
         for th in torch.nonzero(emitted).reshape(-1).tolist():
@@ -200,6 +218,75 @@ def _emulate_csc_kernel(csc, v, square=False):
             acc = acc + acc[torch.arange(warp) ^ off]
         g[c] = acc[0] + partials[2 * h]
     return g.to(v.dtype)
+
+
+def _emulate_panel_kernel(panels, w):
+    """The panel matvec's summation order, in plain torch (float64).
+
+    Per tile, per panel with entries, per chunk of ``PANEL_THREADS`` x
+    ``PANEL_ITEMS`` entries: each thread walks its consecutive entries from
+    the key of the entry before them (-1 at a segment's start; thread 0 of
+    a later chunk starts from the carried partial of the previous chunk's
+    open row), closing a row where the key changes; the block scan gives
+    each thread's first row the partial summed before it; the row still
+    open at the segment's end is added by the last thread. Each row's panel
+    partial is added to its float64 accumulator once, in panel order, and
+    rounds once at the end. Every addition is the kernel's, in the kernel's
+    order, so the card must give the same bits.
+    """
+    nthreads, items = cs.PANEL_THREADS, cs.PANEL_ITEMS
+    chunk = nthreads * items
+    f64 = torch.float64
+    rows_t, cols_p = panels.tile_rows, panels.panel_cols
+    code = panels.codes.long() & 0xFFFFFFFF
+    lrow, lcol = code >> cs.CODE_SHIFT, code & ((1 << cs.CODE_SHIFT) - 1)
+    vals, w64 = panels.vals.double(), w.double()
+    z = torch.zeros(panels.n_rows, dtype=f64)
+    d = torch.arange(nthreads) * items
+    zero = torch.zeros(nthreads, dtype=f64)
+    last = torch.tensor([nthreads - 1])
+
+    def emit(acc, key, value, mask):
+        m = mask & (key >= 0) & (key < rows_t)   # one emission per row
+        acc[key[m]] = acc[key[m]] + value[m]
+
+    off = panels.offsets.tolist()
+    for t in range(panels.n_tiles):
+        acc = torch.zeros(rows_t, dtype=f64)
+        for p in range(panels.n_panels):
+            s0, s1 = off[t][p], off[t][p + 1]
+            wp = w64[p * cols_p:(p + 1) * cols_p]
+            carry = torch.zeros((), dtype=f64)
+            for pos in range(s0, s1, chunk):
+                n = min(chunk, s1 - pos)
+                prev = pos + torch.clamp(d, max=n) - 1
+                key = torch.where(prev >= s0, lrow[prev.clamp(min=0)], -1)
+                first = key.clone()
+                run, head = zero.clone(), zero.clone()
+                if pos > s0:
+                    run[0] = carry
+                emitted = torch.zeros(nthreads, dtype=torch.bool)
+                for k in range(items):
+                    active = d + k < n
+                    e = pos + torch.clamp(d + k, max=n - 1)
+                    row = lrow[e]
+                    change = active & (row != key)
+                    emit(acc, key, run, change & emitted)
+                    take = change & ~emitted
+                    head = torch.where(take, run, head)
+                    emitted = emitted | take
+                    run = torch.where(change, zero, run)
+                    key = torch.where(change, row, key)
+                    prod = vals[e] * wp[lcol[e].clamp(max=wp.shape[0] - 1)]
+                    run = torch.where(active & (row != cs.PAD_ROW), run + prod, run)
+                s = _emulate_block_scan(run, key)
+                emit(acc, first, torch.cat([zero[:1], s[:-1]]) + head, emitted)
+                carry = s[-1]
+                if pos + n == s1:
+                    emit(acc, key[last], s[last], torch.ones(1, dtype=torch.bool))
+        r0 = t * rows_t
+        z[r0:r0 + rows_t] = acc[:panels.n_rows - r0]
+    return z.to(w.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -416,12 +503,20 @@ def test_ell_from_rows_matches_jax():
 
 
 @pytest.mark.parametrize("bad", ["idx_dtype", "val_shape", "w_len", "w_dtype",
-                                 "non_contiguous", "v_len"])
+                                 "non_contiguous", "v_len", "panel_w_len",
+                                 "panel_w_dtype", "panel_sizes"])
 def test_wrappers_reject_bad_inputs(bad):
     idx, val, d, w, dz = _case("257x129x3")
     idx, val, w, dz = _t(idx), _t(val), _t(w), _t(dz)
     csc = cs.build_csc(idx, val, d)
-    if bad == "idx_dtype":
+    lay = cs.panel_layout(idx, val, d, 64, 64)
+    if bad == "panel_w_len":
+        call = lambda: cs.ell_panel_matvec(lay, w[:-1])  # noqa: E731
+    elif bad == "panel_w_dtype":
+        call = lambda: cs.ell_panel_matvec(lay, w.double())  # noqa: E731
+    elif bad == "panel_sizes":
+        call = lambda: cs.panel_layout(idx, val, d, 0, 1 << 17)  # noqa: E731
+    elif bad == "idx_dtype":
         call = lambda: cs.ell_matvec(idx.long(), val, w, d)  # noqa: E731
     elif bad == "val_shape":
         call = lambda: cs.ell_matvec(idx, val[:, :2].contiguous(), w, d)  # noqa: E731
@@ -435,6 +530,239 @@ def test_wrappers_reject_bad_inputs(bad):
         call = lambda: cs.csc_rmatvec(csc, dz[:-1])  # noqa: E731
     with pytest.raises((TypeError, ValueError)):
         call()
+
+
+# ------------------------------------------------------------ panel matvec
+
+# (tile_rows, panel_cols) for a layout of n rows: "small" cuts the test
+# cases into many tiles and panels; "kernel" is build_panels' own choice;
+# "wide" puts up to 8,192 rows in one tile, so long segments span several
+# kernel chunks and carry a row from one chunk to the next.
+EDGE_LAYOUTS = ["dim_not_multiple", "dim_below_panel", "rows_not_multiple",
+                "empty_panel", "column_every_row", "nnz0"]
+
+
+def _panel_sizes(shape, n, dtype=torch.float32):
+    if shape == "small":
+        return 64, 64
+    if shape == "wide":
+        return cs.MAX_TILE_ROWS, cs.panel_cols(dtype)
+    return cs.tile_rows_for(n), cs.panel_cols(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_case(name):
+    """(idx, val, d, w, tile_rows, panel_cols): small layouts at the edges
+    of the tile and panel grid, cut with 16-row tiles and 8-column panels."""
+    rng = np.random.default_rng(11)
+    n, d, k = 40, 24, 3
+    if name == "dim_below_panel":
+        n, d, k = 30, 5, 4                      # one panel, narrower than C
+    elif name == "rows_not_multiple":
+        n = 37                                  # last tile holds 5 rows
+    elif name == "dim_not_multiple":
+        d = 21                                  # last panel holds 5 columns
+    idx, val = _random_ell(rng, n, d, k)
+    if name == "dim_not_multiple":
+        idx[0, 0], idx[1, 1] = -2, d + 5        # out of range, value kept
+        val[0, 0], val[1, 1] = 3.0, -4.0
+    elif name == "empty_panel":
+        idx = np.where((idx >= 8) & (idx < 16), idx + 8, idx).astype(np.int32)
+    elif name == "column_every_row":
+        idx[:, 0] = 7
+        idx[:, 1] = idx[:, 2]                   # duplicates within rows
+        val = np.where(idx < d, rng.normal(size=(n, k)), 0.0).astype(np.float32)
+    elif name == "nnz0":
+        idx = np.full((n, k), d, np.int32)
+        val = np.zeros((n, k), np.float32)
+    w = rng.normal(size=d).astype(np.float32)
+    return idx, val, d, w, 16, 8
+
+
+def _check_panel_layout(lay, idx, val, d):
+    """The layout's invariants, against a numpy model of it: offsets are
+    [T, P+1], monotone and chained tile to tile; each segment holds exactly
+    its kept entries, stable by segment (so rows ascend and each row keeps
+    its ELL order), each decoding back to its (row, column) and value, then
+    fewer than SEGMENT_ALIGN skip entries of value 0; ghost and
+    out-of-range entries are gone."""
+    n, k = idx.shape
+    rows_t, cols_p = lay.tile_rows, lay.panel_cols
+    n_tiles, n_panels = -(-n // rows_t), -(-d // cols_p)
+    off = lay.offsets.numpy()
+    assert off.dtype == np.int64 and off.shape == (n_tiles, n_panels + 1)
+    assert (np.diff(off, axis=1) >= 0).all()
+    assert off[0, 0] == 0 and off[-1, -1] == lay.codes.shape[0]
+    np.testing.assert_array_equal(off[1:, 0], off[:-1, -1])
+    assert (np.diff(off, axis=1) % cs.SEGMENT_ALIGN == 0).all()
+    assert lay.codes.dtype == torch.int32 and lay.vals.dtype == torch.from_numpy(val).dtype
+    assert (lay.n_rows, lay.dim, lay.n_tiles, lay.n_panels) == (n, d, n_tiles, n_panels)
+
+    flat = idx.ravel().astype(np.int64)
+    pos = np.nonzero((flat >= 0) & (flat < d))[0]
+    rows, cols = pos // k, flat[pos]
+    seg = rows // rows_t * n_panels + cols // cols_p
+    order = np.argsort(seg, kind="stable")
+    counts = np.bincount(seg, minlength=n_tiles * n_panels)
+
+    code = lay.codes.numpy().view(np.uint32).astype(np.int64)
+    lrow, lcol = code >> cs.CODE_SHIFT, code & ((1 << cs.CODE_SHIFT) - 1)
+    vals = lay.vals.numpy()
+    got = ([], [], [])
+    for t in range(n_tiles):
+        for p in range(n_panels):
+            a, b = off[t, p], off[t, p + 1]
+            real = lrow[a:b] != cs.PAD_ROW
+            m = int(real.sum())
+            assert m == counts[t * n_panels + p] and real[:m].all()
+            assert b - a - m < cs.SEGMENT_ALIGN
+            assert (vals[a + m:b] == 0).all() and (lcol[a + m:b] == 0).all()
+            assert (lrow[a:a + m] < rows_t).all() and (lcol[a:a + m] < cols_p).all()
+            r = t * rows_t + lrow[a:a + m]
+            assert (np.diff(r) >= 0).all()
+            got[0].append(r)
+            got[1].append(p * cols_p + lcol[a:a + m])
+            got[2].append(vals[a:a + m])
+    empty = np.zeros(0, np.int64)
+    np.testing.assert_array_equal(np.concatenate(got[0] or [empty]), rows[order])
+    np.testing.assert_array_equal(np.concatenate(got[1] or [empty]), cols[order])
+    np.testing.assert_array_equal(
+        np.concatenate(got[2] or [empty]).astype(val.dtype), val.ravel()[pos][order])
+
+
+@pytest.mark.parametrize("shape", ["small", "kernel"])
+@pytest.mark.parametrize("name", CASES)
+def test_panel_layout_invariants(name, shape):
+    idx, val, d, _, _ = _case(name)
+    rows_t, cols_p = _panel_sizes(shape, idx.shape[0])
+    lay = cs.panel_layout(_t(idx), _t(val), d, rows_t, cols_p)
+    _check_panel_layout(lay, idx, val, d)
+    again = cs.panel_layout(_t(idx.copy()), _t(val.copy()), d, rows_t, cols_p)
+    assert torch.equal(lay.codes, again.codes) and torch.equal(lay.offsets, again.offsets)
+
+
+@pytest.mark.parametrize("name", EDGE_LAYOUTS)
+def test_panel_edge_layouts(name):
+    """Edge layouts of the tile and panel grid: the layout's invariants,
+    and the kernel's summation order against the dense product (f32 and
+    f64) and the plain ELL version."""
+    idx, val, d, w, rows_t, cols_p = _edge_case(name)
+    n = idx.shape[0]
+    lay = cs.panel_layout(_t(idx), _t(val), d, rows_t, cols_p)
+    _check_panel_layout(lay, idx, val, d)
+    off = lay.offsets.numpy()
+    if name == "dim_not_multiple":
+        assert lay.n_panels == 3 and d % cols_p == 5
+    elif name == "dim_below_panel":
+        assert lay.n_panels == 1 and d < cols_p
+    elif name == "rows_not_multiple":
+        assert lay.n_tiles == 3 and n % rows_t == 5
+    elif name == "empty_panel":
+        assert (off[:, 2] == off[:, 1]).all() and (off[:, 1] > off[:, 0]).all()
+    elif name == "column_every_row":
+        assert ((lay.codes.numpy() & 0xFFFF) == 7).sum() >= n
+    elif name == "nnz0":
+        assert lay.codes.shape[0] == 0
+    z = _emulate_panel_kernel(lay, _t(w)).numpy()
+    assert z.dtype == np.float32 and z.shape == (n,)
+    np.testing.assert_allclose(z, _dense(idx, val, d) @ w, rtol=0, atol=ATOL_F32)
+    np.testing.assert_array_equal(
+        cs.ell_panel_matvec(lay, _t(w)).numpy(),
+        cs.ell_matvec_plain(_t(idx), _t(val), _t(w), d).numpy())
+    val64, w64 = val.astype(np.float64), w.astype(np.float64)
+    lay64 = cs.panel_layout(_t(idx), _t(val64), d, rows_t, cols_p)
+    np.testing.assert_allclose(_emulate_panel_kernel(lay64, _t(w64)).numpy(),
+                               _dense(idx, val64, d) @ w64, rtol=0, atol=ATOL_F64)
+
+
+@pytest.mark.parametrize("rule", ["reloads_cost_more", "gathers_cost_more",
+                                  "chip_smoke_sizes"])
+def test_build_panels_rule(rule):
+    """build_panels gives None exactly where reloading w for every row tile
+    moves more L2 bytes than one 32-byte sector per gathered entry, and
+    otherwise a layout at the kernel's own tile and panel sizes."""
+    if rule == "chip_smoke_sizes":
+        # transformer phase: 2^19 rows x 32 entries, 327,680 columns;
+        # driver phase: 32,768 rows, 327,681 columns
+        assert cs.tile_rows_for(2**19) == 4096 and cs.tile_rows_for(32768) == 1024
+        assert cs.tile_rows_for(0) == 1024 and cs.tile_rows_for(10**7) == 8192
+        assert cs.panels_pay_off(2**19, 327680, 2**19 * 32, 4)
+        assert not cs.panels_pay_off(32768, 327681, 32768 * 32, 4)
+        assert cs.panel_cols(torch.float32) == 16384 and cs.panel_cols(torch.float64) == 8192
+        return
+    rng = np.random.default_rng(12)
+    n, d, k = (300, 200_000, 2) if rule == "reloads_cost_more" else (2000, 1000, 8)
+    idx, val = _random_ell(rng, n, d, k)
+    nnz = int((idx < d).sum())
+    for dtype in (np.float32, np.float64):
+        lay = cs.build_panels(_t(idx), _t(val.astype(dtype)), d)
+        pays = cs.panels_pay_off(n, d, nnz, np.dtype(dtype).itemsize)
+        assert pays == (rule == "gathers_cost_more") == (lay is not None)
+        assert pays == (-(-n // 1024) * d * np.dtype(dtype).itemsize < nnz * 32)
+        if lay is not None:
+            assert lay.tile_rows == cs.tile_rows_for(n) == 1024
+            assert lay.panel_cols == cs.PANEL_BYTES // np.dtype(dtype).itemsize
+            _check_panel_layout(lay, idx, val.astype(dtype), d)
+
+
+@pytest.mark.parametrize("shape", ["small", "wide"])
+@pytest.mark.parametrize("name", CASES)
+def test_panel_kernel_order_matches_jax(name, shape):
+    """The panel kernel's summation order against the Pallas kernel
+    (interpret mode), the JAX plain path and the dense product in f32, and
+    against the dense product in f64."""
+    idx, val, d, w, _ = _case(name)
+    rows_t, cols_p = _panel_sizes(shape, idx.shape[0])
+    lay = cs.panel_layout(_t(idx), _t(val), d, rows_t, cols_p)
+    if shape == "wide" and name == "long_col":
+        chunk = cs.PANEL_THREADS * cs.PANEL_ITEMS
+        assert lay.offsets.diff(dim=1).max() > chunk     # rows carried
+    z = _emulate_panel_kernel(lay, _t(w)).numpy()
+    assert z.dtype == np.float32 and z.shape == (idx.shape[0],)
+    refs = _jax_refs(name)
+    np.testing.assert_allclose(z, refs["pallas"][0], rtol=0, atol=ATOL_F32)
+    np.testing.assert_allclose(z, refs["jax_plain"][0], rtol=0, atol=ATOL_F32)
+    np.testing.assert_allclose(z, _dense(idx, val, d) @ w, rtol=0, atol=ATOL_F32)
+    val64, w64 = val.astype(np.float64), w.astype(np.float64)
+    lay64 = cs.panel_layout(_t(idx), _t(val64), d, *_panel_sizes(shape, idx.shape[0],
+                                                                torch.float64))
+    z64 = _emulate_panel_kernel(lay64, _t(w64)).numpy()
+    assert z64.dtype == np.float64
+    np.testing.assert_allclose(z64, _dense(idx, val64, d) @ w64, rtol=0, atol=ATOL_F64)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_panel_plain_matches_ell_plain(name):
+    """The panel matvec's plain version (what its wrapper and
+    ``SparseFeatures.matvec`` run for CPU tensors with a layout attached)
+    against the plain ELL version: equal in f32, within 1e-12 in f64."""
+    idx, val, d, w, _ = _case(name)
+    for dtype in (np.float32, np.float64):
+        v, ww = _t(val.astype(dtype)), _t(w.astype(dtype))
+        lay = cs.panel_layout(_t(idx), v, d, cs.tile_rows_for(idx.shape[0]),
+                              cs.panel_cols(v.dtype))
+        ref = cs.ell_matvec_plain(_t(idx), v, ww, d).numpy()
+        got = cs.ell_panel_matvec(lay, ww).numpy()
+        attached = SparseFeatures(_t(idx), v, d, panels=lay)
+        cs.reset_launch_counts()
+        np.testing.assert_array_equal(attached.matvec(ww).numpy(), got)
+        assert cs.launch_counts() == {name: 0 for name in cs.KERNELS}
+        assert got.dtype == dtype
+        if dtype == np.float32:
+            np.testing.assert_array_equal(got, ref)
+        else:
+            np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL_F64)
+
+
+def test_with_accelerator_paths_attaches_nothing_on_cpu():
+    """On the CPU neither SparseFeatures nor LabeledBatch attaches a
+    layout: the plain versions read the ELL arrays."""
+    idx, val, d, _, _ = _case("1000x700x6")
+    sf = SparseFeatures(_t(idx), _t(val), d)
+    assert sf.with_accelerator_paths() is sf and sf.panels is None
+    n = idx.shape[0]
+    batch = LabeledBatch(sf, torch.zeros(n), torch.zeros(n), torch.ones(n))
+    assert batch.with_accelerator_paths() is batch
 
 
 @pytest.fixture
@@ -452,23 +780,68 @@ def test_kernels_match_plain_on_card(name, cuda_device):
     the emulation of the kernel's summation order, in f32 and f64."""
     idx, val, d, w, dz = _case(name)
     i, v = _t(idx).to(cuda_device), _t(val).to(cuda_device)
+    n = idx.shape[0]
     cs.reset_launch_counts()
     z = cs.ell_matvec(i, v, _t(w).to(cuda_device), d)
+    lay = cs.panel_layout(i, v, d, cs.tile_rows_for(n), cs.panel_cols(v.dtype))
+    zp = cs.ell_panel_matvec(lay, _t(w).to(cuda_device))
     csc = cs.build_csc(i, v, d)
     g1 = cs.csc_rmatvec(csc, _t(dz).to(cuda_device))
     g2 = cs.csc_rmatvec(csc, _t(dz).to(cuda_device))
     gs = cs.csc_rmatvec(csc, _t(dz).to(cuda_device), square=True)
     torch.cuda.synchronize()
-    assert cs.launch_counts() == {
-        "ell_matvec": 1, "csc_rmatvec": 2, "csc_sq_rmatvec": 1}
+    assert cs.launch_counts() == {"ell_panel_matvec": 1, "ell_matvec": 1,
+                                  "csc_rmatvec": 2, "csc_sq_rmatvec": 1}
     assert torch.equal(g1, g2)
     refs = _jax_refs(name)["pallas"]
-    for got, ref in ((z, refs[0]), (g1, refs[1]), (gs, refs[2])):
+    for got, ref in ((z, refs[0]), (zp, refs[0]), (g1, refs[1]), (gs, refs[2])):
         np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=0, atol=ATOL_F32)
     for dtype in (np.float32, np.float64):
-        val_t, dz_t = _t(val.astype(dtype)), _t(dz.astype(dtype))
+        val_t, dz_t, w_t = _t(val.astype(dtype)), _t(dz.astype(dtype)), _t(w.astype(dtype))
         host = cs.build_csc(_t(idx), val_t, d)
         dev = cs.build_csc(i, val_t.to(cuda_device), d)
         for square in (False, True):
             got = cs.csc_rmatvec(dev, dz_t.to(cuda_device), square=square)
             assert torch.equal(got.cpu(), _emulate_csc_kernel(host, dz_t, square))
+        sizes = (cs.tile_rows_for(n), cs.panel_cols(val_t.dtype))
+        host = cs.panel_layout(_t(idx), val_t, d, *sizes)
+        dev = cs.panel_layout(i, val_t.to(cuda_device), d, *sizes)
+        got = cs.ell_panel_matvec(dev, w_t.to(cuda_device))
+        assert torch.equal(got, cs.ell_panel_matvec(dev, w_t.to(cuda_device)))
+        assert torch.equal(got.cpu(), _emulate_panel_kernel(host, w_t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_panel_kernel_matches_emulation_on_card(dtype, cuda_device):
+    """The panel kernel at its own tile and panel sizes (build_panels), on
+    a layout of 3 tiles (the last one short) and 3 panels in f32 / 5 in f64
+    (the last one's width not a multiple of 16 bytes), with a column in
+    every row and duplicates: equal bit for bit to the emulation of its
+    summation order, twice in a row, and within tolerance of the plain ELL
+    version; the layout built on the card equals the host's."""
+    rng = np.random.default_rng(13)
+    n, d, k = 2500, 40001, 16
+    idx, val = _random_ell(rng, n, d, k)
+    idx[:, 0] = 7
+    idx[:, 1] = idx[:, 2]
+    val = np.where(idx < d, rng.normal(size=(n, k)), 0.0).astype(dtype)
+    w = rng.normal(size=d).astype(dtype)
+    host = cs.build_panels(_t(idx), _t(val), d)
+    dev = cs.build_panels(_t(idx).to(cuda_device), _t(val).to(cuda_device), d)
+    assert host is not None and dev is not None
+    assert host.n_tiles == 3 and host.n_panels >= 3
+    for a, b in ((host.codes, dev.codes), (host.vals, dev.vals),
+                 (host.offsets, dev.offsets)):
+        assert torch.equal(a, b.cpu())
+    wd = _t(w).to(cuda_device)
+    cs.reset_launch_counts()
+    z1 = cs.ell_panel_matvec(dev, wd)
+    z2 = cs.ell_panel_matvec(dev, wd)
+    torch.cuda.synchronize()
+    assert cs.launch_counts()["ell_panel_matvec"] == 2
+    assert torch.equal(z1, z2)
+    assert torch.equal(z1.cpu(), _emulate_panel_kernel(host, _t(w)))
+    ref = cs.ell_matvec_plain(_t(idx), _t(val), _t(w), d).numpy()
+    atol = ATOL_F32 if dtype == np.float32 else ATOL_F64
+    np.testing.assert_allclose(z1.cpu().numpy(), ref, rtol=0, atol=atol)
