@@ -30,6 +30,24 @@ exit code and no result line:
    ``photon_tpu_torch.cli.game_scoring_driver`` with ``--device cuda`` and
    ``--device cpu``; both ``scores.avro`` agree and the matvec kernel that
    ``build_panels``' rule picks for these rows launched.
+4. training at full width (``bench.py``'s headline fixed-effect shape: 2^19
+   rows x 32 entries over 2^18 features, its ``_make_data``): logistic
+   L-BFGS, L2 weight 1, SIMPLE variances, 40 iterations at tolerance 0,
+   through ``GameEstimator.fit`` on an in-memory bundle. In f32 on cuda
+   twice (bit-equal), against cpu (final objective within relative 1e-5);
+   in f64 for 10 iterations on both (coefficients within relative 1e-10).
+   The counted fit launches ``ell_panel_matvec``, ``csc_rmatvec`` and
+   ``csc_sq_rmatvec``, and its launch counts equal the pass counter's.
+   TRON-Poisson and OWL-QN-linear at ``bench.py``'s 2^17 x 16 over 2^15,
+   cuda against cpu (objective within 1e-5). The solve alone is timed,
+   profiled (``torch.profiler``: device busy and kernel shares) and its
+   host syncs counted, in f32 and in f64 (at most 40 iterations: tolerance
+   0 stops where the objective stops changing, sooner in f32).
+5. training driver: ``photon_tpu_torch.cli.game_training_driver`` on phase
+   3's Avro data (fixed-effect logistic, SIMPLE variances) with ``--device
+   cuda`` and ``--device cpu``; the saved models agree (f32, 1e-3 of the
+   largest coefficient) and the card's model is scored by the port's
+   scoring driver on cuda; stage times from ``photon.log``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
@@ -380,8 +398,8 @@ def transform_breakdown(torch, sizes, dev) -> dict:
             torch.cuda.synchronize(dev)
         return out, time.perf_counter() - t0
 
-    batch, t_attach = timed(lambda: bundle.batch("global").with_accelerator_paths())
-    _, t_fixed = timed(lambda: model["fixed"].score_batch(batch))
+    feats, t_attach = timed(lambda: bundle.features["global"].with_matvec_layout())
+    _, t_fixed = timed(lambda: feats.matvec(model["fixed"].model.coefficients.means))
     ds, t_build = timed(lambda: build_re_dataset_from_bundle(bundle, cfg))
     _, t_score = timed(lambda: model["perUser"].score_new_dataset(ds))
     return {"fixed_attach": t_attach, "fixed_matvec": t_fixed,
@@ -494,6 +512,339 @@ def phase_driver(torch, sizes, dev, ref_dev, root: str, inputs: dict) -> dict:
             "score_std": got.std().item(), "runs": runs}
 
 
+# ------------------------------------------------------------------ training
+
+# The headline fixed-effect shape (bench.py:309) and bench.py's TRON /
+# OWL-QN shape (bench_owlqn_tron).
+TRAIN = dict(n_rows=1 << 19, dim=1 << 18, k=32, iterations=40, f64_iterations=10)
+SMALL = dict(n_rows=1 << 17, dim=1 << 15, k=16, iterations=25)
+OBJ_RTOL_F32 = 1e-5          # final objective, cuda against cpu, float32
+COEF_RTOL_F64 = 1e-10        # coefficients, cuda against cpu, float64
+# Saved coefficients of the driver phase, cuda against cpu in float32, as a
+# share of the largest |coefficient|: two devices round their reductions
+# and transcendentals differently, and 20 L-BFGS iterations carry that on.
+DRIVER_COEF_RTOL_F32 = 1e-3
+OUR_KERNELS = ("ell_panel_kernel", "ell_matvec_kernel", "csc_tile_kernel",
+               "csc_fixup_kernel")
+
+
+def bench_data(n_rows, dim, k, seed=0, **_):
+    """bench.py's ``_make_data``: uniform columns, N(0, 1/k) values and
+    labels drawn from a logistic model with N(0, 1) true weights (values in
+    float32, as bench.py's division gives them under NumPy 1)."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, dim, size=(n_rows, k)).astype(np.int32)
+    val = rng.normal(size=(n_rows, k)).astype(np.float32) / np.float32(np.sqrt(k))
+    w_true = rng.normal(size=dim).astype(np.float32)
+    z = (val * w_true[idx]).sum(axis=1)
+    labels = (rng.random(n_rows) < 1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+    return idx, val, labels
+
+
+def small_data(n_rows, dim, k, seed=1, **_):
+    """bench.py's ``bench_owlqn_tron`` data: linear and Poisson labels."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, dim, size=(n_rows, k)).astype(np.int32)
+    val = rng.normal(size=(n_rows, k)).astype(np.float32) / np.float32(np.sqrt(k))
+    w_true = rng.normal(size=dim).astype(np.float32)
+    z = (val * w_true[idx]).sum(axis=1)
+    y_lin = (z + 0.1 * rng.normal(size=n_rows)).astype(np.float32)
+    y_poi = rng.poisson(np.exp(np.clip(0.2 * z, -4, 4))).astype(np.float32)
+    return idx, val, y_lin, y_poi
+
+
+def train_bundle(torch, idx, val, labels, dim, dev, dtype):
+    from photon_tpu_torch.data.batch import SparseFeatures
+    from photon_tpu_torch.io.data_reader import GameDataBundle
+
+    n = len(labels)
+    return GameDataBundle(
+        features={"global": SparseFeatures(
+            torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev, dtype), dim)},
+        labels=labels.astype(np.float64), offsets=np.zeros(n),
+        weights=np.ones(n), uids=np.full(n, "", object), id_tags={})
+
+
+def opt_config(optimizer: str, reg: str, iterations: int, variance="NONE"):
+    from photon_tpu_torch.estimators.config import GLMOptimizationConfiguration
+    from photon_tpu_torch.functions.problem import VarianceComputationType
+    from photon_tpu_torch.optim import OptimizerType
+    from photon_tpu_torch.optim.regularization import (
+        RegularizationContext,
+        RegularizationType,
+    )
+
+    return GLMOptimizationConfiguration(
+        optimizer_type=OptimizerType[optimizer], max_iterations=iterations,
+        tolerance=0.0, regularization=RegularizationContext(RegularizationType[reg]),
+        reg_weight=1.0, variance_type=VarianceComputationType[variance])
+
+
+def fit(torch, bundle, task: str, ocfg) -> dict:
+    """One ``GameEstimator.fit`` of a fixed effect on the bundle's device."""
+    from photon_tpu_torch.estimators.config import FixedEffectDataConfig
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.types import TaskType
+
+    est = GameEstimator(TaskType[task], {"fixed": FixedEffectDataConfig("global")})
+    t0 = time.perf_counter()
+    (res,) = est.fit(bundle, None, [{"fixed": ocfg}])
+    if bundle.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step = res.tracker[0]
+    coefs = res.model["fixed"].model.coefficients
+    r = step.result
+    return {"fit_s": wall, "step_s": step.seconds,
+            "ms_per_iteration": step.seconds * 1e3 / max(r.iterations, 1),
+            "iterations": r.iterations, "reason": r.reason_name(),
+            "data_passes": r.data_passes, "value": r.value,
+            "means": coefs.means, "variances": coefs.variances}
+
+
+def _public(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k not in ("means", "variances")}
+
+
+def _rel_close(a: float, b: float, rtol: float, what: str) -> float:
+    rel = abs(a - b) / max(abs(b), 1e-30)
+    if not rel <= rtol:
+        raise AssertionError(f"{what}: {a} against {b}, relative {rel} > {rtol}")
+    return rel
+
+
+def _coef_rel_err(torch, a, b) -> float:
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def solve_stats(torch, batch, problem) -> dict:
+    """``GLMOptimizationProblem.run`` on an attached batch on the card:
+    timed five times after a warm-up run (host clock to a synchronize; the
+    median and every run, since the host's clock moves between runs), once
+    under ``torch.profiler`` (device time of the port's kernels and of all
+    kernels, over the median wall time), and once under PyTorch's CUDA sync
+    debug mode (host syncs)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    w0 = torch.zeros(batch.dim, dtype=batch.labels.dtype, device=batch.labels.device)
+    problem.run(batch, w0)
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, r = problem.run(batch, w0)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    wall = statistics.median(runs)
+    out = {"iterations": r.iterations, "reason": r.reason_name(),
+           "data_passes": r.data_passes, "run_s": wall, "run_s_all": runs,
+           "ms_per_iteration": wall * 1e3 / max(r.iterations, 1)}
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            problem.run(batch, w0)
+            torch.cuda.synchronize()
+        ours = total = 0.0
+        count = 0
+        for ev in prof.key_averages():
+            if "CUDA" not in str(getattr(ev, "device_type", "")):
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            us = ev.self_cuda_time_total if us is None else us
+            total += us
+            count += ev.count
+            if any(k in ev.key for k in OUR_KERNELS):
+                ours += us
+        out["profile"] = {"device_kernels": count, "device_us": total,
+                          "port_kernels_us": ours,
+                          "device_busy_share": total / (wall * 1e6),
+                          "port_kernel_share": ours / (wall * 1e6)}
+    except Exception as e:  # noqa: BLE001 - the profiler is untried here
+        out["profile"] = {"error": f"{type(e).__name__}: {e}"}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            problem.run(batch, w0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    out.update(syncs=syncs, syncs_per_iteration=syncs / max(r.iterations, 1))
+    return out
+
+
+def phase_training(torch, cs, sizes, small, dev, ref_dev) -> dict:
+    """Fixed-effect GLM training through ``GameEstimator.fit``: logistic
+    L-BFGS with SIMPLE variances at ``sizes`` (f32 twice on ``dev``, bit
+    for bit; against ``ref_dev``; f64 on both), then TRON-Poisson and
+    OWL-QN-linear at ``small``. The first f32 fit on ``dev`` is the counted
+    run: its kernel launches are returned under ``launches``."""
+    from photon_tpu_torch.ops import pass_counter
+
+    idx, val, labels = bench_data(**sizes)
+    dim = sizes["dim"]
+    out: dict = {"shape": {k: sizes[k] for k in ("n_rows", "dim", "k")}}
+    if dev.type == "cuda":
+        idx_d = torch.from_numpy(idx).to(dev)
+        val_d = torch.from_numpy(val).to(dev)
+        t0 = time.perf_counter()
+        panels = cs.build_panels(idx_d, val_d, dim)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cs.build_csc(idx_d, val_d, dim)
+        torch.cuda.synchronize()
+        out["layouts"] = {
+            "build_panels_s": t1 - t0, "build_csc_s": time.perf_counter() - t1,
+            "row_tiles": panels.n_tiles if panels else None,
+            "tile_rows": panels.tile_rows if panels else None,
+            "panels": panels.n_panels if panels else None}
+        del idx_d, val_d, panels
+
+    cfg = opt_config("LBFGS", "L2", sizes["iterations"], "SIMPLE")
+    b32 = train_bundle(torch, idx, val, labels, dim, dev, torch.float32)
+    cs.reset_launch_counts()
+    with pass_counter.counting() as passes:
+        first = fit(torch, b32, "LOGISTIC_REGRESSION", cfg)
+    launches = cs.launch_counts()
+    passes = dict(passes)
+    second = fit(torch, b32, "LOGISTIC_REGRESSION", cfg)
+    if not (torch.equal(first["means"], second["means"])
+            and torch.equal(first["variances"], second["variances"])):
+        raise AssertionError("two f32 fits on the same data differ")
+    ref = fit(torch, train_bundle(torch, idx, val, labels, dim, ref_dev,
+                                  torch.float32), "LOGISTIC_REGRESSION", cfg)
+    obj_rel = _rel_close(first["value"], ref["value"], OBJ_RTOL_F32,
+                         "f32 final objective")
+    for run in (first, ref):
+        v = run["variances"]
+        if not (torch.isfinite(run["means"]).all() and torch.isfinite(v).all()
+                and (v > 0).all()):
+            raise AssertionError("non-finite coefficients or variances")
+    if dev.type == "cuda":
+        if passes["matvec"] != launches["ell_panel_matvec"] + launches["ell_matvec"]:
+            raise AssertionError(f"matvec passes {passes} != launches {launches}")
+        if passes["rmatvec"] != launches["csc_rmatvec"]:
+            raise AssertionError(f"rmatvec passes {passes} != launches {launches}")
+        if passes["sq_rmatvec"] != launches["csc_sq_rmatvec"]:
+            raise AssertionError(f"sq_rmatvec passes {passes} != launches {launches}")
+        for name in ("ell_panel_matvec", "csc_rmatvec", "csc_sq_rmatvec"):
+            if launches[name] < 1:
+                raise AssertionError(f"training phase never launched {name}")
+    out["logistic_lbfgs_f32"] = {
+        "run": _public(first), "repeat": _public(second), "ref": _public(ref),
+        "bit_equal_repeat": True, "objective_rel_err_vs_ref": obj_rel,
+        "coef_rel_err_vs_ref": _coef_rel_err(torch, first["means"], ref["means"]),
+        "pass_counter": passes}
+
+    cfg64 = opt_config("LBFGS", "L2", sizes["f64_iterations"], "SIMPLE")
+    f64 = {d.type: fit(torch, train_bundle(torch, idx, val, labels, dim, d,
+                                           torch.float64),
+                       "LOGISTIC_REGRESSION", cfg64) for d in (dev, ref_dev)}
+    rel64 = _coef_rel_err(torch, f64[dev.type]["means"], f64[ref_dev.type]["means"])
+    if not rel64 <= COEF_RTOL_F64:
+        raise AssertionError(f"f64 coefficients differ by {rel64} > {COEF_RTOL_F64}")
+    out["logistic_lbfgs_f64"] = {"runs": {k: _public(v) for k, v in f64.items()},
+                                 "coef_rel_err_vs_ref": rel64}
+
+    sidx, sval, y_lin, y_poi = small_data(**small)
+    for name, task, y, opt, reg in (
+            ("tron_poisson_l2", "POISSON_REGRESSION", y_poi, "TRON", "L2"),
+            ("owlqn_linear_l1", "LINEAR_REGRESSION", y_lin, "OWLQN", "L1")):
+        c = opt_config(opt, reg, small["iterations"])
+        runs = {d.type: fit(torch, train_bundle(torch, sidx, sval, y, small["dim"],
+                                                d, torch.float32), task, c)
+                for d in (dev, ref_dev)}
+        rel = _rel_close(runs[dev.type]["value"], runs[ref_dev.type]["value"],
+                         OBJ_RTOL_F32, f"{name} final objective")
+        out[name] = {"shape": {k: small[k] for k in ("n_rows", "dim", "k")},
+                     "runs": {k: _public(v) for k, v in runs.items()},
+                     "objective_rel_err_vs_ref": rel}
+
+    if dev.type == "cuda":
+        # The solve alone, f32 as fitted above and f64 (which runs longer
+        # before its objective stops changing).
+        from photon_tpu_torch.types import TaskType
+
+        task = TaskType.LOGISTIC_REGRESSION
+        out["solve_f32"] = solve_stats(
+            torch, b32.batch("global").with_accelerator_paths(), cfg.problem(task))
+        b64 = train_bundle(torch, idx, val, labels, dim, dev, torch.float64)
+        out["solve_f64"] = solve_stats(
+            torch, b64.batch("global").with_accelerator_paths(),
+            opt_config("LBFGS", "L2", sizes["iterations"], "SIMPLE").problem(task))
+    out["launches"] = launches
+    return out
+
+
+def _read_fixed(path: str) -> dict:
+    from photon_tpu_torch.io.avro import read_records
+
+    (rec,) = read_records(os.path.join(path, "fixed-effect", "fixed", "coefficients.avro"))
+    out = {"means": {(m["name"], m["term"]): m["value"] for m in rec["means"]}}
+    out["variances"] = {(m["name"], m["term"]): m["value"]
+                        for m in rec["variances"] or ()}
+    return out
+
+
+def _saved_rel_err(a: dict, b: dict) -> float:
+    keys = set(a) | set(b)
+    scale = max((abs(v) for v in b.values()), default=0.0)
+    diff = max((abs(a.get(k, 0.0) - b.get(k, 0.0)) for k in keys), default=0.0)
+    return diff / max(scale, 1e-30)
+
+
+def phase_training_driver(torch, cs, dev, ref_dev, root: str, inputs: dict) -> dict:
+    """Train on ``root/data.avro`` with the port's training driver on
+    ``dev`` and ``ref_dev`` (fixed-effect logistic L-BFGS, SIMPLE
+    variances), compare the saved models, then score ``dev``'s model with
+    the port's scoring driver on ``dev``. Returns the launches of the
+    ``dev`` training run under ``launches``."""
+    from photon_tpu_torch.cli import game_scoring_driver, game_training_driver
+    from photon_tpu_torch.io.avro import read_records
+
+    spec = "fixed:type=fixed,shard=global,reg=L2,reg_weights=1,max_iter=20,variance=SIMPLE"
+    runs, launches = {}, None
+    for d in (dev, ref_dev):
+        dest = os.path.join(root, f"train_{d.type}")
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = game_training_driver.run([
+            "--train-data", os.path.join(root, "data.avro"),
+            "--output-dir", dest, "--task", "LOGISTIC_REGRESSION",
+            "--coordinate", spec, "--index-dir", os.path.join(root, "out", "index"),
+            "--device", d.type,
+        ])
+        wall = time.perf_counter() - t0
+        if d == dev:
+            launches = cs.launch_counts()
+        runs[d.type] = {"wall_s": wall, "fit_seconds": summary["fit_seconds"],
+                        **_stage_seconds(os.path.join(dest, "photon.log"))}
+    a = _read_fixed(os.path.join(root, f"train_{dev.type}", "best"))
+    b = _read_fixed(os.path.join(root, f"train_{ref_dev.type}", "best"))
+    errs = {k: _saved_rel_err(a[k], b[k]) for k in ("means", "variances")}
+    for k, e in errs.items():
+        if not e <= DRIVER_COEF_RTOL_F32 or not b[k]:
+            raise AssertionError(f"saved {k} differ between devices: {e}")
+
+    dest = os.path.join(root, f"score_trained_{dev.type}")
+    summary = game_scoring_driver.run([
+        "--data", os.path.join(root, "data.avro"),
+        "--model-dir", os.path.join(root, f"train_{dev.type}", "best"),
+        "--output-dir", dest, "--device", dev.type,
+    ])
+    recs = read_records(os.path.join(dest, "scores.avro"))
+    scores = np.array([r["predictionScore"] for r in recs])
+    if summary["n_rows"] != inputs["rows"] or not np.isfinite(scores).all():
+        raise AssertionError("scoring the trained model failed")
+    return {"rows": inputs["rows"], "coefficients": len(a["means"]),
+            "saved_rel_err_vs_ref": errs, "runs": runs,
+            "scoring": {"score_std": float(scores.std()),
+                        **_stage_seconds(os.path.join(dest, "photon.log"))},
+            "launches": launches}
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -591,7 +942,21 @@ def main() -> int:
     if dr_launches[chosen] < 1:
         raise AssertionError(f"driver phase never launched {chosen}")
 
+    tn = phase_training(torch, cs, TRAIN, SMALL, dev, cpu)
+    tn_launches = tn.pop("launches")
+    emit({"phase": "training", "launches": tn_launches, **tn})
+
+    td = phase_training_driver(torch, cs, dev, cpu, WORK, inputs)
+    td_launches = td.pop("launches")
+    emit({"phase": "training_driver", "launches": td_launches,
+          "matvec_kernel": chosen, **td})
+    for name in (chosen, "csc_rmatvec", "csc_sq_rmatvec"):
+        if td_launches[name] < 1:
+            raise AssertionError(f"training driver phase never launched {name}")
+
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
+    by_phase = {"transformer": tr_launches, "driver": dr_launches,
+                "training": tn_launches, "training_driver": td_launches}
     rows = []
     for name in cs.KERNELS:
         f32 = kern["game"]["float32"]["kernels"][name]
@@ -600,9 +965,8 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": sources,
             "replaces": REPLACES, "via": TPU_ENTRY[name],
-            "launches": tr_launches[name] + dr_launches[name],
-            "launches_by_phase": {"transformer": tr_launches[name],
-                                  "driver": dr_launches[name]},
+            "launches": sum(c[name] for c in by_phase.values()),
+            "launches_by_phase": {k: c[name] for k, c in by_phase.items()},
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],

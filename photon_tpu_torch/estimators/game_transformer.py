@@ -48,9 +48,11 @@ class GameTransformer:
         return self.intercept_indices.get(shard)
 
     def _score_fixed(self, m: FixedEffectModel, batch) -> Tensor:
-        # The accelerator layouts attach before the scoring matvec: on CUDA
-        # the panel layout of ell_panel_matvec (see SparseFeatures).
-        return m.score_batch(batch.with_accelerator_paths())
+        # Scoring runs one matvec, so only its layout attaches: on CUDA the
+        # panel layout of ell_panel_matvec (see SparseFeatures). The
+        # transposes' CSC layout is for training.
+        feats = batch.features.with_matvec_layout()
+        return feats.matvec(m.model.coefficients.means)
 
     def transform(self, data: GameDataBundle) -> Tensor:
         """Total additive score per row: offsets + Σ coordinate scores, on

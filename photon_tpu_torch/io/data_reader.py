@@ -1,8 +1,8 @@
 """Avro training data → ELL feature tensors per feature shard.
 
 Port of ``photon_tpu/io/data_reader.py`` through its per-record path
-(``read_per_record``), plus ``InputColumnNames``, ``FeatureShardConfig`` and
-``GameDataBundle``. The JAX ``read()`` first tries its streaming block engine
+(``read_per_record``), plus ``InputColumnNames``, ``FeatureShardConfig``,
+``GameDataBundle`` and ``build_index_from_avro`` (its per-record scan). The JAX ``read()`` first tries its streaming block engine
 and native decoder, with the same semantics; that engine is ingest work and
 not ported yet, so here ``read()`` is the per-record path itself.
 
@@ -25,7 +25,9 @@ from photon_tpu_torch.data.batch import LabeledBatch, ell_from_rows
 from photon_tpu_torch.index.index_map import (
     INTERCEPT_NAME,
     INTERCEPT_TERM,
+    DefaultIndexMap,
     IndexMap,
+    build_index_from_features,
 )
 from photon_tpu_torch.io.avro import read_container
 
@@ -145,11 +147,12 @@ class AvroDataReader:
         self.id_tag_columns = tuple(id_tag_columns)
 
     def read(
-        self, paths, *, dtype: torch.dtype, device: torch.device
+        self, paths, *, dtype: torch.dtype, device: torch.device,
+        require_labels: bool = True,
     ) -> GameDataBundle:
         """Per-record pure-Python decode, as the JAX ``read_per_record``.
-        Scoring reads unlabeled records too (label → NaN); the JAX reader's
-        ``require_labels`` check comes with the training slice."""
+        ``require_labels=False`` admits unlabeled records (label → NaN), as
+        scoring does."""
         cols = self.columns
         labels, offsets, weights, uids = [], [], [], []
         tags: dict[str, list] = {t: [] for t in self.id_tag_columns}
@@ -162,7 +165,7 @@ class AvroDataReader:
         }
 
         for rec in _iter_records(_expand_paths(paths)):
-            lab = _first(rec, response_cols)
+            lab = _first(rec, response_cols, required=require_labels)
             labels.append(float("nan") if lab is None else lab)
             offsets.append(rec.get(cols.offset) or 0.0)
             w = rec.get(cols.weight)
@@ -217,9 +220,32 @@ def _iter_records(files: list[str]) -> Iterable[dict]:
         yield from it
 
 
-def _first(rec: dict, names):
+def _first(rec: dict, names, required: bool = False):
     for n in names:
         v = rec.get(n)
         if v is not None:
             return v
+    if required:
+        raise ValueError(f"record missing required column (any of {names}): {rec}")
     return None
+
+
+def build_index_from_avro(
+    paths,
+    feature_bags: Sequence[str] = ("features",),
+    add_intercept: bool = True,
+) -> DefaultIndexMap:
+    """Scan Avro files and index every (name, term) seen, in first-seen
+    order with the intercept first (the JAX package's per-record scan; its
+    native collect mode is ingest work not ported yet). Bags are read in
+    record field order."""
+    bags = set(feature_bags)
+
+    def pairs():
+        for rec in _iter_records(_expand_paths(paths)):
+            for field, items in rec.items():
+                if field in bags:
+                    for feat in items or ():
+                        yield feat["name"], feat.get("term")
+
+    return build_index_from_features(pairs(), add_intercept=add_intercept)

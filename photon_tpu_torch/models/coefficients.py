@@ -23,3 +23,8 @@ class Coefficients:
     @property
     def dim(self) -> int:
         return self.means.shape[-1]
+
+    @staticmethod
+    def zeros(dim: int, dtype: torch.dtype = torch.float32,
+              device: Optional[torch.device] = None) -> "Coefficients":
+        return Coefficients(torch.zeros(dim, dtype=dtype, device=device))

@@ -1,7 +1,8 @@
 """Generalized linear models: coefficients + task type.
 
-Port of ``photon_tpu/models/glm.py`` (``compute_score``; ``compute_mean``
-needs the losses and comes with the training slice).
+Port of ``photon_tpu/models/glm.py``: one frozen dataclass with a task in
+place of the reference's per-task model classes; the task picks the mean
+function.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from photon_tpu_torch.data.batch import SparseFeatures
 from photon_tpu_torch.models.coefficients import Coefficients
+from photon_tpu_torch.ops.losses import loss_for_task
 from photon_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
@@ -36,3 +38,14 @@ class GeneralizedLinearModel:
         if offsets is not None:
             z = z + offsets
         return z
+
+    def compute_mean(
+        self, features: SparseFeatures, offsets: Optional[Tensor] = None
+    ) -> Tensor:
+        """Score through the inverse link (reference ``computeMeanFunction``)."""
+        return loss_for_task(self.task).mean(self.compute_score(features, offsets))
+
+    @staticmethod
+    def zeros(dim: int, task: TaskType, dtype: torch.dtype = torch.float32,
+              device: Optional[torch.device] = None) -> "GeneralizedLinearModel":
+        return GeneralizedLinearModel(Coefficients.zeros(dim, dtype, device=device), task)

@@ -213,6 +213,22 @@ def ell_matvec_plain(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
     return (w_ext[safe] * val.double()).sum(dim=-1).to(val.dtype)
 
 
+def ell_rmatvec_plain(idx: Tensor, val: Tensor, v: Tensor, dim: int,
+                      square: bool = False) -> Tensor:
+    """g = Aᵀ·v (with ``square``, (A∘A)ᵀ·v) straight from the ELL arrays, as
+    ``photon_tpu/data/batch.py``'s segment sum: each entry adds val·v[row]
+    to its column; ghost and out-of-range entries land in the dropped ghost
+    slot. Sums in float64 and rounds once, as the kernel does. The CPU
+    version of ``csc_rmatvec`` where no CSC layout is attached."""
+    x = val.double()
+    if square:
+        x = x * x
+    safe = torch.where((idx >= 0) & (idx < dim), idx, dim).long()
+    out = torch.zeros(dim + 1, dtype=torch.float64, device=v.device)
+    out.index_add_(0, safe.reshape(-1), (v.double()[:, None] * x).reshape(-1))
+    return out[:dim].to(v.dtype)
+
+
 def ell_matvec(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
     """z[r] = Σ_k val[r,k]·w[idx[r,k]] — kernel ``ell_matvec`` on CUDA.
 

@@ -1,16 +1,18 @@
 """Logging and stage timing.
 
-Port of ``photon_tpu/utils/logging.py`` (``PhotonLogger`` and ``Timed``; the
-metrics JSONL writer and latency histogram come with the serving slice): a
-logger that writes a log file into the job's output directory alongside
-stderr, and a ``Timed`` block that logs wall-clock per driver stage.
+Port of ``photon_tpu/utils/logging.py`` (``PhotonLogger``, ``Timed`` and
+``write_metrics_jsonl`` without its size-bounded rotation; the latency
+histogram comes with the serving slice): a logger that writes a log file
+into the job's output directory alongside stderr, a ``Timed`` block that
+logs wall-clock per driver stage, and an append-only JSON-lines writer.
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
-from typing import Optional
+from typing import Any, Iterable, Mapping, Optional
 
 _FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
 
@@ -79,3 +81,12 @@ class Timed:
         self.seconds = time.perf_counter() - self._t0
         status = "failed" if exc_type else "done"
         self.logger.info("%s: %s in %.3fs", self.stage, status, self.seconds)
+
+
+def write_metrics_jsonl(path: str, records: Iterable[Mapping[str, Any]]) -> None:
+    """Append metric records as JSON lines, one object per line, each line
+    one unbuffered ``write()`` on an append-mode file."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "ab", buffering=0) as f:
+        for rec in records:
+            f.write((json.dumps(dict(rec)) + "\n").encode("utf-8"))

@@ -2,8 +2,9 @@
 
 * A fresh interpreter imports every module of ``photon_tpu_torch`` and runs
   the CPU-importable parts of ``chip_smoke.py`` (its data, model, bound and
-  phase functions at a tiny size, with the CPU as both devices); afterwards
-  neither ``jax`` nor any ``photon_tpu`` module is loaded.
+  phase functions, the training phases included, at a tiny size, with the
+  CPU as both devices); afterwards neither ``jax`` nor any ``photon_tpu``
+  module is loaded.
 * No source line of the port or of ``chip_smoke.py`` imports them.
 * Without a GPU, ``resolve_device()`` and the port's scoring driver run
   without ``--device cpu`` raise instead of running on the CPU (the GPU is
@@ -49,6 +50,17 @@ inputs = chip_smoke.write_driver_inputs(torch, tiny, root)
 dr = chip_smoke.phase_driver(torch, tiny, cpu, cpu, root, inputs)
 assert dr["rows"] == 64 and dr["score_std"] > 0, dr
 assert set(dr["runs"]["cpu"]) >= {"read_data_s", "score_s"}, dr
+from photon_tpu_torch.ops import cuda_sparse as cs
+tn = chip_smoke.phase_training(
+    torch, cs, dict(n_rows=512, dim=128, k=6, iterations=6, f64_iterations=3),
+    dict(n_rows=256, dim=64, k=4, iterations=4), cpu, cpu)
+lb = tn["logistic_lbfgs_f32"]
+assert lb["bit_equal_repeat"] and lb["run"]["iterations"] == 6, tn
+assert lb["pass_counter"] == {"matvec": 9, "rmatvec": 7, "sq_rmatvec": 1}, tn
+assert set(tn) >= {"tron_poisson_l2", "owlqn_linear_l1", "logistic_lbfgs_f64"}, tn
+td = chip_smoke.phase_training_driver(torch, cs, cpu, cpu, root, inputs)
+assert td["saved_rel_err_vs_ref"] == {"means": 0.0, "variances": 0.0}, td
+assert td["scoring"]["score_std"] > 0 and "fit_s" in td["runs"]["cpu"], td
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "photon_tpu"))
 print("MODULES", len(names), "BAD", bad)
