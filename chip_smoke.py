@@ -48,6 +48,36 @@ exit code and no result line:
    cuda`` and ``--device cpu``; the saved models agree (f32, 1e-3 of the
    largest coefficient) and the card's model is scored by the port's
    scoring driver on cuda; stage times from ``photon.log``.
+6. GAME training with random effects (``bench.py``'s ``bench_game_scale``
+   shape and data, ``_game_bundle``'s arithmetic: 100,000 users x 16 rows,
+   2^14 global + 8 columns a user): ``GameEstimator.fit`` of a fixed effect
+   and a per-user random effect, 2 sweeps, validated after every step with
+   AUC and LOGISTIC_LOSS on a seed-3 bundle. Fit A: one shard, per-user
+   weights 1 and 10 (``select_best`` picks one); its bucket solves on the
+   chunked dual path. Fit B: the random effect over a ``user`` shard (user
+   block + intercept), SIMPLE variances on both coordinates; full-bucket
+   primal. Each in f32 on cuda twice (bit-equality reported; the fixed
+   effects must be bit-equal) and on cpu: each bucket's summed final
+   objective within 1e-5 relative and every lane's within 5e-3, each
+   fixed-effect step that stopped at the same iteration on both devices
+   within 1e-3 of the largest coefficient, validation metrics within 1e-4,
+   the same configuration chosen; the final coefficients' difference is
+   reported against 1e-3 (see ``compare_game_fits``). The random-effect
+   step alone is timed, profiled, its host syncs counted, and its f32
+   solution held within 1e-3 of the same solve in f64. Both fits in f64 at
+   8,192 users under a 256 MB Newton budget (fit A chunked dual at 4,096,
+   as at full size; fit B full primal) and fit A at 10,000 users (full
+   dual), cuda against cpu: coefficients within 1e-9 of the largest where
+   both devices took every decision alike (see ``compare_f64_fits``).
+   Every bucket's plan equals what the gate functions give for its shape;
+   the matvec kernel and ``csc_rmatvec`` launch in every sweep,
+   ``csc_sq_rmatvec`` in fit B; TF32 must be off.
+7. GAME training driver: ``game_training_driver`` on phase 3's Avro data
+   with a per-user random effect (weights 1 and 10, 2 sweeps), validated
+   on a second Avro file with AUC and LOGISTIC_LOSS, on cuda and cpu; saved
+   models (1e-3 of the largest), evaluations (1e-4) and the chosen
+   configuration agree; the card's best model is scored by the port's
+   scoring driver with ``--evaluators AUC``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
@@ -400,50 +430,43 @@ def transform_breakdown(torch, sizes, dev) -> dict:
 
     feats, t_attach = timed(lambda: bundle.features["global"].with_matvec_layout())
     _, t_fixed = timed(lambda: feats.matvec(model["fixed"].model.coefficients.means))
-    ds, t_build = timed(lambda: build_re_dataset_from_bundle(bundle, cfg))
+    ds, t_build = timed(lambda: build_re_dataset_from_bundle(bundle, cfg,
+                                                           for_scoring=True))
     _, t_score = timed(lambda: model["perUser"].score_new_dataset(ds))
     return {"fixed_attach": t_attach, "fixed_matvec": t_fixed,
             "re_dataset_build": t_build,
             "re_project_and_score": t_score}
 
 
-def write_driver_inputs(torch, sizes, root: str) -> dict:
-    """Avro data, index store and model directory, written by the port's
-    own writers: ``root/data.avro``, ``root/out/index/global``,
-    ``root/out/best``."""
-    from photon_tpu_torch.index.index_map import (
-        INTERCEPT_NAME,
-        DefaultIndexMap,
-        MmapIndexMap,
-        build_mmap_index,
-        feature_key,
-    )
+def feature_names(sizes) -> list:
+    """The index's feature keys: the intercept, ``g``/j for the global
+    block and ``u``/<user>_j for the user blocks, in column order."""
+    from photon_tpu_torch.index.index_map import INTERCEPT_NAME, feature_key
+
+    names = [feature_key(INTERCEPT_NAME, "")]
+    names += [feature_key("g", str(j)) for j in range(sizes["d_global"])]
+    names += [feature_key("u", f"{u}_{j}") for u in range(sizes["n_users"])
+              for j in range(sizes["d_user"])]
+    return names
+
+
+def write_game_avro(sizes, path: str, rows_per_user: int, seed: int,
+                    label_seed: int, uid_prefix: str) -> int:
+    """Rows laid out by ``game_arrays`` (intercept in column 0) as Avro
+    training examples with coin-flip labels and small offsets; returns the
+    row count."""
     from photon_tpu_torch.io.avro import ContainerWriter
-    from photon_tpu_torch.io.convert import game_model_from_numpy
-    from photon_tpu_torch.io.data_reader import FeatureShardConfig
-    from photon_tpu_torch.io.model_io import save_game_model
     from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
 
-    d_global, d_user, n_users = sizes["d_global"], sizes["d_user"], sizes["n_users"]
-    rows = dict(sizes, rows_per_user=sizes["driver_rows_per_user"])
-    idx, val, dim, users, keys = game_arrays(col0=1, seed=3, **rows)
-    names = [feature_key(INTERCEPT_NAME, "")]
-    names += [feature_key("g", str(j)) for j in range(d_global)]
-    names += [feature_key("u", f"{u}_{j}") for u in range(n_users) for j in range(d_user)]
-    assert len(names) == dim
-    t0 = time.perf_counter()
-    index_dir = os.path.join(root, "out", "index", "global")
-    build_mmap_index(DefaultIndexMap(names), index_dir)
-    imap = MmapIndexMap(index_dir)
-    t_index = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(8)
-    name_term = [n.split("\x01") for n in names]
-    with ContainerWriter(os.path.join(root, "data.avro"), TRAINING_EXAMPLE_AVRO) as w:
+    idx, val, dim, users, keys = game_arrays(
+        col0=1, seed=seed, **dict(sizes, rows_per_user=rows_per_user))
+    name_term = [n.split("\x01") for n in feature_names(sizes)]
+    assert len(name_term) == dim
+    rng = np.random.default_rng(label_seed)
+    with ContainerWriter(path, TRAINING_EXAMPLE_AVRO) as w:
         for r in range(len(users)):
             w.write({
-                "uid": f"r{r}",
+                "uid": f"{uid_prefix}{r}",
                 "label": float(rng.random() < 0.5),
                 "weight": None,
                 "offset": float(rng.normal()) * 0.1,
@@ -454,6 +477,32 @@ def write_driver_inputs(torch, sizes, root: str) -> dict:
                 ],
                 "metadataMap": {"userId": keys[r]},
             })
+    return len(users)
+
+
+def write_driver_inputs(torch, sizes, root: str) -> dict:
+    """Avro data, index store and model directory, written by the port's
+    own writers: ``root/data.avro``, ``root/out/index/global``,
+    ``root/out/best``."""
+    from photon_tpu_torch.index.index_map import (
+        DefaultIndexMap,
+        MmapIndexMap,
+        build_mmap_index,
+    )
+    from photon_tpu_torch.io.convert import game_model_from_numpy
+    from photon_tpu_torch.io.data_reader import FeatureShardConfig
+    from photon_tpu_torch.io.model_io import save_game_model
+
+    t0 = time.perf_counter()
+    index_dir = os.path.join(root, "out", "index", "global")
+    build_mmap_index(DefaultIndexMap(feature_names(sizes)), index_dir)
+    imap = MmapIndexMap(index_dir)
+    t_index = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    n = write_game_avro(sizes, os.path.join(root, "data.avro"),
+                        sizes["driver_rows_per_user"], seed=3, label_seed=8,
+                        uid_prefix="r")
     t_data = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -463,7 +512,7 @@ def write_driver_inputs(torch, sizes, root: str) -> dict:
                     {"fixed": "global", "perUser": "global"},
                     {"global": FeatureShardConfig(("features",), True)})
     t_model = time.perf_counter() - t0
-    return {"rows": len(users), "dim": dim, "write_index_s": t_index,
+    return {"rows": n, "dim": len(feature_names(sizes)), "write_index_s": t_index,
             "write_data_s": t_data, "write_model_s": t_model}
 
 
@@ -845,6 +894,764 @@ def phase_training_driver(torch, cs, dev, ref_dev, root: str, inputs: dict) -> d
             "launches": launches}
 
 
+# ------------------------------------------------------------------ GAME training
+
+# bench.py's bench_game_scale shape (bench.py:2866-2898): 100,000 users x 16
+# rows, 2^14 global columns + 8 per user, 12 global and 4 per-user entries.
+GAME = dict(n_users=100_000, rows_per_user=16, d_global=1 << 14, d_user=8,
+            iterations=15)
+# f64 fits, cuda against cpu, at 8,192 users under a 256 MB Newton budget:
+# between the f64 dual need of a 4,096-entity chunk (170 MB at S=16, P=256)
+# and of the whole bucket (341 MB), so fit A takes the main path's chunked
+# dual at 4,096 and fit B (72 MB) stays full-bucket primal.
+GAME_F64_USERS = 8192
+GAME_F64_BUDGET_MB = 256
+# f64 coefficients, cuda against cpu, of a configuration in which both
+# devices took every decision alike (each Newton lane's iterations and
+# reason, each L-BFGS step's iterations, reason and data passes); where a
+# decision differs (a lane ends one iteration apart on a convergence test
+# that f64 rounding decides), the configuration is held to the second bound
+# (one such lane read 4.0e-9 on an NVIDIA H100 80GB HBM3 at 700 W).
+GAME_COEF_RTOL_F64 = 1e-9
+GAME_COEF_RTOL_F64_SPLIT = 1e-6
+RE_OBJ_RTOL_F32 = 1e-5        # a bucket's summed final objective, cuda against cpu
+# A lane's final objective, cuda against cpu, |fa - fb| / max(|fb|, 1). The
+# lanes see the fixed effect's offsets, so its gap reaches them: 6.2e-5
+# (fit A) and 2.1e-3 (fit B, whose fixed effect stopped one L-BFGS
+# iteration apart on the two devices) on an NVIDIA H100 80GB HBM3 at 700 W.
+LANE_OBJ_RTOL_F32 = 5e-3
+METRIC_ATOL = 1e-4            # validation metrics, cuda against cpu
+# f32 coefficients within 1e-3 of the largest, asserted where the two
+# solves took the same decisions: the random-effect solve on the card
+# against the same solve in f64 on the same offsets, and each fixed-effect
+# step that took the same iterations on both devices. The final GAME
+# coefficients, cuda against cpu, are reported against it.
+COEF_BAR_F32 = 1e-3
+
+
+def game_arrays_bench(n_users, rows_per_user, d_global, d_user, seed=2, **_):
+    """bench.py's ``_game_bundle`` arithmetic (no item block): 12 global
+    entries and 4 of the row's user block; labels from latent weights of a
+    fixed rng, shared by every ``seed``. Also the ``user`` shard: an
+    intercept (column 0) plus the row's user-block entries."""
+    wrng = np.random.default_rng(1234)
+    wg = wrng.normal(size=d_global).astype(np.float32) * 0.5
+    wu = wrng.normal(size=(n_users, d_user)).astype(np.float32) * 0.8
+    rng = np.random.default_rng(seed)
+    n = n_users * rows_per_user
+    dim = d_global + n_users * d_user
+    users = np.repeat(np.arange(n_users), rows_per_user)
+    rng.shuffle(users)
+    k = 12
+    gi = rng.integers(0, d_global, size=(n, k)).astype(np.int32)
+    gv = (rng.normal(size=(n, k)) / np.sqrt(k)).astype(np.float32)
+    ul = rng.integers(0, d_user, size=(n, 4))
+    ui = (d_global + users[:, None] * d_user + ul).astype(np.int32)
+    uv = (rng.normal(size=(n, 4)) / 2.0).astype(np.float32)
+    z = (gv * wg[gi]).sum(1) + (uv * wu[users[:, None], ul]).sum(1)
+    labels = (rng.random(n) < 1 / (1 + np.exp(-z))).astype(np.float64)
+    user_idx = np.concatenate([np.zeros((n, 1), np.int32),
+                               (1 + users[:, None] * d_user + ul).astype(np.int32)], 1)
+    user_val = np.concatenate([np.ones((n, 1), np.float32), uv], 1)
+    return {"idx": np.concatenate([gi, ui], 1), "val": np.concatenate([gv, uv], 1),
+            "dim": dim, "labels": labels,
+            "keys": np.array([f"u{u}" for u in users], object),
+            "user_idx": user_idx, "user_val": user_val,
+            "user_dim": 1 + n_users * d_user}
+
+
+def game_bundle(torch, arrays, dev, dtype):
+    from photon_tpu_torch.data.batch import SparseFeatures
+    from photon_tpu_torch.io.data_reader import GameDataBundle
+
+    def sf(i, v, d):
+        return SparseFeatures(torch.from_numpy(i).to(dev),
+                              torch.from_numpy(v).to(dev, dtype), d)
+
+    n = len(arrays["labels"])
+    return GameDataBundle(
+        features={"global": sf(arrays["idx"], arrays["val"], arrays["dim"]),
+                  "user": sf(arrays["user_idx"], arrays["user_val"],
+                             arrays["user_dim"])},
+        labels=arrays["labels"], offsets=np.zeros(n), weights=np.ones(n),
+        uids=np.arange(n).astype(object), id_tags={"userId": arrays["keys"]})
+
+
+def game_estimator(re_shard: str, n_sweeps: int, evaluators=("AUC", "LOGISTIC_LOSS")):
+    from photon_tpu_torch.estimators.config import (
+        FixedEffectDataConfig,
+        RandomEffectDataConfig,
+    )
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.types import TaskType
+
+    return GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {"fixed": FixedEffectDataConfig("global"),
+         "perUser": RandomEffectDataConfig("userId", re_shard)},
+        n_sweeps=n_sweeps, evaluator_specs=evaluators,
+        intercept_indices={"user": 0} if re_shard == "user" else None)
+
+
+def game_configs(re_weights, iterations: int, variance: str) -> list:
+    from photon_tpu_torch.estimators.config import GLMOptimizationConfiguration
+    from photon_tpu_torch.functions.problem import VarianceComputationType
+    from photon_tpu_torch.optim.regularization import (
+        RegularizationContext,
+        RegularizationType,
+    )
+
+    def opt(w):
+        return GLMOptimizationConfiguration(
+            regularization=RegularizationContext(RegularizationType.L2),
+            reg_weight=w, max_iterations=iterations,
+            variance_type=VarianceComputationType[variance])
+
+    return [{"fixed": opt(1.0), "perUser": opt(w)} for w in re_weights]
+
+
+class _StepLaunches:
+    """Kernel launch counts at the end of every coordinate step: a logging
+    handler on the descent's logger, which logs once per step."""
+
+    def __init__(self, cs):
+        import logging
+
+        self.cs, self.snaps = cs, []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda rec: self.snaps.append(
+            (rec.args[:2], cs.launch_counts()))
+        self.logger = logging.getLogger("photon_tpu_torch.game")
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(20)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def per_sweep(self) -> list:
+        """Launches of each (config, sweep): deltas between snapshots."""
+        out, prev = [], {k: 0 for k in self.cs.KERNELS}
+        for (sweep, cid), snap in self.snaps:
+            delta = {k: snap[k] - prev[k] for k in snap}
+            prev = snap
+            if out and out[-1]["sweep"] == sweep and cid not in out[-1]["steps"]:
+                out[-1]["steps"].append(cid)
+                for k, v in delta.items():
+                    out[-1]["launches"][k] += v
+            else:
+                out.append({"sweep": sweep, "steps": [cid], "launches": delta})
+        return out
+
+
+def _step_solver(result) -> dict:
+    """A fixed-effect step's iterations and reason; a random-effect step's
+    largest Newton iteration count over its lanes."""
+    if isinstance(result, (list, tuple)):
+        return {"newton_iterations_max": max(
+            (int(r.iterations.max().item()) for r in result if r.iterations.numel()),
+            default=0)}
+    return {"iterations": result.iterations, "reason": result.reason_name()}
+
+
+def game_fit(torch, cs, est, train, valid, cfgs, counted=False) -> dict:
+    """One ``GameEstimator.fit`` (fixed + perUser, validated after every
+    step when ``valid`` is given) on the bundle's device; with ``counted``
+    the kernel launches of the fit and of each sweep. A repeated fit of the
+    same estimator and bundle reuses the datasets and layouts built by the
+    first."""
+    from photon_tpu_torch.game import newton_re
+    from photon_tpu_torch.game import random_effect as re_mod
+
+    dev = train.device
+    if counted:
+        cs.reset_launch_counts()
+    newton_re.reset_syncs()
+    with _StepLaunches(cs) as steps:
+        t0 = time.perf_counter()
+        results = est.fit(train, valid, cfgs)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {"fit_s": wall, "results": results,
+           "buckets": re_mod.bucket_records(),
+           "newton_loop_fetches": newton_re.SYNCS["newton_loop"],
+           "steps": [{"config": i, "sweep": r.sweep, "coordinate": r.coordinate_id,
+                      "seconds": r.seconds, **_step_solver(r.result),
+                      "validation": dict(r.validation.values) if r.validation else None}
+                     for i, res in enumerate(results) for r in res.tracker]}
+    if counted:
+        out["launches"] = cs.launch_counts()
+        out["launches_per_sweep"] = steps.per_sweep()
+    if valid is not None:
+        from photon_tpu_torch.estimators.game_estimator import select_best
+        from photon_tpu_torch.evaluation import EvaluationSuite
+
+        best = select_best(results, EvaluationSuite.parse(list(est.evaluator_specs)))
+        out["best_config"] = next(i for i, r in enumerate(results) if r is best)
+    return out
+
+
+def _game_tensors(result) -> list:
+    """Every coefficient tensor of a GAME fit result, in a fixed order."""
+    out = []
+    for cid in sorted(result.model.keys()):
+        m = result.model[cid]
+        if hasattr(m, "bucket_coefs"):
+            out += list(m.bucket_coefs) + list(m.bucket_variances or [])
+        else:
+            c = m.model.coefficients
+            out += [c.means] + ([c.variances] if c.variances is not None else [])
+    return out
+
+
+def _stack_rel_err(torch, a_list, b_list) -> float:
+    """max |a - b| over max |b|, across a list of tensors."""
+    diff = max((a.detach().cpu().double() - b.detach().cpu().double()).abs().max().item()
+               for a, b in zip(a_list, b_list))
+    scale = max(b.detach().cpu().double().abs().max().item() for b in b_list)
+    return diff / max(scale, 1e-30)
+
+
+def _coef_errs(torch, run, ref, split_at=None) -> dict:
+    """Per configuration and coordinate, max |a - b| over the largest |b|
+    (random effects over all their buckets); with ``split_at``, the fixed
+    effect's global block (columns below it) and per-user block apart,
+    each over the whole vector's largest."""
+    out = {}
+    for i, (ra, rb) in enumerate(zip(run["results"], ref["results"])):
+        for cid in ra.model.keys():
+            ma, mb = ra.model[cid], rb.model[cid]
+            if hasattr(ma, "bucket_coefs"):
+                out[f"{i}/{cid}"] = _stack_rel_err(torch, ma.bucket_coefs,
+                                                   mb.bucket_coefs)
+                continue
+            a, b = ma.model.coefficients.means, mb.model.coefficients.means
+            out[f"{i}/{cid}"] = _stack_rel_err(torch, [a], [b])
+            if split_at is not None:
+                scale = b.detach().abs().max().item()
+                for part, sl in (("global", slice(0, split_at)),
+                                 ("user_block", slice(split_at, None))):
+                    d = (a[sl].detach().cpu().double()
+                         - b[sl].detach().cpu().double()).abs().max().item()
+                    out[f"{i}/{cid}/{part}"] = d / max(scale, 1e-30)
+    return out
+
+
+def _fixed_steps(torch, run, ref) -> list:
+    """Each fixed-effect step of both fits: iterations, reasons and data
+    passes, the final objectives' relative gap and the step's coefficients'
+    gap (over the largest), and the first iteration whose objectives
+    differ."""
+    out = []
+    for i, (ra, rb) in enumerate(zip(run["results"], ref["results"])):
+        for sa, sb in zip(ra.tracker, rb.tracker):
+            if sa.coordinate_id != "fixed":
+                continue
+            a, b = sa.result, sb.result
+            n = min(a.iterations, b.iterations) + 1
+            va, vb = a.values[:n].double(), b.values[:n].double()
+            differ = torch.nonzero(va != vb).flatten()
+            out.append({"config": i, "sweep": sa.sweep,
+                        "iterations": [a.iterations, b.iterations],
+                        "reasons": [a.reason_name(), b.reason_name()],
+                        "data_passes": [a.data_passes, b.data_passes],
+                        "value_rel_err": abs(a.value - b.value) / max(abs(b.value), 1e-30),
+                        "coef_rel_err": _stack_rel_err(torch, [a.x], [b.x]),
+                        "first_differing_iteration":
+                            int(differ[0]) if differ.numel() else None})
+    return out
+
+
+def _lane_path_diffs(run, ref) -> dict:
+    """Lanes whose Newton iterations or converged reason differ between the
+    two fits, per (configuration, sweep) random-effect step."""
+    out = {}
+    for i, (ra, rb) in enumerate(zip(run["results"], ref["results"])):
+        for sa, sb in zip(ra.tracker, rb.tracker):
+            if sa.coordinate_id == "fixed":
+                continue
+            n = sum(int(((x.iterations.cpu() != y.iterations.cpu())
+                         | (x.converged_reason.cpu() != y.converged_reason.cpu()))
+                        .sum()) for x, y in zip(sa.result, sb.result))
+            out[f"{i}/{sa.sweep}"] = n
+    return out
+
+
+def _lane_objective_err(run, ref) -> float:
+    """The largest |fa - fb| / max(|fb|, 1) over every lane of every bucket,
+    at the end of each configuration's last random-effect step."""
+    worst = 0.0
+    for ra, rb in zip(run["results"], ref["results"]):
+        la = [r for r in ra.tracker if r.coordinate_id == "perUser"][-1]
+        lb = [r for r in rb.tracker if r.coordinate_id == "perUser"][-1]
+        for ba, bb in zip(la.result, lb.result):
+            fa, fb = ba.value.detach().cpu().double(), bb.value.detach().cpu().double()
+            worst = max(worst, ((fa - fb).abs() / fb.abs().clamp(min=1.0)).max().item())
+    return worst
+
+
+def compare_game_fits(torch, run, ref, split_at: int) -> dict:
+    """A GAME fit on the card against the same fit on the CPU. Asserted:
+    each bucket's summed final objective and every lane's, at the end of
+    each configuration's last random-effect step; each fixed-effect step
+    that stopped at the same iteration on both devices within
+    ``COEF_BAR_F32``; each step's validation metrics and the chosen
+    configuration. The final coefficients are reported against
+    ``COEF_BAR_F32``, the fixed effect's by block as well (``split_at``: its
+    first per-user column): an f32 solve stops where its f32 objective
+    stops resolving a change, so a step that stops an iteration apart on the
+    two devices (``fixed_steps``) leaves its coefficients apart by that
+    iteration's step. Every comparison is made and reported before any
+    failure is raised."""
+    out = {"coef_rel_err": _coef_errs(torch, run, ref, split_at),
+           "coef_bar": COEF_BAR_F32,
+           "fixed_steps": _fixed_steps(torch, run, ref),
+           "bucket_objective_rel_err": [],
+           "lane_objective_rel_err": _lane_objective_err(run, ref),
+           "metric_abs_err": 0.0, "failures": []}
+    out["coef_bar_met"] = max(out["coef_rel_err"].values()) <= COEF_BAR_F32
+    for st in out["fixed_steps"]:
+        same = st["iterations"][0] == st["iterations"][1] and \
+            st["reasons"][0] == st["reasons"][1]
+        if same and not st["coef_rel_err"] <= COEF_BAR_F32:
+            out["failures"].append(
+                f"fixed step {st['config']}/{st['sweep']}: same iterations, "
+                f"coefficients {st['coef_rel_err']} apart > {COEF_BAR_F32}")
+    for ra, rb in zip(run["results"], ref["results"]):
+        la = [r for r in ra.tracker if r.coordinate_id == "perUser"][-1]
+        lb = [r for r in rb.tracker if r.coordinate_id == "perUser"][-1]
+        for ba, bb in zip(la.result, lb.result):
+            fa, fb = ba.value.double().sum().item(), bb.value.double().sum().item()
+            rel = abs(fa - fb) / max(abs(fb), 1e-30)
+            out["bucket_objective_rel_err"].append(rel)
+            if not rel <= RE_OBJ_RTOL_F32:
+                out["failures"].append(f"bucket objective {fa} against {fb}: "
+                                       f"{rel} > {RE_OBJ_RTOL_F32}")
+    if not out["lane_objective_rel_err"] <= LANE_OBJ_RTOL_F32:
+        out["failures"].append(f"lane objectives differ by "
+                               f"{out['lane_objective_rel_err']} > {LANE_OBJ_RTOL_F32}")
+    for sa, sb in zip(run["steps"], ref["steps"]):
+        for k, v in (sa["validation"] or {}).items():
+            e = abs(v - sb["validation"][k])
+            out["metric_abs_err"] = max(out["metric_abs_err"], e)
+            if not e <= METRIC_ATOL:
+                out["failures"].append(f"validation {k} differs by {e}")
+    if run.get("best_config") != ref.get("best_config"):
+        out["failures"].append("the devices chose different configurations")
+    return out
+
+
+def compare_f64_fits(torch, run, ref) -> dict:
+    """f64 GAME fits, cuda against cpu, per configuration: the coefficients'
+    gap over the largest, and the decisions taken apart (Newton lanes whose
+    iterations or reason differ, fixed-effect steps whose iterations,
+    reason or data passes differ). Held to ``GAME_COEF_RTOL_F64`` where no
+    decision differs, else to ``GAME_COEF_RTOL_F64_SPLIT``."""
+    lanes = _lane_path_diffs(run, ref)
+    steps = _fixed_steps(torch, run, ref)
+    out = {"configs": [], "fixed_steps": steps, "lanes_on_other_paths": lanes,
+           "failures": []}
+    for i, (ra, rb) in enumerate(zip(run["results"], ref["results"])):
+        rel = _stack_rel_err(torch, _game_tensors(ra), _game_tensors(rb))
+        split_lanes = sum(n for k, n in lanes.items() if k.startswith(f"{i}/"))
+        split_steps = sum(1 for st in steps if st["config"] == i and (
+            len({st["iterations"][0], st["iterations"][1]}) > 1
+            or len(set(st["reasons"])) > 1 or len(set(st["data_passes"])) > 1))
+        lim = GAME_COEF_RTOL_F64 if not (split_lanes or split_steps) \
+            else GAME_COEF_RTOL_F64_SPLIT
+        out["configs"].append({"coef_rel_err": rel, "lanes_apart": split_lanes,
+                               "fixed_steps_apart": split_steps, "limit": lim})
+        if not rel <= lim:
+            out["failures"].append(f"config {i}: f64 coefficients {rel} apart "
+                                   f"({split_lanes} lanes, {split_steps} fixed "
+                                   f"steps on other paths) > {lim}")
+    out["coef_rel_err"] = max(c["coef_rel_err"] for c in out["configs"])
+    return out
+
+
+def expected_plans(problem, dataset, u_max: int) -> list:
+    """Each bucket's static plan from the gate functions and the bucket's
+    shape alone (``u_max`` from the configuration: 1 with an intercept)."""
+    from photon_tpu_torch.game import newton_re as nr
+
+    plans = []
+    for b in dataset.buckets:
+        if nr.newton_eligible(problem, b, None):
+            plans.append(("newton_primal", None))
+        elif nr.dual_eligible(problem, b, None, u_max):
+            plans.append(("newton_dual", None))
+        elif nr.newton_chunk_size(problem, b, None):
+            plans.append(("newton_primal", nr.newton_chunk_size(problem, b, None)))
+        else:
+            plans.append(("newton_dual", nr.dual_chunk_size(problem, b, None, u_max)))
+    return plans
+
+
+def re_step_stats(torch, est, bundle, re_shard, variance, fit_result) -> dict:
+    """The random-effect step alone on the card, on the dataset the fit
+    used (``est``'s preparation of ``bundle``) at the trained model's
+    fixed-effect offsets: timed (host clock to a synchronize, median of 3),
+    profiled (device busy share), its host syncs counted (sync debug mode)
+    against the Newton loops' iterations, held against the same solve in
+    f64; and the dense design's build."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_tpu_torch.functions.objective import intercept_reg_mask
+    from photon_tpu_torch.game import newton_re
+    from photon_tpu_torch.game.random_effect import bucket_records, train_random_effects
+    from photon_tpu_torch.types import TaskType
+
+    dev = bundle.device
+    ds = est._prepare_cached(bundle)["datasets"]["perUser"]
+    problem = game_configs([1.0], GAME["iterations"], variance)[0]["perUser"].problem(
+        TaskType.LOGISTIC_REGRESSION)
+    mask = intercept_reg_mask(ds.global_dim, 0 if re_shard == "user" else None,
+                              device=dev)
+    offsets = bundle.features["global"].with_matvec_layout().matvec(
+        fit_result.model["fixed"].model.coefficients.means)
+
+    def run():
+        return train_random_effects(problem, ds, offsets, global_reg_mask=mask)
+
+    run()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    out = {"re_step_s": wall, "re_step_s_all": walls,
+           "entities": ds.n_entities, "entities_per_s": ds.n_entities / wall,
+           "buckets": bucket_records(),
+           "plans_from_gates": expected_plans(
+               problem, ds, 1 if re_shard == "user" else 0)}
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        total = count = 0
+        for ev in prof.key_averages():
+            if "CUDA" not in str(getattr(ev, "device_type", "")):
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            us = ev.self_cuda_time_total if us is None else us
+            total += us
+            count += ev.count
+        out["profile"] = {"device_kernels": count, "device_us": total,
+                          "device_busy_share": total / (wall * 1e6)}
+    except Exception as e:  # noqa: BLE001 - the profiler is untried here
+        out["profile"] = {"error": f"{type(e).__name__}: {e}"}
+    newton_re.reset_syncs()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync_warnings = [w for w in caught if "synchroniz" in str(w.message)]
+    syncs = len(sync_warnings)
+    where: dict = {}
+    for w in sync_warnings:
+        key = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+        where[key] = where.get(key, 0) + 1
+    out["sync_sites"] = dict(sorted(where.items(), key=lambda kv: -kv[1])[:6])
+    iters = sum(max(r["newton_iterations_max"], 1) for r in bucket_records())
+    chunks = sum(-(-r["entities"] // (r["chunk"] or r["entities"]))
+                 for r in bucket_records())
+    out.update(syncs=syncs, newton_loop_fetches=newton_re.SYNCS["newton_loop"],
+               newton_iterations_slowest_lane_per_bucket=iters, solves=chunks,
+               syncs_per_newton_fetch=syncs / max(newton_re.SYNCS["newton_loop"], 1))
+    # The solver alone against the same solve in f64 on the card, on the
+    # same offsets: the f32 solve's own distance from the optimum it
+    # approximates, without the fixed effect's.
+    import dataclasses
+
+    ds64 = dataclasses.replace(ds, buckets=tuple(
+        dataclasses.replace(b, **{f.name: (getattr(b, f.name).double()
+                                           if getattr(b, f.name).is_floating_point()
+                                           else getattr(b, f.name))
+                                  for f in dataclasses.fields(b)})
+        for b in ds.buckets))
+    model, results = run()
+    records = bucket_records()
+    model_64, results_64 = train_random_effects(
+        problem, ds64, offsets.double(),
+        global_reg_mask=None if mask is None else mask.double())
+    err = _stack_rel_err(torch, model.bucket_coefs, model_64.bucket_coefs)
+    lane = max(((a.value.double() - b.value).abs() / b.value.abs().clamp(min=1.0))
+               .max().item() for a, b in zip(results, results_64))
+    out["solver_vs_f64"] = {"coef_rel_err": err, "lane_objective_rel_err": lane,
+                            "f64_buckets": bucket_records()}
+    # the dense design of one solve's batch (a chunk, or the whole bucket)
+    big = max(range(len(ds.buckets)), key=lambda i: ds.buckets[i].n_entities)
+    b = ds.buckets[big]
+    n = records[big]["chunk"] or b.n_entities
+    batch = b.local_batches(offsets)
+    part = newton_re._slice_pad_batches(batch, 0, min(n, b.n_entities), n)
+    newton_re._dense_design(part, torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    newton_re._dense_design(part, torch.float32)
+    torch.cuda.synchronize()
+    out["dense_design"] = {"entities": n, "shape": [n, b.max_samples, b.local_dim + 1],
+                           "s": time.perf_counter() - t0}
+    return out
+
+
+GAME_FITS = (("fit_a", "global", (1.0, 10.0), "NONE"),
+             ("fit_b", "user", (1.0,), "SIMPLE"))
+
+
+def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
+                        f64_users_full_dual=10_000) -> dict:
+    """GAME training with random effects through ``GameEstimator.fit``.
+
+    Fit A (``bench_game_scale``'s shape, one shard): fixed + perUser, L2
+    weight 1 and per-user weights 1 and 10, ``sizes['iterations']``
+    iterations, 2 sweeps, validated on a seed-3 bundle with AUC and
+    LOGISTIC_LOSS. Fit B: the same users, the random effect over the
+    ``user`` shard (user block + intercept), SIMPLE variances on both
+    coordinates. Each in f32 on ``dev`` twice (bit-equality reported) and on
+    ``ref_dev``; each again in f64 at ``f64_users`` users on both devices
+    under a ``GAME_F64_BUDGET_MB`` Newton budget, so that fit A solves
+    chunked on the dual path as at full size; and fit A in f64 at
+    ``f64_users_full_dual`` users under the default budget. Returns the
+    counted fits' launches under ``launches``."""
+    arrays = game_arrays_bench(seed=2, **sizes)
+    varrays = game_arrays_bench(seed=3, **sizes)
+    it = sizes["iterations"]
+    out: dict = {"shape": {k: sizes[k] for k in ("n_users", "rows_per_user",
+                                                  "d_global", "d_user")},
+                 "rows": len(arrays["labels"]),
+                 "tf32_matmul": torch.backends.cuda.matmul.allow_tf32}
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the f32 products need true f32")
+    launches, failures = {}, []
+    data = {d.type: (game_bundle(torch, arrays, d, torch.float32),
+                     game_bundle(torch, varrays, d, torch.float32))
+            for d in (dev, ref_dev)}
+    for name, shard, weights, variance in GAME_FITS:
+        cfgs = game_configs(weights, it, variance)
+        est = {d.type: game_estimator(shard, 2) for d in (dev, ref_dev)}
+        first = game_fit(torch, cs, est[dev.type], *data[dev.type], cfgs,
+                         counted=True)
+        second = game_fit(torch, cs, est[dev.type], *data[dev.type], cfgs)
+        ref = game_fit(torch, cs, est[ref_dev.type], *data[ref_dev.type], cfgs)
+        bit_equal = all(
+            torch.equal(a, b) for ra, rb in zip(first["results"], second["results"])
+            for a, b in zip(_game_tensors(ra), _game_tensors(rb)))
+        fixed_bit_equal = all(
+            torch.equal(ra.model["fixed"].model.coefficients.means,
+                        rb.model["fixed"].model.coefficients.means)
+            for ra, rb in zip(first["results"], second["results"]))
+        cmp = compare_game_fits(torch, first, ref, sizes["d_global"])
+        failures += [f"{name}: {f}" for f in cmp["failures"]]
+        for s in first["steps"]:
+            if not all(np.isfinite(v) for v in (s["validation"] or {}).values()):
+                failures.append(f"{name}: non-finite validation metrics")
+        launches[name] = first.pop("launches")
+        if dev.type == "cuda":
+            mv = ("ell_panel_matvec", "ell_matvec")
+            for sw in first["launches_per_sweep"]:
+                if not (sum(sw["launches"][k] for k in mv) and sw["launches"]["csc_rmatvec"]):
+                    failures.append(f"{name}: a sweep launched no matvec or "
+                                    f"csc_rmatvec: {sw}")
+            if name == "fit_b" and launches[name]["csc_sq_rmatvec"] < 1:
+                failures.append("fit B never launched csc_sq_rmatvec")
+        stats = (re_step_stats(torch, est[dev.type], data[dev.type][0], shard,
+                               variance, first["results"][0])
+                 if dev.type == "cuda" else None)
+        if stats is not None and not stats["solver_vs_f64"]["coef_rel_err"] <= COEF_BAR_F32:
+            failures.append(f"{name}: the f32 random-effect solve is "
+                            f"{stats['solver_vs_f64']['coef_rel_err']} from the f64 "
+                            f"solve on the same offsets (> {COEF_BAR_F32})")
+        plans = [(r["solver"], r["chunk"]) for r in first["buckets"]]
+        out[name] = {
+            "re_shard": shard, "re_weights": weights, "variance": variance,
+            "fit_s": {"run": first["fit_s"], "repeat": second["fit_s"],
+                      "ref": ref["fit_s"]},
+            "steps": first["steps"], "ref_steps": ref["steps"],
+            "buckets": first["buckets"], "plans": plans,
+            "best_config": first.get("best_config"),
+            "newton_loop_fetches": first["newton_loop_fetches"],
+            "launches_per_sweep": first["launches_per_sweep"],
+            "bit_equal_repeat": bit_equal, "fixed_bit_equal_repeat": fixed_bit_equal,
+            "vs_ref": cmp, "re_step": stats}
+        if not fixed_bit_equal:
+            failures.append(f"{name}: two f32 fits' fixed effects differ")
+        del est, first, second, ref
+
+    del data
+    # fit A in f64 at 10,000 users under the default budget (full dual): no
+    # decision may differ, so the bound holds without exception
+    ten = game_arrays_bench(seed=2, **dict(sizes, n_users=f64_users_full_dual))
+    f64 = {d.type: game_fit(torch, cs, game_estimator("global", 2, ()),
+                            game_bundle(torch, ten, d, torch.float64), None,
+                            game_configs((1.0,), it, "NONE"))
+           for d in (dev, ref_dev)}
+    rel = _stack_rel_err(torch, _game_tensors(f64[dev.type]["results"][0]),
+                         _game_tensors(f64[ref_dev.type]["results"][0]))
+    out["fit_a_f64_full_dual"] = {
+        "users": f64_users_full_dual, "coef_rel_err_vs_ref": rel,
+        "fit_s": {k: v["fit_s"] for k, v in f64.items()},
+        "plans": [(r["entities"], r["solver"], r["chunk"])
+                  for r in f64[dev.type]["buckets"]]}
+    if not rel <= GAME_COEF_RTOL_F64:
+        failures.append(f"fit A f64 at {f64_users_full_dual} users: coefficients "
+                        f"differ by {rel}")
+    small = game_arrays_bench(seed=2, **dict(sizes, n_users=f64_users))
+    saved = os.environ.get("PHOTON_RE_NEWTON_BUDGET_MB")
+    os.environ["PHOTON_RE_NEWTON_BUDGET_MB"] = str(GAME_F64_BUDGET_MB)
+    try:
+        for name, shard, weights, variance in GAME_FITS:
+            cfgs = game_configs(weights, it, variance)
+            f64 = {d.type: game_fit(torch, cs, game_estimator(shard, 2, ()),
+                                    game_bundle(torch, small, d, torch.float64),
+                                    None, cfgs)
+                   for d in (dev, ref_dev)}
+            cmp = compare_f64_fits(torch, f64[dev.type], f64[ref_dev.type])
+            failures += [f"{name} f64: {f}" for f in cmp.pop("failures")]
+            out[f"{name}_f64"] = {
+                "users": f64_users, "budget_mb": GAME_F64_BUDGET_MB,
+                "coef_rel_err_vs_ref": cmp.pop("coef_rel_err"), "vs_ref": cmp,
+                "fit_s": {k: v["fit_s"] for k, v in f64.items()},
+                "plans": {k: [(r["entities"], r["solver"], r["chunk"])
+                              for r in v["buckets"]] for k, v in f64.items()}}
+    finally:
+        if saved is None:
+            os.environ.pop("PHOTON_RE_NEWTON_BUDGET_MB", None)
+        else:
+            os.environ["PHOTON_RE_NEWTON_BUDGET_MB"] = saved
+    if failures:
+        emit({"phase": "game_training", **{k: v for k, v in out.items()
+                                            if k != "launches"}})
+        raise AssertionError("; ".join(failures))
+    out["launches"] = launches
+    return out
+
+
+def _read_random(path: str, cid: str = "perUser") -> dict:
+    from photon_tpu_torch.io.avro import read_records
+
+    out = {}
+    for rec in read_records(os.path.join(path, "random-effect", cid, "part-00000.avro")):
+        for m in rec["means"]:
+            out[(rec["modelId"], m["name"], m["term"])] = m["value"]
+    return out
+
+
+def check_game_plans(gt: dict) -> None:
+    """Fit A's large bucket solves chunked on the dual path and fit B's
+    buckets whole on the primal path, every plan is the one the gate
+    functions compute from the bucket's shape, and the f64 fits at
+    ``GAME_F64_USERS`` users take the same plans."""
+    for name in ("fit_a", "fit_b"):
+        st = gt[name]["re_step"]
+        got = [(r["solver"], r["chunk"]) for r in st["buckets"]]
+        if got != [tuple(p) for p in st["plans_from_gates"]] or got != gt[name]["plans"]:
+            raise AssertionError(f"{name}: plans {got} are not the gates' "
+                                 f"{st['plans_from_gates']}")
+    big = max(gt["fit_a"]["buckets"], key=lambda r: r["entities"])
+    if (big["solver"], big["chunk"]) != ("newton_dual", 4096):
+        raise AssertionError(f"fit A's bucket did not take chunked dual: {big}")
+    if any(r["solver"] != "newton_primal" or r["chunk"] is not None
+           for r in gt["fit_b"]["buckets"]):
+        raise AssertionError(f"fit B did not take full primal: {gt['fit_b']['buckets']}")
+    # the f64 fits at 8,192 users under GAME_F64_BUDGET_MB take the same
+    # plans on both devices
+    if [tuple(p[1:]) for p in gt["fit_a_f64_full_dual"]["plans"]] != [("newton_dual", None)]:
+        raise AssertionError(f"fit A f64 at 10,000 users: plans "
+                             f"{gt['fit_a_f64_full_dual']['plans']}")
+    for d, plans in gt["fit_a_f64"]["plans"].items():
+        if tuple(max(plans)[1:]) != ("newton_dual", 4096):
+            raise AssertionError(f"fit A f64 on {d}: plans {plans}")
+    for d, plans in gt["fit_b_f64"]["plans"].items():
+        if any(tuple(p[1:]) != ("newton_primal", None) for p in plans):
+            raise AssertionError(f"fit B f64 on {d}: plans {plans}")
+
+
+def phase_game_training_driver(torch, cs, sizes, dev, ref_dev, root: str,
+                               inputs: dict) -> dict:
+    """The port's training driver with a random effect on ``root/data.avro``
+    (fixed + perUser, per-user weights 1 and 10, 2 sweeps), validated on
+    ``root/valid.avro`` with AUC and LOGISTIC_LOSS, on ``dev`` and
+    ``ref_dev``; the saved models and summaries agree; ``dev``'s best model
+    is scored by the port's scoring driver with ``--evaluators AUC``.
+    Returns the launches of the ``dev`` run under ``launches``."""
+    from photon_tpu_torch.cli import game_scoring_driver, game_training_driver
+
+    # Validation rows from other seeds, a quarter as many a user (the
+    # per-record Avro reader is pure Python).
+    t0 = time.perf_counter()
+    n_valid = write_game_avro(sizes, os.path.join(root, "valid.avro"),
+                              max(1, sizes["driver_rows_per_user"] // 4),
+                              seed=4, label_seed=10, uid_prefix="v")
+    write_s = time.perf_counter() - t0
+    specs = ["fixed:type=fixed,shard=global,reg=L2,reg_weights=1,max_iter=20",
+             "perUser:type=random,re_type=userId,shard=global,reg=L2,"
+             "reg_weights=1|10,max_iter=20"]
+    runs, summaries, launches = {}, {}, None
+    for d in (dev, ref_dev):
+        dest = os.path.join(root, f"game_train_{d.type}")
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        summaries[d.type] = game_training_driver.run([
+            "--train-data", os.path.join(root, "data.avro"),
+            "--validation-data", os.path.join(root, "valid.avro"),
+            "--evaluators", "AUC", "LOGISTIC_LOSS",
+            "--output-dir", dest, "--task", "LOGISTIC_REGRESSION",
+            "--coordinate", specs[0], "--coordinate", specs[1], "--sweeps", "2",
+            "--index-dir", os.path.join(root, "out", "index"),
+            "--re-routing", "static", "--device", d.type,
+        ])
+        runs[d.type] = {"wall_s": time.perf_counter() - t0,
+                        "fit_seconds": summaries[d.type]["fit_seconds"],
+                        **_stage_seconds(os.path.join(dest, "photon.log"))}
+        if d == dev:
+            launches = cs.launch_counts()
+    sa, sb = summaries[dev.type], summaries[ref_dev.type]
+    if sa["best_config_index"] != sb["best_config_index"]:
+        raise AssertionError("the devices chose different configurations")
+    metric_err = max(abs(sa["evaluation"][k] - sb["evaluation"][k])
+                     for k in sb["evaluation"])
+    if not metric_err <= METRIC_ATOL:
+        raise AssertionError(f"driver evaluations differ by {metric_err}")
+    best = {d.type: os.path.join(root, f"game_train_{d.type}", "best")
+            for d in (dev, ref_dev)}
+    fa, fb = _read_fixed(best[dev.type]), _read_fixed(best[ref_dev.type])
+    ra, rb = _read_random(best[dev.type]), _read_random(best[ref_dev.type])
+    errs = {"fixed_means": _saved_rel_err(fa["means"], fb["means"]),
+            "random_means": _saved_rel_err(ra, rb)}
+    for k, e in errs.items():
+        if not e <= DRIVER_COEF_RTOL_F32:
+            raise AssertionError(f"saved {k} differ between devices: {e}")
+    dest = os.path.join(root, f"game_score_{dev.type}")
+    scored = game_scoring_driver.run([
+        "--data", os.path.join(root, "valid.avro"), "--model-dir", best[dev.type],
+        "--output-dir", dest, "--device", dev.type, "--evaluators", "AUC",
+    ])
+    if scored["n_rows"] != n_valid or not np.isfinite(scored["evaluation"]["AUC"]):
+        raise AssertionError(f"scoring the trained GAME model failed: {scored}")
+    return {"rows": inputs["rows"], "validation_rows": n_valid,
+            "write_validation_s": write_s, "best_config_index": sa["best_config_index"],
+            "evaluation": sa["evaluation"], "evaluation_ref": sb["evaluation"],
+            "metric_abs_err_vs_ref": metric_err, "saved_rel_err_vs_ref": errs,
+            "random_effect_coefficients": len(ra), "runs": runs,
+            "scoring": {"evaluation": scored["evaluation"],
+                        **_stage_seconds(os.path.join(dest, "photon.log"))},
+            "launches": launches}
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -913,6 +1720,7 @@ def main() -> int:
     build = cs.build_library()
     os.makedirs(WORK, exist_ok=True)
     emit({"phase": "card", "nvidia_smi": card,
+          "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "kind": torch.cuda.get_device_name(0), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build["seconds"],
           "built": build["built"], "library": os.path.relpath(build["path"], REPO),
@@ -954,9 +1762,25 @@ def main() -> int:
         if td_launches[name] < 1:
             raise AssertionError(f"training driver phase never launched {name}")
 
+    gt = phase_game_training(torch, cs, GAME, GAME_F64_USERS, dev, cpu)
+    gt_fits = gt.pop("launches")
+    gt_launches = {k: sum(f[k] for f in gt_fits.values()) for k in cs.KERNELS}
+    emit({"phase": "game_training", "launches": gt_launches,
+          "launches_by_fit": gt_fits, **gt})
+    check_game_plans(gt)
+
+    gd = phase_game_training_driver(torch, cs, FULL, dev, cpu, WORK, inputs)
+    gd_launches = gd.pop("launches")
+    emit({"phase": "game_training_driver", "launches": gd_launches,
+          "matvec_kernel": chosen, **gd})
+    for name in (chosen, "csc_rmatvec"):
+        if gd_launches[name] < 1:
+            raise AssertionError(f"GAME training driver phase never launched {name}")
+
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
     by_phase = {"transformer": tr_launches, "driver": dr_launches,
-                "training": tn_launches, "training_driver": td_launches}
+                "training": tn_launches, "training_driver": td_launches,
+                "game_training": gt_launches, "game_training_driver": gd_launches}
     rows = []
     for name in cs.KERNELS:
         f32 = kern["game"]["float32"]["kernels"][name]

@@ -12,8 +12,10 @@ index maps (``<output>/index/<shard>``) and per-coordinate metadata, so only
 
 Runs on the card by default (``--device cuda``, which fails when no GPU is
 visible); ``--device cpu`` runs the plain versions of the kernels.
-``--evaluators``, ``--chunk-rows`` other than 0 and ``--devices`` other than
-1 belong to later slices of the port and are refused.
+``--evaluators`` evaluates the scores against the data's labels (grouped
+evaluators read their id-tag columns) into the summary. ``--chunk-rows``
+other than 0 and ``--devices`` other than 1 belong to later slices of the
+port and are refused.
 
     python -m photon_tpu_torch.cli.game_scoring_driver --data DATA.avro \\
         --model-dir OUT/best --output-dir SCORES [--device cuda]
@@ -33,6 +35,7 @@ from photon_tpu_torch.estimators.config import (
     RandomEffectDataConfig,
 )
 from photon_tpu_torch.estimators.game_transformer import GameTransformer
+from photon_tpu_torch.evaluation import EvaluationSuite
 from photon_tpu_torch.index.index_map import MmapIndexMap
 from photon_tpu_torch.io.data_reader import (
     AvroDataReader,
@@ -61,7 +64,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="per-shard index stores (default: <model-dir>/../index)")
     p.add_argument("--output-dir", required=True)
     p.add_argument("--evaluators", nargs="+", default=None,
-                   help="not in this slice of the port (evaluation slice)")
+                   help="evaluator specs over the scored data (AUC, RMSE, "
+                        "AUC:col, PRECISION@k:col, ...)")
     p.add_argument("--feature-bags", nargs="+", default=["features"],
                    help="record fields holding feature lists (per training config)")
     p.add_argument("--response-column", default="response")
@@ -80,9 +84,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def _parse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
     p = build_arg_parser()
     args = p.parse_args(argv)
-    if args.evaluators:
-        p.error("--evaluators: evaluation is not in the port yet "
-                "(it comes with the evaluation slice)")
     if args.chunk_rows != 0:
         p.error("--chunk-rows: streamed scoring is not in the port yet "
                 "(it comes with the streaming ingest slice); use 0")
@@ -122,6 +123,10 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
                     re_type=info["re_type"], feature_shard=info["feature_shard"]
                 )
                 id_tags.add(info["re_type"])
+        suite = EvaluationSuite.parse(args.evaluators) if args.evaluators else None
+        if suite:
+            id_tags |= {ev.group_column for ev in suite.evaluators
+                        if ev.group_column}
 
         # Shard configs persisted at training time are authoritative; the
         # --feature-bags flag is only a fallback for pre-metadata models.
@@ -154,18 +159,27 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         )
         scores_path = os.path.join(args.output_dir, "scores.avro")
         with Timed("read data", logger) as t_read:
+            # Labels are required only when evaluators are requested.
             bundle = reader.read(args.data, dtype=dtype, device=device,
-                                 require_labels=False)
+                                 require_labels=suite is not None)
         logger.info("scoring %d rows on %s", bundle.n_rows, device)
+        evaluation = None
         with Timed("score", logger) as t_score:
-            scores = transformer.transform(bundle)
+            if suite:
+                scores, evaluation = transformer.transform_and_evaluate(
+                    bundle, suite)
+            else:
+                scores = transformer.transform(bundle)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         with Timed("save scores", logger):
             save_scores(
                 scores_path, scores, uids=bundle.uids, labels=bundle.labels
             )
-        summary = {"n_rows": int(bundle.n_rows), "evaluation": None}
+        summary = {
+            "n_rows": int(bundle.n_rows),
+            "evaluation": dict(evaluation.values) if evaluation else None,
+        }
         with open(os.path.join(args.output_dir, "scoring-summary.json"), "w") as f:
             json.dump(summary, f, indent=2)
         logger.info("done: %s (read %.3fs, score %.3fs)", summary,

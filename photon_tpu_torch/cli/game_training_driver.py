@@ -1,20 +1,23 @@
 """GAME training driver: Avro data → trained model directory.
 
 Port of ``photon_tpu/cli/game_training_driver.py`` (``run`` / ``_run_inner``)
-for fixed-effect coordinates on one device: parse flags → build (or load)
-the feature index maps → read the Avro training data → sanity checks →
-``GameEstimator.fit`` over the regularization-weight sweep → save the
-model(s), the index maps, ``training-summary.json`` and ``metrics.jsonl``.
-The output layout is the JAX driver's (``best/``, ``models/<i>/`` under
-``--output-mode ALL``, ``index/<shard>``), so either package's scoring
-driver scores what this one writes.
+on one device: parse flags → build (or load) the feature index maps → read
+the Avro training (and validation) data → sanity checks →
+``GameEstimator.fit`` over the regularization-weight sweep, fixed and
+random effects by coordinate descent, evaluated after every step when
+``--evaluators`` and ``--validation-data`` are given → select the best
+configuration by the primary evaluator → save the model(s), the index maps,
+``training-summary.json`` and ``metrics.jsonl``. The output layout is the
+JAX driver's (``best/``, ``models/<i>/`` under ``--output-mode ALL``,
+``index/<shard>``), so either package's scoring driver scores what this one
+writes.
 
 Runs on the card by default (``--device cuda``, which fails when no GPU is
 visible); ``--device cpu`` runs the plain versions of the kernels. Flags of
-the JAX driver that belong to later slices of the port (random effects,
-validation and evaluators, normalization, checkpoints and restarts, tuning,
-meshes, the ingest pipeline, profiling and the runtime guards) are refused
-with a message naming the slice.
+the JAX driver that belong to later slices of the port (normalization,
+checkpoints and restarts, tuning, meshes, the ingest pipeline, profiling,
+the runtime guards, measured solver routing) are refused with a message
+naming the slice; ``--re-routing static`` is the port's only routing.
 
     python -m photon_tpu_torch.cli.game_training_driver \\
       --train-data data/train --output-dir out --task LOGISTIC_REGRESSION \\
@@ -39,7 +42,9 @@ from photon_tpu_torch.cli.params import (
 )
 from photon_tpu_torch.data.validators import DataValidationType, sanity_check_data
 from photon_tpu_torch.device import resolve_device
-from photon_tpu_torch.estimators.game_estimator import GameEstimator
+from photon_tpu_torch.estimators.config import RandomEffectDataConfig
+from photon_tpu_torch.estimators.game_estimator import GameEstimator, select_best
+from photon_tpu_torch.evaluation import EvaluationSuite
 from photon_tpu_torch.index.index_map import MmapIndexMap, build_mmap_index
 from photon_tpu_torch.io.data_reader import (
     AvroDataReader,
@@ -56,10 +61,6 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # Flags of the JAX driver that belong to later slices: (flag, is it set,
 # the slice it comes with). Each is refused when set, never ignored.
 _LATER_SLICES = (
-    ("--validation-data", lambda a: a.validation_data is not None,
-     "validation comes with the evaluation slice (M7)"),
-    ("--evaluators", lambda a: a.evaluators is not None,
-     "evaluators come with the evaluation slice (M7)"),
     ("--normalization", lambda a: a.normalization != "NONE",
      "feature normalization comes with the data-preparation slice (M8); use NONE"),
     ("--feature-summary", lambda a: a.feature_summary,
@@ -111,19 +112,19 @@ _LATER_SLICES = (
      "compile stores come with the runtime-guards slice (M13)"),
     ("--clear-caches-per-config", lambda a: a.clear_caches_per_config,
      "executable-cache bounds come with the runtime-guards slice (M13)"),
-    ("--re-routing", lambda a: a.re_routing is not None,
-     "random-effect solver routing comes with the random-effect training "
-     "slice (M6)"),
+    ("--re-routing", lambda a: a.re_routing == "measured",
+     "measured random-effect solver routing comes with the solver-routing "
+     "slice (game/solver_routing.py); use static"),
     ("--re-cost-table", lambda a: a.re_cost_table is not None,
-     "random-effect solver routing comes with the random-effect training "
-     "slice (M6)"),
+     "the measured-routing cost table comes with the solver-routing slice "
+     "(game/solver_routing.py)"),
 )
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="game-training-driver",
-        description="Train a GAME model's fixed effects (PyTorch/CUDA).",
+        description="Train a GAME model (PyTorch/CUDA).",
     )
     p.add_argument("--train-data", nargs="+", required=True,
                    help="Avro files/dirs/globs with training data")
@@ -155,9 +156,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="training precision")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where training runs (default cuda; no fallback)")
+    p.add_argument("--validation-data", nargs="+", default=None,
+                   help="Avro files/dirs/globs with validation data")
+    p.add_argument("--evaluators", nargs="+", default=None,
+                   help="evaluator specs (AUC, RMSE, LOGISTIC_LOSS, AUC:col, "
+                        "PRECISION@k:col, ...); the first selects the best model")
+    p.add_argument("--re-routing", choices=["static", "measured"], default=None,
+                   help="random-effect solver routing (the port runs static)")
     # The JAX driver's flags that later slices bring: refused when set.
-    p.add_argument("--validation-data", nargs="+", default=None)
-    p.add_argument("--evaluators", nargs="+", default=None)
     p.add_argument("--normalization", default="NONE")
     p.add_argument("--feature-summary", action="store_true")
     p.add_argument("--checkpoint-dir", default=None)
@@ -183,7 +189,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--compilation-cache-dir", default=None)
     p.add_argument("--compile-store", default=None)
     p.add_argument("--clear-caches-per-config", action="store_true")
-    p.add_argument("--re-routing", default=None)
     p.add_argument("--re-cost-table", default=None)
     return p
 
@@ -251,6 +256,13 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
             f"--feature-shard spec (have {sorted(have)})"
         )
     shard_cfgs, index_maps = _load_or_build_indexes(args, shard_specs, logger)
+    suite = EvaluationSuite.parse(args.evaluators) if args.evaluators else None
+    id_tags = sorted(
+        {c.re_type for c in data_configs.values()
+         if isinstance(c, RandomEffectDataConfig)}
+        | {ev.group_column for ev in (suite.evaluators if suite else ())
+           if ev.group_column}
+    )
     reader = AvroDataReader(
         index_maps,
         shard_cfgs,
@@ -260,11 +272,18 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
             offset=args.offset_column,
             weight=args.weight_column,
         ),
+        id_tag_columns=id_tags,
     )
     dtype = _DTYPES[args.dtype]
     with Timed("read training data", logger):
         train = reader.read(args.train_data, dtype=dtype, device=device)
     logger.info("training rows: %d on %s", train.n_rows, device)
+    validation = None
+    if args.validation_data:
+        with Timed("read validation data", logger):
+            validation = reader.read(args.validation_data, dtype=dtype,
+                                     device=device)
+        logger.info("validation rows: %d", validation.n_rows)
 
     vtype = DataValidationType[args.data_validation]
     with Timed("data validation", logger):
@@ -282,16 +301,19 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         coordinate_data_configs=data_configs,
         update_sequence=update_sequence,
         n_sweeps=args.sweeps,
+        evaluator_specs=tuple(args.evaluators or ()),
         intercept_indices={s: im.intercept_index for s, im in index_maps.items()},
     )
     with Timed("fit", logger) as fit_timer:
-        results = estimator.fit(train, None, configs, initial_model=initial_model)
+        results = estimator.fit(
+            train, validation if suite else None, configs,
+            initial_model=initial_model)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-    # No evaluators: the first configuration is the selected one, as in the
-    # JAX driver without --evaluators.
-    best_i = 0
-    best = results[best_i]
+    # Without evaluators the first configuration is the selected one, as in
+    # the JAX driver.
+    best = select_best(results, suite) if suite else results[0]
+    best_i = next(i for i, r in enumerate(results) if r is best)
 
     shard_by_coordinate = {cid: c.feature_shard for cid, c in data_configs.items()}
     saved = {}
@@ -319,10 +341,17 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
     for i, r in enumerate(results):
         for rec in r.tracker:
             res = rec.result
-            logger.info(
-                "config %d sweep %d coord %s: %d iterations, %s, %d data passes",
-                i, rec.sweep, rec.coordinate_id, res.iterations,
-                res.reason_name(), res.data_passes)
+            if isinstance(res, list):       # a random effect's bucket results
+                its = [int(b.iterations.max()) for b in res if b.iterations.numel()]
+                logger.info(
+                    "config %d sweep %d coord %s: %d buckets, at most %d "
+                    "Newton iterations", i, rec.sweep, rec.coordinate_id,
+                    len(res), max(its, default=0))
+            else:
+                logger.info(
+                    "config %d sweep %d coord %s: %d iterations, %s, %d data "
+                    "passes", i, rec.sweep, rec.coordinate_id, res.iterations,
+                    res.reason_name(), res.data_passes)
     summary = {
         "task": task.name,
         "n_configs": len(results),
@@ -330,7 +359,7 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         "best_config": {
             cid: dataclasses.asdict(best.config[cid]) for cid in best.config
         },
-        "evaluation": None,
+        "evaluation": dict(best.evaluation.values) if best.evaluation else None,
         "fit_seconds": fit_timer.seconds,
         "model_dirs": saved,
     }
@@ -343,12 +372,14 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         os.path.join(args.output_dir, "metrics.jsonl"),
         (
             {"config": i, "sweep": rec.sweep, "coordinate": rec.coordinate_id,
-             "seconds": rec.seconds}
+             "seconds": rec.seconds,
+             **(rec.validation.values if rec.validation else {})}
             for i, r in enumerate(results)
             for rec in r.tracker
         ),
     )
-    logger.info("done; best config %d", best_i)
+    logger.info("done; best config %d, evaluation %s", best_i,
+                summary["evaluation"])
     return summary
 
 

@@ -1,7 +1,7 @@
 """CLI parameter parsing for the GAME training driver.
 
-Port of the parts of ``photon_tpu/cli/params.py`` that the fixed-effect
-training driver needs: the coordinate mini-DSL (``parse_coordinate_spec``,
+Port of the parts of ``photon_tpu/cli/params.py`` that the training
+driver needs: the coordinate mini-DSL (``parse_coordinate_spec``,
 ``parse_coordinates``), the sweep expansion (``configs_from_specs``) and
 ``parse_feature_shard``.
 
@@ -9,14 +9,17 @@ Coordinate spec (one ``--coordinate`` flag per coordinate):
 
     <cid>:<k>=<v>,<k>=<v>,...
 
-keys: ``type`` fixed (required); ``shard`` feature shard id; ``optimizer``
-LBFGS|OWLQN|TRON; ``max_iter`` int; ``tol`` float; ``reg``
-NONE|L1|L2|ELASTIC_NET; ``alpha`` elastic-net α; ``reg_weights``
-'|'-separated floats (sweep, default 0); ``downsample`` rate; ``variance``
-NONE|SIMPLE|FULL; ``incremental`` prior weight for incremental training
-from --model-input-dir. The JAX package's ``type=random`` / ``type=factored``
-coordinates and a ``downsample`` below 1 belong to later slices of the port
-and raise ``NotImplementedError``; their keys are still recognized.
+keys: ``type`` fixed|random (required); ``shard`` feature shard id;
+``re_type`` entity id column (random, required); ``active_bound`` int;
+``min_rows`` int; ``max_features`` int (Pearson filter);
+``max_bucket_entities`` int; ``optimizer`` LBFGS|OWLQN|TRON; ``max_iter``
+int; ``tol`` float; ``reg`` NONE|L1|L2|ELASTIC_NET; ``alpha`` elastic-net α;
+``reg_weights`` '|'-separated floats (sweep, default 0); ``downsample``
+rate; ``variance`` NONE|SIMPLE|FULL; ``incremental`` prior weight for
+incremental training from --model-input-dir. The JAX package's
+``type=factored`` (with ``latent`` / ``alternations``), ``host_resident``
+and a ``downsample`` below 1 belong to later slices of the port and raise
+``NotImplementedError`` naming them; their keys are still recognized.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from photon_tpu_torch.estimators.config import (
     CoordinateDataConfig,
     FixedEffectDataConfig,
     GLMOptimizationConfiguration,
+    RandomEffectDataConfig,
     reg_weight_sweep,
 )
 from photon_tpu_torch.functions.problem import VarianceComputationType
@@ -77,21 +81,46 @@ def parse_coordinate_spec(spec: str) -> CoordinateSpec:
         raise ValueError(f"coordinate {cid!r}: unknown keys {sorted(unknown)}")
 
     ctype = kv.get("type")
-    if ctype in ("random", "factored"):
-        raise NotImplementedError(
-            f"coordinate {cid!r}: type={ctype} is not in the port yet "
-            "(random-effect training comes with the random-effect training "
-            "slice, M5/M6)"
-        )
-    if ctype != "fixed":
+    if ctype not in ("fixed", "random", "factored"):
         raise ValueError(
             f"coordinate {cid!r}: type must be 'fixed', 'random' or "
             f"'factored', got {ctype!r}"
         )
-    for k in _RANDOM_ONLY:
-        if k in kv:
-            raise ValueError(f"coordinate {cid!r}: {k} is random-effect only")
-    data = FixedEffectDataConfig(feature_shard=kv.get("shard", "global"))
+    shard = kv.get("shard", "global")
+    if ctype == "factored":
+        raise NotImplementedError(
+            f"coordinate {cid!r}: type=factored is not in the port yet "
+            "(factored random effects come with the factored-random-effect "
+            "slice, M12)"
+        )
+    if ctype == "fixed":
+        for k in _RANDOM_ONLY:
+            if k in kv:
+                raise ValueError(f"coordinate {cid!r}: {k} is random-effect only")
+        data: CoordinateDataConfig = FixedEffectDataConfig(feature_shard=shard)
+    else:
+        if "re_type" not in kv:
+            raise ValueError(f"coordinate {cid!r}: random effects need re_type")
+        if "latent" in kv or "alternations" in kv:
+            raise ValueError(
+                f"coordinate {cid!r}: latent/alternations need type=factored")
+        if _parse_bool(cid, "host_resident", kv.get("host_resident", "0")):
+            raise NotImplementedError(
+                f"coordinate {cid!r}: host_resident is not in the port yet "
+                "(host-resident buckets need the device sweep cache of the "
+                "ingest slice, M10)"
+            )
+        data = RandomEffectDataConfig(
+            re_type=kv["re_type"],
+            feature_shard=shard,
+            active_bound=int(kv["active_bound"]) if "active_bound" in kv else None,
+            min_entity_rows=int(kv.get("min_rows", 1)),
+            max_features_per_entity=(
+                int(kv["max_features"]) if "max_features" in kv else None),
+            max_bucket_entities=(
+                int(kv["max_bucket_entities"])
+                if "max_bucket_entities" in kv else None),
+        )
 
     reg_type = RegularizationType(kv.get("reg", "NONE").upper())
     if reg_type == RegularizationType.ELASTIC_NET:
@@ -118,6 +147,19 @@ def parse_coordinate_spec(spec: str) -> CoordinateSpec:
     )
     return CoordinateSpec(cid=cid, data=data, optimization=opt,
                           reg_weights=weights or (0.0,))
+
+
+def _parse_bool(cid: str, key: str, raw: str) -> bool:
+    """Strict DSL booleans, as the JAX parser's."""
+    low = raw.strip().lower()
+    if low in ("1", "true", "yes"):
+        return True
+    if low in ("0", "false", "no"):
+        return False
+    raise ValueError(
+        f"coordinate {cid!r}: {key} must be one of 1/0/true/false/yes/no, "
+        f"got {raw!r}"
+    )
 
 
 def parse_coordinates(specs: Sequence[str]) -> list[CoordinateSpec]:

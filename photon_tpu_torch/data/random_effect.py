@@ -1,18 +1,21 @@
 """Random-effect datasets: per-entity data, bucketed and padded.
 
-Port of ``photon_tpu/data/random_effect.py`` (the scoring half:
-``EntityBucket.scores``, ``RandomEffectDataset.scatter_scores`` and
-``build_random_effect_dataset`` as scoring calls it — every entity kept, no
-active/passive split, no Pearson feature filter; those come with the
-training slice).
+Port of ``photon_tpu/data/random_effect.py``: ``EntityBucket`` (scores and
+the per-entity training batches), ``RandomEffectDataset.scatter_scores``,
+``pearson_scores`` and ``build_random_effect_dataset`` with its training
+options (active/passive split, minimum rows per entity, the Pearson feature
+filter and the bucket cap). Host-resident buckets (the device sweep cache's
+input) and down-sampling are not ported yet.
 
 Entities are grouped on the host and packed into buckets of identical
 padded shape ``[E, S, K]`` (entities x max-samples x max-nnz), quantized to
 powers of two. Each entity sees only the feature columns present in its own
 rows: global ELL indices are remapped to a compact local space ``[0, P)``;
 ``proj[e, p]`` maps local slot p back to the global column (``global_dim``
-for pad slots, the global ghost column). The bucket order, entity order and
-padding match the JAX builder exactly, so bucket arrays compare equal.
+for pad slots, the global ghost column). Rows beyond ``active_bound`` per
+entity keep their weight for scoring (``weights``) but carry 0 in
+``train_weights``: scored, not trained on. The bucket order, entity order
+and padding match the JAX builder exactly, so bucket arrays compare equal.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
 
 Tensor = torch.Tensor
 
@@ -38,14 +43,15 @@ class EntityBucket:
     = P). ``proj`` maps local→global columns (ghost slots hold
     ``global_dim``). ``row_ids`` maps each (entity, sample) slot back to the
     global row it came from (padding slots hold the global row count N, a
-    ghost row). ``weights`` masks valid rows. ``entity_ids`` are dense REIds
-    (padding: -1).
+    ghost row). ``weights`` masks valid rows; ``train_weights`` also zeroes
+    passive rows. ``entity_ids`` are dense REIds (padding: -1).
     """
 
     idx: Tensor           # [E, S, K] int32, local column ids
     val: Tensor           # [E, S, K]
     labels: Tensor        # [E, S]
     weights: Tensor       # [E, S] — 0 marks padded rows
+    train_weights: Tensor  # [E, S] — 0 marks padded AND passive rows
     row_ids: Tensor       # [E, S] int32 into the global sample order; N = pad
     proj: Tensor          # [E, P] int32 local→global column map; dim = pad
     entity_ids: Tensor    # [E] int32 dense entity ids; -1 = padded entity
@@ -53,6 +59,27 @@ class EntityBucket:
     @property
     def n_entities(self) -> int:
         return self.idx.shape[0]
+
+    @property
+    def max_samples(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def local_dim(self) -> int:
+        return self.proj.shape[1]
+
+    def local_batches(self, global_offsets: Tensor) -> LabeledBatch:
+        """Per-entity batches stacked on axis 0 (``[E, S, ...]`` leaves),
+        offsets gathered from the global per-sample offset vector (the ghost
+        row gathers 0) and ``train_weights`` as the weights."""
+        g = global_offsets.to(self.val.dtype)
+        ext = torch.cat([g, g.new_zeros(1)])
+        return LabeledBatch(
+            features=SparseFeatures(idx=self.idx, val=self.val, dim=self.local_dim),
+            labels=self.labels,
+            offsets=ext[self.row_ids.long()],
+            weights=self.train_weights,
+        )
 
     def scores(self, coefs: Tensor) -> Tensor:
         """Per-slot scores [E, S] from per-entity coefficients [E, P]
@@ -79,6 +106,10 @@ class RandomEffectDataset:
     global_dim: int
     device: torch.device
 
+    @property
+    def n_entities(self) -> int:
+        return len(self.entity_keys)
+
     def scatter_scores(
         self, per_bucket_scores: Sequence[Tensor], dtype: torch.dtype
     ) -> Tensor:
@@ -89,6 +120,36 @@ class RandomEffectDataset:
         for b, s in zip(self.buckets, per_bucket_scores):
             out.index_put_((b.row_ids.reshape(-1).long(),), s.reshape(-1).to(dtype))
         return out[: self.n_rows]
+
+
+def pearson_scores(
+    local: np.ndarray,
+    vals: np.ndarray,
+    labels_e: np.ndarray,
+    n_cols: int,
+) -> np.ndarray:
+    """|Pearson correlation| of each local feature column with the label over
+    one entity's rows, treating absent entries as 0. Assumes each row
+    indexes a column at most once. Zero-variance columns score 0 (the
+    intercept is kept by the caller, not through its score)."""
+    s = len(labels_e)
+    flat = local.ravel()
+    keep = flat < n_cols
+    cols = flat[keep]
+    v = vals.ravel()[keep]
+    y_rep = np.repeat(labels_e, local.shape[1])[keep]
+    sum_x = np.bincount(cols, weights=v, minlength=n_cols)
+    sum_x2 = np.bincount(cols, weights=v * v, minlength=n_cols)
+    sum_xy = np.bincount(cols, weights=v * y_rep, minlength=n_cols)
+    sum_y = labels_e.sum()
+    sum_y2 = (labels_e * labels_e).sum()
+    num = s * sum_xy - sum_x * sum_y
+    var_x = s * sum_x2 - sum_x * sum_x
+    var_y = s * sum_y2 - sum_y * sum_y
+    denom = np.sqrt(np.maximum(var_x, 0.0) * max(var_y, 0.0))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        corr = np.where(denom > 0, np.abs(num) / np.maximum(denom, 1e-30), 0.0)
+    return corr
 
 
 def build_random_effect_dataset(
@@ -103,20 +164,42 @@ def build_random_effect_dataset(
     *,
     dtype: torch.dtype,
     device: torch.device,
+    active_bound: Optional[int] = None,
+    min_entity_rows: int = 1,
+    max_features_per_entity: Optional[int] = None,
+    max_bucket_entities: Optional[int] = None,
+    host_resident: bool = False,
 ) -> RandomEffectDataset:
-    """Host-side builder for a scoring dataset: group rows by entity,
-    project features, bucket and pad, then place the buckets on ``device``.
+    """Host-side builder: group rows by entity, project features, bucket
+    and pad, then place the buckets on ``device``.
 
     Inputs are global ELL arrays (``idx[N, K]`` with ghost == ``global_dim``)
-    plus one entity key per row; every entity is kept.
-    ``intercept_index``, when given, is force-included in every entity's
-    subspace. Each size class makes one bucket.
+    plus one entity key per row. Entities with fewer than
+    ``min_entity_rows`` rows are dropped. ``intercept_index``, when given,
+    is force-included in every entity's subspace. ``active_bound`` caps the
+    rows each entity trains on (later rows are passive).
+    ``max_features_per_entity`` keeps each entity's ``m`` features most
+    |correlated| with the label (ties to the lower column id; the intercept
+    kept on top of ``m``). ``max_bucket_entities`` splits each size class
+    into buckets of at most that many entities. ``host_resident`` (buckets
+    left on the host for the device sweep cache) is refused.
 
     Vectorized over entities as the JAX builder is: per-entity subspaces
-    come from uniques over (entity, column) pair keys, the local remap is a
-    ``searchsorted`` against those keys, and bucket packing is flat
-    fancy-index writes.
+    come from uniques over (entity, column) pair keys, the local remap is
+    each entry's rank among those keys (an argsort inverse per chunk, then
+    one ordered ``searchsorted`` of the chunk's distinct keys), Pearson sums
+    are global ``bincount``s, and bucket packing is flat fancy-index writes.
+    The arrays equal the JAX builder's.
     """
+    if host_resident:
+        raise NotImplementedError(
+            "host_resident buckets are not in the port yet (they need the "
+            "device sweep cache of the ingest slice, M10)"
+        )
+    if max_bucket_entities is not None and max_bucket_entities < 1:
+        raise ValueError(
+            f"max_bucket_entities must be >= 1, got {max_bucket_entities}"
+        )
     np_dt = numpy_dtype(dtype)
     n, k = idx.shape
     idx = np.asarray(idx)
@@ -124,33 +207,39 @@ def build_random_effect_dataset(
     labels = np.asarray(labels, np_dt)
     weights = np.ones(n, np_dt) if weights is None else np.asarray(weights, np_dt)
 
-    keys, inv = np.unique(entity_keys_per_row, return_inverse=True)
-    inv = inv.reshape(-1).astype(np.int64)
-    e_count = len(keys)
+    keys, inv = _unique_keys(entity_keys_per_row)
+    counts_all = np.bincount(inv, minlength=len(keys))
+    kept = np.flatnonzero(counts_all >= min_entity_rows)
+    e_count = len(kept)
     if e_count == 0:
         return RandomEffectDataset(
             re_type=re_type, buckets=(), entity_keys=[], entity_to_slot={},
             n_rows=n, global_dim=global_dim, device=device,
         )
-    dense_e = inv                                # [n] dense entity id
-    counts = np.bincount(inv, minlength=e_count)  # [E] rows per entity
+    new_id = np.full(len(keys), -1, np.int64)
+    new_id[kept] = np.arange(e_count)
+    dense_e = new_id[inv]                        # [n] dense entity id, -1 dropped
+    row_kept = dense_e >= 0
+    counts = counts_all[kept]                    # [E] rows per kept entity
 
     # ---- per-entity column subspaces: distinct (entity, column) pairs,
-    # found chunk by chunk so the temporaries stay bounded by a chunk.
+    # found chunk by chunk so the temporaries stay bounded by a chunk; each
+    # chunk keeps its distinct pairs and every entry's index among them.
     stride = global_dim + 1
     chunk_rows_ = max(1, min(n, 1 << 22))
-    uniq_parts = []
+    uniq_parts, chunks = [], []
     if intercept_index is not None:
         uniq_parts.append(
             np.arange(e_count, dtype=np.int64) * stride + intercept_index)
     nz_per_ent = np.zeros(e_count, np.int64)
-    entry_pos_parts, ok_parts = [], []
     for lo in range(0, n, chunk_rows_):
         hi = min(lo + chunk_rows_, n)
         ee_c = np.repeat(dense_e[lo:hi], k)
         fi_c = idx[lo:hi].ravel().astype(np.int64)
-        ok_c = fi_c < global_dim
-        uniq_parts.append(_sorted_unique(ee_c[ok_c] * stride + fi_c[ok_c]))
+        ok_c = (ee_c >= 0) & (fi_c < global_dim)
+        uniq_c, inv_c = _sorted_unique_inverse(ee_c[ok_c] * stride + fi_c[ok_c])
+        uniq_parts.append(uniq_c)
+        chunks.append((uniq_c, inv_c, ok_c))
         if intercept_index is None:  # counts only feed the empty-entity fix
             nz_per_ent += np.bincount(ee_c[ok_c], minlength=e_count)
     if intercept_index is None:
@@ -162,31 +251,41 @@ def build_random_effect_dataset(
     del uniq_parts
     ent_of_col = upairs // stride
 
-    # each real entry's rank in upairs (its column's slot), chunked
-    for lo in range(0, n, chunk_rows_):
-        hi = min(lo + chunk_rows_, n)
-        ee_c = np.repeat(dense_e[lo:hi], k)
-        fi_c = idx[lo:hi].ravel().astype(np.int64)
-        ok_c = fi_c < global_dim
-        pairs_c = ee_c[ok_c] * stride + fi_c[ok_c]
-        entry_pos_parts.append(np.searchsorted(upairs, pairs_c).astype(np.int32))
-        ok_parts.append(ok_c)
-    entry_pos = np.concatenate(entry_pos_parts)
-    entry_ok = np.concatenate(ok_parts)
-    del entry_pos_parts, ok_parts
+    # each real entry's rank in upairs (its column's slot): a chunk's
+    # distinct pairs are sorted, so one ordered search places them all
+    entry_pos = np.concatenate([
+        np.searchsorted(upairs, uniq_c).astype(np.int32)[inv_c]
+        for uniq_c, inv_c, _ in chunks])
+    entry_ok = np.concatenate([ok_c for _, _, ok_c in chunks])
+    del chunks
     ee = np.repeat(dense_e.astype(np.int32), k)    # entity per ELL entry
 
+    if max_features_per_entity is not None:
+        chosen = _choose_pairs_by_pearson(
+            upairs, ent_of_col, stride, entry_pos, entry_ok,
+            val.ravel(), labels, dense_e, counts, e_count,
+            max_features_per_entity, intercept_index,
+        )
+        # remap surviving pair ids to their rank in the filtered set
+        new_pos = np.cumsum(chosen, dtype=np.int64) - 1
+        survived = chosen[entry_pos]
+        entry_pos = np.where(survived, new_pos[entry_pos], -1)
+        upairs, ent_of_col = upairs[chosen], ent_of_col[chosen]
     ncols = np.bincount(ent_of_col, minlength=e_count).astype(np.int64)
     col_off = np.zeros(e_count + 1, np.int64)
     np.cumsum(ncols, out=col_off[1:])
 
     # ---- local remap
-    local_flat = ncols[ee].astype(np.int32)          # default: local ghost
+    ee_safe = np.maximum(ee, 0)
+    local_flat = ncols[ee_safe].astype(np.int32)     # default: local ghost
     ok_ix = np.flatnonzero(entry_ok)
-    local_flat[ok_ix] = (entry_pos - col_off[ee[ok_ix]]).astype(np.int32)
+    hit_ok = entry_pos >= 0
+    local_flat[ok_ix[hit_ok]] = (
+        entry_pos[hit_ok] - col_off[ee[ok_ix[hit_ok]]]
+    ).astype(np.int32)
     local = local_flat.reshape(n, k)
     hit = np.zeros(n * k, bool)
-    hit[ok_ix] = True
+    hit[ok_ix[hit_ok]] = True
     val_eff = np.where(hit.reshape(n, k), val, 0.0).astype(val.dtype)
 
     # ---- bucket by (pow2 samples, pow2 local dim); dense ids in
@@ -203,8 +302,8 @@ def build_random_effect_dataset(
         [[0], np.flatnonzero(bucket_break) + 1, [e_count]])
 
     # rows re-sorted by dense id (stable keeps original row order per entity)
-    row_dense = dense_of[dense_e]
-    row_order = np.argsort(row_dense, kind="stable")
+    row_dense = np.where(row_kept, dense_of[np.maximum(dense_e, 0)], e_count)
+    row_order = np.argsort(row_dense, kind="stable")[: int(row_kept.sum())]
     rcounts = counts[ent_sort]                        # rows per dense id
     rstarts = np.zeros(e_count + 1, np.int64)
     np.cumsum(rcounts, out=rstarts[1:])
@@ -223,7 +322,7 @@ def build_random_effect_dataset(
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     buckets = []
-    entity_keys_out = list(keys[ent_sort])
+    entity_keys_out = list(keys[kept][ent_sort])
     entity_to_slot = {}
     for mb, me in zip(bucket_starts[:-1], bucket_starts[1:]):
         ecount = int(me - mb)
@@ -233,6 +332,7 @@ def build_random_effect_dataset(
         b_val = np.zeros((ecount, s_pad, k), np_dt)
         b_lab = np.zeros((ecount, s_pad), np_dt)
         b_w = np.zeros((ecount, s_pad), np_dt)
+        b_tw = np.zeros((ecount, s_pad), np_dt)
         b_rows = np.full((ecount, s_pad), n, np.int32)
         b_proj = np.full((ecount, p_pad), global_dim, np.int32)
 
@@ -244,20 +344,29 @@ def build_random_effect_dataset(
         b_val[lane_r, wr] = val_eff[rows_b]
         b_lab[lane_r, wr] = labels[rows_b]
         b_w[lane_r, wr] = weights[rows_b]
+        tw = weights[rows_b].copy()
+        if active_bound is not None:
+            tw[wr >= active_bound] = 0.0              # passive rows
+        b_tw[lane_r, wr] = tw
         b_rows[lane_r, wr] = rows_b
 
         csl = slice(cstarts[mb], cstarts[me])
         centries = col_order[csl]
         b_proj[col_dense[centries] - mb, within_col[csl]] = cols_flat[centries]
 
-        bi = len(buckets)
-        for lane in range(ecount):
-            entity_to_slot[int(mb + lane)] = (bi, lane)
-        buckets.append(EntityBucket(
-            idx=put(b_idx), val=put(b_val), labels=put(b_lab),
-            weights=put(b_w), row_ids=put(b_rows), proj=put(b_proj),
-            entity_ids=put(np.arange(mb, me, dtype=np.int32)),
-        ))
+        cap = max_bucket_entities or ecount
+        for lo in range(0, ecount, cap):
+            hi = min(lo + cap, ecount)
+            bi = len(buckets)
+            for lane in range(lo, hi):
+                entity_to_slot[int(mb + lane)] = (bi, lane - lo)
+            buckets.append(EntityBucket(
+                idx=put(b_idx[lo:hi]), val=put(b_val[lo:hi]),
+                labels=put(b_lab[lo:hi]), weights=put(b_w[lo:hi]),
+                train_weights=put(b_tw[lo:hi]), row_ids=put(b_rows[lo:hi]),
+                proj=put(b_proj[lo:hi]),
+                entity_ids=put(np.arange(mb + lo, mb + hi, dtype=np.int32)),
+            ))
 
     return RandomEffectDataset(
         re_type=re_type,
@@ -268,6 +377,55 @@ def build_random_effect_dataset(
         global_dim=global_dim,
         device=device,
     )
+
+
+def _choose_pairs_by_pearson(
+    upairs, ent_of_col, stride, entry_pos, entry_ok, flat_val,
+    labels, dense_e, counts, e_count, max_features, intercept_index,
+):
+    """Pearson top-m per entity over the (entity, col) pair keys; returns
+    the keep mask over ``upairs``. Same scores as ``pearson_scores``
+    (absent entries are zeros) from global bincounts; entities at or under
+    the cap keep their whole subspace, ties break toward lower column ids,
+    and the intercept is kept on top of ``m``."""
+    pos = entry_pos
+    v_raw = flat_val[entry_ok]
+    v = np.asarray(v_raw, np.float64)
+    y_row = np.asarray(labels, np.float64)
+    k = len(entry_ok) // dense_e.shape[0]
+    y_ent = np.repeat(y_row, k)[entry_ok]            # label of each entry's row
+    npairs = len(upairs)
+    sum_x = np.bincount(pos, weights=v, minlength=npairs)
+    # v*v in the source dtype, so that scores (and so exact ties) are the
+    # JAX builder's bit for bit.
+    sum_x2 = np.bincount(pos, weights=np.asarray(v_raw * v_raw, np.float64),
+                         minlength=npairs)
+    sum_xy = np.bincount(pos, weights=v * y_ent, minlength=npairs)
+    row_of_kept = dense_e >= 0
+    sum_y_e = np.bincount(dense_e[row_of_kept], weights=y_row[row_of_kept],
+                          minlength=e_count)
+    sum_y2_e = np.bincount(dense_e[row_of_kept],
+                           weights=y_row[row_of_kept] ** 2, minlength=e_count)
+    s_e = counts.astype(np.float64)
+    s, sy, sy2 = s_e[ent_of_col], sum_y_e[ent_of_col], sum_y2_e[ent_of_col]
+    num = s * sum_xy - sum_x * sy
+    var_x = s * sum_x2 - sum_x * sum_x
+    var_y = s * sy2 - sy * sy
+    denom = np.sqrt(np.maximum(var_x, 0.0) * np.maximum(var_y, 0.0))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        score = np.where(denom > 0, np.abs(num) / np.maximum(denom, 1e-30), 0.0)
+
+    cols = upairs % stride
+    rank_order = np.lexsort((cols, -score, ent_of_col))
+    off = np.zeros(e_count + 1, np.int64)
+    np.cumsum(np.bincount(ent_of_col, minlength=e_count), out=off[1:])
+    rank = np.empty(npairs, np.int64)
+    rank[rank_order] = np.arange(npairs) - off[ent_of_col[rank_order]]
+    over_cap = (off[1:] - off[:-1]) > max_features     # per entity
+    chosen = ~over_cap[ent_of_col] | (rank < max_features)
+    if intercept_index is not None:
+        chosen |= cols == intercept_index
+    return chosen
 
 
 def _sorted_unique(a: np.ndarray) -> np.ndarray:
@@ -282,6 +440,37 @@ def _sorted_unique(a: np.ndarray) -> np.ndarray:
     keep[0] = True
     np.not_equal(s[1:], s[:-1], out=keep[1:])
     return s[keep]
+
+
+def _unique_keys(values) -> tuple[np.ndarray, np.ndarray]:
+    """``np.unique(values, return_inverse=True)`` for object (string) keys:
+    the distinct keys by one dict pass, only those sorted, then each row's
+    key looked up, instead of sorting every row's Python object. Other
+    arrays go to ``np.unique``."""
+    values = np.asarray(values)
+    if values.dtype != object:
+        keys, inv = np.unique(values, return_inverse=True)
+        return keys, inv.reshape(-1).astype(np.int64)
+    flat = values.ravel().tolist()
+    distinct = dict.fromkeys(flat)
+    keys = np.empty(len(distinct), object)
+    keys[:] = list(distinct)
+    keys = keys[np.argsort(keys, kind="stable")]
+    rank = {k: r for r, k in enumerate(keys.tolist())}
+    return keys, np.fromiter(map(rank.__getitem__, flat), np.int64, len(flat))
+
+
+def _sorted_unique_inverse(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``_sorted_unique(a)`` and each element's index in it (int32), by one
+    argsort."""
+    order = np.argsort(a)
+    s = a[order]
+    keep = np.empty(len(s), bool)
+    keep[:1] = True
+    np.not_equal(s[1:], s[:-1], out=keep[1:])
+    inv = np.empty(len(a), np.int32)
+    inv[order] = np.cumsum(keep, dtype=np.int64) - 1
+    return s[keep], inv
 
 
 def _next_pow2_vec(x: np.ndarray) -> np.ndarray:

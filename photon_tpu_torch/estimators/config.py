@@ -2,16 +2,14 @@
 
 Port of ``photon_tpu/estimators/config.py``: what data a coordinate trains
 on (a data config, fixed per estimator) apart from how it optimizes (an
-optimization config, swept over by ``GameEstimator.fit``). The random-effect
-data config keeps the fields scoring needs; its training fields (active
-bound, minimum rows, Pearson filter, bucket caps) come with the
-random-effect training slice.
+optimization config, swept over by ``GameEstimator.fit``). The factored
+random-effect data config comes with a later slice (M12).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Mapping, Sequence, Union
+from typing import Mapping, Optional, Sequence, Union
 
 from photon_tpu_torch.functions.problem import (
     GLMOptimizationProblem,
@@ -31,10 +29,24 @@ class FixedEffectDataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RandomEffectDataConfig:
-    """Per-entity GLMs grouped by an id column."""
+    """Per-entity GLMs grouped by an id column.
+
+    ``active_bound`` caps the rows each entity trains on (later rows are
+    passive: scored, not trained on); ``min_entity_rows`` drops entities
+    with fewer rows (they score through the zero model);
+    ``max_features_per_entity`` keeps each entity's features most
+    correlated with the label (Pearson); ``max_bucket_entities`` caps the
+    entities of a bucket. ``host_resident`` (buckets left on the host for
+    the device sweep cache) is refused by the builder (ingest slice, M10).
+    """
 
     re_type: str
     feature_shard: str = "global"
+    active_bound: Optional[int] = None
+    min_entity_rows: int = 1
+    max_features_per_entity: Optional[int] = None
+    max_bucket_entities: Optional[int] = None
+    host_resident: bool = False
 
 
 CoordinateDataConfig = Union[FixedEffectDataConfig, RandomEffectDataConfig]

@@ -1,13 +1,15 @@
 """GameEstimator: GAME fit over a configuration sweep, and the dataset
 preparation it shares with the transformer.
 
-Port of ``photon_tpu/estimators/game_estimator.py`` for fixed-effect
-coordinates on one device: per-shard batches (with their accelerator
-layouts) are built once and shared by every configuration of the sweep;
-each configuration runs coordinate descent and yields a ``GameFitResult``.
-Random-effect coordinates, down-sampling, feature normalization and
-validation with evaluators belong to later slices of the port and raise
-``NotImplementedError`` naming them.
+Port of ``photon_tpu/estimators/game_estimator.py`` on one device:
+per-coordinate datasets (fixed-effect batches with their accelerator
+layouts, bucketed random-effect datasets) are built once and shared by every
+configuration of the sweep; each configuration runs coordinate descent,
+with validation after every step when evaluators and validation data are
+given, and yields a ``GameFitResult``; ``select_best`` picks the
+configuration by the primary evaluator. Down-sampling, feature
+normalization, factored random effects and checkpoints belong to later
+slices of the port and raise ``NotImplementedError`` naming them.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch
 from photon_tpu_torch.data.random_effect import (
     RandomEffectDataset,
     build_random_effect_dataset,
@@ -30,13 +31,19 @@ from photon_tpu_torch.estimators.config import (
     GLMOptimizationConfiguration,
     RandomEffectDataConfig,
 )
+from photon_tpu_torch.evaluation import EvaluationResults, EvaluationSuite
 from photon_tpu_torch.functions.objective import intercept_reg_mask
 from photon_tpu_torch.functions.prior import PriorDistribution
-from photon_tpu_torch.game.coordinates import FixedEffectCoordinate
+from photon_tpu_torch.game.coordinates import (
+    Coordinate,
+    FixedEffectCoordinate,
+    RandomEffectCoordinate,
+)
 from photon_tpu_torch.game.descent import (
     CoordinateDescent,
     CoordinateStepRecord,
     GameModel,
+    ValidationData,
 )
 from photon_tpu_torch.io.data_reader import GameDataBundle
 from photon_tpu_torch.types import TaskType
@@ -48,13 +55,13 @@ def build_re_dataset_from_bundle(
     bundle: GameDataBundle,
     cfg: RandomEffectDataConfig,
     intercept_index: Optional[int] = None,
+    for_scoring: bool = False,
 ) -> RandomEffectDataset:
     """Group a bundle's rows by ``cfg.re_type`` into a bucketed per-entity
-    scoring dataset: every entity is kept (rows of entities unseen at
-    training time score 0) and no active/passive split applies. The buckets
-    follow the feature values' dtype and device. (The JAX function's
-    training form — active bound, minimum rows, Pearson filter — comes with
-    the training slice.)"""
+    dataset on the bundle's device, in its feature values' dtype. For
+    scoring and validation every entity is kept (rows of entities unseen at
+    training time score 0) and no active/passive split or feature filter
+    applies."""
     sf = bundle.features[cfg.feature_shard]
     if cfg.re_type not in bundle.id_tags:
         raise ValueError(
@@ -72,17 +79,28 @@ def build_re_dataset_from_bundle(
         intercept_index=intercept_index,
         dtype=sf.val.dtype,
         device=sf.device,
+        active_bound=None if for_scoring else cfg.active_bound,
+        min_entity_rows=1 if for_scoring else cfg.min_entity_rows,
+        max_features_per_entity=(
+            None if for_scoring else cfg.max_features_per_entity),
+        max_bucket_entities=cfg.max_bucket_entities,
+        host_resident=cfg.host_resident,
     )
+
+
+def _factorize_group_ids(values: np.ndarray, device: torch.device):
+    keys, inv = np.unique(values, return_inverse=True)
+    return torch.from_numpy(inv.reshape(-1).astype(np.int32)).to(device), len(keys)
 
 
 @dataclasses.dataclass(frozen=True)
 class GameFitResult:
-    """One entry of the estimator's output: the model, its evaluation
-    (None: validation comes with the evaluation slice), the configuration
-    and the per-step tracker."""
+    """One entry of the estimator's output: the model, its evaluation on
+    the validation data (None without), the configuration and the per-step
+    tracker."""
 
     model: GameModel
-    evaluation: Optional[dict]
+    evaluation: Optional[EvaluationResults]
     config: GameOptimizationConfiguration
     tracker: Sequence[CoordinateStepRecord]
 
@@ -92,9 +110,10 @@ class GameEstimator:
     """Configured GAME trainer; ``fit`` runs the configuration sweep.
 
     ``intercept_indices`` (shard → column) excludes intercepts from the L2
-    penalty. The solves run where the bundle's features live. Evaluators
-    and a ``normalization`` other than "NONE" (the JAX package's
-    ``NormalizationType`` by name) belong to later slices and are refused.
+    penalty, for fixed and random effects alike. The solves run where the
+    bundle's features live. A ``normalization`` other than "NONE" (the JAX
+    package's ``NormalizationType`` by name) belongs to a later slice and is
+    refused.
     """
 
     task: TaskType
@@ -114,17 +133,13 @@ class GameEstimator:
                     f"update sequence names unknown coordinate {cid!r}"
                 )
         for cid, dcfg in self.coordinate_data_configs.items():
-            if not isinstance(dcfg, FixedEffectDataConfig):
+            if not isinstance(dcfg, (FixedEffectDataConfig,
+                                     RandomEffectDataConfig)):
                 raise NotImplementedError(
-                    f"coordinate {cid!r}: random-effect training is not in "
-                    "the port yet (it comes with the random-effect training "
-                    "slice, M5/M6)"
+                    f"coordinate {cid!r}: {type(dcfg).__name__} is not in the "
+                    "port yet (factored random effects come with the "
+                    "factored-random-effect slice, M12)"
                 )
-        if self.evaluator_specs:
-            raise NotImplementedError(
-                "evaluators are not in the port yet (they come with the "
-                "evaluation slice, M7)"
-            )
         if self.normalization != "NONE":
             raise NotImplementedError(
                 "feature normalization is not in the port yet (it comes with "
@@ -139,16 +154,11 @@ class GameEstimator:
         initial_model: Optional[GameModel] = None,
     ) -> list[GameFitResult]:
         """Train one GameModel per optimization configuration, on the
-        device of the bundle's features. The per-shard batches and their
-        accelerator layouts are built once for the whole sweep;
-        ``initial_model`` warm-starts every configuration."""
+        device of the bundle's features. The datasets, their accelerator
+        layouts and the validation structures are built once for the whole
+        sweep; ``initial_model`` warm-starts every configuration."""
         if not configs:
             raise ValueError("at least one GameOptimizationConfiguration required")
-        if validation_data is not None:
-            raise NotImplementedError(
-                "validation data is not in the port yet (it comes with the "
-                "evaluation slice, M7)"
-            )
         for cfg in configs:
             missing = [c for c in self.update_sequence if c not in cfg]
             if missing:
@@ -160,23 +170,26 @@ class GameEstimator:
                         "port yet (it comes with the data-preparation slice, "
                         "M8)"
                     )
+        suite = (EvaluationSuite.parse(self.evaluator_specs)
+                 if self.evaluator_specs else None)
+        if validation_data is not None and suite is None:
+            raise ValueError("validation data provided but no evaluator_specs")
 
-        batches = {
-            shard: data.batch(shard)
-            for shard in sorted({c.feature_shard
-                                 for c in self.coordinate_data_configs.values()})
-        }
+        prep = self._prepare_cached(data)
+        validation = (self._prepare_validation_cached(validation_data, suite)
+                      if validation_data is not None else None)
         # Offsets enter as float32, as in the JAX estimator (the f64 parity
         # with offsets depends on this cast).
         base_offsets = torch.as_tensor(
             np.asarray(data.offsets), dtype=torch.float32, device=data.device)
-        # One layout build per distinct feature object across the sweep.
-        accel_cache: dict = {}
+        # One layout build per distinct feature object across the sweep
+        # (and across fits on the same bundle).
+        accel_cache = prep["accel_cache"]
         results: list[GameFitResult] = []
         for i, cfg in enumerate(configs):
             logger.info("=== configuration %d/%d ===", i + 1, len(configs))
             coordinates = self._build_coordinates(
-                batches, cfg, initial_model, accel_cache)
+                prep, cfg, initial_model, accel_cache)
             model, tracker = CoordinateDescent(
                 update_sequence=tuple(self.update_sequence),
                 n_sweeps=self.n_sweeps,
@@ -184,9 +197,13 @@ class GameEstimator:
                 coordinates,
                 n_rows=data.n_rows,
                 base_offsets=base_offsets,
+                validation=validation,
+                suite=suite,
                 initial_models=dict(initial_model.models) if initial_model else None,
             )
-            results.append(GameFitResult(model, None, cfg, tracker))
+            evaluation = (self._evaluate(model, validation, suite)
+                          if validation is not None else None)
+            results.append(GameFitResult(model, evaluation, cfg, tracker))
         return results
 
     def _intercept_for(self, shard: str) -> Optional[int]:
@@ -194,26 +211,59 @@ class GameEstimator:
             return None
         return self.intercept_indices.get(shard)
 
+    def _prepare_cached(self, data: GameDataBundle) -> dict:
+        """Per-bundle preparation cache (size 1, identity-keyed): repeated
+        fits on the same bundle reuse its datasets instead of regrouping
+        the random effects."""
+        cached = getattr(self, "_prep_cache", None)
+        if cached is not None and cached[0] is data:
+            return cached[1]
+        prep = self._prepare(data)
+        self._prep_cache = (data, prep)
+        return prep
+
+    def _prepare_validation_cached(
+        self, vdata: GameDataBundle, suite: EvaluationSuite
+    ) -> ValidationData:
+        cached = getattr(self, "_validation_cache", None)
+        if cached is not None and cached[0] is vdata and cached[1] == suite:
+            return cached[2]
+        v = self._prepare_validation(vdata, suite)
+        self._validation_cache = (vdata, suite, v)
+        return v
+
+    def _prepare(self, data: GameDataBundle) -> dict:
+        """Per-shard batches and per-coordinate random-effect datasets."""
+        batches = {
+            shard: data.batch(shard)
+            for shard in sorted({c.feature_shard
+                                 for c in self.coordinate_data_configs.values()})
+        }
+        datasets = {
+            cid: build_re_dataset_from_bundle(
+                data, dcfg, self._intercept_for(dcfg.feature_shard))
+            for cid, dcfg in self.coordinate_data_configs.items()
+            if isinstance(dcfg, RandomEffectDataConfig)
+        }
+        return {"batches": batches, "datasets": datasets, "prior_proj": {},
+                "accel_cache": {}}
+
     def _build_coordinates(
         self,
-        batches: Mapping[str, LabeledBatch],
+        prep: dict,
         cfg: GameOptimizationConfiguration,
         initial_model: Optional[GameModel],
         accel_cache: dict,
-    ) -> dict[str, FixedEffectCoordinate]:
+    ) -> dict[str, Coordinate]:
         # Every data config gets a coordinate: those outside the update
         # sequence score locked warm-start models with a default problem
         # that never runs.
-        coordinates = {}
+        coordinates: dict[str, Coordinate] = {}
         for cid, dcfg in self.coordinate_data_configs.items():
             ocfg = cfg.get(cid, GLMOptimizationConfiguration())
             problem = ocfg.problem(self.task)
-            batch = batches[dcfg.feature_shard]
-            mask = intercept_reg_mask(
-                batch.dim, self._intercept_for(dcfg.feature_shard),
-                device=batch.labels.device)
-            if mask is not None:
-                problem = dataclasses.replace(problem, reg_mask=mask)
+            intercept = self._intercept_for(dcfg.feature_shard)
+            init_m = None
             if ocfg.incremental_weight > 0.0:
                 init_m = (initial_model.models.get(cid)
                           if initial_model is not None else None)
@@ -222,17 +272,113 @@ class GameEstimator:
                         f"coordinate {cid!r}: incremental_weight > 0 requires "
                         "an initial_model containing this coordinate"
                     )
-                problem = dataclasses.replace(
-                    problem,
-                    prior=PriorDistribution.from_model(
-                        init_m.model.coefficients.means,
-                        init_m.model.coefficients.variances,
-                        ocfg.incremental_weight,
-                    ),
+            if isinstance(dcfg, FixedEffectDataConfig):
+                batch = prep["batches"][dcfg.feature_shard]
+                mask = intercept_reg_mask(batch.dim, intercept,
+                                          device=batch.labels.device)
+                if mask is not None:
+                    problem = dataclasses.replace(problem, reg_mask=mask)
+                if init_m is not None:
+                    problem = dataclasses.replace(
+                        problem,
+                        prior=PriorDistribution.from_model(
+                            init_m.model.coefficients.means,
+                            init_m.model.coefficients.variances,
+                            ocfg.incremental_weight,
+                        ),
+                    )
+                coordinates[cid] = FixedEffectCoordinate(
+                    batch=batch.with_accelerator_paths(accel_cache),
+                    problem=problem,
+                    feature_shard=dcfg.feature_shard,
                 )
-            coordinates[cid] = FixedEffectCoordinate(
-                batch=batch.with_accelerator_paths(accel_cache),
-                problem=problem,
-                feature_shard=dcfg.feature_shard,
-            )
+            else:
+                dataset = prep["datasets"][cid]
+                priors = None
+                if init_m is not None:
+                    # The posterior projection does not depend on the
+                    # configuration: cached across the sweep, keyed by the
+                    # model object (identity checked on a hit).
+                    hit = prep["prior_proj"].get(cid)
+                    if hit is None or hit[0] is not init_m:
+                        hit = (init_m, init_m.project_posteriors_to(dataset))
+                        prep["prior_proj"][cid] = hit
+                    means, variances = hit[1]
+                    priors = [PriorDistribution.from_model(
+                        m, v, ocfg.incremental_weight)
+                        for m, v in zip(means, variances)]
+                coordinates[cid] = RandomEffectCoordinate(
+                    dataset=dataset,
+                    problem=problem,
+                    global_reg_mask=intercept_reg_mask(
+                        dataset.global_dim, intercept, device=dataset.device),
+                    priors=priors,
+                )
         return coordinates
+
+    def _prepare_validation(
+        self, vdata: GameDataBundle, suite: EvaluationSuite
+    ) -> ValidationData:
+        """Validation rows, per-coordinate scorers and grouped-evaluator
+        ids, on the validation bundle's device."""
+        shards = {c.feature_shard for c in self.coordinate_data_configs.values()}
+        # Scoring runs one matvec per step: only the matvec's layout.
+        v_feats = {s: vdata.features[s].with_matvec_layout() for s in shards}
+        scorers: dict = {}
+        for cid, dcfg in self.coordinate_data_configs.items():
+            if isinstance(dcfg, FixedEffectDataConfig):
+                vf = v_feats[dcfg.feature_shard]
+                scorers[cid] = (
+                    lambda m, vf=vf: vf.matvec(m.model.coefficients.means))
+            else:
+                v_ds = build_re_dataset_from_bundle(
+                    vdata, dcfg, self._intercept_for(dcfg.feature_shard),
+                    for_scoring=True)
+                scorers[cid] = lambda m, v_ds=v_ds: m.score_new_dataset(v_ds)
+
+        group_cols = {ev.group_column for ev in suite.evaluators
+                      if ev.group_column is not None}
+        gids, ngroups = {}, {}
+        for col in group_cols:
+            if col not in vdata.id_tags:
+                raise ValueError(
+                    f"grouped evaluator needs id tag column {col!r} in "
+                    f"validation data; bundle has {sorted(vdata.id_tags)}"
+                )
+            gids[col], ngroups[col] = _factorize_group_ids(
+                vdata.id_tags[col], vdata.device)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                   device=vdata.device)
+
+        return ValidationData(
+            labels=f32(vdata.labels),
+            weights=f32(vdata.weights),
+            offsets=f32(vdata.offsets),
+            scorers=scorers,
+            group_ids_by_column=gids or None,
+            num_groups_by_column=ngroups or None,
+        )
+
+    def _evaluate(self, model: GameModel, validation: ValidationData,
+                  suite: EvaluationSuite) -> EvaluationResults:
+        scores = validation.offsets + sum(
+            validation.scorers[cid](model[cid]) for cid in model.keys())
+        return suite.evaluate(
+            scores, validation.labels, validation.weights,
+            validation.group_ids_by_column, validation.num_groups_by_column)
+
+
+def select_best(results: Sequence[GameFitResult],
+                suite: EvaluationSuite) -> GameFitResult:
+    """The configuration whose final validation primary metric is best (the
+    first without any evaluation)."""
+    scored = [r for r in results if r.evaluation is not None]
+    if not scored:
+        return results[0]
+    best = scored[0]
+    for r in scored[1:]:
+        if suite.primary.better_than(r.evaluation.primary, best.evaluation.primary):
+            best = r
+    return best

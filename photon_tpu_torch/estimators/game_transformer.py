@@ -1,8 +1,9 @@
 """GameTransformer: score a dataset with a trained GameModel.
 
-Port of ``photon_tpu/estimators/game_transformer.py`` (``transform`` and the
-fixed-effect scoring without a mesh; ``transform_rows`` and the shared
-``additive_score_rows`` program come with the serving slice). Per
+Port of ``photon_tpu/estimators/game_transformer.py`` (``transform``,
+``transform_and_evaluate`` and ``evaluate_scored_arrays``, without a mesh;
+``transform_rows`` and the shared ``additive_score_rows`` program come with
+the serving slice). Per
 coordinate, the data is scored and the scores summed additively; rows whose
 entity was unseen at training fall back to the zero model.
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping, Optional
 
+import numpy as np
 import torch
 
 from photon_tpu_torch.estimators.config import (
@@ -24,7 +26,11 @@ from photon_tpu_torch.estimators.config import (
     FixedEffectDataConfig,
     RandomEffectDataConfig,
 )
-from photon_tpu_torch.estimators.game_estimator import build_re_dataset_from_bundle
+from photon_tpu_torch.estimators.game_estimator import (
+    _factorize_group_ids,
+    build_re_dataset_from_bundle,
+)
+from photon_tpu_torch.evaluation import EvaluationResults, EvaluationSuite
 from photon_tpu_torch.game.coordinates import FixedEffectModel
 from photon_tpu_torch.game.descent import GameModel
 from photon_tpu_torch.game.random_effect import RandomEffectModel
@@ -77,9 +83,37 @@ class GameTransformer:
                 if not isinstance(m, RandomEffectModel):
                     raise TypeError(f"{cid!r}: random-effect config, {type(m)} model")
                 ds = build_re_dataset_from_bundle(
-                    data, dcfg, self._intercept_for(dcfg.feature_shard)
+                    data, dcfg, self._intercept_for(dcfg.feature_shard),
+                    for_scoring=True,
                 )
                 total = total + m.score_new_dataset(ds)
             else:  # pragma: no cover - union is closed
                 raise TypeError(f"unknown data config {type(dcfg)}")
         return total
+
+    def transform_and_evaluate(
+        self, data: GameDataBundle, suite: EvaluationSuite
+    ) -> tuple[Tensor, EvaluationResults]:
+        """Score, then evaluate the scores with the suite (the scoring
+        driver's ``--evaluators``)."""
+        scores = self.transform(data)
+        return scores, evaluate_scored_arrays(
+            suite, scores, data.labels, data.weights, data.id_tags)
+
+
+def evaluate_scored_arrays(suite: EvaluationSuite, scores: Tensor, labels,
+                           weights, id_tags: Mapping) -> EvaluationResults:
+    """Evaluate precomputed scores: factorize each grouped evaluator's id
+    column, cast to float32 on the scores' device, run the suite."""
+    dev = scores.device
+    gids, ngroups = {}, {}
+    for col in {ev.group_column for ev in suite.evaluators if ev.group_column}:
+        if col not in id_tags:
+            raise ValueError(f"grouped evaluator needs id column {col!r}")
+        gids[col], ngroups[col] = _factorize_group_ids(id_tags[col], dev)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    return suite.evaluate(scores.to(torch.float32), f32(labels), f32(weights),
+                          gids or None, ngroups or None)

@@ -1,23 +1,28 @@
 """GAME coordinate models.
 
-Port of ``photon_tpu/game/coordinates.py``: ``FixedEffectModel`` and the
-trainable ``FixedEffectCoordinate`` on one device (no mesh, no
-feature-sharded model axis; the random-effect coordinates come with the
-random-effect training slice). A coordinate owns its training data and
-problem and exposes ``train(offsets, init) -> (model, result)`` and
-``score(model) -> [N]``; offsets are per-row tensors in the global sample
-order, so residuals are elementwise.
+Port of ``photon_tpu/game/coordinates.py``: ``FixedEffectModel``, the
+trainable ``FixedEffectCoordinate`` and ``RandomEffectCoordinate`` on one
+device (no mesh, no feature-sharded model axis, no device sweep cache; the
+factored random effect comes with a later slice). A coordinate owns its
+training data and problem and exposes ``train(offsets, init) -> (model,
+result)`` and ``score(model) -> [N]``; offsets are per-row tensors in the
+global sample order, so residuals are elementwise.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
 from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.random_effect import RandomEffectDataset
+from photon_tpu_torch.functions.prior import PriorDistribution
 from photon_tpu_torch.functions.problem import GLMOptimizationProblem
-from photon_tpu_torch.game.random_effect import RandomEffectModel
+from photon_tpu_torch.game.random_effect import (
+    RandomEffectModel,
+    train_random_effects,
+)
 from photon_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_tpu_torch.optim import OptimizerResult
 
@@ -61,5 +66,47 @@ class FixedEffectCoordinate:
         return model.score_batch(self.batch)
 
 
-Coordinate = FixedEffectCoordinate
+@dataclasses.dataclass(frozen=True)
+class RandomEffectCoordinate:
+    """Per-entity GLMs over a ``RandomEffectDataset``. ``train`` returns the
+    model and the per-bucket results (per-lane tensors)."""
+
+    dataset: RandomEffectDataset
+    problem: GLMOptimizationProblem
+    global_reg_mask: Optional[Tensor] = None
+    # Per-bucket priors for incremental training
+    # (RandomEffectModel.project_prior_to).
+    priors: Optional[Sequence[PriorDistribution]] = None
+
+    def _same_structure(self, model: RandomEffectModel) -> bool:
+        # A model trained on THIS dataset (every coordinate-descent sweep)
+        # shares its projections by identity; anything else (a loaded
+        # model, a model of other data) is re-projected.
+        return len(model.bucket_coefs) == len(self.dataset.buckets) and all(
+            p is b.proj for p, b in zip(model.bucket_proj, self.dataset.buckets)
+        )
+
+    def _init_coefs(self, init: Optional[RandomEffectModel]):
+        if init is None:
+            return None
+        return (init.bucket_coefs if self._same_structure(init)
+                else init.project_to(self.dataset))
+
+    def train(self, offsets: Tensor, init: Optional[RandomEffectModel] = None):
+        return train_random_effects(
+            self.problem, self.dataset, offsets,
+            global_reg_mask=self.global_reg_mask,
+            init_coefs=self._init_coefs(init),
+            priors=self.priors,
+        )
+
+    def score(self, model: RandomEffectModel) -> Tensor:
+        if self._same_structure(model):
+            return model.score_dataset(self.dataset)
+        # A foreign model (loaded warm start or locked coordinate) is
+        # projected into this dataset's structure first.
+        return model.score_new_dataset(self.dataset)
+
+
+Coordinate = Union[FixedEffectCoordinate, RandomEffectCoordinate]
 DatumScoringModel = Union[FixedEffectModel, RandomEffectModel]

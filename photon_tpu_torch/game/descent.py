@@ -1,12 +1,13 @@
 """Coordinate descent: the GAME outer loop.
 
-Port of ``photon_tpu/game/descent.py`` (``GameModel``, ``CoordinateStepRecord``
-and ``CoordinateDescent.run`` without validation, checkpoints, resume or
-device-loss recovery, which come with later slices): for each sweep, for each
-coordinate in the update sequence, remove the coordinate's own score from
-the total, train against the residual as offset, and add the new score
-back. Scores are [N] tensors in one global row order, so the residuals are
-elementwise.
+Port of ``photon_tpu/game/descent.py`` (``GameModel``, ``ValidationData``,
+``CoordinateStepRecord`` and ``CoordinateDescent.run`` without checkpoints,
+resume or device-loss recovery, which come with later slices): for each
+sweep, for each coordinate in the update sequence, remove the coordinate's
+own score from the total, train against the residual as offset, and add the
+new score back; with validation data, evaluate after every coordinate step
+and keep the best complete model seen. Scores are [N] tensors in one global
+row order, so the residuals are elementwise.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
+from photon_tpu_torch.evaluation import EvaluationResults, EvaluationSuite
 from photon_tpu_torch.game.coordinates import Coordinate, DatumScoringModel
 
 Tensor = torch.Tensor
@@ -41,12 +43,33 @@ class GameModel:
 class CoordinateStepRecord:
     """One (sweep, coordinate) step of the tracker. ``result`` is what the
     coordinate's training returned beside its model (a fixed effect's
-    ``OptimizerResult``)."""
+    ``OptimizerResult``, a random effect's per-bucket results);
+    ``validation`` the evaluation after the step, when there is validation
+    data."""
 
     sweep: int
     coordinate_id: str
     seconds: float
     result: Optional[object] = None
+    validation: Optional[EvaluationResults] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ValidationData:
+    """Validation rows + per-coordinate scorers.
+
+    ``scorers[cid](model) -> [n_rows]`` gives a coordinate's raw scores on
+    the validation rows (fixed effect: matvec on the validation batch;
+    random effect: projection into the validation dataset). Built by the
+    estimator.
+    """
+
+    labels: Tensor
+    weights: Tensor
+    offsets: Tensor
+    scorers: Mapping[str, object]
+    group_ids_by_column: Optional[Mapping[str, Tensor]] = None
+    num_groups_by_column: Optional[Mapping[str, int]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,16 +84,29 @@ class CoordinateDescent:
         coordinates: Mapping[str, Coordinate],
         n_rows: int,
         base_offsets: Tensor,
+        validation: Optional[ValidationData] = None,
+        suite: Optional[EvaluationSuite] = None,
         initial_models: Optional[Mapping[str, DatumScoringModel]] = None,
+        checkpointer=None,
+        resume: Optional[dict] = None,
     ) -> tuple[GameModel, list[CoordinateStepRecord]]:
         """``base_offsets`` [n_rows] are the data's own offsets (float32 in
         the JAX package's estimator). Warm-start models in
         ``initial_models`` seed their coordinates' scores; those outside the
         update sequence are "locked": scored so the residuals are right,
-        never retrained, kept in the output."""
+        never retrained, kept in the output. With ``validation`` the
+        returned model is the best complete one by the suite's primary
+        evaluator. ``checkpointer`` / ``resume`` are refused (checkpoint
+        slice, M9)."""
+        if checkpointer is not None or resume is not None:
+            raise NotImplementedError(
+                "checkpoints and resume are not in the port yet (they come "
+                "with the checkpoint slice, M9)")
         for cid in self.update_sequence:
             if cid not in coordinates:
                 raise ValueError(f"update sequence names unknown coordinate {cid!r}")
+        if validation is not None and suite is None:
+            raise ValueError("validation data provided without an evaluation suite")
         base = base_offsets
 
         models = dict(initial_models or {})
@@ -90,6 +126,19 @@ class CoordinateDescent:
             scores[cid] = coordinates[cid].score(models[cid])
         total = base + sum(scores.values())
 
+        best_metric = None
+        best_models = None
+        # Validation scores cached per coordinate: only the coordinate just
+        # trained is re-scored (a random effect's projection is host work).
+        v_cache = ({cid: validation.scorers[cid](models[cid]) for cid in models}
+                   if validation is not None else {})
+        if validation is not None:
+            need = set(self.update_sequence) | set(models)
+            missing = sorted(c for c in need if c not in validation.scorers)
+            if missing:
+                raise ValueError(
+                    f"validation scorers missing for coordinates {missing}")
+
         tracker: list[CoordinateStepRecord] = []
         for sweep in range(self.n_sweeps):
             for cid in self.update_sequence:
@@ -105,6 +154,30 @@ class CoordinateDescent:
                 scores[cid] = new_score
                 models[cid] = model
                 dt = time.perf_counter() - t0
-                tracker.append(CoordinateStepRecord(sweep, cid, dt, result))
-                logger.info("sweep %d coord %s done (%.2fs)", sweep, cid, dt)
-        return GameModel(dict(models)), tracker
+                record = CoordinateStepRecord(sweep, cid, dt, result)
+                if validation is not None:
+                    v_cache[cid] = validation.scorers[cid](model)
+                    record.validation = suite.evaluate(
+                        validation.offsets + sum(v_cache.values()),
+                        validation.labels,
+                        validation.weights,
+                        validation.group_ids_by_column,
+                        validation.num_groups_by_column,
+                    )
+                    primary = record.validation.primary
+                    # Only a complete model (every coordinate trained at
+                    # least once) may be the best.
+                    complete = all(c in models for c in self.update_sequence)
+                    if complete and (
+                        best_metric is None
+                        or suite.primary.better_than(primary, best_metric)
+                    ):
+                        best_metric = primary
+                        best_models = dict(models)
+                    logger.info("sweep %d coord %s: %s (%.2fs)", sweep, cid,
+                                record.validation, dt)
+                else:
+                    logger.info("sweep %d coord %s done (%.2fs)", sweep, cid, dt)
+                tracker.append(record)
+        final = best_models if best_models is not None else models
+        return GameModel(dict(final)), tracker

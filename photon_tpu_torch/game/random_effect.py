@@ -1,22 +1,46 @@
-"""Random-effect models: per-entity GLMs for one coordinate.
+"""Random-effect models and their training: batched per-entity solves.
 
-Port of ``photon_tpu/game/random_effect.py`` (``RandomEffectModel`` with the
-export and cross-dataset scoring paths; the bucket solvers come with the
-training slice).
+Port of ``photon_tpu/game/random_effect.py`` on one device:
+``RandomEffectModel`` (scoring, export, projection into another dataset's
+subspaces and the incremental-training priors) and ``train_random_effects``
+with the static solver plan of ``_solve_bucket``: full-bucket primal Newton,
+full-bucket dual Newton, chunked primal, chunked dual (``game/newton_re.py``).
+
+Not in this slice, each raising ``NotImplementedError`` that names where it
+comes: the vmapped masked L-BFGS fallback (L1 / OWL-QN, a normalization
+context, or wide rows that fit no Newton tier), measured solver routing
+(``PHOTON_RE_ROUTING=measured``), the OOM ladder, meshes, the compile store
+and the obs counters.
+
+``LAST_BUCKET_TIMINGS`` keeps one record per bucket of the most recent
+``train_random_effects`` call (bucket, entities, S, P, solver, chunk and the
+per-lane Newton iterations); ``bucket_records()`` gives it with the
+iterations summarized, at one device fetch per bucket, so training itself
+fetches nothing for it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from photon_tpu_torch.data.random_effect import RandomEffectDataset
+from photon_tpu_torch.functions.prior import PriorDistribution
+from photon_tpu_torch.game import newton_re
+from photon_tpu_torch.optim.base import OptimizerResult
 from photon_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
+
+LAST_BUCKET_TIMINGS: list = []
+
+_NEXT_SLICE = ("the vmapped masked L-BFGS fallback comes with the next "
+               "random-effect slice (explicitly masked batched lanes over "
+               "[E, P])")
 
 
 def _host(t: Tensor) -> np.ndarray:
@@ -40,9 +64,22 @@ class RandomEffectModel:
     global_dim: int
     bucket_variances: Optional[Sequence[Tensor]] = None
 
+    @property
+    def n_entities(self) -> int:
+        return len(self.entity_keys)
+
     @functools.cached_property
     def _key_to_dense(self) -> dict:
         return {k: i for i, k in enumerate(self.entity_keys)}
+
+    @functools.cached_property
+    def _slots(self) -> tuple[np.ndarray, np.ndarray]:
+        """(bucket, lane) of every dense entity id, as two arrays."""
+        slot_b = np.full(self.n_entities, -1, np.int64)
+        slot_l = np.full(self.n_entities, -1, np.int64)
+        for dense, (b, lane) in self.entity_to_slot.items():
+            slot_b[dense], slot_l[dense] = b, lane
+        return slot_b, slot_l
 
     def _sparse_for(
         self, entity_key, stacks: Sequence[Sequence[Tensor]]
@@ -73,45 +110,249 @@ class RandomEffectModel:
         )
         return gi, gv, vv
 
-    def project_to(self, dataset: RandomEffectDataset) -> list[Tensor]:
-        """Coefficient stacks re-projected into a *different* dataset's local
-        subspaces (scoring data), on the dataset's device: a host-side
-        per-entity remap (the model-RDD join by REId of the reference).
-        Entities and columns unseen at training time get the zero model."""
+    def score_dataset(self, dataset: RandomEffectDataset) -> Tensor:
+        """Scores for every row of the dataset this model was trained on
+        (or any dataset with identical bucket structure)."""
+        per_bucket = [
+            b.scores(c) for b, c in zip(dataset.buckets, self.bucket_coefs)
+        ]
+        dtype = per_bucket[0].dtype if per_bucket else torch.float32
+        return dataset.scatter_scores(per_bucket, dtype)
+
+    def _project_stacks(
+        self,
+        dataset: RandomEffectDataset,
+        sources: Sequence[Sequence[Tensor]],
+        fills: Sequence[float],
+    ) -> list[list[Tensor]]:
+        """Project per-entity [E, P] stacks (aligned with this model's
+        buckets) into ``dataset``'s local subspaces, several value sets at
+        once, on the dataset's device: a host-side remap (the model-RDD join
+        by REId of the reference), vectorized over the lanes of each pair of
+        (new bucket, trained bucket). Entities and columns absent from this
+        model get the per-source fill."""
+        g = self.global_dim
+        slot_b, slot_l = self._slots
         key_to_dense = self._key_to_dense
-        old_proj = [_host(p) for p in self.bucket_proj]
-        old_coef = [_host(c) for c in self.bucket_coefs]
-        out: list[Tensor] = []
+        # the dataset's dense ids -> this model's (-1: unseen)
+        to_old = np.fromiter((key_to_dense.get(k, -1) for k in dataset.entity_keys),
+                             np.int64, len(dataset.entity_keys))
+        old_proj = [_host(p).astype(np.int64) for p in self.bucket_proj]
+        old_vals = [[_host(c) for c in src] for src in sources]
+        out: list[list[Tensor]] = [[] for _ in sources]
         for b in dataset.buckets:
-            proj = _host(b.proj)
-            eids = _host(b.entity_ids)
-            coef = np.zeros(proj.shape, old_coef[0].dtype)
-            for lane in range(b.n_entities):
-                dense_new = eids[lane]
-                if dense_new < 0:
-                    continue
-                dense_old = key_to_dense.get(dataset.entity_keys[dense_new])
-                if dense_old is None:
-                    continue
-                bo, lo = self.entity_to_slot[dense_old]
-                pv = old_proj[bo][lo]
-                valid = pv < self.global_dim
-                gi = pv[valid]
-                if len(gi) == 0:
-                    continue
-                # match new local columns against the trained sparse vector
-                cols_new = proj[lane]
-                pos = np.clip(np.searchsorted(gi, cols_new), 0, len(gi) - 1)
-                hit = gi[pos] == cols_new
-                coef[lane][hit] = old_coef[bo][lo][valid][pos[hit]]
-            out.append(torch.from_numpy(coef).to(dataset.device))
+            proj = _host(b.proj).astype(np.int64)
+            eids = _host(b.entity_ids).astype(np.int64)
+            vals = [np.full(proj.shape, fill, src[0].dtype)
+                    for src, fill in zip(old_vals, fills)]
+            old = np.where(eids >= 0, to_old[np.maximum(eids, 0)], -1)
+            old_b = np.where(old >= 0, slot_b[np.maximum(old, 0)], -1)
+            for bo in np.unique(old_b[old_b >= 0]):
+                lanes = np.flatnonzero(old_b == bo)
+                lo = slot_l[old[lanes]]
+                # Each trained row of global columns is sorted with its
+                # ghosts (== g) last, so offsetting row i by i*(g+1) sorts
+                # them all into one key array: one search matches every
+                # lane's new columns against its trained ones.
+                base = np.arange(len(lanes))[:, None] * (g + 1)
+                keys = (base + old_proj[bo][lo]).ravel()
+                cols = proj[lanes]
+                want = base + cols
+                pos = np.minimum(np.searchsorted(keys, want), keys.size - 1)
+                rows, at = np.nonzero((keys[pos] == want) & (cols < g))
+                for s, src in enumerate(old_vals):
+                    vals[s][lanes[rows], at] = src[bo][lo].ravel()[pos[rows, at]]
+            for s, v in enumerate(vals):
+                out[s].append(torch.from_numpy(v).to(dataset.device))
         return out
 
+    def project_to(self, dataset: RandomEffectDataset) -> list[Tensor]:
+        """Coefficient stacks re-projected into a *different* dataset's local
+        subspaces (validation / scoring data); entities and columns unseen
+        at training time get the zero model."""
+        return self._project_stacks(dataset, [self.bucket_coefs], [0.0])[0]
+
+    def project_posteriors_to(
+        self, dataset: RandomEffectDataset
+    ) -> tuple[list[Tensor], list[Tensor]]:
+        """(means, variances) per-bucket stacks projected into ``dataset`` in
+        one entity pass — the raw material for incremental-training priors.
+        Unseen entities and columns get the N(0, 1) default posterior."""
+        if self.bucket_variances is not None:
+            means, variances = self._project_stacks(
+                dataset, [self.bucket_coefs, self.bucket_variances], [0.0, 1.0])
+        else:
+            means = self.project_to(dataset)
+            variances = [torch.ones_like(m) for m in means]
+        return means, variances
+
+    def project_prior_to(
+        self, dataset: RandomEffectDataset, incremental_weight: float = 1.0
+    ) -> list[PriorDistribution]:
+        """Per-bucket priors ([E, P] leaves) for incremental training on
+        ``dataset``."""
+        means, variances = self.project_posteriors_to(dataset)
+        return [PriorDistribution.from_model(m, v, incremental_weight)
+                for m, v in zip(means, variances)]
+
     def score_new_dataset(self, dataset: RandomEffectDataset) -> Tensor:
-        """Scores for a dataset built from different rows (e.g. scoring)."""
+        """Scores for a dataset built from different rows (e.g. validation)."""
         coef_stacks = self.project_to(dataset)
         per_bucket = [
             b.scores(c) for b, c in zip(dataset.buckets, coef_stacks)
         ]
         dtype = per_bucket[0].dtype if per_bucket else self.bucket_coefs[0].dtype
         return dataset.scatter_scores(per_bucket, dtype)
+
+
+def routing_mode() -> str:
+    """``PHOTON_RE_ROUTING`` as the JAX package reads it; the port runs the
+    static plan only and refuses ``measured``."""
+    mode = (os.environ.get("PHOTON_RE_ROUTING") or "static").strip().lower()
+    if mode not in ("static", "measured"):
+        raise ValueError(
+            f"PHOTON_RE_ROUTING must be one of ('static', 'measured'), got {mode!r}")
+    if mode == "measured":
+        raise NotImplementedError(
+            "measured random-effect solver routing is not in the port yet "
+            "(it comes with the solver-routing slice, game/solver_routing.py)")
+    return mode
+
+
+def plan_bucket(problem, bucket, local_mask: Tensor,
+                local_prior: Optional[PriorDistribution],
+                normalization=None) -> tuple[str, Optional[int], int]:
+    """The static plan of one bucket: ``(solver, chunk, u_max)``, in the
+    JAX order — full primal, full dual, chunked primal, chunked dual, else
+    the vmapped fallback (``chunk`` None = the whole bucket at once;
+    ``u_max`` -1 when no dual gate was consulted). ``u_max`` costs one
+    device fetch and is computed only when a dual gate asks for it."""
+    routing_mode()
+    if newton_re.newton_eligible(problem, bucket, normalization):
+        return "newton_primal", None, -1
+    u_max = (
+        newton_re.u_max_for(newton_re.penalty_terms(
+            problem, local_mask, local_prior)[3])
+        if newton_re.dual_precheck(problem, bucket, normalization) else -1
+    )
+    if u_max >= 0 and newton_re.dual_eligible(problem, bucket, normalization,
+                                              u_max):
+        return "newton_dual", None, u_max
+    chunk = newton_re.newton_chunk_size(problem, bucket, normalization)
+    if chunk:
+        return "newton_primal", chunk, u_max
+    chunk = (newton_re.dual_chunk_size(problem, bucket, normalization, u_max)
+             if u_max >= 0 else None)
+    if chunk:
+        return "newton_dual", chunk, u_max
+    return "vmapped_lbfgs", None, u_max
+
+
+def _solve_bucket(problem, bucket, batches, w0, local_mask, local_prior,
+                  normalization=None):
+    """Pick and run one bucket's solver: ``(model, result, info)`` with
+    ``info`` = {solver, chunk, u_max}."""
+    solver, chunk, u_max = plan_bucket(problem, bucket, local_mask,
+                                       local_prior, normalization)
+    if solver == "vmapped_lbfgs":
+        e, s, p, _ = newton_re._bucket_shape(bucket)
+        raise NotImplementedError(
+            f"bucket [E={e}, S={s}, P={p}] fits no batched Newton tier for "
+            f"{problem.optimizer_type.name} with "
+            f"{problem.regularization.reg_type.name} regularization"
+            f"{' and a normalization context' if normalization is not None else ''}; "
+            + _NEXT_SLICE)
+    if solver == "newton_primal":
+        def fit(b, w, m, pr):
+            return newton_re.fit_bucket_newton(problem, b, w, m, pr)
+    else:
+        def fit(b, w, m, pr):
+            return newton_re.fit_bucket_newton_dual(problem, b, w, m, pr, u_max)
+    if chunk is None:
+        model, result = fit(batches, w0, local_mask, local_prior)
+    else:
+        model, result = newton_re.fit_bucket_in_chunks(
+            fit, chunk, batches, w0, local_mask, local_prior)
+    return model, result, {"solver": solver, "chunk": chunk, "u_max": u_max}
+
+
+def train_random_effects(
+    problem,
+    dataset: RandomEffectDataset,
+    offsets: Tensor,
+    global_reg_mask: Optional[Tensor] = None,
+    init_coefs: Optional[Sequence[Tensor]] = None,
+    normalization=None,
+    priors: Optional[Sequence[PriorDistribution]] = None,
+) -> tuple[RandomEffectModel, list[OptimizerResult]]:
+    """Fit one GLM per entity; returns the model and the per-bucket solver
+    results (per-lane tensors).
+
+    ``offsets`` is the global per-sample residual score from the other GAME
+    coordinates. ``global_reg_mask`` (0 on the intercept column) is
+    projected into each entity's local subspace, ghost slots at 1.
+    ``init_coefs`` warm-starts each bucket (the primal path; the dual path
+    starts from θ = 0 by design). ``priors`` is an optional per-bucket list
+    of priors with [E, P] leaves (``RandomEffectModel.project_prior_to``).
+    A normalization context is refused (data-preparation slice, M8).
+    """
+    if normalization is not None:
+        raise NotImplementedError(
+            "feature normalization is not in the port yet (it comes with the "
+            "data-preparation slice, M8)")
+    coefs_out, var_out, results = [], [], []
+    want_var = problem.variance_type.name != "NONE"
+    LAST_BUCKET_TIMINGS.clear()
+    for b_i, bucket in enumerate(dataset.buckets):
+        e, p = bucket.n_entities, bucket.local_dim
+        dt = bucket.val.dtype
+        if init_coefs is not None:
+            w0 = init_coefs[b_i].to(dt)
+        else:
+            w0 = torch.zeros((e, p), dtype=dt, device=bucket.val.device)
+        if global_reg_mask is not None:
+            ext = torch.cat([global_reg_mask.to(device=bucket.val.device, dtype=dt),
+                             torch.ones(1, dtype=dt, device=bucket.val.device)])
+            local_mask = ext[bucket.proj.long()]
+        else:
+            local_mask = torch.ones((e, p), dtype=dt, device=bucket.val.device)
+        batches = bucket.local_batches(offsets)
+        local_prior = priors[b_i] if priors is not None else None
+
+        model, result, info = _solve_bucket(
+            problem, bucket, batches, w0, local_mask, local_prior, normalization)
+        coefs_out.append(model.coefficients.means)
+        if want_var:
+            var_out.append(model.coefficients.variances)
+        results.append(result)
+        LAST_BUCKET_TIMINGS.append({
+            "bucket": b_i, "entities": e, "S": bucket.max_samples, "P": p,
+            "solver": info["solver"], "chunk": info["chunk"],
+            "u_max": info["u_max"], "_iterations": result.iterations,
+        })
+
+    model = RandomEffectModel(
+        re_type=dataset.re_type,
+        task=problem.task,
+        bucket_coefs=coefs_out,
+        bucket_proj=[b.proj for b in dataset.buckets],
+        bucket_entity_ids=[b.entity_ids for b in dataset.buckets],
+        entity_keys=dataset.entity_keys,
+        entity_to_slot=dataset.entity_to_slot,
+        global_dim=dataset.global_dim,
+        bucket_variances=var_out if want_var else None,
+    )
+    return model, results
+
+
+def bucket_records() -> list[dict]:
+    """``LAST_BUCKET_TIMINGS`` with each bucket's Newton iterations
+    summarized over its lanes (max and median; one fetch per bucket)."""
+    out = []
+    for rec in LAST_BUCKET_TIMINGS:
+        it = _host(rec["_iterations"])
+        out.append({**{k: v for k, v in rec.items() if not k.startswith("_")},
+                    "newton_iterations_max": int(it.max()) if it.size else 0,
+                    "newton_iterations_median":
+                        float(np.median(it)) if it.size else 0.0})
+    return out

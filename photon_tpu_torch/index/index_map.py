@@ -178,7 +178,10 @@ class MmapIndexMap(IndexMap):
     def _partition(self, p: int):
         if p not in self._parts:
             d = self._dir
-            self._parts[p] = (
+            # Plain ndarray views of the maps: a point lookup indexes single
+            # elements, which through the np.memmap subclass costs a Python
+            # __getitem__ and __array_finalize__ each.
+            self._parts[p] = tuple(a.view(np.ndarray) for a in (
                 np.load(os.path.join(d, f"partition-{p}.hash.npy"), mmap_mode="r"),
                 np.load(os.path.join(d, f"partition-{p}.idx.npy"), mmap_mode="r"),
                 np.load(os.path.join(d, f"partition-{p}.off.npy"), mmap_mode="r"),
@@ -187,7 +190,7 @@ class MmapIndexMap(IndexMap):
                 )
                 if os.path.getsize(os.path.join(d, f"partition-{p}.keys.bin"))
                 else np.zeros(0, np.uint8),
-            )
+            ))
         return self._parts[p]
 
     def preload(self) -> None:
@@ -201,7 +204,7 @@ class MmapIndexMap(IndexMap):
         kb = key.encode("utf-8")
         h = _hash64(kb)
         hashes, idx, off, blob = self._partition(h % self._nparts)
-        lo = int(np.searchsorted(hashes, np.uint64(h), side="left"))
+        lo = int(hashes.searchsorted(np.uint64(h), side="left"))
         while lo < len(hashes) and int(hashes[lo]) == h:
             s, e = int(off[lo]), int(off[lo + 1])
             if blob[s:e].tobytes() == kb:

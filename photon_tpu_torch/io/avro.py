@@ -41,6 +41,8 @@ SYNC_SIZE = 16
 _PRIMITIVES = frozenset(
     ("null", "boolean", "int", "long", "float", "double", "bytes", "string")
 )
+_FLOAT = struct.Struct("<f")
+_DOUBLE = struct.Struct("<d")
 
 Schema = Union[str, dict, list]
 
@@ -100,8 +102,14 @@ def _resolve(schema: Schema, names: dict) -> Schema:
 # primitive binary encoding
 
 
+_ONE_BYTE = tuple(bytes((b,)) for b in range(0x80))
+
+
 def _write_long(out: BinaryIO, n: int) -> None:
     n = (n << 1) ^ (n >> 63)  # zigzag
+    if n < 0x80:  # one byte: most lengths, counts and union branches
+        out.write(_ONE_BYTE[n])
+        return
     while True:
         b = n & 0x7F
         n >>= 7
@@ -113,6 +121,9 @@ def _write_long(out: BinaryIO, n: int) -> None:
 
 
 def _read_long(buf: memoryview, pos: int) -> tuple[int, int]:
+    b = buf[pos]
+    if b < 0x80:  # one byte: most lengths, counts and union branches
+        return (b >> 1) ^ -(b & 1), pos + 1
     shift = 0
     acc = 0
     while True:
@@ -130,74 +141,104 @@ def _read_long(buf: memoryview, pos: int) -> tuple[int, int]:
 
 
 class Encoder:
+    """Schema-driven encoder, compiled once into nested closures as the
+    ``Decoder`` is; a union still matches each value against its branches."""
+
     def __init__(self, schema: Union[str, Schema]):
         self.schema = parse_schema(schema)
         self.names: dict = {}
         _collect_names(self.schema, self.names)
+        self._encode = self._compile(self.schema, {})
 
     def encode(self, value: Any, out: Optional[BinaryIO] = None) -> bytes:
         buf = out or io.BytesIO()
-        self._enc(self.schema, value, buf)
+        self._encode(value, buf)
         return b"" if out is not None else buf.getvalue()
 
-    def _enc(self, schema: Schema, v: Any, out: BinaryIO) -> None:
+    def _compile(self, schema: Schema, named: dict):
+        """``fn(value, out)`` for ``schema``; ``named`` as in ``Decoder``."""
         schema = _resolve(schema, self.names)
         if isinstance(schema, list):  # union
-            for i, branch in enumerate(schema):
-                if _union_match(_resolve(branch, self.names), v):
-                    _write_long(out, i)
-                    self._enc(branch, v, out)
-                    return
-            raise SchemaError(f"value {v!r} matches no union branch {schema}")
+            branches = [(_resolve(b, self.names), self._compile(b, named))
+                        for b in schema]
+
+            def enc_union(v, out):
+                for i, (branch, fn) in enumerate(branches):
+                    if _union_match(branch, v):
+                        _write_long(out, i)
+                        fn(v, out)
+                        return
+                raise SchemaError(f"value {v!r} matches no union branch {schema}")
+            return enc_union
         t = schema if isinstance(schema, str) else schema["type"]
         if t == "null":
-            return
+            return lambda v, out: None
         if t == "boolean":
-            out.write(b"\x01" if v else b"\x00")
-        elif t in ("int", "long"):
-            _write_long(out, int(v))
-        elif t == "float":
-            out.write(struct.pack("<f", float(v)))
-        elif t == "double":
-            out.write(struct.pack("<d", float(v)))
-        elif t == "bytes":
-            _write_long(out, len(v))
-            out.write(v)
-        elif t == "string":
-            b = v.encode("utf-8")
-            _write_long(out, len(b))
-            out.write(b)
-        elif t == "fixed":
-            if len(v) != schema["size"]:
-                raise SchemaError("fixed size mismatch")
-            out.write(v)
-        elif t == "enum":
-            _write_long(out, schema["symbols"].index(v))
-        elif t == "array":
-            if v:
-                _write_long(out, len(v))
-                for item in v:
-                    self._enc(schema["items"], item, out)
-            _write_long(out, 0)
-        elif t == "map":
-            if v:
-                _write_long(out, len(v))
-                for k, item in v.items():
-                    self._enc("string", k, out)
-                    self._enc(schema["values"], item, out)
-            _write_long(out, 0)
-        elif t == "record":
-            for f in schema["fields"]:
-                name = f["name"]
-                if name in v:
-                    fv = v[name]
-                elif "default" in f:
-                    fv = f["default"]
-                else:
-                    raise SchemaError(f"missing field {name!r} with no default")
-                self._enc(f["type"], fv, out)
-        else:
+            return lambda v, out: out.write(b"\x01" if v else b"\x00")
+        if t in ("int", "long"):
+            return lambda v, out: _write_long(out, int(v))
+        if t in ("float", "double"):
+            pack = (_FLOAT if t == "float" else _DOUBLE).pack
+            return lambda v, out: out.write(pack(float(v)))
+        if t in ("bytes", "string"):
+            as_str = t == "string"
+
+            def enc_bytes(v, out):
+                b = v.encode("utf-8") if as_str else v
+                _write_long(out, len(b))
+                out.write(b)
+            return enc_bytes
+        if t == "fixed":
+            size = schema["size"]
+
+            def enc_fixed(v, out):
+                if len(v) != size:
+                    raise SchemaError("fixed size mismatch")
+                out.write(v)
+            return enc_fixed
+        if t == "enum":
+            symbols = schema["symbols"]
+            return lambda v, out: _write_long(out, symbols.index(v))
+        if t in ("array", "map"):
+            is_map = t == "map"
+            item = self._compile(schema["values" if is_map else "items"], named)
+            key = self._compile("string", named)
+
+            def enc_blocks(v, out):
+                if v:
+                    _write_long(out, len(v))
+                    if is_map:
+                        for k, x in v.items():
+                            key(k, out)
+                            item(x, out)
+                    else:
+                        for x in v:
+                            item(x, out)
+                _write_long(out, 0)
+            return enc_blocks
+        if t == "record":
+            rid = id(schema)
+            if rid in named:
+                return lambda v, out: named[rid](v, out)
+            named[rid] = None
+            fields = [(f["name"], "default" in f, f.get("default"),
+                       self._compile(f["type"], named)) for f in schema["fields"]]
+
+            def enc_record(v, out):
+                for name, has_default, default, fn in fields:
+                    if name in v:
+                        fv = v[name]
+                    elif has_default:
+                        fv = default
+                    else:
+                        raise SchemaError(f"missing field {name!r} with no default")
+                    fn(fv, out)
+            named[rid] = enc_record
+            return enc_record
+
+        def unknown(v, out):
             raise SchemaError(f"unknown type {t!r}")
+        return unknown
 
 
 def _union_match(schema: Schema, v: Any) -> bool:
@@ -232,72 +273,101 @@ def _union_match(schema: Schema, v: Any) -> bool:
 
 
 class Decoder:
+    """Schema-driven decoder. The schema is compiled once into nested
+    closures, one per schema node (named types resolved, record fields and
+    union branches bound), so decoding a record makes no schema lookups."""
+
     def __init__(self, schema: Union[str, Schema]):
         self.schema = parse_schema(schema)
         self.names: dict = {}
         _collect_names(self.schema, self.names)
+        self._decode = self._compile(self.schema, {})
 
     def decode(self, data: Union[bytes, memoryview], pos: int = 0) -> tuple[Any, int]:
-        return self._dec(self.schema, memoryview(data), pos)
+        return self._decode(memoryview(data), pos)
 
-    def _dec(self, schema: Schema, buf: memoryview, pos: int) -> tuple[Any, int]:
+    def _compile(self, schema: Schema, named: dict):
+        """``fn(buf, pos) -> (value, pos)`` for ``schema``. ``named`` maps a
+        record's id to its decoder (None while its fields compile, so a
+        recursive reference defers to it)."""
         schema = _resolve(schema, self.names)
         if isinstance(schema, list):  # union
-            idx, pos = _read_long(buf, pos)
-            return self._dec(schema[idx], buf, pos)
+            branches = [self._compile(s, named) for s in schema]
+
+            def dec_union(buf, pos):
+                i, pos = _read_long(buf, pos)
+                return branches[i](buf, pos)
+            return dec_union
         t = schema if isinstance(schema, str) else schema["type"]
         if t == "null":
-            return None, pos
+            return lambda buf, pos: (None, pos)
         if t == "boolean":
-            return buf[pos] != 0, pos + 1
+            return lambda buf, pos: (buf[pos] != 0, pos + 1)
         if t in ("int", "long"):
-            return _read_long(buf, pos)
-        if t == "float":
-            return struct.unpack_from("<f", buf, pos)[0], pos + 4
-        if t == "double":
-            return struct.unpack_from("<d", buf, pos)[0], pos + 8
-        if t == "bytes":
-            n, pos = _read_long(buf, pos)
-            return bytes(buf[pos : pos + n]), pos + n
-        if t == "string":
-            n, pos = _read_long(buf, pos)
-            return str(buf[pos : pos + n], "utf-8"), pos + n
+            return _read_long
+        if t in ("float", "double"):
+            unpack, width = ((_FLOAT.unpack_from, 4) if t == "float"
+                             else (_DOUBLE.unpack_from, 8))
+            return lambda buf, pos: (unpack(buf, pos)[0], pos + width)
+        if t in ("bytes", "string"):
+            as_str = t == "string"
+
+            def dec_bytes(buf, pos):
+                n, pos = _read_long(buf, pos)
+                raw = buf[pos : pos + n]
+                return (str(raw, "utf-8") if as_str else bytes(raw)), pos + n
+            return dec_bytes
         if t == "fixed":
-            n = schema["size"]
-            return bytes(buf[pos : pos + n]), pos + n
+            size = schema["size"]
+            return lambda buf, pos: (bytes(buf[pos : pos + size]), pos + size)
         if t == "enum":
-            i, pos = _read_long(buf, pos)
-            return schema["symbols"][i], pos
-        if t == "array":
-            out = []
-            while True:
-                count, pos = _read_long(buf, pos)
-                if count == 0:
-                    return out, pos
-                if count < 0:  # block with byte size
-                    _, pos = _read_long(buf, pos)
-                    count = -count
-                for _ in range(count):
-                    item, pos = self._dec(schema["items"], buf, pos)
-                    out.append(item)
-        if t == "map":
-            out = {}
-            while True:
-                count, pos = _read_long(buf, pos)
-                if count == 0:
-                    return out, pos
-                if count < 0:
-                    _, pos = _read_long(buf, pos)
-                    count = -count
-                for _ in range(count):
-                    k, pos = self._dec("string", buf, pos)
-                    out[k], pos = self._dec(schema["values"], buf, pos)
+            symbols = schema["symbols"]
+
+            def dec_enum(buf, pos):
+                i, pos = _read_long(buf, pos)
+                return symbols[i], pos
+            return dec_enum
+        if t in ("array", "map"):
+            is_map = t == "map"
+            item = self._compile(schema["values" if is_map else "items"], named)
+            key = self._compile("string", named)
+
+            def dec_blocks(buf, pos):
+                out = {} if is_map else []
+                while True:
+                    count, pos = _read_long(buf, pos)
+                    if count == 0:
+                        return out, pos
+                    if count < 0:  # block with byte size
+                        _, pos = _read_long(buf, pos)
+                        count = -count
+                    for _ in range(count):
+                        if is_map:
+                            k, pos = key(buf, pos)
+                            out[k], pos = item(buf, pos)
+                        else:
+                            v, pos = item(buf, pos)
+                            out.append(v)
+            return dec_blocks
         if t == "record":
-            rec = {}
-            for f in schema["fields"]:
-                rec[f["name"]], pos = self._dec(f["type"], buf, pos)
-            return rec, pos
-        raise SchemaError(f"unknown type {t!r}")
+            rid = id(schema)
+            if rid in named:
+                return lambda buf, pos: named[rid](buf, pos)
+            named[rid] = None
+            fields = [(f["name"], self._compile(f["type"], named))
+                      for f in schema["fields"]]
+
+            def dec_record(buf, pos):
+                rec = {}
+                for name, fn in fields:
+                    rec[name], pos = fn(buf, pos)
+                return rec, pos
+            named[rid] = dec_record
+            return dec_record
+
+        def unknown(buf, pos):
+            raise SchemaError(f"unknown type {t!r}")
+        return unknown
 
 
 # ---------------------------------------------------------------------------

@@ -163,6 +163,9 @@ class AvroDataReader:
             for shard, cfg in self.shard_configs.items()
             if cfg.add_intercept
         }
+        # (name, term) -> column per shard: a feature recurs across records,
+        # and a store lookup hashes and searches each time.
+        seen: dict[str, dict] = {s: {} for s in self.index_maps}
 
         for rec in _iter_records(_expand_paths(paths)):
             lab = _first(rec, response_cols, required=require_labels)
@@ -183,7 +186,7 @@ class AvroDataReader:
                 tags[t].append(str(v))
 
             for shard, cfg in self.shard_configs.items():
-                imap = self.index_maps[shard]
+                imap, memo = self.index_maps[shard], seen[shard]
                 idxs, vals = [], []
                 if cfg.add_intercept:
                     ii = intercepts[shard]
@@ -192,7 +195,10 @@ class AvroDataReader:
                         vals.append(1.0)
                 for bag in cfg.feature_bags:
                     for feat in rec.get(bag) or ():
-                        i = imap.get_index(feat["name"], feat.get("term"))
+                        key = (feat["name"], feat.get("term"))
+                        i = memo.get(key)
+                        if i is None:
+                            i = memo[key] = imap.get_index(*key)
                         if i >= 0:  # unindexed features dropped, as reference
                             idxs.append(i)
                             vals.append(feat["value"])

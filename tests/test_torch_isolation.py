@@ -2,8 +2,8 @@
 
 * A fresh interpreter imports every module of ``photon_tpu_torch`` and runs
   the CPU-importable parts of ``chip_smoke.py`` (its data, model, bound and
-  phase functions, the training phases included, at a tiny size, with the
-  CPU as both devices); afterwards neither ``jax`` nor any ``photon_tpu``
+  phase functions, the training and GAME training phases included, at a
+  tiny size, with the CPU as both devices); afterwards neither ``jax`` nor any ``photon_tpu``
   module is loaded.
 * No source line of the port or of ``chip_smoke.py`` imports them.
 * Without a GPU, ``resolve_device()`` and the port's scoring driver run
@@ -61,6 +61,22 @@ assert set(tn) >= {"tron_poisson_l2", "owlqn_linear_l1", "logistic_lbfgs_f64"}, 
 td = chip_smoke.phase_training_driver(torch, cs, cpu, cpu, root, inputs)
 assert td["saved_rel_err_vs_ref"] == {"means": 0.0, "variances": 0.0}, td
 assert td["scoring"]["score_std"] > 0 and "fit_s" in td["runs"]["cpu"], td
+gd = chip_smoke.phase_game_training_driver(torch, cs, tiny, cpu, cpu, root, inputs)
+assert gd["saved_rel_err_vs_ref"] == {"fixed_means": 0.0, "random_means": 0.0}, gd
+assert gd["random_effect_coefficients"] > 0 and gd["validation_rows"] == 32, gd
+assert set(gd["scoring"]["evaluation"]) == {"AUC"}, gd
+gt = chip_smoke.phase_game_training(
+    torch, cs, dict(n_users=40, rows_per_user=6, d_global=48, d_user=4,
+                    iterations=4), 12, cpu, cpu, f64_users_full_dual=10)
+assert not gt["tf32_matmul"] and set(gt["launches"]) == {"fit_a", "fit_b"}, gt
+for fit in ("fit_a", "fit_b"):
+    assert gt[fit]["bit_equal_repeat"] and gt[fit]["plans"], gt[fit]
+    assert len(gt[fit]["steps"]) == 4 * len(gt[fit]["re_weights"]), gt[fit]
+    assert gt[fit]["vs_ref"]["metric_abs_err"] == 0.0, gt[fit]
+    assert gt[fit]["vs_ref"]["lane_objective_rel_err"] == 0.0, gt[fit]
+    assert gt[fit]["vs_ref"]["coef_rel_err"]["0/fixed/user_block"] == 0.0, gt[fit]
+    assert gt[fit + "_f64"]["coef_rel_err_vs_ref"] == 0.0, gt
+assert gt["fit_a_f64_full_dual"]["coef_rel_err_vs_ref"] == 0.0, gt
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "photon_tpu"))
 print("MODULES", len(names), "BAD", bad)

@@ -5,7 +5,10 @@ One GAME model (fixed effect + perUser) is trained by the JAX
 writes it (one configuration, one sweep). Both scoring drivers then score
 held-out data with it — the port's on the CPU (``--device cpu``) — and their
 ``scores.avro`` files must agree: the same uids and labels in the same
-order, scores within f32 ``atol 1e-5`` (f64 ``1e-12``).
+order, scores within f32 ``atol 1e-5`` (f64 ``1e-12``). With
+``--evaluators`` (plain and grouped by the ``userId`` tag) both summaries
+hold the same metrics within 1e-6 (each package evaluates its own float32
+cast of the scores).
 """
 import json
 
@@ -124,11 +127,26 @@ def test_port_driver_matches_jax_driver(trained, tmp_path, dtype, atol):
     assert (tmp_path / "port" / "photon.log").exists()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_port_driver_evaluators_match_jax(trained, tmp_path, dtype):
+    d, out, n_score = trained
+    ev = ["--evaluators", "AUC", "LOGISTIC_LOSS", "AUC:userId", "RMSE:userId"]
+    js, _ = _score(jax_scoring_driver, d, out, tmp_path / "jax",
+                   ["--dtype", dtype, *ev])
+    ps, _ = _score(game_scoring_driver, d, out, tmp_path / "port",
+                   ["--dtype", dtype, "--device", "cpu", *ev])
+    assert ps["n_rows"] == js["n_rows"] == n_score
+    assert list(ps["evaluation"]) == list(js["evaluation"]) == [
+        "AUC", "LOGISTIC_LOSS", "AUC:userId", "RMSE:userId"]
+    for k, want in js["evaluation"].items():
+        assert abs(ps["evaluation"][k] - want) <= 1e-6, (k, ps["evaluation"][k], want)
+    assert 0.5 < ps["evaluation"]["AUC"] < 1.0
+
+
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--evaluators", "AUC"], "evaluation"),
     (["--chunk-rows", "100"], "streaming"),
     (["--devices", "2"], "multi-GPU"),
-], ids=["evaluators", "chunk_rows", "devices"])
+], ids=["chunk_rows", "devices"])
 def test_port_driver_refuses_later_slices(tmp_path, capsys, flags, slice_name):
     with pytest.raises(SystemExit) as e:
         game_scoring_driver.run([

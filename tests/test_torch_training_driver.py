@@ -9,8 +9,11 @@ TRON L2, and linear OWL-QN L1. Saved means and variances agree to ``atol
 the other package's model, and those scores agree with the package's scores
 of its own model to the scoring test's float64 ``atol 1e-12``. Every flag
 of the JAX driver is either taken by the port's or refused with the slice
-that brings it, and so is every coordinate kind of a later slice. The
-driver's data sanity checks fail on the same rows as the JAX package's.
+that brings it (``--re-routing`` only with ``measured``), and so is every
+coordinate kind or option of a later slice (factored random effects,
+host-resident buckets, down-sampling). The driver's data sanity checks
+fail on the same rows as the JAX package's. Random-effect training through
+the drivers is held against JAX in ``tests/test_torch_re_training.py``.
 """
 import json
 
@@ -111,7 +114,6 @@ def test_port_training_driver_matches_jax(data, tmp_path, name):
 
 # Each refused flag with a value that sets it.
 REFUSED = {
-    "--validation-data": ["x.avro"], "--evaluators": ["AUC"],
     "--normalization": ["STANDARDIZATION"], "--feature-summary": [],
     "--checkpoint-dir": ["ckpt"], "--max-restarts": ["1"],
     "--restart-backoff": ["2"], "--heartbeat-dir": ["hb"], "--tuning": ["gp"],
@@ -122,11 +124,11 @@ REFUSED = {
     "--telemetry-dir": ["tel"], "--backend-policy": ["strict"],
     "--distributed-policy": ["strict"], "--fault-plan": ["plan.json"],
     "--compilation-cache-dir": ["cc"], "--compile-store": ["cs"],
-    "--clear-caches-per-config": [], "--re-routing": ["static"],
+    "--clear-caches-per-config": [], "--re-routing": ["measured"],
     "--re-cost-table": ["costs.json"],
 }
 REFUSED_COORDINATES = {
-    "random": "perUser:type=random,re_type=userId,shard=global",
+    "random": "perUser:type=random,re_type=userId,shard=global,host_resident=1",
     "factored": "perUser:type=factored,re_type=userId,shard=global,latent=2",
     "downsample": "fixed:type=fixed,shard=global,downsample=0.5",
 }
