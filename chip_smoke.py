@@ -56,14 +56,15 @@ exit code and no result line:
    weights 1 and 10 (``select_best`` picks one); its bucket solves on the
    chunked dual path. Fit B: the random effect over a ``user`` shard (user
    block + intercept), SIMPLE variances on both coordinates; full-bucket
-   primal. Each in f32 on cuda twice (bit-equality reported; the fixed
-   effects must be bit-equal) and on cpu: each bucket's summed final
-   objective within 1e-5 relative and every lane's within 5e-3, each
-   fixed-effect step that stopped at the same iteration on both devices
-   within 1e-3 of the largest coefficient, validation metrics within 1e-4,
-   the same configuration chosen; the final coefficients' difference is
-   reported against 1e-3 (see ``compare_game_fits``). The random-effect
-   step alone is timed, profiled, its host syncs counted, and its f32
+   primal. Each in f32 on cuda twice (bit-equal asserted) and on cpu:
+   every lane's final objective within 5e-3, each fixed-effect step that
+   stopped at the same iteration on both devices within 1e-3 of the
+   largest coefficient, validation metrics within 1e-4, the same
+   configuration chosen; the final coefficients' difference and each
+   bucket's summed objective are reported (see ``compare_game_fits``).
+   The random-effect step alone on both devices on the same offsets: each
+   bucket's summed final objective within 1e-5 (``re_step_vs_ref``). The
+   random-effect step alone on the card is timed, profiled, its host syncs counted, and its f32
    solution held within 1e-3 of the same solve in f64. Both fits in f64 at
    8,192 users under a 256 MB Newton budget (fit A chunked dual at 4,096,
    as at full size; fit B full primal) and fit A at 10,000 users (full
@@ -79,6 +80,26 @@ exit code and no result line:
    configuration agree; the card's best model is scored by the port's
    scoring driver with ``--evaluators AUC``.
 
+8. GAME training on the vmapped tier (phase ``game_training_vmapped``; fit
+   A's shape and data, 15 iterations, 2 sweeps, validated as phase 6):
+   fit C, STANDARDIZATION (an intercept on the global shard), L-BFGS L2 on
+   both coordinates, the random effect per user over the global shard,
+   down-sampling 0.5 on both: vmapped L-BFGS over 100,000 lanes; fit D,
+   the random effect over the ``user`` shard with OWL-QN L1: vmapped
+   OWL-QN; fit E, SCALE_WITH_MAX_MAGNITUDE, TRON L2 on both over the
+   ``user`` shard, SIMPLE variances: vmapped TRON. Each on the card twice
+   (bit-equal asserted) with its plans against the gates'; the
+   random-effect step alone timed, profiled, its syncs against the lane
+   loops' fetches (asserted no more) and its kernels counted; at 8,192
+   users on cuda and cpu, in f32 the lanes' objective at one point (value
+   and gradient; ``vm_point_gap``) and fits D's and E's final lane
+   objectives, in f64 the coefficients (``compare_f64_fits`` for fits D
+   and E; fit C to a fixed bound set from how far the JAX package's own
+   fit C moves, ``VM_F64_RTOL_FIT_C``), each held to a bound set from
+   readings.
+   ``ell_matvec`` timed where the path runs it: fit C's block-diagonal
+   lanes and the drivers' 32,768 rows.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
 from fixed seeds. Work files go to ``photon_tpu_torch/_build/chip_smoke/``
@@ -86,6 +107,7 @@ and are removed on success; nvcc's log stays beside the built library.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -674,10 +696,6 @@ def solve_stats(torch, batch, problem) -> dict:
     under ``torch.profiler`` (device time of the port's kernels and of all
     kernels, over the median wall time), and once under PyTorch's CUDA sync
     debug mode (host syncs)."""
-    import warnings
-
-    from torch.profiler import ProfilerActivity, profile
-
     w0 = torch.zeros(batch.dim, dtype=batch.labels.dtype, device=batch.labels.device)
     problem.run(batch, w0)
     runs = []
@@ -691,12 +709,27 @@ def solve_stats(torch, batch, problem) -> dict:
     out = {"iterations": r.iterations, "reason": r.reason_name(),
            "data_passes": r.data_passes, "run_s": wall, "run_s_all": runs,
            "ms_per_iteration": wall * 1e3 / max(r.iterations, 1)}
+    out["profile"] = device_busy(torch, lambda: problem.run(batch, w0), wall,
+                                 OUR_KERNELS)
+    _, sites = counted_syncs(torch, lambda: problem.run(batch, w0))
+    syncs = sum(sites.values())
+    out.update(syncs=syncs, syncs_per_iteration=syncs / max(r.iterations, 1))
+    return out
+
+
+def device_busy(torch, fn, wall: float, ours=()) -> dict:
+    """``fn()`` once under ``torch.profiler``: the device kernels it ran,
+    their device time and its share of ``wall`` (a host-clock time of the
+    same work); with ``ours``, the same for the kernels whose names hold
+    one of those strings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mine = total = 0.0
+    count = 0
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            problem.run(batch, w0)
+            fn()
             torch.cuda.synchronize()
-        ours = total = 0.0
-        count = 0
         for ev in prof.key_averages():
             if "CUDA" not in str(getattr(ev, "device_type", "")):
                 continue
@@ -704,23 +737,14 @@ def solve_stats(torch, batch, problem) -> dict:
             us = ev.self_cuda_time_total if us is None else us
             total += us
             count += ev.count
-            if any(k in ev.key for k in OUR_KERNELS):
-                ours += us
-        out["profile"] = {"device_kernels": count, "device_us": total,
-                          "port_kernels_us": ours,
-                          "device_busy_share": total / (wall * 1e6),
-                          "port_kernel_share": ours / (wall * 1e6)}
+            if any(k in ev.key for k in ours):
+                mine += us
     except Exception as e:  # noqa: BLE001 - the profiler is untried here
-        out["profile"] = {"error": f"{type(e).__name__}: {e}"}
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            problem.run(batch, w0)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    out.update(syncs=syncs, syncs_per_iteration=syncs / max(r.iterations, 1))
+        return {"error": f"{type(e).__name__}: {e}"}
+    out = {"device_kernels": count, "device_us": total,
+           "device_busy_share": total / (wall * 1e6)}
+    if ours:
+        out.update(port_kernels_us=mine, port_kernel_share=mine / (wall * 1e6))
     return out
 
 
@@ -914,7 +938,14 @@ GAME_F64_BUDGET_MB = 256
 # (one such lane read 4.0e-9 on an NVIDIA H100 80GB HBM3 at 700 W).
 GAME_COEF_RTOL_F64 = 1e-9
 GAME_COEF_RTOL_F64_SPLIT = 1e-6
-RE_OBJ_RTOL_F32 = 1e-5        # a bucket's summed final objective, cuda against cpu
+# A bucket's summed final objective, cuda against cpu, of the random-effect
+# step on the same offsets (``re_step_vs_ref``). At the end of a fit the
+# sums are reported only: where an f32 fixed-effect step stopped an
+# iteration apart on the two devices the random effects saw other offsets.
+# Readings on an NVIDIA H100 80GB HBM3 at 700 W: 1.3e-8 (fit A) and 1.2e-8
+# (fit B) on the same offsets; 1.4e-5 at the end of fit A, whose second
+# fixed-effect step stopped at 13 and 14 iterations.
+RE_OBJ_RTOL_F32 = 1e-5
 # A lane's final objective, cuda against cpu, |fa - fb| / max(|fb|, 1). The
 # lanes see the fixed effect's offsets, so its gap reaches them: 6.2e-5
 # (fit A) and 2.1e-3 (fit B, whose fixed effect stopped one L-BFGS
@@ -927,6 +958,20 @@ METRIC_ATOL = 1e-4            # validation metrics, cuda against cpu
 # step that took the same iterations on both devices. The final GAME
 # coefficients, cuda against cpu, are reported against it.
 COEF_BAR_F32 = 1e-3
+
+
+@contextlib.contextmanager
+def _env(name: str, value: str):
+    """``os.environ[name] = value`` inside the block, restored after."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
 
 
 def game_arrays_bench(n_users, rows_per_user, d_global, d_user, seed=2, **_):
@@ -960,7 +1005,7 @@ def game_arrays_bench(n_users, rows_per_user, d_global, d_user, seed=2, **_):
             "user_dim": 1 + n_users * d_user}
 
 
-def game_bundle(torch, arrays, dev, dtype):
+def game_bundle(torch, arrays, dev, dtype, offsets=None):
     from photon_tpu_torch.data.batch import SparseFeatures
     from photon_tpu_torch.io.data_reader import GameDataBundle
 
@@ -973,8 +1018,9 @@ def game_bundle(torch, arrays, dev, dtype):
         features={"global": sf(arrays["idx"], arrays["val"], arrays["dim"]),
                   "user": sf(arrays["user_idx"], arrays["user_val"],
                              arrays["user_dim"])},
-        labels=arrays["labels"], offsets=np.zeros(n), weights=np.ones(n),
-        uids=np.arange(n).astype(object), id_tags={"userId": arrays["keys"]})
+        labels=arrays["labels"], offsets=np.zeros(n) if offsets is None else offsets,
+        weights=np.ones(n), uids=np.arange(n).astype(object),
+        id_tags={"userId": arrays["keys"]})
 
 
 def game_estimator(re_shard: str, n_sweeps: int, evaluators=("AUC", "LOGISTIC_LOSS")):
@@ -1195,10 +1241,53 @@ def _lane_objective_err(run, ref) -> float:
     return worst
 
 
+def _bucket_sum_errs(results, ref_results) -> list:
+    """Per bucket, |Σfa − Σfb| / |Σfb| of the lanes' final objectives."""
+    out = []
+    for a, b in zip(results, ref_results):
+        fa, fb = a.value.double().sum().item(), b.value.double().sum().item()
+        out.append(abs(fa - fb) / max(abs(fb), 1e-30))
+    return out
+
+
+def re_step_vs_ref(torch, ests, bundles, re_shard, variance, ref_result,
+                   dev, ref_dev) -> dict:
+    """The random-effect step of the first configuration alone on both
+    devices, on the same offsets (the ``ref_dev`` fit's final fixed
+    effect's scores) and the datasets the fits used: each bucket's summed
+    final objective within ``RE_OBJ_RTOL_F32`` and every lane's
+    |fa − fb| / max(|fb|, 1), cuda against cpu."""
+    from photon_tpu_torch.functions.objective import intercept_reg_mask
+    from photon_tpu_torch.game.random_effect import train_random_effects
+    from photon_tpu_torch.types import TaskType
+
+    problem = game_configs([1.0], GAME["iterations"], variance)[0]["perUser"].problem(
+        TaskType.LOGISTIC_REGRESSION)
+    offsets = bundles[ref_dev.type].features["global"].with_matvec_layout().matvec(
+        ref_result.model["fixed"].model.coefficients.means)
+    results = {}
+    for d in (dev, ref_dev):
+        ds = ests[d.type]._prepare_cached(bundles[d.type])["datasets"]["perUser"]
+        mask = intercept_reg_mask(ds.global_dim, 0 if re_shard == "user" else None,
+                                  device=d)
+        results[d.type] = train_random_effects(problem, ds, offsets.to(d),
+                                               global_reg_mask=mask)[1]
+    sums = _bucket_sum_errs(results[dev.type], results[ref_dev.type])
+    lane = max(((a.value.cpu().double() - b.value.double()).abs()
+                / b.value.double().abs().clamp(min=1.0)).max().item()
+               for a, b in zip(results[dev.type], results[ref_dev.type]))
+    out = {"bucket_objective_rel_err": sums, "lane_objective_rel_err": lane,
+           "failures": []}
+    if not max(sums) <= RE_OBJ_RTOL_F32:
+        out["failures"].append(f"random-effect step on the same offsets: bucket "
+                               f"objectives {sums} > {RE_OBJ_RTOL_F32}")
+    return out
+
+
 def compare_game_fits(torch, run, ref, split_at: int) -> dict:
     """A GAME fit on the card against the same fit on the CPU. Asserted:
-    each bucket's summed final objective and every lane's, at the end of
-    each configuration's last random-effect step; each fixed-effect step
+    every lane's final objective at the end of each configuration's last
+    random-effect step (each bucket's sum is reported); each fixed-effect step
     that stopped at the same iteration on both devices within
     ``COEF_BAR_F32``; each step's validation metrics and the chosen
     configuration. The final coefficients are reported against
@@ -1225,13 +1314,7 @@ def compare_game_fits(torch, run, ref, split_at: int) -> dict:
     for ra, rb in zip(run["results"], ref["results"]):
         la = [r for r in ra.tracker if r.coordinate_id == "perUser"][-1]
         lb = [r for r in rb.tracker if r.coordinate_id == "perUser"][-1]
-        for ba, bb in zip(la.result, lb.result):
-            fa, fb = ba.value.double().sum().item(), bb.value.double().sum().item()
-            rel = abs(fa - fb) / max(abs(fb), 1e-30)
-            out["bucket_objective_rel_err"].append(rel)
-            if not rel <= RE_OBJ_RTOL_F32:
-                out["failures"].append(f"bucket objective {fa} against {fb}: "
-                                       f"{rel} > {RE_OBJ_RTOL_F32}")
+        out["bucket_objective_rel_err"] += _bucket_sum_errs(la.result, lb.result)
     if not out["lane_objective_rel_err"] <= LANE_OBJ_RTOL_F32:
         out["failures"].append(f"lane objectives differ by "
                                f"{out['lane_objective_rel_err']} > {LANE_OBJ_RTOL_F32}")
@@ -1274,21 +1357,26 @@ def compare_f64_fits(torch, run, ref) -> dict:
     return out
 
 
-def expected_plans(problem, dataset, u_max: int) -> list:
+def expected_plans(problem, dataset, u_max: int, normalization=None) -> list:
     """Each bucket's static plan from the gate functions and the bucket's
-    shape alone (``u_max`` from the configuration: 1 with an intercept)."""
+    shape alone (``u_max`` from the configuration: 1 with an intercept):
+    the vmapped tier where no Newton tier admits the problem (non-smooth,
+    normalized) or the bucket."""
     from photon_tpu_torch.game import newton_re as nr
 
+    norm = normalization
     plans = []
     for b in dataset.buckets:
-        if nr.newton_eligible(problem, b, None):
+        if nr.newton_eligible(problem, b, norm):
             plans.append(("newton_primal", None))
-        elif nr.dual_eligible(problem, b, None, u_max):
+        elif nr.dual_eligible(problem, b, norm, u_max):
             plans.append(("newton_dual", None))
-        elif nr.newton_chunk_size(problem, b, None):
-            plans.append(("newton_primal", nr.newton_chunk_size(problem, b, None)))
+        elif nr.newton_chunk_size(problem, b, norm):
+            plans.append(("newton_primal", nr.newton_chunk_size(problem, b, norm)))
+        elif nr.dual_chunk_size(problem, b, norm, u_max):
+            plans.append(("newton_dual", nr.dual_chunk_size(problem, b, norm, u_max)))
         else:
-            plans.append(("newton_dual", nr.dual_chunk_size(problem, b, None, u_max)))
+            plans.append(("vmapped_lbfgs", None))
     return plans
 
 
@@ -1299,10 +1387,6 @@ def re_step_stats(torch, est, bundle, re_shard, variance, fit_result) -> dict:
     profiled (device busy share), its host syncs counted (sync debug mode)
     against the Newton loops' iterations, held against the same solve in
     f64; and the dense design's build."""
-    import warnings
-
-    from torch.profiler import ProfilerActivity, profile
-
     from photon_tpu_torch.functions.objective import intercept_reg_mask
     from photon_tpu_torch.game import newton_re
     from photon_tpu_torch.game.random_effect import bucket_records, train_random_effects
@@ -1334,37 +1418,11 @@ def re_step_stats(torch, est, bundle, re_shard, variance, fit_result) -> dict:
            "buckets": bucket_records(),
            "plans_from_gates": expected_plans(
                problem, ds, 1 if re_shard == "user" else 0)}
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        total = count = 0
-        for ev in prof.key_averages():
-            if "CUDA" not in str(getattr(ev, "device_type", "")):
-                continue
-            us = getattr(ev, "self_device_time_total", None)
-            us = ev.self_cuda_time_total if us is None else us
-            total += us
-            count += ev.count
-        out["profile"] = {"device_kernels": count, "device_us": total,
-                          "device_busy_share": total / (wall * 1e6)}
-    except Exception as e:  # noqa: BLE001 - the profiler is untried here
-        out["profile"] = {"error": f"{type(e).__name__}: {e}"}
+    out["profile"] = device_busy(torch, run, wall)
     newton_re.reset_syncs()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            run()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    sync_warnings = [w for w in caught if "synchroniz" in str(w.message)]
-    syncs = len(sync_warnings)
-    where: dict = {}
-    for w in sync_warnings:
-        key = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
-        where[key] = where.get(key, 0) + 1
-    out["sync_sites"] = dict(sorted(where.items(), key=lambda kv: -kv[1])[:6])
+    _, sites = counted_syncs(torch, run)
+    syncs = sum(sites.values())
+    out["sync_sites"] = dict(list(sites.items())[:6])
     iters = sum(max(r["newton_iterations_max"], 1) for r in bucket_records())
     chunks = sum(-(-r["entities"] // (r["chunk"] or r["entities"]))
                  for r in bucket_records())
@@ -1421,10 +1479,13 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
     iterations, 2 sweeps, validated on a seed-3 bundle with AUC and
     LOGISTIC_LOSS. Fit B: the same users, the random effect over the
     ``user`` shard (user block + intercept), SIMPLE variances on both
-    coordinates. Each in f32 on ``dev`` twice (bit-equality reported) and on
-    ``ref_dev``; each again in f64 at ``f64_users`` users on both devices
-    under a ``GAME_F64_BUDGET_MB`` Newton budget, so that fit A solves
-    chunked on the dual path as at full size; and fit A in f64 at
+    coordinates. Each in f32 on ``dev`` twice (bit-equality asserted) and
+    on ``ref_dev`` at the full size (the f32 bounds of
+    ``compare_game_fits`` hold where the devices' fixed effects start
+    alike: at 8,192 users the f32 fixed effect's first step already stops
+    an iteration apart between the devices); each again in f64 at ``f64_users`` users on both devices under a
+    ``GAME_F64_BUDGET_MB`` Newton budget, so that fit A solves chunked on
+    the dual path as at full size; and fit A in f64 at
     ``f64_users_full_dual`` users under the default budget. Returns the
     counted fits' launches under ``launches``."""
     arrays = game_arrays_bench(seed=2, **sizes)
@@ -1450,12 +1511,14 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
         bit_equal = all(
             torch.equal(a, b) for ra, rb in zip(first["results"], second["results"])
             for a, b in zip(_game_tensors(ra), _game_tensors(rb)))
-        fixed_bit_equal = all(
-            torch.equal(ra.model["fixed"].model.coefficients.means,
-                        rb.model["fixed"].model.coefficients.means)
-            for ra, rb in zip(first["results"], second["results"]))
+        if not bit_equal:
+            failures.append(f"{name}: two f32 card fits differ")
         cmp = compare_game_fits(torch, first, ref, sizes["d_global"])
-        failures += [f"{name}: {f}" for f in cmp["failures"]]
+        cmp["re_step_same_offsets"] = re_step_vs_ref(
+            torch, est, {d.type: data[d.type][0] for d in (dev, ref_dev)}, shard,
+            variance, ref["results"][0], dev, ref_dev)
+        failures += [f"{name}: {f}" for f in cmp["failures"]
+                     + cmp["re_step_same_offsets"].pop("failures")]
         for s in first["steps"]:
             if not all(np.isfinite(v) for v in (s["validation"] or {}).values()):
                 failures.append(f"{name}: non-finite validation metrics")
@@ -1485,10 +1548,7 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
             "best_config": first.get("best_config"),
             "newton_loop_fetches": first["newton_loop_fetches"],
             "launches_per_sweep": first["launches_per_sweep"],
-            "bit_equal_repeat": bit_equal, "fixed_bit_equal_repeat": fixed_bit_equal,
-            "vs_ref": cmp, "re_step": stats}
-        if not fixed_bit_equal:
-            failures.append(f"{name}: two f32 fits' fixed effects differ")
+            "bit_equal_repeat": bit_equal, "vs_ref": cmp, "re_step": stats}
         del est, first, second, ref
 
     del data
@@ -1510,9 +1570,7 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
         failures.append(f"fit A f64 at {f64_users_full_dual} users: coefficients "
                         f"differ by {rel}")
     small = game_arrays_bench(seed=2, **dict(sizes, n_users=f64_users))
-    saved = os.environ.get("PHOTON_RE_NEWTON_BUDGET_MB")
-    os.environ["PHOTON_RE_NEWTON_BUDGET_MB"] = str(GAME_F64_BUDGET_MB)
-    try:
+    with _env("PHOTON_RE_NEWTON_BUDGET_MB", str(GAME_F64_BUDGET_MB)):
         for name, shard, weights, variance in GAME_FITS:
             cfgs = game_configs(weights, it, variance)
             f64 = {d.type: game_fit(torch, cs, game_estimator(shard, 2, ()),
@@ -1527,11 +1585,6 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
                 "fit_s": {k: v["fit_s"] for k, v in f64.items()},
                 "plans": {k: [(r["entities"], r["solver"], r["chunk"])
                               for r in v["buckets"]] for k, v in f64.items()}}
-    finally:
-        if saved is None:
-            os.environ.pop("PHOTON_RE_NEWTON_BUDGET_MB", None)
-        else:
-            os.environ["PHOTON_RE_NEWTON_BUDGET_MB"] = saved
     if failures:
         emit({"phase": "game_training", **{k: v for k, v in out.items()
                                             if k != "launches"}})
@@ -1650,6 +1703,410 @@ def phase_game_training_driver(torch, cs, sizes, dev, ref_dev, root: str,
             "scoring": {"evaluation": scored["evaluation"],
                         **_stage_seconds(os.path.join(dest, "photon.log"))},
             "launches": launches}
+
+
+# ------------------------------------------------------ GAME training, lanes
+
+# Fits whose random-effect buckets take the vmapped tier (masked batched
+# lanes, optim/lanes.py), at fit A's shape (GAME), 15 iterations, 2 sweeps:
+# (name, random-effect shard, normalization, fixed (optimizer, reg),
+# random (optimizer, reg), variance, down-sampling rate).
+VM_FITS = (
+    ("fit_c", "global", "STANDARDIZATION", ("LBFGS", "L2"), ("LBFGS", "L2"),
+     "NONE", 0.5),
+    ("fit_d", "user", "NONE", ("LBFGS", "L2"), ("OWLQN", "L1"), "NONE", 1.0),
+    ("fit_e", "user", "SCALE_WITH_MAX_MAGNITUDE", ("TRON", "L2"), ("TRON", "L2"),
+     "SIMPLE", 1.0),
+)
+# f32 lane objectives at the end of the last random-effect step, cuda
+# against cpu at GAME_F64_USERS users, |fa - fb| / max(|fb|, 1): the lanes
+# see the fixed effect's offsets, so its f32 gap reaches them. Readings on
+# an NVIDIA H100 80GB HBM3 at 700 W: fit D 2.5e-4, fit E 1.1e-4. Fit C's
+# (0.73) is reported, not held: its lanes end at the 15-iteration cap on
+# paths that f32 rounding moves (a chaotic fit, see VM_F64_RTOL_FIT_C), so
+# its end point says nothing f32 can resolve.
+VM_LANE_OBJ_RTOL_F32 = {"fit_d": 2.5e-3, "fit_e": 1e-3}
+# The lanes' objective at one point, cuda against cpu in f32 at
+# GAME_F64_USERS users (``vm_point_gap``): per-lane values |fa - fb| /
+# max(|fb|, 1), gradients max |ga - gb| over the bucket's max |gb|.
+# Readings on an NVIDIA H100 80GB HBM3 at 700 W: values 9.5e-7 / 2.4e-7 /
+# 2.9e-7 and gradients 3.4e-7 / 2.9e-7 / 4.0e-7 (fits C / D / E).
+VM_POINT_RTOL_F32 = {"value": 1e-5, "grad": 1e-5}
+# Fit C's f64 coefficients, cuda against cpu at GAME_F64_USERS users.
+# STANDARDIZATION of columns this sparse gives factors up to 4.2e4 (8,192
+# users) and the lanes stop at the 15-iteration cap, so the fit amplifies
+# rounding. On the CPU in f64 at 8,192 users (scripts/lane_conditioning_vs_jax.py):
+# offsets moved by ±1e-15 move the JAX package's own fit C 1.76e-5 and the
+# port's 1.24e-4; the two packages' fits end 8.2e-4 apart, though one
+# random-effect step of 15 iterations agrees within 4.7e-9 (200
+# iterations: 5.0e-4, 25 lanes ending apart). The bound sits above the
+# largest of these rounding-level moves. The other fits keep
+# compare_f64_fits' 1e-9 / 1e-6.
+VM_F64_RTOL_FIT_C = 1e-3
+
+
+def vm_arrays(sizes, n_users, seed, intercept: bool):
+    """``game_arrays_bench`` at ``n_users`` users; with ``intercept``, the
+    global shard gains an intercept column (its last, index ``dim``) in
+    every row."""
+    a = game_arrays_bench(seed=seed, **dict(sizes, n_users=n_users))
+    if intercept:
+        n = len(a["labels"])
+        a["idx"] = np.concatenate([a["idx"], np.full((n, 1), a["dim"], np.int32)], 1)
+        a["val"] = np.concatenate([a["val"], np.ones((n, 1), np.float32)], 1)
+        a["global_intercept"] = a["dim"]
+        a["dim"] += 1
+    return a
+
+
+def vm_estimator(arrays, re_shard: str, normalization: str, evaluators):
+    from photon_tpu_torch.estimators.config import (
+        FixedEffectDataConfig,
+        RandomEffectDataConfig,
+    )
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.types import TaskType
+
+    intercepts = {"user": 0}
+    if "global_intercept" in arrays:
+        intercepts["global"] = arrays["global_intercept"]
+    return GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {"fixed": FixedEffectDataConfig("global"),
+         "perUser": RandomEffectDataConfig("userId", re_shard)},
+        n_sweeps=2, evaluator_specs=evaluators, normalization=normalization,
+        intercept_indices=intercepts)
+
+
+def vm_configs(fixed, random, variance: str, rate: float, iterations: int) -> list:
+    from photon_tpu_torch.estimators.config import GLMOptimizationConfiguration
+    from photon_tpu_torch.functions.problem import VarianceComputationType
+    from photon_tpu_torch.optim import OptimizerType
+    from photon_tpu_torch.optim.regularization import (
+        RegularizationContext,
+        RegularizationType,
+    )
+
+    def opt(spec):
+        return GLMOptimizationConfiguration(
+            optimizer_type=OptimizerType[spec[0]],
+            regularization=RegularizationContext(RegularizationType[spec[1]]),
+            reg_weight=1.0, max_iterations=iterations, down_sampling_rate=rate,
+            variance_type=VarianceComputationType[variance])
+
+    return [{"fixed": opt(fixed), "perUser": opt(random)}]
+
+
+def _iteration_stats(results) -> dict:
+    its = np.concatenate([r.iterations.cpu().numpy() for r in results]) \
+        if results else np.zeros(0)
+    return {"lanes": int(its.size),
+            "iterations_median": float(np.median(its)) if its.size else 0.0,
+            "iterations_max": int(its.max()) if its.size else 0}
+
+
+def vm_step_stats(torch, cs, est, bundle, cfg, fit_result) -> dict:
+    """The random-effect step alone on the card, as the fit ran it (the
+    configuration's coordinate: its down-sampled dataset, normalization and
+    mask) at the trained fixed effect's offsets: timed (host clock to a
+    synchronize, median of 3), profiled (device busy share), its host syncs
+    counted (sync debug mode) against the lane loops' fetches, the kernels
+    it launched counted; lanes per second, loop iterations, iterations per
+    lane."""
+    from photon_tpu_torch.game.random_effect import bucket_records
+    from photon_tpu_torch.optim import lanes
+
+    prep = est._prepare_cached(bundle)
+    coords = est._build_coordinates(prep, cfg, 0, None, prep["accel_cache"])
+    offsets = coords["fixed"].score(fit_result.model["fixed"])
+    rc = coords["perUser"]
+
+    def run():
+        return rc.train(offsets)
+
+    run()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    n_lanes = sum(b.n_entities for b in rc.dataset.buckets)
+    out = {"re_step_s": wall, "re_step_s_all": walls, "lanes": n_lanes,
+           "lanes_per_s": n_lanes / wall, "buckets": bucket_records(),
+           "plans_from_gates": expected_plans(
+               rc.problem, rc.dataset, 0, rc.normalization)}
+    out["profile"] = device_busy(torch, run, wall)
+    lanes.reset_syncs()
+    cs.reset_launch_counts()
+    (_, results), sync_sites = counted_syncs(torch, run)
+    out["launches"] = cs.launch_counts()
+    n_syncs = sum(sync_sites.values())
+    fetches = dict(lanes.SYNCS)
+    # the loop of a bucket runs until its slowest lane stops
+    loop_iterations = sum(r["newton_iterations_max"] for r in bucket_records())
+    out.update(syncs=n_syncs, sync_sites=sync_sites,
+               lane_loop_fetches=fetches, loop_iterations=loop_iterations,
+               syncs_per_iteration=n_syncs / max(loop_iterations, 1),
+               **_iteration_stats(results), failures=[])
+    if n_syncs > sum(fetches.values()):
+        out["failures"].append(
+            f"the lane loops synced {n_syncs} times for "
+            f"{sum(fetches.values())} loop fetches: {sync_sites}")
+    mv = out["launches"]["ell_matvec"] + out["launches"]["ell_panel_matvec"]
+    if not (mv and out["launches"]["csc_rmatvec"]):
+        out["failures"].append(f"the lanes launched no matvec or csc_rmatvec: "
+                               f"{out['launches']}")
+    return out
+
+
+def counted_syncs(torch, fn):
+    """``fn()`` under the CUDA sync debug mode: its result and the host
+    syncs the port made, each by the innermost line of the port on the
+    stack where it happened (``file:line``, with the torch line for syncs
+    inside torch). Syncs with no line of the port on the stack (switching
+    the debug mode syncs once) are not the port's and are left out."""
+    import traceback
+    import warnings
+
+    sites: dict = {}
+    pkg = os.path.join(REPO, "photon_tpu_torch")
+    build = os.path.join(pkg, "_build")
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if f.filename.startswith(pkg) and not f.filename.startswith(build)]
+        if not ours:
+            return
+        key = f"{os.path.relpath(ours[-1].filename, REPO)}:{ours[-1].lineno}"
+        if not filename.startswith(pkg):
+            key += f" ({os.path.basename(filename)}:{lineno})"
+        sites[key] = sites.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return res, dict(sorted(sites.items(), key=lambda kv: -kv[1]))
+
+
+def matvec_at(torch, cs, idx_np, val_np, dim, seed, dev) -> dict:
+    """``ell_matvec`` (f32) on one layout: against its plain version, its
+    time, the plain version's and one cuSPARSE call's, its bound, and
+    whether ``panels_pay_off`` would stage w instead."""
+    n, k = idx_np.shape
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(idx_np).to(dev)
+    val = torch.from_numpy(val_np).to(dev, torch.float32)
+    w = torch.from_numpy(rng.normal(size=dim)).to(dev, torch.float32)
+    kern = lambda: cs.ell_matvec(idx, val, w, dim)          # noqa: E731
+    plain = lambda: cs.ell_matvec_plain(idx, val, w, dim)   # noqa: E731
+    keep = (idx >= 0) & (idx < dim)
+    crow = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    a = torch.sparse_csr_tensor(crow, idx[keep], val[keep], size=(n, dim))
+    nnz = int(keep.sum().item())
+    err = _close(torch, kern(), plain(), "float32")
+    return {"rows": n, "k": k, "dim": dim, "nnz": nnz, "max_abs_err": err,
+            "panels_pay_off": cs.panels_pay_off(n, dim, n * k, 4),
+            "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+            "library_ms": time_ms(torch, lambda: a @ w),
+            **kernel_bound("ell_matvec", n, k, dim, nnz, "float32")}
+
+
+def vm_point_gap(torch, ests, bundles, cfg, ref_fit, dev, ref_dev) -> dict:
+    """The objective the random-effect lanes minimize (value and gradient,
+    in the transformed space through the coefficient map under
+    normalization), at one point on both devices in the fits' dtype: the
+    ``ref_dev`` fit's fixed-effect offsets and each bucket's lane iterate at
+    the end of its last random-effect step, the same bits on each device,
+    over the datasets the fits used (``ests``' preparation of
+    ``bundles``). Per-lane values |fa - fb| / max(|fb|, 1), gradients max
+    |ga - gb| over the bucket's max |gb|."""
+    from photon_tpu_torch.game import random_effect as re_mod
+
+    coords = {}
+    for d in (dev, ref_dev):
+        prep = ests[d.type]._prepare_cached(bundles[d.type])
+        coords[d.type] = ests[d.type]._build_coordinates(prep, cfg, 0, None,
+                                                         prep["accel_cache"])
+    result = ref_fit["results"][0]
+    offsets = coords[ref_dev.type]["fixed"].score(result.model["fixed"])
+    last = [r for r in result.tracker if r.coordinate_id == "perUser"][-1]
+    out = {"value": 0.0, "grad": 0.0, "lanes": 0, "failures": []}
+    for b, res in enumerate(last.result):
+        got = {}
+        for d in (dev, ref_dev):
+            rc = coords[d.type]["perUser"]
+            mask, batches, norm = re_mod.bucket_inputs(
+                rc.dataset, b, offsets.to(d), rc.global_reg_mask, rc.normalization)
+            got[d.type] = (rc.dataset.buckets[b].proj.cpu(), batches.labels.cpu(),
+                           *[t.cpu().double() for t in rc.problem.value_and_grad(
+                               re_mod.lane_batch(rc.dataset, b, batches), mask,
+                               norm)(res.x.to(d))])
+        (pa, ya, fa, ga), (pb, yb, fb, gb) = got[dev.type], got[ref_dev.type]
+        if not (torch.equal(pa, pb) and torch.equal(ya, yb)):
+            out["failures"].append(f"bucket {b}: the devices' datasets differ")
+            continue
+        out["lanes"] += int(fb.numel())
+        out["value"] = max(out["value"],
+                           ((fa - fb).abs() / fb.abs().clamp(min=1.0)).max().item())
+        out["grad"] = max(out["grad"], ((ga - gb).abs().max()
+                                        / gb.abs().max().clamp(min=1e-30)).item())
+    return out
+
+
+def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev) -> dict:
+    """GAME fits whose random-effect buckets take the vmapped tier, through
+    ``GameEstimator.fit`` at ``sizes`` (fit A's shape), validated on a
+    seed-3 bundle with AUC and LOGISTIC_LOSS:
+
+    * fit C: STANDARDIZATION (the global shard gains an intercept), L-BFGS
+      L2 on both coordinates, the random effect per user over the global
+      shard, down-sampling 0.5 on both (the binary sampler): vmapped
+      L-BFGS over every lane, on the plain ``optimize`` path;
+    * fit D: the random effect over the ``user`` shard with OWL-QN and L1:
+      vmapped OWL-QN;
+    * fit E: SCALE_WITH_MAX_MAGNITUDE, TRON L2 on both, the random effect
+      over the ``user`` shard, SIMPLE variances: vmapped TRON.
+
+    Each in f32 on ``dev`` twice (bit-equal asserted), its plans against
+    the gates', the random-effect step alone measured; then at
+    ``small_users`` users on both devices, in f32 (the lanes' objective at
+    one point, ``vm_point_gap``; fits D's and E's final lane objectives)
+    and in f64 (``compare_f64_fits``; fit C to ``VM_F64_RTOL_FIT_C``), each
+    held to a bound set from readings. Returns the counted fits' launches
+    under ``launches``."""
+    it = sizes["iterations"]
+    out: dict = {"shape": {k: sizes[k] for k in ("n_users", "rows_per_user",
+                                                  "d_global", "d_user")}}
+    launches, failures = {}, []
+    for name, shard, norm, fixed, random, variance, rate in VM_FITS:
+        intercept = norm == "STANDARDIZATION"
+        cfgs = vm_configs(fixed, random, variance, rate, it)
+        arrays = vm_arrays(sizes, sizes["n_users"], 2, intercept)
+        varrays = vm_arrays(sizes, sizes["n_users"], 3, intercept)
+        train = game_bundle(torch, arrays, dev, torch.float32)
+        valid = game_bundle(torch, varrays, dev, torch.float32)
+        est = vm_estimator(arrays, shard, norm, ("AUC", "LOGISTIC_LOSS"))
+        first = game_fit(torch, cs, est, train, valid, cfgs, counted=True)
+        second = game_fit(torch, cs, est, train, valid, cfgs)
+        bit_equal = all(
+            torch.equal(a, b) for ra, rb in zip(first["results"], second["results"])
+            for a, b in zip(_game_tensors(ra), _game_tensors(rb)))
+        if not bit_equal:
+            failures.append(f"{name}: two f32 card fits differ")
+        launches[name] = first.pop("launches")
+        plans = [(r["solver"], r["chunk"]) for r in first["buckets"]]
+        stats = None
+        if dev.type == "cuda":
+            stats = vm_step_stats(torch, cs, est, train, cfgs[0], first["results"][0])
+            failures += [f"{name}: {f}" for f in stats.pop("failures")]
+            if plans != [tuple(p) for p in stats["plans_from_gates"]]:
+                failures.append(f"{name}: plans {plans}, gates "
+                                f"{stats['plans_from_gates']}")
+        if any(p != ("vmapped_lbfgs", None) for p in plans):
+            failures.append(f"{name}: plans {plans} are not the vmapped tier")
+        for s in first["steps"]:
+            if not all(np.isfinite(v) for v in (s["validation"] or {}).values()):
+                failures.append(f"{name}: non-finite validation metrics")
+        if dev.type == "cuda" and name == "fit_e" and launches[name]["csc_sq_rmatvec"] < 1:
+            failures.append("fit E never launched csc_sq_rmatvec")
+        res = {"re_shard": shard, "normalization": norm, "fixed": fixed,
+               "random": random, "variance": variance, "down_sampling": rate,
+               "fit_s": {"run": first["fit_s"], "repeat": second["fit_s"]},
+               "steps": first["steps"], "buckets": first["buckets"],
+               "plans": plans, "launches_per_sweep": first["launches_per_sweep"],
+               "bit_equal_repeat": bit_equal, "re_step": stats}
+        ctx = est._prepare_cached(train)["norm"]["global"]
+        if ctx is not None:
+            res["global_factors"] = {"min": ctx.factors.min().item(),
+                                     "max": ctx.factors.max().item()}
+        if name == "fit_c" and dev.type == "cuda":
+            ds = est._prepare_cached(train)["datasets"]["perUser"]
+            big = max(range(len(ds.buckets)), key=lambda i: ds.buckets[i].n_entities)
+            flat = ds.lane_features(big).flat
+            res["lane_matvec"] = matvec_at(
+                torch, cs, flat.idx.cpu().numpy(), flat.val.cpu().numpy(),
+                flat.dim, 12, dev)
+        del train, valid, est, first, second
+
+        # cpu reference and f64 witness at small_users users
+        small = vm_arrays(sizes, small_users, 2, intercept)
+        vsmall = vm_arrays(sizes, small_users, 3, intercept)
+        ests = {d.type: vm_estimator(small, shard, norm, ("AUC", "LOGISTIC_LOSS"))
+                for d in (dev, ref_dev)}
+        bundles = {d.type: game_bundle(torch, small, d, torch.float32)
+                   for d in (dev, ref_dev)}
+        f32 = {d.type: game_fit(torch, cs, ests[d.type], bundles[d.type],
+                                game_bundle(torch, vsmall, d, torch.float32), cfgs)
+               for d in (dev, ref_dev)}
+        lane_err = _lane_objective_err(f32[dev.type], f32[ref_dev.type])
+        point = vm_point_gap(torch, ests, bundles, cfgs[0], f32[ref_dev.type],
+                             dev, ref_dev)
+        metric_err = max((abs(v - sb["validation"][k])
+                          for sa, sb in zip(f32[dev.type]["steps"], f32[ref_dev.type]["steps"])
+                          for k, v in (sa["validation"] or {}).items()), default=0.0)
+        if name in VM_LANE_OBJ_RTOL_F32 and not lane_err <= VM_LANE_OBJ_RTOL_F32[name]:
+            failures.append(f"{name}: f32 lane objectives differ by {lane_err} > "
+                            f"{VM_LANE_OBJ_RTOL_F32[name]}")
+        for k, lim in VM_POINT_RTOL_F32.items():
+            if not point[k] <= lim:
+                failures.append(f"{name}: the lanes' f32 objective {k} at one point "
+                                f"differs by {point[k]} > {lim}")
+        failures += [f"{name}: {f}" for f in point.pop("failures")]
+        f64 = {d.type: game_fit(torch, cs, vm_estimator(small, shard, norm, ()),
+                                game_bundle(torch, small, d, torch.float64), None, cfgs)
+               for d in (dev, ref_dev)}
+        cmp = compare_f64_fits(torch, f64[dev.type], f64[ref_dev.type])
+        f64_failures = [f"{name} f64: {f}" for f in cmp.pop("failures")]
+        if name == "fit_c":
+            cmp["rule_1e-9_1e-6"] = f64_failures
+            cmp["limit"] = VM_F64_RTOL_FIT_C
+            if not cmp["coef_rel_err"] <= VM_F64_RTOL_FIT_C:
+                failures.append(f"{name} f64: coefficients {cmp['coef_rel_err']} "
+                                f"apart > {VM_F64_RTOL_FIT_C}")
+        else:
+            failures += f64_failures
+        res["small"] = {
+            "users": small_users,
+            "f32": {"lane_objective_rel_err": lane_err,
+                    "lane_objective_limit": VM_LANE_OBJ_RTOL_F32.get(name),
+                    "at_one_point": point, "at_one_point_limit": VM_POINT_RTOL_F32,
+                    "metric_abs_err": metric_err,
+                    "fit_s": {k: v["fit_s"] for k, v in f32.items()},
+                    "lanes_on_other_paths": _lane_path_diffs(f32[dev.type],
+                                                             f32[ref_dev.type]),
+                    "fixed_steps": _fixed_steps(torch, f32[dev.type], f32[ref_dev.type])},
+            "f64": {"coef_rel_err_vs_ref": cmp.pop("coef_rel_err"), "vs_ref": cmp,
+                    "fit_s": {k: v["fit_s"] for k, v in f64.items()},
+                    "plans": {k: [(r["entities"], r["solver"], r["chunk"])
+                                  for r in v["buckets"]] for k, v in f64.items()}}}
+        out[name] = res
+        del f32, f64, ests, bundles
+    if dev.type == "cuda":
+        # ell_matvec where it runs on the drivers' path: 32,768 rows as the
+        # training and scoring drivers read them (an intercept and 32
+        # entries)
+        d_idx, d_val, d_dim, _, _ = game_arrays(**dict(FULL, rows_per_user=FULL[
+            "driver_rows_per_user"]), col0=1)
+        n = d_idx.shape[0]
+        out["driver_matvec"] = matvec_at(
+            torch, cs, np.concatenate([np.zeros((n, 1), np.int32), d_idx], 1),
+            np.concatenate([np.ones((n, 1), np.float32), d_val], 1), d_dim, 13, dev)
+    if failures:
+        emit({"phase": "game_training_vmapped", **out})
+        raise AssertionError("; ".join(failures))
+    out["launches"] = launches
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -1777,10 +2234,17 @@ def main() -> int:
         if gd_launches[name] < 1:
             raise AssertionError(f"GAME training driver phase never launched {name}")
 
+    vm = phase_game_training_vmapped(torch, cs, GAME, GAME_F64_USERS, dev, cpu)
+    vm_fits = vm.pop("launches")
+    vm_launches = {k: sum(f[k] for f in vm_fits.values()) for k in cs.KERNELS}
+    emit({"phase": "game_training_vmapped", "launches": vm_launches,
+          "launches_by_fit": vm_fits, **vm})
+
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
     by_phase = {"transformer": tr_launches, "driver": dr_launches,
                 "training": tn_launches, "training_driver": td_launches,
-                "game_training": gt_launches, "game_training_driver": gd_launches}
+                "game_training": gt_launches, "game_training_driver": gd_launches,
+                "game_training_vmapped": vm_launches}
     rows = []
     for name in cs.KERNELS:
         f32 = kern["game"]["float32"]["kernels"][name]
@@ -1799,6 +2263,12 @@ def main() -> int:
             "hot_dup_over_game": hot["ms"] / f32["ms"],
             "long_col_ms": long["ms"], "long_col_library_ms": long["library_ms"],
         })
+        if name == "ell_matvec":
+            # where the path runs it: the drivers' rows and fit C's lanes
+            keys = ("rows", "k", "dim", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "panels_pay_off", "max_abs_err")
+            rows[-1]["driver_shape"] = {k: vm["driver_matvec"][k] for k in keys}
+            rows[-1]["lane_shape"] = {k: vm["fit_c"]["lane_matvec"][k] for k in keys}
     emit({"kernels": rows})
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)

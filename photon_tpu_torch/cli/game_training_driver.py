@@ -3,8 +3,10 @@
 Port of ``photon_tpu/cli/game_training_driver.py`` (``run`` / ``_run_inner``)
 on one device: parse flags → build (or load) the feature index maps → read
 the Avro training (and validation) data → sanity checks →
-``GameEstimator.fit`` over the regularization-weight sweep, fixed and
-random effects by coordinate descent, evaluated after every step when
+the feature summary (``--feature-summary``) →
+``GameEstimator.fit`` over the regularization-weight sweep (with
+``--normalization`` and per-coordinate ``downsample``), fixed and random
+effects by coordinate descent, evaluated after every step when
 ``--evaluators`` and ``--validation-data`` are given → select the best
 configuration by the primary evaluator → save the model(s), the index maps,
 ``training-summary.json`` and ``metrics.jsonl``. The output layout is the
@@ -14,8 +16,8 @@ writes.
 
 Runs on the card by default (``--device cuda``, which fails when no GPU is
 visible); ``--device cpu`` runs the plain versions of the kernels. Flags of
-the JAX driver that belong to later slices of the port (normalization,
-checkpoints and restarts, tuning, meshes, the ingest pipeline, profiling,
+the JAX driver that belong to later slices of the port (checkpoints and
+restarts, tuning, meshes, the ingest pipeline, profiling,
 the runtime guards, measured solver routing) are refused with a message
 naming the slice; ``--re-routing static`` is the port's only routing.
 
@@ -40,6 +42,8 @@ from photon_tpu_torch.cli.params import (
     parse_coordinates,
     parse_feature_shard,
 )
+from photon_tpu_torch.data.normalization import NormalizationType
+from photon_tpu_torch.data.statistics import compute_feature_statistics
 from photon_tpu_torch.data.validators import DataValidationType, sanity_check_data
 from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.estimators.config import RandomEffectDataConfig
@@ -52,7 +56,11 @@ from photon_tpu_torch.io.data_reader import (
     InputColumnNames,
     build_index_from_avro,
 )
-from photon_tpu_torch.io.model_io import load_game_model, save_game_model
+from photon_tpu_torch.io.model_io import (
+    load_game_model,
+    save_feature_summary,
+    save_game_model,
+)
 from photon_tpu_torch.types import TaskType
 from photon_tpu_torch.utils import PhotonLogger, Timed, write_metrics_jsonl
 
@@ -61,10 +69,6 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # Flags of the JAX driver that belong to later slices: (flag, is it set,
 # the slice it comes with). Each is refused when set, never ignored.
 _LATER_SLICES = (
-    ("--normalization", lambda a: a.normalization != "NONE",
-     "feature normalization comes with the data-preparation slice (M8); use NONE"),
-    ("--feature-summary", lambda a: a.feature_summary,
-     "feature statistics come with the data-preparation slice (M8)"),
     ("--checkpoint-dir", lambda a: a.checkpoint_dir is not None,
      "checkpoints come with the checkpoint slice (M9)"),
     ("--max-restarts", lambda a: a.max_restarts > 0,
@@ -163,9 +167,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "PRECISION@k:col, ...); the first selects the best model")
     p.add_argument("--re-routing", choices=["static", "measured"], default=None,
                    help="random-effect solver routing (the port runs static)")
+    p.add_argument("--normalization", default="NONE",
+                   choices=[n.name for n in NormalizationType])
+    p.add_argument("--feature-summary", action="store_true",
+                   help="write per-feature summary statistics (mean/var/min/"
+                        "max/nnz) of every shard to <output-dir>/summary/"
+                        "<shard>.avro")
     # The JAX driver's flags that later slices bring: refused when set.
-    p.add_argument("--normalization", default="NONE")
-    p.add_argument("--feature-summary", action="store_true")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--max-restarts", type=int, default=0)
     p.add_argument("--restart-backoff", type=float, default=None)
@@ -290,6 +298,15 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         for shard in sorted(needed):
             sanity_check_data(train.batch(shard), task, vtype)
 
+    if args.feature_summary:
+        with Timed("feature summarization", logger):
+            for shard in sorted(needed):
+                stats = compute_feature_statistics(train.batch(shard))
+                save_feature_summary(
+                    os.path.join(args.output_dir, "summary", f"{shard}.avro"),
+                    index_maps[shard], stats)
+                logger.info("feature summary[%s]: %d features", shard, stats.dim)
+
     initial_model = None
     if args.model_input_dir:
         with Timed("load warm-start model", logger):
@@ -302,6 +319,7 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         update_sequence=update_sequence,
         n_sweeps=args.sweeps,
         evaluator_specs=tuple(args.evaluators or ()),
+        normalization=NormalizationType[args.normalization],
         intercept_indices={s: im.intercept_index for s, im in index_maps.items()},
     )
     with Timed("fit", logger) as fit_timer:
@@ -345,7 +363,7 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
                 its = [int(b.iterations.max()) for b in res if b.iterations.numel()]
                 logger.info(
                     "config %d sweep %d coord %s: %d buckets, at most %d "
-                    "Newton iterations", i, rec.sweep, rec.coordinate_id,
+                    "solver iterations a lane", i, rec.sweep, rec.coordinate_id,
                     len(res), max(its, default=0))
             else:
                 logger.info(

@@ -15,10 +15,10 @@ keys: ``type`` fixed|random (required); ``shard`` feature shard id;
 ``max_bucket_entities`` int; ``optimizer`` LBFGS|OWLQN|TRON; ``max_iter``
 int; ``tol`` float; ``reg`` NONE|L1|L2|ELASTIC_NET; ``alpha`` elastic-net α;
 ``reg_weights`` '|'-separated floats (sweep, default 0); ``downsample``
-rate; ``variance`` NONE|SIMPLE|FULL; ``incremental`` prior weight for
-incremental training from --model-input-dir. The JAX package's
-``type=factored`` (with ``latent`` / ``alternations``), ``host_resident``
-and a ``downsample`` below 1 belong to later slices of the port and raise
+rate in (0, 1]; ``variance`` NONE|SIMPLE|FULL; ``incremental`` prior weight
+for incremental training from --model-input-dir. The JAX package's
+``type=factored`` (with ``latent`` / ``alternations``) and
+``host_resident`` belong to later slices of the port and raise
 ``NotImplementedError`` naming them; their keys are still recognized.
 """
 from __future__ import annotations
@@ -137,11 +137,6 @@ def parse_coordinate_spec(spec: str) -> CoordinateSpec:
         variance_type=VarianceComputationType(kv.get("variance", "NONE").upper()),
         incremental_weight=float(kv.get("incremental", 0.0)),
     )
-    if opt.down_sampling_rate < 1.0:
-        raise NotImplementedError(
-            f"coordinate {cid!r}: downsample below 1 is not in the port yet "
-            "(down-sampling comes with the data-preparation slice, M8)"
-        )
     weights = tuple(
         float(w) for w in kv.get("reg_weights", "0").split("|") if w != ""
     )

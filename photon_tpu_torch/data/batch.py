@@ -1,8 +1,9 @@
 """Batched data as tensors: ELL sparse features and labeled batches.
 
-Port of ``photon_tpu/data/batch.py``: ``SparseFeatures`` with its three
-data passes, ``LabeledBatch`` and ``ell_from_rows`` (``DenseFeatures`` and
-``with_value_dtype`` are not ported yet).
+Port of ``photon_tpu/data/batch.py``: ``DenseFeatures``, ``SparseFeatures``
+with its three data passes, ``LabeledBatch`` and ``ell_from_rows``
+(``with_value_dtype`` is not ported yet), plus ``LaneFeatures``, the port's
+layout of a random-effect bucket for its batched lane solves.
 
 ``SparseFeatures`` is padded ELL: ``idx[N, K] int32`` / ``val[N, K]`` with
 K = max nnz per row; padding slots point at column ``dim`` (the zero "ghost"
@@ -36,6 +37,51 @@ from photon_tpu_torch.ops.cuda_sparse import (
 )
 
 Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseFeatures:
+    """Row-major dense design matrix ``x[N, D]``. Its passes are
+    ``torch.matmul``: the JAX package computes them outside any Pallas
+    kernel too."""
+
+    x: Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.x.dtype
+
+    @property
+    def n_rows(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.x.shape[1]
+
+    def with_accelerator_paths(self) -> "DenseFeatures":
+        return self
+
+    def with_matvec_layout(self) -> "DenseFeatures":
+        return self
+
+    def matvec(self, w: Tensor) -> Tensor:
+        pass_counter.record("matvec")
+        return self.x @ w
+
+    def rmatvec(self, v: Tensor) -> Tensor:
+        """Xᵀv — accumulate per-row coefficients ``v`` into feature space."""
+        pass_counter.record("rmatvec")
+        return self.x.T @ v
+
+    def sq_rmatvec(self, v: Tensor) -> Tensor:
+        """(X∘X)ᵀv — for Hessian diagonals: Σᵢ vᵢ·xᵢⱼ²."""
+        pass_counter.record("sq_rmatvec")
+        return (self.x * self.x).T @ v
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,8 +177,8 @@ class LabeledBatch:
     """A batch of labeled examples for one feature shard. ``weights``
     doubles as the validity mask: padded rows carry weight 0."""
 
-    features: SparseFeatures
-    labels: Tensor               # [N]
+    features: SparseFeatures     # or DenseFeatures / LaneFeatures
+    labels: Tensor               # [N] ([E, S] over LaneFeatures)
     offsets: Tensor              # [N]
     weights: Tensor              # [N]
 
@@ -162,6 +208,63 @@ class LabeledBatch:
         if attached is feats:
             return self
         return dataclasses.replace(self, features=attached)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneFeatures:
+    """A random-effect bucket's per-entity ELL blocks ``[E, S, K]`` (local
+    columns, ghost = P) as one block-diagonal ``SparseFeatures``: entity e's
+    sample s is row e·S + s, its local column c is column e·P + c, and every
+    local ghost maps to the flat ghost column E·P.
+
+    ``matvec`` takes per-lane coefficients ``[E, P]`` to margins ``[E, S]``
+    and the transposes go back, each ONE pass over the whole bucket: on CUDA
+    the kernels of ``ops/cuda_sparse.py`` once ``with_accelerator_paths``
+    has attached the layouts. Each lane's sums are over its own rows and
+    columns only, in an order fixed by the layout: no float atomics.
+    """
+
+    flat: SparseFeatures
+    n_lanes: int
+    n_samples: int
+    dim: int                      # P, the local dimension of every lane
+
+    @staticmethod
+    def from_bucket(idx: Tensor, val: Tensor, dim: int) -> "LaneFeatures":
+        e, s, k = idx.shape
+        if e * dim >= 2**31:
+            raise ValueError(
+                f"{e} lanes x {dim} local columns exceed the int32 column ids "
+                "of the block-diagonal layout")
+        base = (torch.arange(e, dtype=torch.int32, device=idx.device)
+                * dim)[:, None, None]
+        ghost = torch.full_like(idx, e * dim)
+        flat_idx = torch.where((idx >= 0) & (idx < dim), idx + base, ghost)
+        return LaneFeatures(
+            flat=SparseFeatures(idx=flat_idx.reshape(e * s, k).contiguous(),
+                                val=val.reshape(e * s, k).contiguous(),
+                                dim=e * dim),
+            n_lanes=e, n_samples=s, dim=dim)
+
+    @property
+    def device(self) -> torch.device:
+        return self.flat.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.flat.dtype
+
+    def with_accelerator_paths(self) -> "LaneFeatures":
+        return dataclasses.replace(self, flat=self.flat.with_accelerator_paths())
+
+    def matvec(self, w: Tensor) -> Tensor:
+        return self.flat.matvec(w.reshape(-1)).reshape(self.n_lanes, self.n_samples)
+
+    def rmatvec(self, v: Tensor) -> Tensor:
+        return self.flat.rmatvec(v.reshape(-1)).reshape(self.n_lanes, self.dim)
+
+    def sq_rmatvec(self, v: Tensor) -> Tensor:
+        return self.flat.sq_rmatvec(v.reshape(-1)).reshape(self.n_lanes, self.dim)
 
 
 def ell_from_rows(

@@ -4,8 +4,8 @@ Port of ``photon_tpu/data/random_effect.py``: ``EntityBucket`` (scores and
 the per-entity training batches), ``RandomEffectDataset.scatter_scores``,
 ``pearson_scores`` and ``build_random_effect_dataset`` with its training
 options (active/passive split, minimum rows per entity, the Pearson feature
-filter and the bucket cap). Host-resident buckets (the device sweep cache's
-input) and down-sampling are not ported yet.
+filter and the bucket cap), and ``down_sample_dataset``. Host-resident
+buckets (the device sweep cache's input) are not ported yet.
 
 Entities are grouped on the host and packed into buckets of identical
 padded shape ``[E, S, K]`` (entities x max-samples x max-nnz), quantized to
@@ -25,7 +25,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures
+from photon_tpu_torch.data.batch import LabeledBatch, LaneFeatures, SparseFeatures
+from photon_tpu_torch.utils import threefry
 
 Tensor = torch.Tensor
 
@@ -105,10 +106,26 @@ class RandomEffectDataset:
     n_rows: int
     global_dim: int
     device: torch.device
+    # bucket index -> (its idx tensor, its LaneFeatures with layouts): built
+    # at a bucket's first vmapped solve, shared by every sweep and by the
+    # down-sampled copies (which keep idx / val).
+    lane_layouts: dict = dataclasses.field(default_factory=dict, compare=False,
+                                           repr=False)
 
     @property
     def n_entities(self) -> int:
         return len(self.entity_keys)
+
+    def lane_features(self, b: int) -> LaneFeatures:
+        """Bucket ``b`` as one block-diagonal batch of lanes, with its
+        accelerator layouts: built once per bucket of the prepared data."""
+        bucket = self.buckets[b]
+        hit = self.lane_layouts.get(b)
+        if hit is None or hit[0] is not bucket.idx:
+            hit = (bucket.idx, LaneFeatures.from_bucket(
+                bucket.idx, bucket.val, bucket.local_dim).with_accelerator_paths())
+            self.lane_layouts[b] = hit
+        return hit[1]
 
     def scatter_scores(
         self, per_bucket_scores: Sequence[Tensor], dtype: torch.dtype
@@ -120,6 +137,19 @@ class RandomEffectDataset:
         for b, s in zip(self.buckets, per_bucket_scores):
             out.index_put_((b.row_ids.reshape(-1).long(),), s.reshape(-1).to(dtype))
         return out[: self.n_rows]
+
+
+def down_sample_dataset(dataset: RandomEffectDataset, sampler,
+                        key: np.ndarray) -> RandomEffectDataset:
+    """Down-sample the training weights of every bucket, bucket i with key
+    ``fold_in(key, i)``. Only ``train_weights`` change: scoring weights and
+    the active/passive split stay, and zero (padded, passive) slots stay
+    zero."""
+    buckets = tuple(
+        dataclasses.replace(b, train_weights=sampler.down_sample_weights(
+            threefry.fold_in(key, i), b.labels, b.train_weights))
+        for i, b in enumerate(dataset.buckets))
+    return dataclasses.replace(dataset, buckets=buckets)
 
 
 def pearson_scores(

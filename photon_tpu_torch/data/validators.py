@@ -15,7 +15,7 @@ import enum
 
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.batch import DenseFeatures, LabeledBatch
 from photon_tpu_torch.types import TaskType
 
 # Rows checked under VALIDATE_SAMPLE.
@@ -82,7 +82,9 @@ def sanity_check_data(
     n = batch.n_rows
     if validation_type == DataValidationType.VALIDATE_SAMPLE:
         n = min(sample_rows, n)
-    counts = _violation_counts(batch.features.val[:n], batch.labels[:n],
+    feats = batch.features
+    values = feats.x if isinstance(feats, DenseFeatures) else feats.val
+    counts = _violation_counts(values[:n], batch.labels[:n],
                                batch.offsets[:n], batch.weights[:n], task)
     failures = [f"{msg} ({c} rows)" for msg, c in zip(_CHECKS, counts) if c > 0]
     if failures:

@@ -7,9 +7,13 @@ layouts, bucketed random-effect datasets) are built once and shared by every
 configuration of the sweep; each configuration runs coordinate descent,
 with validation after every step when evaluators and validation data are
 given, and yields a ``GameFitResult``; ``select_best`` picks the
-configuration by the primary evaluator. Down-sampling, feature
-normalization, factored random effects and checkpoints belong to later
-slices of the port and raise ``NotImplementedError`` naming them.
+configuration by the primary evaluator. A ``normalization`` other than NONE
+builds one context per feature shard from its feature statistics, shared
+by the shard's fixed and random effects; a coordinate's
+``down_sampling_rate`` below 1 trains it on a down-sampled copy of its data
+(fresh per configuration, keyed from ``seed`` as in the JAX package).
+Factored random effects and checkpoints belong to later slices of the port
+and raise ``NotImplementedError`` naming them.
 """
 from __future__ import annotations
 
@@ -20,10 +24,17 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from photon_tpu_torch.data.normalization import (
+    NormalizationType,
+    context_from_statistics,
+)
 from photon_tpu_torch.data.random_effect import (
     RandomEffectDataset,
     build_random_effect_dataset,
+    down_sample_dataset,
 )
+from photon_tpu_torch.data.sampling import down_sampler_for_task
+from photon_tpu_torch.data.statistics import compute_feature_statistics
 from photon_tpu_torch.estimators.config import (
     CoordinateDataConfig,
     FixedEffectDataConfig,
@@ -47,6 +58,7 @@ from photon_tpu_torch.game.descent import (
 )
 from photon_tpu_torch.io.data_reader import GameDataBundle
 from photon_tpu_torch.types import TaskType
+from photon_tpu_torch.utils import threefry
 
 logger = logging.getLogger("photon_tpu_torch.estimators")
 
@@ -111,9 +123,8 @@ class GameEstimator:
 
     ``intercept_indices`` (shard → column) excludes intercepts from the L2
     penalty, for fixed and random effects alike. The solves run where the
-    bundle's features live. A ``normalization`` other than "NONE" (the JAX
-    package's ``NormalizationType`` by name) belongs to a later slice and is
-    refused.
+    bundle's features live. ``normalization`` is a ``NormalizationType`` or
+    its name; ``seed`` keys the down-sampling draws.
     """
 
     task: TaskType
@@ -121,8 +132,9 @@ class GameEstimator:
     update_sequence: Optional[Sequence[str]] = None
     n_sweeps: int = 1
     evaluator_specs: Sequence[str] = ()
-    normalization: str = "NONE"
+    normalization: NormalizationType = NormalizationType.NONE
     intercept_indices: Optional[Mapping[str, int]] = None
+    seed: int = 0
 
     def __post_init__(self):
         if self.update_sequence is None:
@@ -140,11 +152,8 @@ class GameEstimator:
                     "port yet (factored random effects come with the "
                     "factored-random-effect slice, M12)"
                 )
-        if self.normalization != "NONE":
-            raise NotImplementedError(
-                "feature normalization is not in the port yet (it comes with "
-                "the data-preparation slice, M8)"
-            )
+        if isinstance(self.normalization, str):
+            self.normalization = NormalizationType.parse(self.normalization)
 
     def fit(
         self,
@@ -163,13 +172,6 @@ class GameEstimator:
             missing = [c for c in self.update_sequence if c not in cfg]
             if missing:
                 raise ValueError(f"configuration missing coordinates {missing}")
-            for cid, ocfg in cfg.items():
-                if ocfg.down_sampling_rate < 1.0:
-                    raise NotImplementedError(
-                        f"coordinate {cid!r}: down-sampling is not in the "
-                        "port yet (it comes with the data-preparation slice, "
-                        "M8)"
-                    )
         suite = (EvaluationSuite.parse(self.evaluator_specs)
                  if self.evaluator_specs else None)
         if validation_data is not None and suite is None:
@@ -189,7 +191,7 @@ class GameEstimator:
         for i, cfg in enumerate(configs):
             logger.info("=== configuration %d/%d ===", i + 1, len(configs))
             coordinates = self._build_coordinates(
-                prep, cfg, initial_model, accel_cache)
+                prep, cfg, i, initial_model, accel_cache)
             model, tracker = CoordinateDescent(
                 update_sequence=tuple(self.update_sequence),
                 n_sweeps=self.n_sweeps,
@@ -233,25 +235,38 @@ class GameEstimator:
         return v
 
     def _prepare(self, data: GameDataBundle) -> dict:
-        """Per-shard batches and per-coordinate random-effect datasets."""
+        """Per-shard batches and normalization contexts (None without
+        normalization), per-coordinate random-effect datasets."""
         batches = {
             shard: data.batch(shard)
             for shard in sorted({c.feature_shard
                                  for c in self.coordinate_data_configs.values()})
         }
+        accel_cache: dict = {}
+        norm = {}
+        for shard, batch in batches.items():
+            norm[shard] = None
+            if self.normalization != NormalizationType.NONE:
+                # the statistics' sums are transposes: on CUDA through the
+                # layouts the fixed effect then reuses
+                stats = compute_feature_statistics(
+                    batch.with_accelerator_paths(accel_cache))
+                norm[shard] = context_from_statistics(
+                    stats, self.normalization, self._intercept_for(shard))
         datasets = {
             cid: build_re_dataset_from_bundle(
                 data, dcfg, self._intercept_for(dcfg.feature_shard))
             for cid, dcfg in self.coordinate_data_configs.items()
             if isinstance(dcfg, RandomEffectDataConfig)
         }
-        return {"batches": batches, "datasets": datasets, "prior_proj": {},
-                "accel_cache": {}}
+        return {"batches": batches, "norm": norm, "datasets": datasets,
+                "prior_proj": {}, "accel_cache": accel_cache}
 
     def _build_coordinates(
         self,
         prep: dict,
         cfg: GameOptimizationConfiguration,
+        config_index: int,
         initial_model: Optional[GameModel],
         accel_cache: dict,
     ) -> dict[str, Coordinate]:
@@ -263,6 +278,13 @@ class GameEstimator:
             ocfg = cfg.get(cid, GLMOptimizationConfiguration())
             problem = ocfg.problem(self.task)
             intercept = self._intercept_for(dcfg.feature_shard)
+            norm = prep["norm"][dcfg.feature_shard]
+            sampler = key = None
+            if ocfg.down_sampling_rate < 1.0:
+                # per (configuration, coordinate): reproducible
+                sampler = down_sampler_for_task(self.task, ocfg.down_sampling_rate)
+                key = threefry.fold_in(threefry.fold_in(
+                    threefry.PRNGKey(self.seed), config_index), len(coordinates))
             init_m = None
             if ocfg.incremental_weight > 0.0:
                 init_m = (initial_model.models.get(cid)
@@ -287,10 +309,13 @@ class GameEstimator:
                             ocfg.incremental_weight,
                         ),
                     )
+                if sampler is not None:
+                    batch = sampler.down_sample(key, batch)
                 coordinates[cid] = FixedEffectCoordinate(
                     batch=batch.with_accelerator_paths(accel_cache),
                     problem=problem,
                     feature_shard=dcfg.feature_shard,
+                    normalization=norm,
                 )
             else:
                 dataset = prep["datasets"][cid]
@@ -307,11 +332,16 @@ class GameEstimator:
                     priors = [PriorDistribution.from_model(
                         m, v, ocfg.incremental_weight)
                         for m, v in zip(means, variances)]
+                if sampler is not None:
+                    # a fresh copy per configuration; it shares the
+                    # prepared dataset's lane layouts
+                    dataset = down_sample_dataset(dataset, sampler, key)
                 coordinates[cid] = RandomEffectCoordinate(
                     dataset=dataset,
                     problem=problem,
                     global_reg_mask=intercept_reg_mask(
                         dataset.global_dim, intercept, device=dataset.device),
+                    normalization=norm,
                     priors=priors,
                 )
         return coordinates

@@ -11,6 +11,11 @@ rmatvec, ``hessian_vector`` two matvecs and one rmatvec, and the H·v of
 ``bind_hvp_at`` two passes, its margins computed once per point. On CUDA the
 passes are the kernels of ``ops/cuda_sparse.py`` (see ``data/batch.py``);
 the rest is elementwise torch on the batch's device.
+
+Every sum runs over the last axis, so the same objective serves a batch of
+random-effect lanes: over ``LaneFeatures`` (``data/batch.py``) the
+coefficients are ``[E, P]``, the rows ``[E, S]`` and each value ``[E]``, one
+per lane, with ``reg_mask`` and the prior's leaves ``[E, P]``.
 """
 from __future__ import annotations
 
@@ -47,8 +52,8 @@ class GLMObjective:
 
     def value(self, w: Tensor, batch: LabeledBatch) -> Tensor:
         z = batch.features.matvec(w) + batch.offsets
-        out = torch.sum(batch.weights * self.loss.loss(z, batch.labels))
-        out = out + 0.5 * torch.sum(self._l2_vec(w) * w * w)
+        out = torch.sum(batch.weights * self.loss.loss(z, batch.labels), dim=-1)
+        out = out + 0.5 * torch.sum(self._l2_vec(w) * w * w, dim=-1)
         if self.prior is not None:
             out = out + self.prior.value(w)
         return out
@@ -57,11 +62,11 @@ class GLMObjective:
         """One matvec and one rmatvec: z → (ℓ, dℓ/dz) → Xᵀ(w·dz) + L2
         terms."""
         z = batch.features.matvec(w) + batch.offsets
-        lv = torch.sum(batch.weights * self.loss.loss(z, batch.labels))
+        lv = torch.sum(batch.weights * self.loss.loss(z, batch.labels), dim=-1)
         dz = batch.weights * self.loss.d1(z, batch.labels)
         g = batch.features.rmatvec(dz)
         lam = self._l2_vec(w)
-        lv = lv + 0.5 * torch.sum(lam * w * w)
+        lv = lv + 0.5 * torch.sum(lam * w * w, dim=-1)
         g = g + lam * w
         if self.prior is not None:
             lv = lv + self.prior.value(w)
@@ -92,8 +97,8 @@ class GLMObjective:
 
     def value_from_scores(self, z: Tensor, w: Tensor, batch: LabeledBatch) -> Tensor:
         """Objective value given margins z = Xw + offsets: no data pass."""
-        lv = torch.sum(batch.weights * self.loss.loss(z, batch.labels))
-        lv = lv + 0.5 * torch.sum(self._l2_vec(w) * w * w)
+        lv = torch.sum(batch.weights * self.loss.loss(z, batch.labels), dim=-1)
+        lv = lv + 0.5 * torch.sum(self._l2_vec(w) * w * w, dim=-1)
         if self.prior is not None:
             lv = lv + self.prior.value(w)
         return lv

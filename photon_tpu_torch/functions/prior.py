@@ -43,7 +43,7 @@ class PriorDistribution:
 
     def value(self, w: Tensor) -> Tensor:
         d = w - self.means
-        return 0.5 * torch.sum(self.precisions * d * d)
+        return 0.5 * torch.sum(self.precisions * d * d, dim=-1)
 
     def gradient(self, w: Tensor) -> Tensor:
         return self.precisions * (w - self.means)

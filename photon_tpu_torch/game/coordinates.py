@@ -4,9 +4,10 @@ Port of ``photon_tpu/game/coordinates.py``: ``FixedEffectModel``, the
 trainable ``FixedEffectCoordinate`` and ``RandomEffectCoordinate`` on one
 device (no mesh, no feature-sharded model axis, no device sweep cache; the
 factored random effect comes with a later slice). A coordinate owns its
-training data and problem and exposes ``train(offsets, init) -> (model,
-result)`` and ``score(model) -> [N]``; offsets are per-row tensors in the
-global sample order, so residuals are elementwise.
+training data, its problem and its shard's normalization context (None
+without one) and exposes ``train(offsets, init) -> (model, result)`` and
+``score(model) -> [N]``; offsets are per-row tensors in the global sample
+order, so residuals are elementwise.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Optional, Sequence, Union
 import torch
 
 from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.normalization import NormalizationContext
 from photon_tpu_torch.data.random_effect import RandomEffectDataset
 from photon_tpu_torch.functions.prior import PriorDistribution
 from photon_tpu_torch.functions.problem import GLMOptimizationProblem
@@ -49,6 +51,7 @@ class FixedEffectCoordinate:
     batch: LabeledBatch
     problem: GLMOptimizationProblem
     feature_shard: str = "global"
+    normalization: Optional[NormalizationContext] = None
 
     def train(
         self, offsets: Tensor, init: Optional[FixedEffectModel] = None
@@ -59,7 +62,8 @@ class FixedEffectCoordinate:
         else:
             w0 = torch.zeros(batch.dim, dtype=batch.labels.dtype,
                              device=batch.labels.device)
-        model, result = self.problem.fit(batch, w0)
+        model, result = self.problem.fit(batch, w0,
+                                         normalization=self.normalization)
         return FixedEffectModel(model, self.feature_shard), result
 
     def score(self, model: FixedEffectModel) -> Tensor:
@@ -74,6 +78,7 @@ class RandomEffectCoordinate:
     dataset: RandomEffectDataset
     problem: GLMOptimizationProblem
     global_reg_mask: Optional[Tensor] = None
+    normalization: Optional[NormalizationContext] = None
     # Per-bucket priors for incremental training
     # (RandomEffectModel.project_prior_to).
     priors: Optional[Sequence[PriorDistribution]] = None
@@ -97,6 +102,7 @@ class RandomEffectCoordinate:
             self.problem, self.dataset, offsets,
             global_reg_mask=self.global_reg_mask,
             init_coefs=self._init_coefs(init),
+            normalization=self.normalization,
             priors=self.priors,
         )
 

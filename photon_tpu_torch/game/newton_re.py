@@ -52,10 +52,10 @@ from photon_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_tpu_torch.ops.losses import loss_for_task
 from photon_tpu_torch.optim.base import (
     FUNCTION_VALUES_CONVERGED,
-    GRADIENT_CONVERGED,
     MAX_ITERATIONS,
     NOT_CONVERGED,
     OptimizerResult,
+    check_convergence,
 )
 
 Tensor = torch.Tensor
@@ -252,21 +252,6 @@ def _dense_design(batches: LabeledBatch, dtype: torch.dtype):
     )
 
 
-def _lane_convergence(it: int, f_prev: Tensor, f: Tensor, gnorm: Tensor,
-                      gnorm0: Tensor, tolerance: float) -> Tensor:
-    """The optimizers' dual convergence test over lanes, with the
-    tolerance cast to the lanes' dtype first (a fill on the device: a
-    tensor made from the host scalar would be a copy that syncs)."""
-    tol = torch.full((), tolerance, dtype=f.dtype, device=f.device)
-    grad_ok = gnorm <= tol * torch.clamp(gnorm0, min=1e-30)
-    denom = torch.clamp(torch.maximum(f_prev.abs(), f.abs()), min=1.0)
-    fun_ok = (it > 0) & ((f_prev - f).abs() <= tol * denom)
-    return torch.where(
-        grad_ok, GRADIENT_CONVERGED,
-        torch.where(fun_ok, FUNCTION_VALUES_CONVERGED, NOT_CONVERGED),
-    ).to(torch.int32)
-
-
 def _newton_loop(x0, z0, cfg, value_at, grad_at, hess_at, lin_map,
                  probe_values, ridge):
     """Shared damped-Newton driver over a batch of independent lanes.
@@ -346,7 +331,7 @@ def _newton_loop(x0, z0, cfg, value_at, grad_at, hess_at, lin_map,
 
         it += 1
         gn = torch.linalg.vector_norm(g_new, dim=1)
-        conv = _lane_convergence(it, f, f_new, gn, gnorm0, cfg.tolerance)
+        conv = check_convergence(it, f, f_new, gn, gnorm0, cfg.tolerance)
         reason = torch.where(
             active,
             torch.where(stepped, conv,

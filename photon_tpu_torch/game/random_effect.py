@@ -4,17 +4,23 @@ Port of ``photon_tpu/game/random_effect.py`` on one device:
 ``RandomEffectModel`` (scoring, export, projection into another dataset's
 subspaces and the incremental-training priors) and ``train_random_effects``
 with the static solver plan of ``_solve_bucket``: full-bucket primal Newton,
-full-bucket dual Newton, chunked primal, chunked dual (``game/newton_re.py``).
+full-bucket dual Newton, chunked primal, chunked dual (``game/newton_re.py``),
+else the vmapped fallback (L1 / OWL-QN, a normalization context, or rows
+too wide for every Newton tier): ``problem.run_lanes`` over the whole bucket
+as masked batched lanes (``optim/lanes.py``) of L-BFGS, OWL-QN or TRON, by
+the problem's optimizer (the plan keeps the JAX name ``vmapped_lbfgs``), on
+the bucket's block-diagonal layout (``RandomEffectDataset.lane_features``).
+A shard-level normalization context is gathered into each bucket's lanes
+with ``project_context``.
 
 Not in this slice, each raising ``NotImplementedError`` that names where it
-comes: the vmapped masked L-BFGS fallback (L1 / OWL-QN, a normalization
-context, or wide rows that fit no Newton tier), measured solver routing
-(``PHOTON_RE_ROUTING=measured``), the OOM ladder, meshes, the compile store
-and the obs counters.
+comes: measured solver routing (``PHOTON_RE_ROUTING=measured``); the OOM
+ladder (with its chunked vmapped tier), meshes, the compile store and the
+obs counters are not ported.
 
 ``LAST_BUCKET_TIMINGS`` keeps one record per bucket of the most recent
 ``train_random_effects`` call (bucket, entities, S, P, solver, chunk and the
-per-lane Newton iterations); ``bucket_records()`` gives it with the
+per-lane solver iterations); ``bucket_records()`` gives it with the
 iterations summarized, at one device fetch per bucket, so training itself
 fetches nothing for it.
 """
@@ -28,6 +34,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.normalization import project_context
 from photon_tpu_torch.data.random_effect import RandomEffectDataset
 from photon_tpu_torch.functions.prior import PriorDistribution
 from photon_tpu_torch.game import newton_re
@@ -37,10 +45,6 @@ from photon_tpu_torch.types import TaskType
 Tensor = torch.Tensor
 
 LAST_BUCKET_TIMINGS: list = []
-
-_NEXT_SLICE = ("the vmapped masked L-BFGS fallback comes with the next "
-               "random-effect slice (explicitly masked batched lanes over "
-               "[E, P])")
 
 
 def _host(t: Tensor) -> np.ndarray:
@@ -248,20 +252,45 @@ def plan_bucket(problem, bucket, local_mask: Tensor,
     return "vmapped_lbfgs", None, u_max
 
 
-def _solve_bucket(problem, bucket, batches, w0, local_mask, local_prior,
-                  normalization=None):
-    """Pick and run one bucket's solver: ``(model, result, info)`` with
-    ``info`` = {solver, chunk, u_max}."""
+def lane_batch(dataset: RandomEffectDataset, b: int, batches) -> LabeledBatch:
+    """Bucket ``b``'s local batches over its block-diagonal lane layout."""
+    return LabeledBatch(features=dataset.lane_features(b), labels=batches.labels,
+                        offsets=batches.offsets, weights=batches.weights)
+
+
+def bucket_inputs(dataset: RandomEffectDataset, b: int, offsets: Tensor,
+                  global_reg_mask: Optional[Tensor] = None, normalization=None):
+    """Bucket ``b``'s solve inputs: its local regularization mask ``[E, P]``
+    (``global_reg_mask`` projected, ghost slots at 1), its local batches at
+    ``offsets`` and its local normalization context (or None)."""
+    bucket = dataset.buckets[b]
+    dev, dt = bucket.val.device, bucket.val.dtype
+    if global_reg_mask is not None:
+        ext = torch.cat([global_reg_mask.to(device=dev, dtype=dt),
+                         torch.ones(1, dtype=dt, device=dev)])
+        local_mask = ext[bucket.proj.long()]
+    else:
+        local_mask = torch.ones((bucket.n_entities, bucket.local_dim), dtype=dt,
+                                device=dev)
+    local_norm = (project_context(normalization, bucket.proj, dataset.global_dim)
+                  if normalization is not None else None)
+    return local_mask, bucket.local_batches(offsets), local_norm
+
+
+def _solve_bucket(problem, dataset: RandomEffectDataset, b: int, batches,
+                  w0, local_mask, local_prior, normalization=None,
+                  local_norm=None):
+    """Pick and run the solver of bucket ``b``: ``(model, result, info)``
+    with ``info`` = {solver, chunk, u_max}. The vmapped plan runs on the
+    bucket's device, whatever it is: never moved elsewhere."""
+    bucket = dataset.buckets[b]
     solver, chunk, u_max = plan_bucket(problem, bucket, local_mask,
                                        local_prior, normalization)
+    info = {"solver": solver, "chunk": chunk, "u_max": u_max}
     if solver == "vmapped_lbfgs":
-        e, s, p, _ = newton_re._bucket_shape(bucket)
-        raise NotImplementedError(
-            f"bucket [E={e}, S={s}, P={p}] fits no batched Newton tier for "
-            f"{problem.optimizer_type.name} with "
-            f"{problem.regularization.reg_type.name} regularization"
-            f"{' and a normalization context' if normalization is not None else ''}; "
-            + _NEXT_SLICE)
+        model, result = problem.run_lanes(lane_batch(dataset, b, batches), w0,
+                                          local_mask, local_norm, local_prior)
+        return model, result, info
     if solver == "newton_primal":
         def fit(b, w, m, pr):
             return newton_re.fit_bucket_newton(problem, b, w, m, pr)
@@ -273,7 +302,7 @@ def _solve_bucket(problem, bucket, batches, w0, local_mask, local_prior,
     else:
         model, result = newton_re.fit_bucket_in_chunks(
             fit, chunk, batches, w0, local_mask, local_prior)
-    return model, result, {"solver": solver, "chunk": chunk, "u_max": u_max}
+    return model, result, info
 
 
 def train_random_effects(
@@ -294,12 +323,10 @@ def train_random_effects(
     ``init_coefs`` warm-starts each bucket (the primal path; the dual path
     starts from θ = 0 by design). ``priors`` is an optional per-bucket list
     of priors with [E, P] leaves (``RandomEffectModel.project_prior_to``).
-    A normalization context is refused (data-preparation slice, M8).
+    ``normalization`` is the shard's ``NormalizationContext`` (None without
+    one): it turns the Newton tiers off and is gathered into each bucket's
+    lanes.
     """
-    if normalization is not None:
-        raise NotImplementedError(
-            "feature normalization is not in the port yet (it comes with the "
-            "data-preparation slice, M8)")
     coefs_out, var_out, results = [], [], []
     want_var = problem.variance_type.name != "NONE"
     LAST_BUCKET_TIMINGS.clear()
@@ -310,17 +337,13 @@ def train_random_effects(
             w0 = init_coefs[b_i].to(dt)
         else:
             w0 = torch.zeros((e, p), dtype=dt, device=bucket.val.device)
-        if global_reg_mask is not None:
-            ext = torch.cat([global_reg_mask.to(device=bucket.val.device, dtype=dt),
-                             torch.ones(1, dtype=dt, device=bucket.val.device)])
-            local_mask = ext[bucket.proj.long()]
-        else:
-            local_mask = torch.ones((e, p), dtype=dt, device=bucket.val.device)
-        batches = bucket.local_batches(offsets)
+        local_mask, batches, local_norm = bucket_inputs(
+            dataset, b_i, offsets, global_reg_mask, normalization)
         local_prior = priors[b_i] if priors is not None else None
 
         model, result, info = _solve_bucket(
-            problem, bucket, batches, w0, local_mask, local_prior, normalization)
+            problem, dataset, b_i, batches, w0, local_mask, local_prior,
+            normalization, local_norm)
         coefs_out.append(model.coefficients.means)
         if want_var:
             var_out.append(model.coefficients.variances)
@@ -346,8 +369,9 @@ def train_random_effects(
 
 
 def bucket_records() -> list[dict]:
-    """``LAST_BUCKET_TIMINGS`` with each bucket's Newton iterations
-    summarized over its lanes (max and median; one fetch per bucket)."""
+    """``LAST_BUCKET_TIMINGS`` with each bucket's solver iterations (Newton
+    or lane) summarized over its lanes (max and median; one fetch per
+    bucket)."""
     out = []
     for rec in LAST_BUCKET_TIMINGS:
         it = _host(rec["_iterations"])

@@ -2,14 +2,15 @@
 
 Port of ``photon_tpu/io/model_io.py`` (``save_game_model``,
 ``load_game_model``, ``_synthetic_random_effect_model``, ``ScoresWriter``,
-``save_scores`` and ``default_index_root``). The on-disk layout is the same,
-so either package reads what the other writes:
+``save_scores``, ``save_feature_summary`` and ``default_index_root``). The
+on-disk layout is the same, so either package reads what the other writes:
 
     model-dir/
       game-metadata.json                      (coordinate → type/shard/task)
       fixed-effect/<coord>/coefficients.avro  1 BayesianLinearModelAvro
       random-effect/<coord>/part-00000.avro   1 record per entity
       scores .avro via save_scores            ScoringResultAvro
+      summary .avro via save_feature_summary  FeatureSummarizationResultAvro
 
 Coefficients are stored as (name, term, value) lists resolved through the
 shard's IndexMap. Loading a random-effect coordinate packs the per-entity
@@ -34,6 +35,7 @@ from photon_tpu_torch.index.index_map import IndexMap
 from photon_tpu_torch.io.avro import ContainerWriter, read_records, write_container
 from photon_tpu_torch.io.schemas import (
     BAYESIAN_LINEAR_MODEL_AVRO,
+    FEATURE_SUMMARIZATION_RESULT_AVRO,
     SCORING_RESULT_AVRO,
 )
 from photon_tpu_torch.models.coefficients import Coefficients
@@ -381,3 +383,22 @@ def save_scores(path: str, scores, uids=None, labels=None) -> None:
     """Write per-row scores as ScoringResultAvro."""
     with ScoresWriter(path) as w:
         w.append(scores, uids=uids, labels=labels)
+
+
+def save_feature_summary(path: str, imap: IndexMap, stats) -> None:
+    """Write a shard's per-feature summary (``data/statistics.py``'s
+    ``FeatureDataStatistics``): one FeatureSummarizationResultAvro record a
+    feature, in index order."""
+    cols = [_host(t).astype(np.float64) for t in (
+        stats.mean, stats.variance, stats.min, stats.max, stats.num_nonzeros)]
+
+    def recs():
+        for i, (mean, var, mn, mx, nnz) in enumerate(zip(*cols)):
+            name, term = imap.get_feature(i)
+            yield {"featureName": name, "featureTerm": term,
+                   "metrics": {"mean": float(mean), "variance": float(var),
+                               "min": float(mn), "max": float(mx),
+                               "numNonzeros": float(nnz)}}
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    write_container(path, FEATURE_SUMMARIZATION_RESULT_AVRO, recs())

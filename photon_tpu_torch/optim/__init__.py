@@ -17,8 +17,7 @@ from photon_tpu_torch.optim.base import (
     OptimizerConfig,
     OptimizerResult,
 )
-from photon_tpu_torch.optim.lbfgs import LBFGS
-from photon_tpu_torch.optim.owlqn import OWLQN
+from photon_tpu_torch.optim.lanes import LBFGS, OWLQN, TRON
 from photon_tpu_torch.optim.regularization import (
     L1RegularizationContext,
     L2RegularizationContext,
@@ -27,7 +26,6 @@ from photon_tpu_torch.optim.regularization import (
     RegularizationType,
     elastic_net_context,
 )
-from photon_tpu_torch.optim.tron import TRON
 
 
 class OptimizerType(enum.Enum):

@@ -1,20 +1,16 @@
 """Optimizer base types: convergence reasons, config, result, scalar fetches.
 
 Port of ``photon_tpu/optim/base.py``. The JAX optimizers run their whole
-loop on the device inside one ``lax.while_loop``; here the loop is a plain
-host loop over eager tensors. Vectors (coefficients, gradients, history)
-stay on the batch's device. The loop's scalar decisions — convergence, the
-line search's accept test, the history's curvature test, the trust-region
-updates — are taken on the host from values fetched with
-:func:`host_scalars`, one device sync per fetch, in double precision: in a
-float64 run that is the JAX package's arithmetic exactly.
+loop on the device inside one ``lax.while_loop``; here every solve runs as
+masked batched lanes (``optim/lanes.py``, a single solve one lane), its
+decisions taken on the device in the solve's dtype, as the JAX package
+takes them; the host only fetches whether any lane still runs.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -54,78 +50,44 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerResult:
-    """Terminal state and per-iteration history.
+    """Terminal state and per-iteration history: per-lane tensors from the
+    lanes (``[E]``; tracks ``[E, max_iterations + 1]``), Python scalars and
+    host tracks from a single solve (``LBFGS`` / ``OWLQN`` / ``TRON``).
 
-    ``values[i]`` / ``grad_norms[i]`` (host tensors of the solve's dtype,
-    ``max_iterations + 1`` long) are valid for i ≤ ``iterations``; beyond
-    that they hold ``inf``. ``data_passes`` counts full-data touches (one
+    ``values[i]`` / ``grad_norms[i]`` are valid for i ≤ ``iterations``;
+    beyond that they hold ``inf``. ``data_passes`` counts full-data touches (one
     matvec OR one rmatvec over all N·K entries) where the loop makes them:
     line-search probes, gradient refreshes, CG Hessian-vector products.
     """
 
     x: Tensor
-    value: float
-    grad_norm: float
-    iterations: int
-    converged_reason: int
+    value: "float | Tensor"
+    grad_norm: "float | Tensor"
+    iterations: "int | Tensor"
+    converged_reason: "int | Tensor"
     values: Tensor
     grad_norms: Tensor
-    data_passes: int
+    data_passes: "int | Tensor"
 
     def reason_name(self) -> str:
         return CONVERGENCE_REASON_NAMES[self.converged_reason]
 
 
-def host_scalars(*values: Tensor) -> list[float]:
-    """0-dim tensors → Python floats, in one device-to-host copy."""
-    return torch.stack(values).tolist()
-
-
-def history_arrays(f0: float, gnorm0: float, max_iterations: int):
-    """The per-iteration value and gradient-norm tracks, ``inf``-padded."""
-    values = [float("inf")] * (max_iterations + 1)
-    gnorms = [float("inf")] * (max_iterations + 1)
-    values[0], gnorms[0] = f0, gnorm0
-    return values, gnorms
-
-
-def check_convergence(
-    it: int,
-    f_prev: float,
-    f: float,
-    gnorm: float,
-    gnorm0: float,
-    config: OptimizerConfig,
-) -> int:
-    """Dual convergence test → reason code (0 if not done): the gradient
-    relative to the initial gradient norm, the function value by relative
-    change."""
-    tol = config.tolerance
-    grad_ok = gnorm <= tol * np.maximum(gnorm0, 1e-30)
-    denom = np.maximum(np.maximum(abs(f_prev), abs(f)), 1.0)
-    fun_ok = it > 0 and abs(f_prev - f) <= tol * denom
-    if grad_ok:
-        return GRADIENT_CONVERGED
-    return FUNCTION_VALUES_CONVERGED if fun_ok else NOT_CONVERGED
-
-
-def finalize_reason(reason: int, it: int, max_iterations: int) -> int:
-    """A loop still running at the iteration cap ends as MAX_ITERATIONS."""
-    if reason == NOT_CONVERGED and it >= max_iterations:
-        return MAX_ITERATIONS
-    return reason
-
-
-def make_result(x: Tensor, f: float, gnorm: float, it: int, reason: int,
-                values: list, gnorms: list, passes: int,
-                max_iterations: int) -> OptimizerResult:
-    return OptimizerResult(
-        x=x, value=f, grad_norm=gnorm, iterations=it,
-        converged_reason=finalize_reason(reason, it, max_iterations),
-        values=torch.tensor(values, dtype=x.dtype),
-        grad_norms=torch.tensor(gnorms, dtype=x.dtype),
-        data_passes=passes,
-    )
+def check_convergence(it: int, f_prev: Tensor, f: Tensor, gnorm: Tensor,
+                      gnorm0: Tensor, tolerance: float) -> Tensor:
+    """Dual convergence test over lanes → int32 reason codes (0 where not
+    done): the gradient norm relative to the initial one, the function
+    value by relative change. The tolerance is cast to the lanes' dtype
+    first (a fill on the device: a tensor made from the host scalar would
+    be a copy that syncs)."""
+    tol = torch.full((), tolerance, dtype=f.dtype, device=f.device)
+    grad_ok = gnorm <= tol * torch.clamp(gnorm0, min=1e-30)
+    denom = torch.clamp(torch.maximum(f_prev.abs(), f.abs()), min=1.0)
+    fun_ok = (it > 0) & ((f_prev - f).abs() <= tol * denom)
+    return torch.where(
+        grad_ok, GRADIENT_CONVERGED,
+        torch.where(fun_ok, FUNCTION_VALUES_CONVERGED, NOT_CONVERGED),
+    ).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,8 +2,8 @@
 
 * A fresh interpreter imports every module of ``photon_tpu_torch`` and runs
   the CPU-importable parts of ``chip_smoke.py`` (its data, model, bound and
-  phase functions, the training and GAME training phases included, at a
-  tiny size, with the CPU as both devices); afterwards neither ``jax`` nor any ``photon_tpu``
+  phase functions, the training, GAME training and vmapped GAME training
+  phases included, at a tiny size, with the CPU as both devices); afterwards neither ``jax`` nor any ``photon_tpu``
   module is loaded.
 * No source line of the port or of ``chip_smoke.py`` imports them.
 * Without a GPU, ``resolve_device()`` and the port's scoring driver run
@@ -77,6 +77,14 @@ for fit in ("fit_a", "fit_b"):
     assert gt[fit]["vs_ref"]["coef_rel_err"]["0/fixed/user_block"] == 0.0, gt[fit]
     assert gt[fit + "_f64"]["coef_rel_err_vs_ref"] == 0.0, gt
 assert gt["fit_a_f64_full_dual"]["coef_rel_err_vs_ref"] == 0.0, gt
+vm = chip_smoke.phase_game_training_vmapped(
+    torch, cs, dict(n_users=40, rows_per_user=6, d_global=48, d_user=4,
+                    iterations=4), 12, cpu, cpu)
+assert set(vm["launches"]) == {"fit_c", "fit_d", "fit_e"}, vm
+for fit in ("fit_c", "fit_d", "fit_e"):
+    assert vm[fit]["bit_equal_repeat"] and vm[fit]["plans"], vm[fit]
+    assert set(vm[fit]["plans"]) == {("vmapped_lbfgs", None)}, vm[fit]
+    assert vm[fit]["small"]["f64"]["coef_rel_err_vs_ref"] == 0.0, vm[fit]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "photon_tpu"))
 print("MODULES", len(names), "BAD", bad)

@@ -233,15 +233,6 @@ def test_full_variance_refuses_wide_models_as_in_jax(monkeypatch):
     assert msgs[0] == msgs[1]
 
 
-def test_normalization_is_refused():
-    rng = np.random.default_rng(6)
-    x = rng.normal(size=(20, 3))
-    _, tb = _batches(x, x[:, 0])
-    _, tp = _problems("LINEAR_REGRESSION", "LBFGS", "L2", 1.0, d=3)
-    with pytest.raises(NotImplementedError, match="M8"):
-        tp.run(tb, torch.zeros(3, dtype=torch.float64), normalization=object())
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

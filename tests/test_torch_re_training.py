@@ -3,11 +3,14 @@
 On the CPU, in float64, from the same numpy data:
 
 * ``train_random_effects`` picks the plan JAX's ``_solve_bucket`` picks
-  (full primal, full dual, chunked primal, chunked dual), with the budget
-  and chunk ladder set by the environment for both, and trains the same
-  coefficients (1e-9 of the largest); a bucket whose plan is the vmapped
-  L-BFGS fallback (OWL-QN / L1) and a ``measured`` routing request raise in
-  the port, naming their slice.
+  (full primal, full dual, chunked primal, chunked dual, vmapped), with the
+  budget and chunk ladder set by the environment for both, and trains the
+  same coefficients (1e-9 of the largest); an OWL-QN / L1 random effect and
+  a normalized one (L-BFGS, TRON) solve on the vmapped tier as masked
+  batched lanes, with JAX's per-lane iterations, reasons and data passes; a
+  ``measured`` routing request raises in the port, naming its slice.
+* ``GameEstimator.fit`` with STANDARDIZATION, down-sampling 0.5 and an L1
+  OWL-QN random effect matches the JAX fit within 1e-6.
 * ``GameEstimator.fit`` with a fixed effect and a random effect, 2 sweeps,
   two random-effect weights and validation with ``AUC`` and
   ``LOGISTIC_LOSS``: each step's coordinate scores on the training rows
@@ -299,14 +302,116 @@ def test_incremental_priors_fit_as_jax():
 
 
 def test_vmapped_plan_and_measured_routing_raise(monkeypatch):
-    _, td, offsets, _ = re_datasets("primal")
-    _, tp = re_problems(optimizer="OWLQN", reg="L1")
-    with pytest.raises(NotImplementedError, match="vmapped masked L-BFGS"):
-        tre.train_random_effects(tp, td, torch.from_numpy(offsets))
+    """A bucket whose static plan is the vmapped tier (OWL-QN / L1) solves
+    as masked batched lanes, as JAX's vmapped solve does; a ``measured``
+    routing request still raises, naming its slice."""
+    jd, td, offsets, mask = re_datasets("primal")
+    jp, tp = re_problems(optimizer="OWLQN", reg="L1")
+    jm, jr = jre.train_random_effects(jp, jd, jnp.asarray(offsets),
+                                      global_reg_mask=jnp.asarray(mask))
+    tm, tr = tre.train_random_effects(tp, td, torch.from_numpy(offsets),
+                                      global_reg_mask=torch.from_numpy(mask))
+    plans = [(r["solver"], r["chunk"]) for r in tre.bucket_records()]
+    assert plans == [(r["solver"], r["chunk"]) for r in jre.LAST_BUCKET_TIMINGS]
+    assert plans and all(p == ("vmapped_lbfgs", None) for p in plans)
+    assert_same_fit(jm, jr, tm, tr)
     _, tp = re_problems()
     monkeypatch.setenv("PHOTON_RE_ROUTING", "measured")
     with pytest.raises(NotImplementedError, match="solver_routing"):
         tre.train_random_effects(tp, td, torch.from_numpy(offsets))
+
+
+def assert_same_fit(jm, jr, tm, tr, coef_tol=1e-9):
+    for a, b in zip(jm.bucket_coefs, tm.bucket_coefs):
+        a = np.asarray(a)
+        assert np.abs(b.numpy() - a).max() <= coef_tol * max(np.abs(a).max(), 1e-30)
+    for a, b in zip(jr, tr):
+        for f in ("iterations", "converged_reason", "data_passes"):
+            np.testing.assert_array_equal(getattr(b, f).numpy(),
+                                          np.asarray(getattr(a, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("optimizer,ntype", [
+    ("LBFGS", "STANDARDIZATION"), ("TRON", "SCALE_WITH_STANDARD_DEVIATION"),
+    ("LBFGS", "SCALE_WITH_MAX_MAGNITUDE")])
+def test_normalized_random_effects_take_the_vmapped_tier_as_jax(optimizer, ntype):
+    """A shard context turns the Newton tiers off in both packages: every
+    bucket solves on the vmapped tier with the context gathered into its
+    lanes, to the same per-lane results."""
+    from photon_tpu.data.normalization import NormalizationType as JaxNormType
+    from photon_tpu.data.normalization import context_from_statistics as jax_ctx
+    from photon_tpu.data.statistics import compute_feature_statistics as jax_stats
+    from photon_tpu_torch.data.normalization import (
+        NormalizationType,
+        context_from_statistics,
+    )
+    from photon_tpu_torch.data.statistics import compute_feature_statistics
+
+    jd, td, offsets, mask = re_datasets("dual")
+    jp, tp = re_problems(optimizer=optimizer, variance="SIMPLE")
+    jb, tb = bundles(1, **SHAPES["dual"])
+    jctx = jax_ctx(jax_stats(jb.batch("global")), JaxNormType[ntype], 0)
+    tctx = context_from_statistics(compute_feature_statistics(tb.batch("global")),
+                                   NormalizationType[ntype], 0)
+    jm, jr = jre.train_random_effects(jp, jd, jnp.asarray(offsets),
+                                      global_reg_mask=jnp.asarray(mask),
+                                      normalization=jctx)
+    tm, tr = tre.train_random_effects(tp, td, torch.from_numpy(offsets),
+                                      global_reg_mask=torch.from_numpy(mask),
+                                      normalization=tctx)
+    plans = [r["solver"] for r in tre.bucket_records()]
+    assert plans == [r["solver"] for r in jre.LAST_BUCKET_TIMINGS]
+    assert set(plans) == {"vmapped_lbfgs"}
+    assert_same_fit(jm, jr, tm, tr)
+    for a, b in zip(jm.bucket_variances, tm.bucket_variances):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-9)
+
+
+def test_normalized_down_sampled_l1_game_fit_matches_jax():
+    """``GameEstimator.fit`` with STANDARDIZATION, down-sampling 0.5 on
+    both coordinates and an L1 OWL-QN random effect: the same rows kept,
+    coefficients and validation metrics within 1e-6, and a second
+    configuration (its own down-sampling key) alike."""
+    import dataclasses
+
+    from photon_tpu.data.normalization import NormalizationType as JaxNormType
+    from photon_tpu_torch.data.normalization import NormalizationType
+
+    jtrain, ttrain = bundles(1)
+    jval, tval = bundles(2)
+    jest, test = estimators(2)
+    jest.normalization = JaxNormType.STANDARDIZATION
+    test.normalization = NormalizationType.STANDARDIZATION
+    jcfgs, tcfgs = [], []
+    for rw in (0.3, 1.0):
+        jf, tf = opt_pair(1.0)
+        jcfgs.append({
+            "fixed": dataclasses.replace(jf, down_sampling_rate=0.5),
+            "perUser": JaxOpt(optimizer_type=JaxOptimizer.OWLQN,
+                              regularization=JaxReg(JaxRegType.L1), reg_weight=rw,
+                              max_iterations=30, down_sampling_rate=0.5)})
+        tcfgs.append({
+            "fixed": dataclasses.replace(tf, down_sampling_rate=0.5),
+            "perUser": GLMOptimizationConfiguration(
+                optimizer_type=OptimizerType.OWLQN,
+                regularization=RegularizationContext(RegularizationType.L1),
+                reg_weight=rw, max_iterations=30, down_sampling_rate=0.5)})
+    jres = jest.fit(jtrain, jval, jcfgs)
+    tres = test.fit(ttrain, tval, tcfgs)
+    assert {r["solver"] for r in tre.bucket_records()} == {"vmapped_lbfgs"}
+    for jr_, tr_ in zip(jres, tres):
+        jf = np.asarray(jr_.model["fixed"].model.coefficients.means)
+        tf = tr_.model["fixed"].model.coefficients.means.numpy()
+        assert np.abs(tf - jf).max() <= 1e-6 * np.abs(jf).max()
+        for a, b in zip(jr_.model["perUser"].bucket_coefs,
+                        tr_.model["perUser"].bucket_coefs):
+            a = np.asarray(a)
+            assert np.abs(b.numpy() - a).max() <= 1e-6 * max(np.abs(a).max(), 1e-30)
+        for k, want in jr_.evaluation.values.items():
+            assert abs(tr_.evaluation.values[k] - want) <= 1e-6 * abs(want), k
+    # the down-sampled fixed-effect weights are JAX's, per configuration
+    ja = [np.asarray(r.model["fixed"].model.coefficients.means) for r in jres]
+    assert np.abs(ja[0] - ja[1]).max() > 0
 
 
 RE_SPEC = ("perUser:type=random,re_type=userId,shard=global,reg=L2,"

@@ -11,9 +11,12 @@ of its own model to the scoring test's float64 ``atol 1e-12``. Every flag
 of the JAX driver is either taken by the port's or refused with the slice
 that brings it (``--re-routing`` only with ``measured``), and so is every
 coordinate kind or option of a later slice (factored random effects,
-host-resident buckets, down-sampling). The driver's data sanity checks
-fail on the same rows as the JAX package's. Random-effect training through
-the drivers is held against JAX in ``tests/test_torch_re_training.py``.
+host-resident buckets). With ``--normalization STANDARDIZATION
+--feature-summary``, down-sampling and an L1 OWL-QN random effect, each
+driver's model scores alike under both scoring drivers and the two feature
+summaries agree. The driver's data sanity checks fail on the same rows as
+the JAX package's. Random-effect training through the drivers is held
+against JAX in ``tests/test_torch_re_training.py``.
 """
 import json
 
@@ -112,9 +115,55 @@ def test_port_training_driver_matches_jax(data, tmp_path, name):
     np.testing.assert_allclose(jax_on_port, jax_own, rtol=0, atol=1e-12)
 
 
+NORMALIZED_SPECS = [
+    "fixed:type=fixed,shard=global,reg=L2,reg_weights=1,downsample=0.5,variance=SIMPLE",
+    "perUser:type=random,re_type=userId,shard=global,optimizer=OWLQN,reg=L1,"
+    "reg_weights=0.2,downsample=0.7,max_iter=30",
+]
+
+
+def _summary(path):
+    return {(r["featureName"], r["featureTerm"]): r["metrics"]
+            for r in read_records(str(path))}
+
+
+def test_normalized_drivers_cross_score_and_summaries_agree(data, tmp_path):
+    common = ["--train-data", str(data / "train.avro"), "--task",
+              "LOGISTIC_REGRESSION", "--coordinate", NORMALIZED_SPECS[0],
+              "--coordinate", NORMALIZED_SPECS[1], "--sweeps", "2",
+              "--dtype", "float64", "--normalization", "STANDARDIZATION",
+              "--feature-summary"]
+    js = jax_training.run(common + ["--output-dir", str(tmp_path / "jax"),
+                                    "--devices", "1"])
+    ps = game_training_driver.run(common + ["--output-dir", str(tmp_path / "port"),
+                                            "--device", "cpu"])
+    strip = ("fit_seconds", "model_dirs")
+    assert {k: v for k, v in ps.items() if k not in strip} == \
+        {k: v for k, v in js.items() if k not in strip}
+    jsum = _summary(tmp_path / "jax" / "summary" / "global.avro")
+    psum = _summary(tmp_path / "port" / "summary" / "global.avro")
+    assert set(psum) == set(jsum) and len(jsum) > 10
+    for k, want in jsum.items():
+        for m, v in want.items():
+            assert abs(psum[k][m] - v) <= 1e-12 * max(abs(v), 1.0), (k, m)
+    pm, _ = _saved(tmp_path / "port" / "best")
+    jm, _ = _saved(tmp_path / "jax" / "best")
+    assert set(pm) == set(jm)
+    assert max(abs(pm[k] - jm[k]) for k in jm) <= 1e-8 * max(map(abs, jm.values()))
+    cpu = ["--device", "cpu"]
+    port_own = _scores(game_scoring_driver, data, tmp_path / "port" / "best",
+                       tmp_path / "s_pp", cpu)
+    port_on_jax = _scores(game_scoring_driver, data, tmp_path / "jax" / "best",
+                          tmp_path / "s_pj", cpu)
+    jax_own = _scores(jax_scoring, data, tmp_path / "jax" / "best", tmp_path / "s_jj")
+    jax_on_port = _scores(jax_scoring, data, tmp_path / "port" / "best", tmp_path / "s_jp")
+    assert np.std(port_own) > 0.05
+    np.testing.assert_allclose(port_on_jax, port_own, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(jax_on_port, jax_own, rtol=0, atol=1e-12)
+
+
 # Each refused flag with a value that sets it.
 REFUSED = {
-    "--normalization": ["STANDARDIZATION"], "--feature-summary": [],
     "--checkpoint-dir": ["ckpt"], "--max-restarts": ["1"],
     "--restart-backoff": ["2"], "--heartbeat-dir": ["hb"], "--tuning": ["gp"],
     "--tuning-iterations": ["3"], "--tuning-range": ["fixed:0.1:10"],
@@ -130,7 +179,6 @@ REFUSED = {
 REFUSED_COORDINATES = {
     "random": "perUser:type=random,re_type=userId,shard=global,host_resident=1",
     "factored": "perUser:type=factored,re_type=userId,shard=global,latent=2",
-    "downsample": "fixed:type=fixed,shard=global,downsample=0.5",
 }
 
 
