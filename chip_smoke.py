@@ -97,8 +97,13 @@ exit code and no result line:
    and E; fit C to a fixed bound set from how far the JAX package's own
    fit C moves, ``VM_F64_RTOL_FIT_C``), each held to a bound set from
    readings.
-   ``ell_matvec`` timed where the path runs it: fit C's block-diagonal
-   lanes and the drivers' 32,768 rows.
+   ``ell_matvec`` where the path runs it, fit C's block-diagonal lanes and
+   the drivers' 32,768 rows: against its plain version in f32 and f64,
+   bit-equal on repeat, timed beside cuSPARSE. Reported only (no routing
+   change): ``ell_panel_matvec`` over fit C's lanes at ``build_panels``'
+   sizes, and ``csc_rmatvec`` / ``csc_sq_rmatvec`` at fit C's and fit E's
+   lane layouts, each beside its bound and cuSPARSE; the kernels' device
+   time in each random-effect step, by kernel.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
@@ -245,6 +250,45 @@ def time_ms(torch, fn, warmup=3, reps=20, rounds=5) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / reps)
     return statistics.median(times)
+
+
+def host_us(torch, fn, reps=2000) -> float:
+    """Host microseconds a call of ``fn`` (host clock over back-to-back
+    calls, no synchronize inside): what a launch-bound call costs."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def process_state() -> dict:
+    """What in this process can slow Python on the host: trace and profile
+    hooks, live threads, the garbage collector's counts and tracked
+    objects."""
+    import gc
+    import threading
+
+    return {"trace_hook": sys.gettrace() is not None,
+            "profile_hook": sys.getprofile() is not None,
+            "threads": threading.active_count(), "gc_counts": gc.get_count(),
+            "gc_tracked": len(gc.get_objects())}
+
+
+def time_pair(torch, fn, other, rounds=3) -> tuple:
+    """``time_ms`` of ``fn`` and of ``other`` in alternating turns (fn,
+    other, other, fn, ...): the median of each over ``rounds``. Two calls
+    compared in turns see the same host and card, which matters where a
+    call's time is its host work."""
+    a, b = [], []
+    for r in range(rounds):
+        for f, out in ((fn, a), (other, b)) if r % 2 == 0 else ((other, b), (fn, a)):
+            out.append(time_ms(torch, f))
+    return statistics.median(a), statistics.median(b)
 
 
 def _close(torch, got, ref, dtype: str) -> float:
@@ -726,6 +770,7 @@ def device_busy(torch, fn, wall: float, ours=()) -> dict:
 
     mine = total = 0.0
     count = 0
+    by_kernel: dict = {}
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
@@ -737,14 +782,18 @@ def device_busy(torch, fn, wall: float, ours=()) -> dict:
             us = ev.self_cuda_time_total if us is None else us
             total += us
             count += ev.count
-            if any(k in ev.key for k in ours):
+            hit = [k for k in ours if k in ev.key]
+            if hit:
                 mine += us
+                by_kernel[hit[0]] = by_kernel.get(hit[0], 0.0) + us
     except Exception as e:  # noqa: BLE001 - the profiler is untried here
         return {"error": f"{type(e).__name__}: {e}"}
     out = {"device_kernels": count, "device_us": total,
            "device_busy_share": total / (wall * 1e6)}
     if ours:
-        out.update(port_kernels_us=mine, port_kernel_share=mine / (wall * 1e6))
+        out.update(port_kernels_us=mine, port_kernel_share=mine / (wall * 1e6),
+                   port_kernels_of_device_time=mine / max(total, 1e-30),
+                   port_kernel_us_by_name=by_kernel)
     return out
 
 
@@ -1838,7 +1887,7 @@ def vm_step_stats(torch, cs, est, bundle, cfg, fit_result) -> dict:
            "lanes_per_s": n_lanes / wall, "buckets": bucket_records(),
            "plans_from_gates": expected_plans(
                rc.problem, rc.dataset, 0, rc.normalization)}
-    out["profile"] = device_busy(torch, run, wall)
+    out["profile"] = device_busy(torch, run, wall, OUR_KERNELS)
     lanes.reset_syncs()
     cs.reset_launch_counts()
     (_, results), sync_sites = counted_syncs(torch, run)
@@ -1899,14 +1948,25 @@ def counted_syncs(torch, fn):
 
 
 def matvec_at(torch, cs, idx_np, val_np, dim, seed, dev) -> dict:
-    """``ell_matvec`` (f32) on one layout: against its plain version, its
-    time, the plain version's and one cuSPARSE call's, its bound, and
-    whether ``panels_pay_off`` would stage w instead."""
+    """``ell_matvec`` on one layout where the path runs it: in f64 and f32
+    against its plain version and run twice, bit-equal; in f32 its time,
+    the plain version's and one cuSPARSE call's (and the kernel's ratio to
+    it), its bound, its tile plan, and whether ``panels_pay_off`` would
+    stage w instead."""
     n, k = idx_np.shape
     rng = np.random.default_rng(seed)
+    w_np = rng.normal(size=dim)
     idx = torch.from_numpy(idx_np).to(dev)
-    val = torch.from_numpy(val_np).to(dev, torch.float32)
-    w = torch.from_numpy(rng.normal(size=dim)).to(dev, torch.float32)
+    errs = {}
+    for dtype, tdt in (("float64", torch.float64), ("float32", torch.float32)):
+        val = torch.from_numpy(val_np).to(dev, tdt)
+        w = torch.from_numpy(w_np).to(dev, tdt)
+        got = cs.ell_matvec(idx, val, w, dim)
+        again = cs.ell_matvec(idx, val, w, dim)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"ell_matvec at {n} x {k}: two runs differ ({dtype})")
+        errs[dtype] = _close(torch, got, cs.ell_matvec_plain(idx, val, w, dim), dtype)
     kern = lambda: cs.ell_matvec(idx, val, w, dim)          # noqa: E731
     plain = lambda: cs.ell_matvec_plain(idx, val, w, dim)   # noqa: E731
     keep = (idx >= 0) & (idx < dim)
@@ -1914,12 +1974,53 @@ def matvec_at(torch, cs, idx_np, val_np, dim, seed, dev) -> dict:
     crow[1:] = torch.cumsum(keep.sum(1), 0)
     a = torch.sparse_csr_tensor(crow, idx[keep], val[keep], size=(n, dim))
     nnz = int(keep.sum().item())
-    err = _close(torch, kern(), plain(), "float32")
-    return {"rows": n, "k": k, "dim": dim, "nnz": nnz, "max_abs_err": err,
+    plan = cs.ell_tile_plan(k, torch.float32)
+    ms, library_ms = time_pair(torch, kern, lambda: a @ w)
+    host = {"wrapper": host_us(torch, kern), "library": host_us(torch, lambda: a @ w),
+            "empty": host_us(torch, lambda: torch.empty(n, dtype=val.dtype, device=dev)),
+            "process": process_state()}
+    return {"rows": n, "k": k, "dim": dim, "nnz": nnz, "max_abs_err": errs["float32"],
+            "host_us_a_call": host,
+            "max_abs_err_f64": errs["float64"], "bit_equal_repeat": True,
+            "tile_rows": plan.tile_rows, "group": plan.group,
             "panels_pay_off": cs.panels_pay_off(n, dim, n * k, 4),
-            "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
-            "library_ms": time_ms(torch, lambda: a @ w),
+            "ms": ms, "plain_ms": time_ms(torch, plain), "library_ms": library_ms,
+            "library_ratio": ms / library_ms,
             **kernel_bound("ell_matvec", n, k, dim, nnz, "float32")}
+
+
+def lane_layout_kernels(torch, cs, flat, seed, with_panels: bool) -> dict:
+    """Reported, not routed: on a bucket's block-diagonal lane layout as the
+    lanes run it (f32, its CSC attached), ``csc_rmatvec`` and
+    ``csc_sq_rmatvec``, and with ``with_panels`` ``ell_panel_matvec`` over
+    ``panel_layout`` at ``build_panels``' tile and panel sizes (where
+    ``panels_pay_off`` declines it): each against its plain version, its
+    time, the plain version's, one cuSPARSE call's and its bound."""
+    n, k = flat.idx.shape
+    dim, dev = flat.dim, flat.device
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.normal(size=dim)).to(dev, flat.dtype)
+    v = torch.from_numpy(rng.normal(size=n)).to(dev, flat.dtype)
+    csc = flat.csc
+    panels = (cs.panel_layout(flat.idx, flat.val, dim, cs.tile_rows_for(n),
+                              cs.panel_cols(flat.dtype)) if with_panels else None)
+    calls = kernel_calls(cs, flat.idx, flat.val, w, v, csc, panels, dim)
+    library = library_calls(torch, flat.idx, flat.val, w, v, csc, dim)
+    out = {"rows": n, "k": k, "dim": dim, "nnz": csc.nnz}
+    names = ["csc_rmatvec", "csc_sq_rmatvec"] + (["ell_panel_matvec"] if panels else [])
+    for name in names:
+        kern, plain = calls[name]
+        err = _close(torch, kern(), plain(), "float32")
+        ms, library_ms = time_pair(torch, kern, library[name])
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": time_ms(torch, plain),
+                     "library_ms": library_ms, "library_ratio": ms / library_ms,
+                     **kernel_bound(name, n, k, dim, csc.nnz, "float32")}
+    if panels is not None:
+        out["ell_panel_matvec"].update(
+            tile_rows=panels.tile_rows, row_tiles=panels.n_tiles, panels=panels.n_panels,
+            panels_pay_off=cs.panels_pay_off(n, dim, n * k, 4),
+            panel_entries=panels.codes.shape[0])
+    return out
 
 
 def vm_point_gap(torch, ests, bundles, cfg, ref_fit, dev, ref_dev) -> dict:
@@ -2030,13 +2131,16 @@ def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev) -> 
         if ctx is not None:
             res["global_factors"] = {"min": ctx.factors.min().item(),
                                      "max": ctx.factors.max().item()}
-        if name == "fit_c" and dev.type == "cuda":
+        if name in ("fit_c", "fit_e") and dev.type == "cuda":
             ds = est._prepare_cached(train)["datasets"]["perUser"]
             big = max(range(len(ds.buckets)), key=lambda i: ds.buckets[i].n_entities)
             flat = ds.lane_features(big).flat
-            res["lane_matvec"] = matvec_at(
-                torch, cs, flat.idx.cpu().numpy(), flat.val.cpu().numpy(),
-                flat.dim, 12, dev)
+            if name == "fit_c":
+                res["lane_matvec"] = matvec_at(
+                    torch, cs, flat.idx.cpu().numpy(), flat.val.cpu().numpy(),
+                    flat.dim, 12, dev)
+            res["lane_layout"] = lane_layout_kernels(torch, cs, flat, 14,
+                                                     with_panels=name == "fit_c")
         del train, valid, est, first, second
 
         # cpu reference and f64 witness at small_users users
@@ -2245,6 +2349,10 @@ def main() -> int:
                 "training": tn_launches, "training_driver": td_launches,
                 "game_training": gt_launches, "game_training_driver": gd_launches,
                 "game_training_vmapped": vm_launches}
+    status = {"ell_panel_matvec": "ported; redesigned: column panels of w staged by TMA",
+              "ell_matvec": "ported; redesigned: row tiles streamed by TMA",
+              "csc_rmatvec": "ported; redesigned: merge-path segmented reduction",
+              "csc_sq_rmatvec": "ported; redesigned: merge-path segmented reduction"}
     rows = []
     for name in cs.KERNELS:
         f32 = kern["game"]["float32"]["kernels"][name]
@@ -2252,7 +2360,7 @@ def main() -> int:
         long = kern["long_col"]["float32"]["kernels"][name]
         rows.append({
             "name": name, "route": "cuda", "source": sources,
-            "replaces": REPLACES, "via": TPU_ENTRY[name],
+            "replaces": REPLACES, "via": TPU_ENTRY[name], "status": status[name],
             "launches": sum(c[name] for c in by_phase.values()),
             "launches_by_phase": {k: c[name] for k, c in by_phase.items()},
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
@@ -2262,13 +2370,23 @@ def main() -> int:
             "hot_dup_ms": hot["ms"], "hot_dup_library_ms": hot["library_ms"],
             "hot_dup_over_game": hot["ms"] / f32["ms"],
             "long_col_ms": long["ms"], "long_col_library_ms": long["library_ms"],
+            "library_ratio": f32["ms"] / f32["library_ms"],
+            "hot_dup_library_ratio": hot["ms"] / hot["library_ms"],
+            "long_col_library_ratio": long["ms"] / long["library_ms"],
         })
         if name == "ell_matvec":
             # where the path runs it: the drivers' rows and fit C's lanes
-            keys = ("rows", "k", "dim", "ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by", "panels_pay_off", "max_abs_err")
+            keys = ("rows", "k", "dim", "ms", "plain_ms", "library_ms", "library_ratio",
+                    "bound_ms", "bound_by", "panels_pay_off", "max_abs_err",
+                    "max_abs_err_f64", "tile_rows", "group")
             rows[-1]["driver_shape"] = {k: vm["driver_matvec"][k] for k in keys}
             rows[-1]["lane_shape"] = {k: vm["fit_c"]["lane_matvec"][k] for k in keys}
+        else:
+            # reported at the lanes' layouts, where the path does not route
+            # ell_panel_matvec and does run the transposes
+            rows[-1]["lane_layouts"] = {
+                fit: vm[fit]["lane_layout"][name] for fit in ("fit_c", "fit_e")
+                if name in vm[fit]["lane_layout"]}
     emit({"kernels": rows})
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)

@@ -10,10 +10,10 @@
 //   ell_panel_matvec<T>  z[r] = sum_k val[r,k] * w[idx[r,k]]
 //                        over a panel-sorted entry list (below): w staged
 //                        in shared memory one column panel at a time.
-//   ell_matvec<T>        the same sum straight from the ELL arrays, one
-//                        warp per row, lanes striding over K; for layouts
-//                        where reloading w for every row tile would cost
-//                        more than its gathers.
+//   ell_matvec<T>        the same sum straight from the ELL arrays, as a
+//                        stream of row tiles (below); for layouts where
+//                        reloading w for every row tile would cost more
+//                        than its gathers.
 //   csc_rmatvec<T, SQ>   g[c] = sum over entries e of column c of
 //                        val[e] (val[e]^2 when SQ) * v[rows[e]]
 //                        over a host-built, column-sorted entry list
@@ -73,6 +73,45 @@
 // ell_matvec where the reloads cost more. Measured on an H100 at 2^19 rows
 // x 32 entries (f32): the reloads cost ~5% of the kernel's time and the
 // block scan ~15%; the rest is streaming the entries and the walk.
+//
+// The matvec over row tiles (`ell_matvec`, replacing `matvec_pallas`,
+// photon_tpu/ops/pallas_sparse.py:331, where `build_panels` declines: the
+// random-effect lanes' block-diagonal layouts and short-row driver batches).
+// What bounds it: the entries, 8 bytes each in f32 (12 in f64), streamed
+// once, and w, each column read about once where the rows' columns are
+// local (a lane's rows gather from its own P-column window, which stays in
+// L1 and L2). A warp per row would leave half its lanes idle at K = 17,
+// load each row as a misaligned 68-byte run and run every row as one
+// dependent chain of index load, gather, add and shuffle tree: on an H100
+// it takes twice this kernel's time on the lanes (tools/ell_ablation.py),
+// though 13% less at 32 entries a row over spread columns, where gathering
+// w from L2 sets the pace. Here:
+//   1. a tile is R consecutive rows, so its R*K indices and R*K values are
+//      one contiguous run of each array; the host picks R from K (and the
+//      value type) so that R*K*sizeof is a multiple of 16 bytes and two
+//      stages fit shared memory. Persistent blocks walk the tiles; the next
+//      tile's two runs come into a two-stage ring in shared memory by TMA
+//      bulk copies (completing on an mbarrier) while the current one is
+//      summed. A run's part before its first 16-byte boundary and after its
+//      last (a row-sliced view, the short last tile, a long row) comes by
+//      plain loads of a few threads, so any contiguous input works. A row
+//      longer than a stage (K > stage / 4) is a tile of its own, brought in
+//      stage-sized chunks;
+//   2. a group of G threads sums each row, G = the least power of two with
+//      G * kEllItems >= K (at most the block). Thread g sums its contiguous
+//      slice [g*L, (g+1)*L) of the row, L = ceil(K/G), in k order in double,
+//      reading the slice from shared memory: its up to kEllItems gathers of
+//      w are in flight at once. The G partials combine by a fixed pairwise
+//      tree: shuffles at distances min(G, 32)/2 .. 1, then, for G > 32, the
+//      warps' sums in shared memory at distances G/64 .. 1. Consecutive
+//      groups take consecutive rows, so the stores of z coalesce.
+// The order of every sum depends on K alone (through G and L), never on R,
+// the grid or the card; an entry outside [0, dim) adds nothing and reads no
+// w. Shared memory is read once per entry (8 or 12 bytes against the SM's
+// 128 bytes a cycle), so bank conflicts at even K are left as they fall:
+// on an H100, K = 31, 32 and 33 take the same time (tools/ell_host_cost.py).
+// Measured there (f32): 82% of the bytes bound at the lanes, 1.9x faster
+// than a warp per row; 12 entries a load ran faster than 8 or 16.
 //
 // The transpose as a merge-path segmented reduction (Merrill and Garland,
 // "Merge-based Parallel Sparse Matrix-Vector Multiplication", SC'16). The
@@ -154,6 +193,16 @@ constexpr int kMaxTileRows = 8192;
 constexpr int kCodeShift = 16;             // code = row << 16 | column
 constexpr uint32_t kColMask = (1u << kCodeShift) - 1;
 constexpr int kPadRow = 0xFFFF;            // row field of a skip entry
+
+// Row-tile matvec (ELL_THREADS, ELL_ITEMS in cuda_sparse.py, which also
+// picks the tile's rows R, the group G and the stage's entries): a block of
+// kEllThreads threads, each loading up to kEllItems entries of its slice of
+// a row at once. Shared memory: two stages of (stage entries) x (4 +
+// sizeof(T)) bytes, plus 16 bytes an array for the runs' offset within a
+// 16-byte line.
+constexpr int kEllThreads = 256;
+constexpr int kEllItems = 12;
+constexpr int kEllWarps = kEllThreads / kWarp;
 
 // Sums accumulate in double for both value types: a float product is exact
 // in double, so a float result is the correctly rounded sum in all but rare
@@ -257,6 +306,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Thread 0 only: order this block's earlier generic-proxy accesses of shared
+// memory before the async writes to come, then arm `bar` for `bytes` of
+// bulk copies in its current phase (0 completes the phase at once).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// One TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Bring panel p of w (columns p*C .. min(dim, (p+1)*C)) into `dst`,
 // completing on `bar`. The 16-byte-aligned body goes by one bulk copy
 // issued by thread 0; the last panel's tail (fewer than 16 bytes) by plain
@@ -271,17 +340,8 @@ __device__ __forceinline__ void load_panel(T* dst, const T* __restrict__ w,
   const uint32_t bulk = (uint32_t)(cols * (int)sizeof(T)) & ~15u;
   const int n_bulk = (int)(bulk / sizeof(T));
   if (threadIdx.x == 0) {
-    // order this stage's earlier generic-proxy reads before the async write
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_addr(bar)), "r"(bulk) : "memory");
-    if (bulk > 0) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];\n"
-          :: "r"(smem_addr(dst)), "l"(w + c0), "r"(bulk), "r"(smem_addr(bar))
-          : "memory");
-    }
+    mbar_expect_tx(bar, bulk);
+    if (bulk > 0) bulk_copy(dst, w + c0, bulk, bar);
   }
   if ((int)threadIdx.x < cols - n_bulk) {
     dst[n_bulk + threadIdx.x] = w[c0 + n_bulk + threadIdx.x];
@@ -347,24 +407,196 @@ __device__ __forceinline__ void prefetch_entries(const uint32_t* codes, const T*
                :: "l"(vals + a), "r"((uint32_t)((b - a) * sizeof(T))) : "memory");
 }
 
+// A run of device memory as its head (the bytes before its first 16-byte
+// boundary), a 16-byte-aligned body and its tail (under 16 bytes); `lead`
+// is its start's offset within a 16-byte line.
+struct Run {
+  uint32_t lead, head, body, tail;
+};
+
+__device__ __forceinline__ Run split_run(const void* p, int64_t bytes) {
+  Run r;
+  r.lead = (uint32_t)((uintptr_t)p & 15u);
+  r.head = r.lead ? (uint32_t)min((int64_t)(16 - r.lead), bytes) : 0u;
+  r.body = (uint32_t)((bytes - r.head) & ~(int64_t)15);
+  r.tail = (uint32_t)(bytes - r.head - r.body);
+  return r;
+}
+
+// The plain-load part of a run that lands at dst + lead: its head and tail
+// elements (at most 3 of each), one each from threads first .. first + 7.
+template <typename E>
+__device__ __forceinline__ void copy_run_ends(unsigned char* dst, const E* __restrict__ src,
+                                              const Run& r, int first) {
+  E* out = reinterpret_cast<E*>(dst + r.lead);
+  const int i = (int)threadIdx.x - first;
+  if (i >= 0 && i < (int)(r.head / sizeof(E))) out[i] = src[i];
+  const int j = i - 4;
+  if (j >= 0 && j < (int)(r.tail / sizeof(E))) {
+    const int64_t o = (r.head + r.body) / sizeof(E) + j;
+    out[o] = src[o];
+  }
+}
+
+// Bring entries [e0, e1) of both ELL arrays into stage `st` (indices at st,
+// values at st + stage*4 + 16), each at its run's `lead`: the bodies by two
+// bulk copies completing on `bar`, the ends by plain loads, visible to the
+// block after its next __syncthreads().
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ell_matvec_kernel(const int32_t* __restrict__ idx, const T* __restrict__ val,
-                  const T* __restrict__ w, T* __restrict__ z, int64_t n,
-                  int64_t k, int64_t dim) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t first = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  const int64_t stride = (int64_t)gridDim.x * kWarpsPerBlock;
-  for (int64_t r = first; r < n; r += stride) {
-    const int32_t* ri = idx + r * k;
-    const T* rv = val + r * k;
-    Acc acc = Acc(0);
-    for (int64_t j = lane; j < k; j += kWarp) {
-      const int64_t c = ri[j];
-      if (c >= 0 && c < dim) acc += (Acc)rv[j] * (Acc)w[c];
+__device__ __forceinline__ void load_entries(unsigned char* st, int stage,
+                                             const int32_t* __restrict__ idx,
+                                             const T* __restrict__ val, int64_t e0,
+                                             int64_t e1, uint64_t* bar) {
+  unsigned char* s_idx = st;
+  unsigned char* s_val = st + (int64_t)stage * 4 + 16;
+  const Run ri = split_run(idx + e0, (e1 - e0) * 4);
+  const Run rv = split_run(val + e0, (e1 - e0) * (int64_t)sizeof(T));
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, ri.body + rv.body);
+    if (ri.body) {
+      bulk_copy(s_idx + ri.lead + ri.head,
+                reinterpret_cast<const unsigned char*>(idx + e0) + ri.head, ri.body, bar);
     }
-    acc = warp_sum(acc);
-    if (lane == 0) z[r] = (T)acc;
+    if (rv.body) {
+      bulk_copy(s_val + rv.lead + rv.head,
+                reinterpret_cast<const unsigned char*>(val + e0) + rv.head, rv.body, bar);
+    }
+  }
+  copy_run_ends(s_idx, idx + e0, ri, kWarp);
+  copy_run_ends(s_val, val + e0, rv, kWarp + 8);
+}
+
+// acc + the entries [lo, hi) of a stage, in order: kEllItems at a time, all
+// their gathers of w in flight before the first add. An entry whose column
+// lies outside [0, dim) adds nothing and reads no w.
+template <typename T>
+__device__ __forceinline__ Acc slice_sum(Acc acc, const int32_t* s_idx, const T* s_val,
+                                         int lo, int hi, const T* __restrict__ w,
+                                         int64_t dim) {
+  for (int e = lo; e < hi; e += kEllItems) {
+    int32_t c[kEllItems];
+    T v[kEllItems], x[kEllItems];
+#pragma unroll
+    for (int i = 0; i < kEllItems; ++i) {
+      const bool in = e + i < hi;
+      c[i] = in ? s_idx[e + i] : -1;
+      v[i] = in ? s_val[e + i] : T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < kEllItems; ++i) {
+      x[i] = (c[i] >= 0 && c[i] < dim) ? __ldg(w + c[i]) : T(0);
+    }
+#pragma unroll
+    for (int i = 0; i < kEllItems; ++i) {
+      if (c[i] >= 0 && c[i] < dim) acc = acc + __dmul_rn((Acc)v[i], (Acc)x[i]);
+    }
+  }
+  return acc;
+}
+
+// The sum of a group's G partials by a fixed pairwise tree: shuffles at
+// distances min(G, 32)/2 .. 1 (every lane of the group ends with the same
+// sum), then for G > 32 the warps' sums in shared memory at distances
+// G/64 .. 1, by the group's first thread. Called by every thread of the
+// block alike (it may synchronize); the group's first thread holds the sum.
+__device__ __forceinline__ Acc group_sum(Acc acc, int group, Acc* s_warp) {
+  for (int off = min(group, kWarp) / 2; off > 0; off >>= 1) {
+    acc = acc + __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (group <= kWarp) return acc;
+  const int warp = threadIdx.x / kWarp;
+  __syncthreads();   // an earlier pass's tree is done with s_warp
+  if (threadIdx.x % kWarp == 0) s_warp[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x % group == 0) {
+    Acc* t = s_warp + warp;
+    for (int off = group / kWarp / 2; off > 0; off >>= 1) {
+      for (int x = 0; x < off; ++x) t[x] = t[x] + t[x + off];
+    }
+    acc = t[0];
+  }
+  return acc;
+}
+
+// Persistent blocks over the row tiles; see "The matvec over row tiles"
+// above. A unit of work is one stage: a whole tile, or one chunk of a long
+// row's tile (tile_rows == 1, K > stage).
+template <typename T>
+__global__ void __launch_bounds__(kEllThreads)
+ell_matvec_kernel(const int32_t* __restrict__ idx, const T* __restrict__ val,
+                  const T* __restrict__ w, T* __restrict__ z, int64_t n, int64_t k,
+                  int64_t dim, int tile_rows, int group, int stage) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t s_full[2];
+  __shared__ Acc s_warp[kEllWarps];
+  const int64_t stage_bytes = (int64_t)stage * (4 + (int64_t)sizeof(T)) + 32;
+
+  const int tid = threadIdx.x;
+  const int g = tid % group, gid = tid / group, rows_per_pass = kEllThreads / group;
+  const int64_t slice = (k + group - 1) / group;
+  const int64_t my_lo = min(k, (int64_t)g * slice), my_hi = min(k, my_lo + slice);
+  const int64_t n_tiles = (n + tile_rows - 1) / tile_rows;
+  const int64_t tile_entries = (int64_t)tile_rows * k;
+  const int64_t n_chunks = tile_entries > stage ? (tile_entries + stage - 1) / stage : 1;
+  const int64_t my_tiles = (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const int64_t units = my_tiles * n_chunks;
+
+  // unit u: its tile's first row and rows, and its entries [c0, c1)
+  auto unit = [&](int64_t u, int64_t& row0, int& rows, int64_t& c0, int64_t& c1) {
+    const int64_t tile = blockIdx.x + (u / n_chunks) * gridDim.x;
+    row0 = tile * tile_rows;
+    rows = (int)min((int64_t)tile_rows, n - row0);
+    c0 = row0 * k + (u % n_chunks) * stage;
+    c1 = min((row0 + rows) * k, c0 + stage);
+  };
+
+  if (tid == 0) {
+    mbar_init(&s_full[0], 1);
+    mbar_init(&s_full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  int64_t row0, c0, c1;
+  int rows;
+  if (units > 0) {
+    unit(0, row0, rows, c0, c1);
+    load_entries(smem, stage, idx, val, c0, c1, &s_full[0]);
+  }
+  __syncthreads();
+
+  Acc acc = Acc(0);
+  for (int64_t u = 0; u < units; ++u) {
+    // the next unit's runs go into the other stage, freed by the
+    // __syncthreads() that ended the unit before this one
+    if (u + 1 < units) {
+      unit(u + 1, row0, rows, c0, c1);
+      load_entries(smem + ((u + 1) & 1) * stage_bytes, stage, idx, val, c0, c1,
+                   &s_full[(u + 1) & 1]);
+    }
+    unit(u, row0, rows, c0, c1);
+    mbar_wait(&s_full[u & 1], (uint32_t)((u >> 1) & 1));
+    unsigned char* st = smem + (u & 1) * stage_bytes;
+    const int32_t* s_idx = reinterpret_cast<const int32_t*>(
+        st + ((uintptr_t)(idx + c0) & 15u));
+    const T* s_val = reinterpret_cast<const T*>(
+        st + (int64_t)stage * 4 + 16 + ((uintptr_t)(val + c0) & 15u));
+    const int n_here = (int)(c1 - c0);
+    const bool last = (u % n_chunks) == n_chunks - 1;
+    const int passes = (rows + rows_per_pass - 1) / rows_per_pass;
+    for (int p = 0; p < passes; ++p) {
+      const int r = p * rows_per_pass + gid;
+      if (r < rows) {
+        const int64_t first = (row0 + r) * k - c0;   // the row's entry 0, in the stage
+        acc = slice_sum(acc, s_idx, s_val, (int)max(first + my_lo, (int64_t)0),
+                        (int)min(first + my_hi, (int64_t)n_here), w, dim);
+      }
+      if (last) {
+        acc = group_sum(acc, group, s_warp);
+        if (g == 0 && r < rows) z[row0 + r] = (T)acc;
+        acc = Acc(0);
+      }
+    }
+    __syncthreads();   // this stage is free; the next unit's ends are visible
   }
 }
 
@@ -614,12 +846,52 @@ int64_t blocks_for(int64_t warps) {
   return b < 1 ? 1 : b;
 }
 
+// Shared memory of the row-tile matvec: two stages of `stage` entries.
+template <typename T>
+int64_t ell_smem_bytes(int64_t stage) {
+  return 2 * (stage * (4 + (int64_t)sizeof(T)) + 32);
+}
+
 template <typename T>
 int launch_matvec(const void* idx, const void* val, const void* w, void* z,
-                  int64_t n, int64_t k, int64_t dim, void* stream) {
-  ell_matvec_kernel<T><<<(unsigned)blocks_for(n), kThreads, 0,
+                  int64_t n, int64_t k, int64_t dim, int64_t tile_rows,
+                  int64_t group, int64_t stage, void* stream) {
+  if (n < 1 || k < 0 || dim < 0 || group < 1 || group > kEllThreads ||
+      (group & (group - 1)) != 0 || stage < 4 || stage % 4 != 0 ||
+      stage > (1 << 20) || tile_rows < 1 || tile_rows > INT_MAX ||
+      (tile_rows > 1 && tile_rows * k > stage)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = (int)ell_smem_bytes<T>(stage);
+  // The shared-memory attribute and the resident blocks of the card, set and
+  // asked once per device and stage size: both cost more host time than a
+  // small launch.
+  static int cached_device = -1, cached_smem = -1;
+  static int64_t cached_blocks = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device != cached_device || smem != cached_smem) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(ell_matvec_kernel<T>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+            cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, ell_matvec_kernel<T>, kEllThreads, smem)) != cudaSuccess) {
+      return (int)err;
+    }
+    cached_blocks = (int64_t)max(per_sm, 1) * sms;
+    cached_device = device;
+    cached_smem = smem;
+  }
+  const int64_t n_tiles = (n + tile_rows - 1) / tile_rows;
+  const int64_t blocks = min(n_tiles, cached_blocks);
+  ell_matvec_kernel<T><<<(unsigned)blocks, kEllThreads, (size_t)smem,
                          (cudaStream_t)stream>>>(
-      (const int32_t*)idx, (const T*)val, (const T*)w, (T*)z, n, k, dim);
+      (const int32_t*)idx, (const T*)val, (const T*)w, (T*)z, n, k, dim,
+      (int)tile_rows, (int)group, (int)stage);
   return (int)cudaGetLastError();
 }
 
@@ -674,13 +946,17 @@ int launch_rmatvec(const void* colptr, const void* rows, const void* vals,
 extern "C" {
 
 int ell_matvec_f32(const void* idx, const void* val, const void* w, void* z,
-                   int64_t n, int64_t k, int64_t dim, void* stream) {
-  return launch_matvec<float>(idx, val, w, z, n, k, dim, stream);
+                   int64_t n, int64_t k, int64_t dim, int64_t tile_rows,
+                   int64_t group, int64_t stage, void* stream) {
+  return launch_matvec<float>(idx, val, w, z, n, k, dim, tile_rows, group, stage,
+                              stream);
 }
 
 int ell_matvec_f64(const void* idx, const void* val, const void* w, void* z,
-                   int64_t n, int64_t k, int64_t dim, void* stream) {
-  return launch_matvec<double>(idx, val, w, z, n, k, dim, stream);
+                   int64_t n, int64_t k, int64_t dim, int64_t tile_rows,
+                   int64_t group, int64_t stage, void* stream) {
+  return launch_matvec<double>(idx, val, w, z, n, k, dim, tile_rows, group, stage,
+                               stream);
 }
 
 int ell_panel_matvec_f32(const void* codes, const void* vals,

@@ -8,14 +8,17 @@ CUDA kernels in ``csrc/ell_sparse.cu``:
 * ``ell_panel_matvec`` z[r] = Σ_k val[r,k]·w[idx[r,k]]          (scores)
   over a panel-sorted entry list (``build_panels``), w staged in shared
   memory one column panel at a time;
-* ``ell_matvec``      the same sum straight from the ELL arrays, for
-  layouts where ``build_panels`` finds the panels not worth their reloads;
+* ``ell_matvec``      the same sum straight from the ELL arrays, a stream
+  of row tiles, for layouts where ``build_panels`` finds the panels not
+  worth their reloads;
 * ``csc_rmatvec``     g[c] = Σ_{entries of column c} val·v[row]  (gradient)
   with ``square=True`` the same sum with val² (Hessian diagonal).
 
 The port keeps the function, not the TPU's 128-lane slot tables. The panel
 matvec cuts rows into tiles and columns into panels that fit a shared-memory
 stage, so its gathers of w hit shared memory instead of 32-byte L2 sectors.
+The row-tile matvec streams tiles of whole rows into shared memory by bulk
+copies and sums each row with a group of threads (``ell_tile_plan``).
 The transpose reads a column-sorted entry list (``build_csc``) cut into
 merge-path tiles of equal work, so a column of any length is summed by as
 many blocks as its entries fill. Every sum runs in an order fixed by the
@@ -34,7 +37,9 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -142,7 +147,7 @@ def _lib() -> ctypes.CDLL:
             vp, i64 = ctypes.c_void_p, ctypes.c_int64
             for sfx in ("f32", "f64"):
                 fn = getattr(lib, f"ell_matvec_{sfx}")
-                fn.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
+                fn.argtypes = [vp] * 4 + [i64] * 6 + [vp]
                 fn.restype = ctypes.c_int
                 fn = getattr(lib, f"ell_panel_matvec_{sfx}")
                 fn.argtypes = [vp] * 5 + [i64] * 6 + [vp]
@@ -157,10 +162,23 @@ def _lib() -> ctypes.CDLL:
         return _LIB
 
 
-def _raise_on_error(lib: ctypes.CDLL, code: int, name: str) -> None:
+def _launch(name: str, dev: torch.device, fn, *args) -> None:
+    """Call ``fn``, an entry point of kernel ``name``, with ``args`` and
+    ``dev``'s current stream; raise on the CUDA error it returns and count
+    the launch. The device switches only when ``dev`` is not the current
+    one, and the stream is read as a raw pointer: a Stream object and a
+    device guard cost more host time than a small kernel takes on the
+    card."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index == torch.cuda.current_device():
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if code != 0:
-        msg = lib.ell_sparse_error_string(code).decode()
+        msg = _lib().ell_sparse_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+    _count(name)
 
 
 # ----------------------------------------------------------------- checks
@@ -229,12 +247,84 @@ def ell_rmatvec_plain(idx: Tensor, val: Tensor, v: Tensor, dim: int,
     return out[:dim].to(v.dtype)
 
 
+# The row-tile matvec's block: ELL_THREADS threads, each loading up to
+# ELL_ITEMS entries of its slice of a row at once (kEllThreads / kEllItems
+# in ell_sparse.cu). A stage holds ELL_STAGE_ENTRIES entries (indices and
+# values); the kernel keeps two.
+ELL_THREADS = 256
+ELL_ITEMS = 12
+ELL_STAGE_ENTRIES = 4096
+# What a block may hold in shared memory on an H100 (227 KB), less the
+# kernel's static scratch (the two barriers and a double a warp) rounded up.
+ELL_SMEM_LIMIT = 232448 - 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class EllPlan:
+    """How ``ell_matvec`` cuts an [N, K] ELL matrix: tiles of
+    ``tile_rows`` rows, each row summed by ``group`` threads (each over a
+    slice of ceil(K / group) entries), ``stage`` entries a shared-memory
+    stage."""
+
+    tile_rows: int
+    group: int
+    stage: int
+
+
+def ell_group(k: int, items: int = ELL_ITEMS) -> int:
+    """G, the threads that sum one row of K entries: the least power of
+    two with G·items ≥ K, at most a block (``items`` is the kernel's
+    ELL_ITEMS; ``tools/ell_ablation.py`` asks for others). It alone (with
+    K) fixes the kernel's summation order."""
+    need = max(-(-k // items), 1)
+    return min(1 << (need - 1).bit_length(), ELL_THREADS)
+
+
+def ell_smem_bytes(dtype: torch.dtype, stage: int = ELL_STAGE_ENTRIES) -> int:
+    """The row-tile kernel's dynamic shared memory: two stages of indices
+    and values, each array with 16 bytes for its run's offset in a line."""
+    return 2 * (stage * (4 + torch.finfo(dtype).bits // 8) + 32)
+
+
+@functools.lru_cache(maxsize=None)
+def ell_tile_plan(k: int, dtype: torch.dtype, stage: int = ELL_STAGE_ENTRIES,
+                  items: int = ELL_ITEMS) -> EllPlan:
+    """The row-tile matvec's plan for rows of K entries in ``dtype``.
+
+    R is the most rows whose R·K entries fit one stage, rounded down to a
+    multiple of 4 / gcd(K, 4), so that a tile's run of indices (4 bytes an
+    entry) and of values (4 or 8) is a multiple of 16 bytes and every tile
+    of an aligned layout starts 16-byte aligned. A row longer than a
+    quarter stage is a tile of its own, brought in stage-sized chunks.
+    With ELL_STAGE_ENTRIES entries a tile, the tiles cover the H100's 132
+    SMs wherever the matrix holds 132 stages of entries (132 rows, where a
+    row is longer than a stage)."""
+    if dtype not in _FLOAT_SUFFIX:
+        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    if k < 0:
+        raise ValueError(f"K must be >= 0, got {k}")
+    if stage < 4 or stage % 4 or ell_smem_bytes(dtype, stage) > ELL_SMEM_LIMIT:
+        raise ValueError(f"a {stage}-entry stage of {dtype} does not fit")
+    if k > stage // 4:
+        rows = 1
+    else:
+        step = 4 // math.gcd(k, 4)
+        rows = stage // max(k, 1) // step * step
+    return EllPlan(tile_rows=rows, group=ell_group(k, items), stage=stage)
+
+
 def ell_matvec(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
     """z[r] = Σ_k val[r,k]·w[idx[r,k]] — kernel ``ell_matvec`` on CUDA.
 
     ``idx [N, K]`` int32 (ghost column == dim, value 0), ``val [N, K]`` and
     ``w [dim]`` float32 or float64 of one dtype → ``z [N]``. Replaces
     ``matvec_pallas`` (photon_tpu/ops/pallas_sparse.py).
+
+    Tiles of whole rows (``ell_tile_plan``) stream into shared memory by
+    bulk copies; a group of ``ell_group(K)`` threads sums each row, each
+    thread its contiguous slice in order in float64, the group by a fixed
+    tree. The order depends on K alone: two runs give the same bits. Any
+    contiguous input works, a row-sliced view at any offset included.
     """
     _check_ell(idx, val, dim)
     if w.dim() != 1 or w.shape[0] != dim:
@@ -249,14 +339,10 @@ def ell_matvec(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
     z = torch.empty(n, dtype=val.dtype, device=dev)
     if n == 0:
         return z
-    lib = _lib()
-    fn = getattr(lib, f"ell_matvec_{_FLOAT_SUFFIX[val.dtype]}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(idx.data_ptr(), val.data_ptr(), w.data_ptr(), z.data_ptr(),
-                  n, k, dim, stream)
-    _raise_on_error(lib, code, "ell_matvec")
-    _count("ell_matvec")
+    plan = ell_tile_plan(k, val.dtype)
+    _launch("ell_matvec", dev, getattr(_lib(), f"ell_matvec_{_FLOAT_SUFFIX[val.dtype]}"),
+            idx.data_ptr(), val.data_ptr(), w.data_ptr(), z.data_ptr(),
+            n, k, dim, plan.tile_rows, plan.group, plan.stage)
     return z
 
 
@@ -471,16 +557,12 @@ def ell_panel_matvec(panels: PanelLayout, w: Tensor) -> Tensor:
     z = torch.empty(panels.n_rows, dtype=w.dtype, device=dev)
     if panels.n_rows == 0:
         return z
-    lib = _lib()
-    fn = getattr(lib, f"ell_panel_matvec_{_FLOAT_SUFFIX[w.dtype]}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(panels.codes.data_ptr(), panels.vals.data_ptr(),
-                  panels.offsets.data_ptr(), w.data_ptr(), z.data_ptr(),
-                  panels.n_rows, panels.dim, panels.tile_rows, panels.n_tiles,
-                  panels.n_panels, panels.panel_cols, stream)
-    _raise_on_error(lib, code, "ell_panel_matvec")
-    _count("ell_panel_matvec")
+    _launch("ell_panel_matvec", dev,
+            getattr(_lib(), f"ell_panel_matvec_{_FLOAT_SUFFIX[w.dtype]}"),
+            panels.codes.data_ptr(), panels.vals.data_ptr(),
+            panels.offsets.data_ptr(), w.data_ptr(), z.data_ptr(),
+            panels.n_rows, panels.dim, panels.tile_rows, panels.n_tiles,
+            panels.n_panels, panels.panel_cols)
     return z
 
 
@@ -635,15 +717,10 @@ def csc_rmatvec(csc: CscLayout, v: Tensor, square: bool = False) -> Tensor:
     if csc.dim == 0:
         return g
     n_tiles, n_splits = csc.tiles.shape[0] - 1, csc.splits.shape[0]
-    lib = _lib()
-    fn = getattr(lib, f"{name}_{_FLOAT_SUFFIX[v.dtype]}")
-    with torch.cuda.device(dev):
-        partials = torch.empty(2 * n_tiles, dtype=torch.float64, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(csc.colptr.data_ptr(), csc.rows.data_ptr(),
-                  csc.vals.data_ptr(), v.data_ptr(), csc.tiles.data_ptr(),
-                  csc.splits.data_ptr(), partials.data_ptr(), g.data_ptr(),
-                  n_tiles, n_splits, csc.n_rows, TILE_ITEMS, stream)
-    _raise_on_error(lib, code, name)
-    _count(name)
+    partials = torch.empty(2 * n_tiles, dtype=torch.float64, device=dev)
+    _launch(name, dev, getattr(_lib(), f"{name}_{_FLOAT_SUFFIX[v.dtype]}"),
+            csc.colptr.data_ptr(), csc.rows.data_ptr(),
+            csc.vals.data_ptr(), v.data_ptr(), csc.tiles.data_ptr(),
+            csc.splits.data_ptr(), partials.data_ptr(), g.data_ptr(),
+            n_tiles, n_splits, csc.n_rows, TILE_ITEMS)
     return g

@@ -23,8 +23,17 @@ a column in every row, no entries), its cost rule on both sides, and
 ``_emulate_panel_kernel`` repeats the kernel's chunked walks, block scans
 and per-panel accumulation.
 
-The kernels themselves run only on the card: ``test_kernels_match_plain_on_card``
-is marked ``cuda`` and skips without one.
+The row-tile matvec ``ell_matvec``: ``_emulate_ell_kernel`` repeats its
+summation order (each row's G = ``ell_group(K)`` threads sum contiguous
+slices in order, then a fixed pairwise tree) and is held against the same
+references on the grid, on a block-diagonal lane layout
+(``LaneFeatures.from_bucket``) and at the K edges of the group rule (K = 1,
+G·ELL_ITEMS ± 1, 33, rows of 400 and 1,100 entries, the last longer than a
+quarter stage); ``ell_tile_plan``'s rule is checked for its invariants.
+
+The kernels themselves run only on the card: the tests marked ``cuda``
+(``test_kernels_match_plain_on_card`` and the kernel-against-emulation
+tests) skip without one.
 """
 import functools
 
@@ -40,7 +49,12 @@ from photon_tpu.ops.pallas_sparse import (
     matvec_pallas,
     rmatvec_pallas,
 )
-from photon_tpu_torch.data.batch import LabeledBatch, SparseFeatures, ell_from_rows
+from photon_tpu_torch.data.batch import (
+    LabeledBatch,
+    LaneFeatures,
+    SparseFeatures,
+    ell_from_rows,
+)
 from photon_tpu_torch.ops import cuda_sparse as cs
 
 ATOL_F32 = 5e-5
@@ -289,6 +303,46 @@ def _emulate_panel_kernel(panels, w):
     return z.to(w.dtype)
 
 
+def _pair_tree(p):
+    """The kernels' pairwise tree over the last axis (a power of two):
+    element x adds element x + m, at m = half the width down to 1."""
+    m = p.shape[-1]
+    while m > 1:
+        m //= 2
+        p = p[..., :m] + p[..., m:2 * m]
+    return p[..., 0]
+
+
+def _emulate_ell_kernel(idx, val, w, dim):
+    """The row-tile matvec's summation order, in plain torch (float64).
+
+    Each row of K entries is summed by G = ``ell_group(K)`` threads: thread
+    g adds the products of its slice [g·L, (g+1)·L), L = ceil(K/G), in
+    order from 0 (an entry outside [0, dim) adds nothing); the G partials
+    combine by a pairwise tree within each warp of 32, then over the
+    warps' sums for G > 32. Rounds once. Tiles, chunks and the grid do not
+    enter: every addition is the kernel's, in the kernel's order, so the
+    card must give the same bits.
+    """
+    n, k = idx.shape
+    group = cs.ell_group(k)
+    width = -(-k // group)
+    f64 = torch.float64
+    ok = (idx >= 0) & (idx < dim)
+    w_ext = torch.cat([w.double(), torch.zeros(1, dtype=f64)])
+    prod = torch.where(ok, val.double() * w_ext[torch.where(ok, idx, dim).long()],
+                       torch.zeros((), dtype=f64))
+    padded = torch.zeros((n, group * width), dtype=f64)
+    padded[:, :k] = prod
+    parts = padded.reshape(n, group, width)
+    acc = torch.zeros((n, group), dtype=f64)
+    for i in range(width):
+        acc = acc + parts[:, :, i]
+    if group > 32:
+        acc = _pair_tree(acc.reshape(n, group // 32, 32))
+    return _pair_tree(acc).to(val.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_refs(name):
     """The JAX package's results: Pallas kernel (interpret mode) and the
@@ -530,6 +584,165 @@ def test_wrappers_reject_bad_inputs(bad):
         call = lambda: cs.csc_rmatvec(csc, dz[:-1])  # noqa: E731
     with pytest.raises((TypeError, ValueError)):
         call()
+
+
+# ------------------------------------------------------- row-tile matvec
+
+# Layouts at the edges of ell_matvec's group rule (ELL_ITEMS = 12: K up to
+# 24 takes G = 2, up to 48 G = 4), the block-diagonal lane layout of the
+# vmapped random-effect tier, and long rows (400 entries: G = 64, a tree
+# over two warps; 1,100: more than a quarter stage, a tile of its own).
+ELL_CASES = ["k1", "k23", "k25", "k33", "k47", "k49", "lanes", "row400", "row1100"]
+
+
+@functools.lru_cache(maxsize=None)
+def _ell_case(name):
+    """(idx, val, d, w) in float32 for one of ELL_CASES; ghosts at d."""
+    rng = np.random.default_rng(21)
+    if name == "lanes":
+        # 6 lanes x S = 16 rows x K = 17 over P = 256 local columns, 20%
+        # ghosts, as LaneFeatures.from_bucket lays a bucket out
+        e, s_, k, p = 6, 16, 17, 256
+        local = rng.integers(0, p, size=(e, s_, k)).astype(np.int32)
+        local = np.where(rng.random((e, s_, k)) < 0.2, p, local).astype(np.int32)
+        lv = np.where(local < p, rng.normal(size=(e, s_, k)), 0.0).astype(np.float32)
+        flat = LaneFeatures.from_bucket(_t(local), _t(lv), p).flat
+        idx, val, d = flat.idx.numpy(), flat.val.numpy(), flat.dim
+        assert d == e * p and (idx == d).any()
+    else:
+        n, k, d = {"k1": (300, 1, 50), "k23": (150, 23, 400), "k25": (150, 25, 400),
+                   "k33": (130, 33, 400), "k47": (70, 47, 500), "k49": (70, 49, 500),
+                   "row400": (20, 400, 700), "row1100": (5, 1100, 900)}[name]
+        idx, val = _random_ell(rng, n, d, k)
+        # values scaled by 1/sqrt(K) keep the long rows' sums O(1), within
+        # reach of the JAX plain path's float32 sum at the file's tolerance
+        val = (val / np.sqrt(k)).astype(np.float32)
+    w = rng.normal(size=d).astype(np.float32)
+    return idx, val, d, w
+
+
+@functools.lru_cache(maxsize=None)
+def _ell_refs(name):
+    """The JAX package's matvec on an ELL_CASES layout: the Pallas kernel
+    (interpret mode) and the plain SparseFeatures path."""
+    idx, val, d, w = _ell_case(name)
+    aux = build_pallas_aux(idx, val, d)
+    plain = JaxSparseFeatures(jnp.asarray(idx), jnp.asarray(val), d)
+    return (np.asarray(matvec_pallas(aux, jnp.asarray(w), interpret=True)),
+            np.asarray(plain.matvec(jnp.asarray(w))))
+
+
+def _check_ell_order(idx, val, d, w, refs):
+    """The row-tile kernel's summation order against the JAX references
+    and the dense product in f32, and against the dense product in f64."""
+    z = _emulate_ell_kernel(_t(idx), _t(val), _t(w), d).numpy()
+    assert z.dtype == np.float32 and z.shape == (idx.shape[0],)
+    for ref in refs:
+        np.testing.assert_allclose(z, ref, rtol=0, atol=ATOL_F32)
+    np.testing.assert_allclose(z, _dense(idx, val, d) @ w, rtol=0, atol=ATOL_F32)
+    val64, w64 = val.astype(np.float64), w.astype(np.float64)
+    z64 = _emulate_ell_kernel(_t(idx), _t(val64), _t(w64), d).numpy()
+    assert z64.dtype == np.float64
+    np.testing.assert_allclose(z64, _dense(idx, val64, d) @ w64, rtol=0, atol=ATOL_F64)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_ell_kernel_order_matches_jax(name):
+    idx, val, d, w, _ = _case(name)
+    refs = _jax_refs(name)
+    _check_ell_order(idx, val, d, w, (refs["pallas"][0], refs["jax_plain"][0]))
+
+
+@pytest.mark.parametrize("name", ELL_CASES)
+def test_ell_kernel_order_matches_jax_at_k_edges(name):
+    idx, val, d, w = _ell_case(name)
+    k = idx.shape[1]
+    group = cs.ell_group(k)
+    if name in ("k23", "k25", "k47", "k49"):
+        # one entry short of a group's items, or one over: a group twice as wide
+        edge = {"k23": 2, "k25": 2, "k47": 4, "k49": 4}[name] * cs.ELL_ITEMS
+        assert abs(k - edge) == 1 and group == (edge // cs.ELL_ITEMS) * (1 + (k > edge))
+    if name == "row400":
+        assert group > 32                       # the tree crosses warps
+    if name == "row1100":
+        assert cs.ell_tile_plan(k, torch.float32).tile_rows == 1
+        assert k > cs.ELL_STAGE_ENTRIES // 4
+    _check_ell_order(idx, val, d, w, _ell_refs(name))
+
+
+def test_ell_emulation_is_the_slice_and_tree_order():
+    """Hand-made rows: K = 33 gives G = 4 slices of 9, 9, 9, 6 entries
+    summed in order and combined as (s0 + s2) + (s1 + s3), and the
+    emulation reproduces those bits where the plain sum's order would
+    not (values chosen so that order changes the float64 result)."""
+    assert cs.ell_group(33) == cs.ell_tile_plan(33, torch.float64).group == 4
+    rng = np.random.default_rng(23)
+    vals = rng.normal(size=(8, 33)) * 10.0 ** rng.integers(-8, 17, size=(8, 33))
+    idx = np.tile(np.arange(33, dtype=np.int32), (8, 1))
+    w = np.ones(33)
+    got = _emulate_ell_kernel(_t(idx), _t(vals), _t(w), 33).numpy()
+    for row, value in zip(vals, got):
+        s = [0.0] * 4
+        for g in range(4):
+            for x in row[9 * g:9 * g + 9]:
+                s[g] = s[g] + x
+        assert value == (s[0] + s[2]) + (s[1] + s[3])
+    assert not np.array_equal(
+        got, cs.ell_matvec_plain(_t(idx), _t(vals), _t(w), 33).numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 5, 8, 16, 17, 31, 32, 33, 63, 64, 65,
+                               256, 300, 1023, 1024, 1025, 5000])
+def test_ell_tile_plan_rule(k, dtype):
+    """R·K entries are a multiple of 16 bytes in both arrays and fit a
+    stage (rows up to a quarter stage; a longer row is a tile alone); two
+    stages fit the shared memory a block may use; G is a power of two that
+    depends on K alone, the least with G·ELL_ITEMS ≥ K up to a block; and
+    the tiles cover the H100's 132 SMs wherever the matrix holds 132
+    stages of entries (132 rows, where a row is longer than a stage)."""
+    plan = cs.ell_tile_plan(k, dtype)
+    itemsize = torch.finfo(dtype).bits // 8
+    assert plan.stage % 4 == 0
+    if k <= plan.stage // 4:
+        assert plan.tile_rows >= 1 and plan.tile_rows * k <= plan.stage
+        assert plan.tile_rows * k * 4 % 16 == 0
+        assert plan.tile_rows * k * itemsize % 16 == 0
+        assert (plan.tile_rows + 4) * max(k, 1) > plan.stage    # as many as fit
+    else:
+        assert plan.tile_rows == 1
+    assert cs.ell_smem_bytes(dtype, plan.stage) <= cs.ELL_SMEM_LIMIT
+    g = plan.group
+    assert g & (g - 1) == 0 and 1 <= g <= cs.ELL_THREADS
+    assert g == cs.ell_group(k) == cs.ell_tile_plan(k, torch.float32).group
+    assert g * cs.ELL_ITEMS >= k or g == cs.ELL_THREADS
+    assert g == 1 or (g // 2) * cs.ELL_ITEMS < k
+    assert -(-k // g) <= cs.ELL_ITEMS or g == cs.ELL_THREADS     # a slice in one load
+    n = -(-cs.H100_SMS * plan.stage // max(k, 1)) if k <= plan.stage else cs.H100_SMS
+    assert -(-n // plan.tile_rows) >= cs.H100_SMS
+
+
+def test_ell_tile_plan_at_chip_smoke_shapes():
+    """The layouts where the path runs ell_matvec: fit C's lanes (1.6M x
+    17), the drivers' rows (32,768 x 33) and the 2^19 x 32 scoring layout
+    all give at least 132 tiles."""
+    for n, k in ((1_600_000, 17), (32_768, 33), (1 << 19, 32)):
+        for dtype in (torch.float32, torch.float64):
+            plan = cs.ell_tile_plan(k, dtype)
+            assert -(-n // plan.tile_rows) >= cs.H100_SMS
+    assert cs.ell_tile_plan(17, torch.float32).tile_rows == 240
+    assert cs.ell_tile_plan(33, torch.float32).tile_rows == 124
+
+
+def test_ell_matvec_takes_row_sliced_views_on_cpu():
+    """A row-sliced view (its base 68 bytes into the array at K = 17) is
+    contiguous and goes through the wrapper as any input: on the CPU to the
+    plain version, equal to the same rows of the whole matrix."""
+    idx, val, d, w = _ell_case("lanes")
+    i, v = _t(idx)[3:], _t(val)[3:]
+    assert i.is_contiguous() and i.data_ptr() % 16 == 12
+    np.testing.assert_array_equal(cs.ell_matvec(i, v, _t(w), d).numpy(),
+                                  cs.ell_matvec(_t(idx), _t(val), _t(w), d).numpy()[3:])
 
 
 # ------------------------------------------------------------ panel matvec
@@ -793,6 +1006,7 @@ def test_kernels_match_plain_on_card(name, cuda_device):
     assert cs.launch_counts() == {"ell_panel_matvec": 1, "ell_matvec": 1,
                                   "csc_rmatvec": 2, "csc_sq_rmatvec": 1}
     assert torch.equal(g1, g2)
+    assert torch.equal(z, cs.ell_matvec(i, v, _t(w).to(cuda_device), d))
     refs = _jax_refs(name)["pallas"]
     for got, ref in ((z, refs[0]), (zp, refs[0]), (g1, refs[1]), (gs, refs[2])):
         np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=0, atol=ATOL_F32)
@@ -809,6 +1023,8 @@ def test_kernels_match_plain_on_card(name, cuda_device):
         got = cs.ell_panel_matvec(dev, w_t.to(cuda_device))
         assert torch.equal(got, cs.ell_panel_matvec(dev, w_t.to(cuda_device)))
         assert torch.equal(got.cpu(), _emulate_panel_kernel(host, w_t))
+        got = cs.ell_matvec(i, val_t.to(cuda_device), w_t.to(cuda_device), d)
+        assert torch.equal(got.cpu(), _emulate_ell_kernel(_t(idx), val_t, w_t, d))
 
 
 @pytest.mark.cuda
@@ -845,3 +1061,57 @@ def test_panel_kernel_matches_emulation_on_card(dtype, cuda_device):
     ref = cs.ell_matvec_plain(_t(idx), _t(val), _t(w), d).numpy()
     atol = ATOL_F32 if dtype == np.float32 else ATOL_F64
     np.testing.assert_allclose(z1.cpu().numpy(), ref, rtol=0, atol=atol)
+
+
+def _ell_card_case(name):
+    """(idx, val, d, w) for a card test of the row-tile kernel: the shape's
+    rows against its tile (R = 240 at K = 17, 124 at K = 33)."""
+    rng = np.random.default_rng(22)
+    if name == "lanes":
+        return _ell_case("lanes")
+    n, k, d = {"rows_not_multiple": (3 * 240 + 7, 17, 5000),
+               "rows_below_tile": (50, 33, 3000),
+               "sliced_odd_k": (1000, 17, 4000),
+               "row400": (40, 400, 2000), "row5000": (3, 5000, 9000)}[name]
+    idx, val = _random_ell(rng, n, d, k)
+    idx[::5, 0] = -3                        # out of range below, value kept
+    idx[::7, 1] = d + 11                    # and above
+    w = rng.normal(size=d).astype(np.float32)
+    return idx, val, d, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", ["rows_not_multiple", "rows_below_tile",
+                                  "sliced_odd_k", "lanes", "row400", "row5000"])
+def test_ell_kernel_matches_emulation_on_card(name, dtype, cuda_device):
+    """The row-tile kernel equals the emulation of its summation order bit
+    for bit, twice in a row: with N not a multiple of R, N < R, a row-sliced
+    view at odd K (its base off 16-byte alignment, the short last tile
+    with it), the block-diagonal lane layout, and rows of 400 and 5,000
+    entries (the second in two stage-sized chunks); within tolerance of the
+    plain version."""
+    idx, val, d, w = _ell_card_case(name)
+    val, w = val.astype(dtype), w.astype(dtype)
+    i, v, wd = (_t(a).to(cuda_device) for a in (idx, val, w))
+    if name == "sliced_odd_k":
+        i, v, idx, val = i[5:-2], v[5:-2], idx[5:-2], val[5:-2]
+        assert i.is_contiguous() and i.data_ptr() % 16 and v.data_ptr() % 16
+    plan = cs.ell_tile_plan(idx.shape[1], v.dtype)
+    if name == "rows_not_multiple":
+        assert idx.shape[0] % plan.tile_rows
+    elif name == "rows_below_tile":
+        assert idx.shape[0] < plan.tile_rows
+    elif name == "row5000":
+        assert idx.shape[1] > plan.stage
+    cs.reset_launch_counts()
+    z1 = cs.ell_matvec(i, v, wd, d)
+    z2 = cs.ell_matvec(i, v, wd, d)
+    torch.cuda.synchronize()
+    assert cs.launch_counts()["ell_matvec"] == 2
+    assert torch.equal(z1, z2)
+    assert torch.equal(z1.cpu(), _emulate_ell_kernel(_t(idx), _t(val), _t(w), d))
+    ref = cs.ell_matvec_plain(_t(idx), _t(val), _t(w), d).numpy()
+    atol = ATOL_F32 if dtype == np.float32 else ATOL_F64
+    np.testing.assert_allclose(z1.cpu().numpy(), ref, rtol=0,
+                               atol=atol * max(1.0, np.abs(ref).max()))
