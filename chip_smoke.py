@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA GPU
 
-Phases, each printing one JSON line; any failure ends the run with a nonzero
-exit code and no result line:
+Phases, each printing one JSON line (``at_s``: seconds from the start to the
+phase's end); any failure ends the run with a nonzero exit code and no
+result line:
 
 0. card: ``nvidia-smi`` name and power limit, and the kernels' build
    (``nvcc`` into ``photon_tpu_torch/_build``, from the sources here), with
-   each kernel's registers, shared memory and spills from nvcc's log.
+   each kernel's registers, shared memory and spills from nvcc's log; the
+   native Avro decoder's build (``g++``, ``photon_tpu_torch/native``).
 1. kernels at full width (2^19 rows x 32 entries over 262,144 global + a
    per-user block of features, the repository's headline single-chip shape):
    ``ell_panel_matvec`` (over ``build_panels``' layout), ``ell_matvec``,
@@ -25,8 +27,7 @@ exit code and no result line:
    on cpu; the scores agree within the stated tolerance and
    ``ell_panel_matvec`` launched.
 3. driver end to end: Avro data, index store and model directory written by
-   the port's own writers (same widths, 32,768 rows: the per-record Avro
-   reader is pure Python, so depth is cut here), scored by
+   the port's own writers (same widths, 32,768 rows), scored by
    ``photon_tpu_torch.cli.game_scoring_driver`` with ``--device cuda`` and
    ``--device cpu``; both ``scores.avro`` agree and the matvec kernel that
    ``build_panels``' rule picks for these rows launched.
@@ -56,7 +57,8 @@ exit code and no result line:
    weights 1 and 10 (``select_best`` picks one); its bucket solves on the
    chunked dual path. Fit B: the random effect over a ``user`` shard (user
    block + intercept), SIMPLE variances on both coordinates; full-bucket
-   primal. Each in f32 on cuda twice (bit-equal asserted) and on cpu:
+   primal. Each in f32 on cuda twice (bit-equal asserted; fit A's second
+   run is phase 9's killed and resumed fit) and on cpu:
    every lane's final objective within 5e-3, each fixed-effect step that
    stopped at the same iteration on both devices within 1e-3 of the
    largest coefficient, validation metrics within 1e-4, the same
@@ -105,6 +107,31 @@ exit code and no result line:
    lane layouts, each beside its bound and cuSPARSE; the kernels' device
    time in each random-effect step, by kernel.
 
+9. checkpoint: phase 6's fit A (its estimator, bundles and configurations)
+   with ``--checkpoint-dir``'s manager killed after its second coordinate
+   step (``fail_after``) and resumed in a fresh manager: bit-identical to
+   phase 6's uninterrupted fit A (coefficients, tracker records, their
+   results and validation metrics); save, write and resume seconds and
+   bytes a snapshot; a snapshot the JAX package wrote is refused by magic.
+10. routing: fit A's random-effect coordinate on its prepared dataset at
+   fit A's fixed-effect offsets, static and under
+   ``PHOTON_RE_ROUTING=measured`` with a cost table: per shape class the
+   candidates, per-entity costs, winner and calibration seconds; a second
+   solve with the table reloaded calibrates nothing and repeats the
+   decisions and coefficients bit for bit.
+11. sweep_cache: fit B with host-resident random-effect buckets, 2 sweeps,
+   the device sweep cache at 2048 MB and off: bit-identical models; H2D
+   bytes a sweep (none in sweep 2 with the cache on), resident and spilled
+   bytes, hits and misses.
+12. ingest (after phase 8): FULL's widths at 128 rows a user (2^19 rows)
+   written as 8 Avro files by 8 spawned writers; on phase 3's 32,768 rows
+   the per-record read against the streaming read (native decoder
+   asserted) and the pipelined read, bit-equal; on 2^19 rows the streaming,
+   pipelined (chunks of 65,536 rows through pinned staging: H2D bytes and
+   the card's busy share) and 4-worker reads, bit-equal; the scoring driver
+   with ``--chunk-rows 65536`` and 0 (scores within 1e-5) and the training
+   driver on the 2^19 rows, with their stage times.
+
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
 from fixed seeds. Work files go to ``photon_tpu_torch/_build/chip_smoke/``
@@ -139,7 +166,13 @@ TPU_ENTRY = {"ell_panel_matvec": "matvec_pallas (pallas_sparse.py:331)",
 RTOL_F32, ATOL_F32_REL, ATOL_F64 = 1e-5, 1e-5, 1e-12
 
 
+# perf_counter at main()'s start: each phase line carries its end as "at_s"
+_START = [None]
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj and _START[0] is not None:
+        obj = {**obj, "at_s": time.perf_counter() - _START[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -608,7 +641,8 @@ def phase_driver(torch, sizes, dev, ref_dev, root: str, inputs: dict) -> dict:
             "--output-dir", dest, "--device", d.type,
         ])
         wall = time.perf_counter() - t0
-        if summary != {"n_rows": inputs["rows"], "evaluation": None}:
+        if summary != {"n_rows": inputs["rows"], "evaluation": None,
+                       "reader": "native"}:
             raise AssertionError(f"unexpected driver summary {summary}")
         recs = read_records(os.path.join(dest, "scores.avro"))
         runs[d.type] = {"recs": recs, "wall_s": wall,
@@ -1517,10 +1551,15 @@ def re_step_stats(torch, est, bundle, re_shard, variance, fit_result) -> dict:
 
 GAME_FITS = (("fit_a", "global", (1.0, 10.0), "NONE"),
              ("fit_b", "user", (1.0,), "SIMPLE"))
+# The full-size f32 cpu references run one of the fits' two sweeps (a cut of
+# depth, to keep the script well inside its time: the references are host
+# work) and are held against the card's fit cut to the same sweep; both
+# sweeps are compared across the devices in f64 (fit_a_f64 / fit_b_f64).
+GAME_REF_SWEEPS = 1
 
 
 def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
-                        f64_users_full_dual=10_000) -> dict:
+                        f64_users_full_dual=10_000, keep=None) -> dict:
     """GAME training with random effects through ``GameEstimator.fit``.
 
     Fit A (``bench_game_scale``'s shape, one shard): fixed + perUser, L2
@@ -1528,15 +1567,19 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
     iterations, 2 sweeps, validated on a seed-3 bundle with AUC and
     LOGISTIC_LOSS. Fit B: the same users, the random effect over the
     ``user`` shard (user block + intercept), SIMPLE variances on both
-    coordinates. Each in f32 on ``dev`` twice (bit-equality asserted) and
-    on ``ref_dev`` at the full size (the f32 bounds of
+    coordinates. Each in f32 on ``dev`` twice (bit-equality asserted), and
+    cut to ``GAME_REF_SWEEPS`` on ``dev`` and on ``ref_dev`` at the full
+    size (the f32 bounds of
     ``compare_game_fits`` hold where the devices' fixed effects start
     alike: at 8,192 users the f32 fixed effect's first step already stops
     an iteration apart between the devices); each again in f64 at ``f64_users`` users on both devices under a
     ``GAME_F64_BUDGET_MB`` Newton budget, so that fit A solves chunked on
     the dual path as at full size; and fit A in f64 at
     ``f64_users_full_dual`` users under the default budget. Returns the
-    counted fits' launches under ``launches``."""
+    counted fits' launches under ``launches``. ``keep`` (a dict) receives
+    fit A's estimator, bundles, configurations and results on ``dev`` for
+    the checkpoint and routing phases, which reuse that fit; with it, fit
+    A's repeat on the card is phase checkpoint's killed and resumed fit."""
     arrays = game_arrays_bench(seed=2, **sizes)
     varrays = game_arrays_bench(seed=3, **sizes)
     it = sizes["iterations"]
@@ -1552,19 +1595,28 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
             for d in (dev, ref_dev)}
     for name, shard, weights, variance in GAME_FITS:
         cfgs = game_configs(weights, it, variance)
-        est = {d.type: game_estimator(shard, 2) for d in (dev, ref_dev)}
-        first = game_fit(torch, cs, est[dev.type], *data[dev.type], cfgs,
+        card_est = game_estimator(shard, 2)
+        ref_est = game_estimator(shard, GAME_REF_SWEEPS)
+        first = game_fit(torch, cs, card_est, *data[dev.type], cfgs,
                          counted=True)
-        second = game_fit(torch, cs, est[dev.type], *data[dev.type], cfgs)
-        ref = game_fit(torch, cs, est[ref_dev.type], *data[ref_dev.type], cfgs)
-        bit_equal = all(
+        # Fit A's repeat on the card is phase checkpoint's killed and resumed
+        # fit, held bit-identical to this one there.
+        second = (None if name == "fit_a" and keep is not None else
+                  game_fit(torch, cs, card_est, *data[dev.type], cfgs))
+        # the card's fit cut to the reference's sweeps: the same estimator,
+        # its prepared datasets reused
+        card_est.n_sweeps = GAME_REF_SWEEPS
+        cut = game_fit(torch, cs, card_est, *data[dev.type], cfgs)
+        card_est.n_sweeps = 2
+        ref = game_fit(torch, cs, ref_est, *data[ref_dev.type], cfgs)
+        bit_equal = second is None or all(
             torch.equal(a, b) for ra, rb in zip(first["results"], second["results"])
             for a, b in zip(_game_tensors(ra), _game_tensors(rb)))
         if not bit_equal:
             failures.append(f"{name}: two f32 card fits differ")
-        cmp = compare_game_fits(torch, first, ref, sizes["d_global"])
+        cmp = compare_game_fits(torch, cut, ref, sizes["d_global"])
         cmp["re_step_same_offsets"] = re_step_vs_ref(
-            torch, est, {d.type: data[d.type][0] for d in (dev, ref_dev)}, shard,
+            torch, {ref_dev.type: ref_est, dev.type: card_est}, {d.type: data[d.type][0] for d in (dev, ref_dev)}, shard,
             variance, ref["results"][0], dev, ref_dev)
         failures += [f"{name}: {f}" for f in cmp["failures"]
                      + cmp["re_step_same_offsets"].pop("failures")]
@@ -1580,7 +1632,7 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
                                     f"csc_rmatvec: {sw}")
             if name == "fit_b" and launches[name]["csc_sq_rmatvec"] < 1:
                 failures.append("fit B never launched csc_sq_rmatvec")
-        stats = (re_step_stats(torch, est[dev.type], data[dev.type][0], shard,
+        stats = (re_step_stats(torch, card_est, data[dev.type][0], shard,
                                variance, first["results"][0])
                  if dev.type == "cuda" else None)
         if stats is not None and not stats["solver_vs_f64"]["coef_rel_err"] <= COEF_BAR_F32:
@@ -1590,15 +1642,21 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
         plans = [(r["solver"], r["chunk"]) for r in first["buckets"]]
         out[name] = {
             "re_shard": shard, "re_weights": weights, "variance": variance,
-            "fit_s": {"run": first["fit_s"], "repeat": second["fit_s"],
-                      "ref": ref["fit_s"]},
+            "fit_s": {"run": first["fit_s"],
+                      "repeat": None if second is None else second["fit_s"],
+                      "cut_to_ref_sweeps": cut["fit_s"], "ref": ref["fit_s"]},
+            "ref_sweeps": GAME_REF_SWEEPS,
             "steps": first["steps"], "ref_steps": ref["steps"],
             "buckets": first["buckets"], "plans": plans,
             "best_config": first.get("best_config"),
             "newton_loop_fetches": first["newton_loop_fetches"],
             "launches_per_sweep": first["launches_per_sweep"],
-            "bit_equal_repeat": bit_equal, "vs_ref": cmp, "re_step": stats}
-        del est, first, second, ref
+            "bit_equal_repeat": ("in phase checkpoint" if second is None
+                                 else bit_equal), "vs_ref": cmp, "re_step": stats}
+        if name == "fit_a" and keep is not None:
+            keep.update(est=card_est, data=data[dev.type], cfgs=cfgs,
+                        results=first["results"])
+        del card_est, ref_est, first, second, cut, ref
 
     del data
     # fit A in f64 at 10,000 users under the default budget (full dual): no
@@ -1775,6 +1833,12 @@ VM_FITS = (
 # paths that f32 rounding moves (a chaotic fit, see VM_F64_RTOL_FIT_C), so
 # its end point says nothing f32 can resolve.
 VM_LANE_OBJ_RTOL_F32 = {"fit_d": 2.5e-3, "fit_e": 1e-3}
+# Sweeps of the f32 fits at GAME_F64_USERS users, both devices (2 where not
+# named). Fit C's run one of two, a cut of depth to keep the script well
+# inside its time (its cpu fit is host work: 45 s of 2 sweeps on the H100
+# machine's host): what they serve, the objective at one point, holds after
+# any sweep; its f64 witness runs both.
+VM_SMALL_F32_SWEEPS = {"fit_c": 1}
 # The lanes' objective at one point, cuda against cpu in f32 at
 # GAME_F64_USERS users (``vm_point_gap``): per-lane values |fa - fb| /
 # max(|fb|, 1), gradients max |ga - gb| over the bucket's max |gb|.
@@ -1808,7 +1872,8 @@ def vm_arrays(sizes, n_users, seed, intercept: bool):
     return a
 
 
-def vm_estimator(arrays, re_shard: str, normalization: str, evaluators):
+def vm_estimator(arrays, re_shard: str, normalization: str, evaluators,
+                 n_sweeps: int = 2):
     from photon_tpu_torch.estimators.config import (
         FixedEffectDataConfig,
         RandomEffectDataConfig,
@@ -1823,8 +1888,8 @@ def vm_estimator(arrays, re_shard: str, normalization: str, evaluators):
         TaskType.LOGISTIC_REGRESSION,
         {"fixed": FixedEffectDataConfig("global"),
          "perUser": RandomEffectDataConfig("userId", re_shard)},
-        n_sweeps=2, evaluator_specs=evaluators, normalization=normalization,
-        intercept_indices=intercepts)
+        n_sweeps=n_sweeps, evaluator_specs=evaluators,
+        normalization=normalization, intercept_indices=intercepts)
 
 
 def vm_configs(fixed, random, variance: str, rate: float, iterations: int) -> list:
@@ -2082,8 +2147,8 @@ def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev) -> 
     Each in f32 on ``dev`` twice (bit-equal asserted), its plans against
     the gates', the random-effect step alone measured; then at
     ``small_users`` users on both devices, in f32 (the lanes' objective at
-    one point, ``vm_point_gap``; fits D's and E's final lane objectives)
-    and in f64 (``compare_f64_fits``; fit C to ``VM_F64_RTOL_FIT_C``), each
+    one point, ``vm_point_gap``; fits D's and E's final lane objectives;
+    fit C's cut to ``VM_SMALL_F32_SWEEPS``) and in f64 (``compare_f64_fits``; fit C to ``VM_F64_RTOL_FIT_C``), each
     held to a bound set from readings. Returns the counted fits' launches
     under ``launches``."""
     it = sizes["iterations"]
@@ -2146,7 +2211,8 @@ def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev) -> 
         # cpu reference and f64 witness at small_users users
         small = vm_arrays(sizes, small_users, 2, intercept)
         vsmall = vm_arrays(sizes, small_users, 3, intercept)
-        ests = {d.type: vm_estimator(small, shard, norm, ("AUC", "LOGISTIC_LOSS"))
+        ests = {d.type: vm_estimator(small, shard, norm, ("AUC", "LOGISTIC_LOSS"),
+                                     VM_SMALL_F32_SWEEPS.get(name, 2))
                 for d in (dev, ref_dev)}
         bundles = {d.type: game_bundle(torch, small, d, torch.float32)
                    for d in (dev, ref_dev)}
@@ -2182,7 +2248,8 @@ def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev) -> 
             failures += f64_failures
         res["small"] = {
             "users": small_users,
-            "f32": {"lane_objective_rel_err": lane_err,
+            "f32": {"sweeps": VM_SMALL_F32_SWEEPS.get(name, 2),
+                    "lane_objective_rel_err": lane_err,
                     "lane_objective_limit": VM_LANE_OBJ_RTOL_F32.get(name),
                     "at_one_point": point, "at_one_point_limit": VM_POINT_RTOL_F32,
                     "metric_abs_err": metric_err,
@@ -2214,6 +2281,548 @@ def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev) -> 
 
 
 # ------------------------------------------------------------------ main
+
+
+# ------------------------------------------------------------------ ingest
+
+# The ingest phase's headline data: FULL's widths at 128 rows a user
+# (2^19 rows), written as INGEST_PARTS Avro files by as many processes.
+INGEST_PARTS = 8
+SCORE_CHUNK_ROWS = 65536
+INGEST_ROWS_PER_USER = 128      # FULL's 4,096 users x 128 = 2^19 rows
+# chunked against whole-dataset scores: tests/test_torch_scoring_driver.py's
+# float32 tolerance (a chunk pads K to the widest chunk so far, which can
+# change the matvec's summation groups)
+SCORE_ATOL_F32 = 1e-5
+
+
+def _write_ingest_part(args) -> int:
+    """Rows [lo, hi) of ``game_arrays`` (intercept in column 0) as Avro
+    training examples with coin-flip labels and small offsets drawn for all
+    rows from ``seed + 1``: one part file of the ingest phase's data."""
+    from photon_tpu_torch.io.avro import ContainerWriter
+    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
+
+    sizes, path, lo, hi, seed = args
+    idx, val, dim, users, keys = game_arrays(col0=1, seed=seed, **sizes)
+    rng = np.random.default_rng(seed + 1)
+    labels = (rng.random(len(users)) < 0.5).astype(float)
+    offsets = rng.normal(size=len(users)) * 0.1
+    name_term = [n.split("\x01") for n in feature_names(sizes)]
+    with ContainerWriter(path, TRAINING_EXAMPLE_AVRO) as w:
+        for r in range(lo, hi):
+            w.write({
+                "uid": f"i{r}", "label": float(labels[r]), "weight": None,
+                "offset": float(offsets[r]),
+                "features": [{"name": name_term[c][0], "term": name_term[c][1],
+                              "value": float(x)} for c, x in zip(idx[r], val[r])],
+                "metadataMap": {"userId": keys[r]},
+            })
+    return hi - lo
+
+
+def write_ingest_data(sizes, root: str, seed: int = 5) -> dict:
+    """The ingest phase's data: ``INGEST_PARTS`` part files under
+    ``root/ingest``, written in parallel by spawned processes with the
+    port's ``ContainerWriter``."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    d = os.path.join(root, "ingest")
+    os.makedirs(d, exist_ok=True)
+    n = sizes["n_users"] * sizes["rows_per_user"]
+    bounds = np.linspace(0, n, INGEST_PARTS + 1).astype(int)
+    jobs = [(sizes, os.path.join(d, f"part-{i:05d}.avro"), int(lo), int(hi), seed)
+            for i, (lo, hi) in enumerate(zip(bounds, bounds[1:]))]
+    t0 = time.perf_counter()
+    with cf.ProcessPoolExecutor(max_workers=min(INGEST_PARTS, os.cpu_count() or 1),
+                                mp_context=mp.get_context("spawn")) as pool:
+        rows = sum(pool.map(_write_ingest_part, jobs))
+    return {"dir": d, "rows": rows, "files": INGEST_PARTS,
+            "bytes": sum(os.path.getsize(j[1]) for j in jobs),
+            "write_s": time.perf_counter() - t0}
+
+
+def _bundle_diffs(torch, got, want) -> list:
+    """Names of the bundle fields that are not bit-equal (every array, every
+    shard; features compared on the host)."""
+    bad = [f for f in ("labels", "offsets", "weights")
+           if not np.array_equal(getattr(got, f), getattr(want, f), equal_nan=True)]
+    if list(got.uids) != list(want.uids):
+        bad.append("uids")
+    bad += [f"id_tags[{t}]" for t in want.id_tags
+            if list(got.id_tags.get(t, ())) != list(want.id_tags[t])]
+    for s, w in want.features.items():
+        g = got.features.get(s)
+        if (g is None or g.dim != w.dim or g.val.dtype != w.val.dtype
+                or not torch.equal(g.idx.cpu(), w.idx.cpu())
+                or not torch.equal(g.val.cpu(), w.val.cpu())):
+            bad.append(f"features[{s}]")
+    return bad
+
+
+def _timed(torch, dev, fn):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_ingest(torch, cs, sizes, dev, root: str, inputs: dict) -> dict:
+    """The streaming ingest at FULL's widths. On the drivers' 32,768-row file:
+    the per-record read against the streaming read (native decoder asserted)
+    and the pipelined read, all bit-equal. On 2^19 rows (``INGEST_PARTS``
+    files): the streaming read, the pipelined read (one reader for both
+    files, as the streaming reads share reader's; pinned staging, its H2D
+    bytes and the device's busy share during the read) and the read by 4
+    worker processes, bit-equal. Then the
+    scoring driver with ``--chunk-rows SCORE_CHUNK_ROWS`` and 0 and the
+    training driver (a fixed effect) on the 2^19 rows, with their stage
+    times. Returns the launches of the drivers' runs under ``launches``."""
+    from photon_tpu_torch.cli import game_scoring_driver, game_training_driver
+    from photon_tpu_torch.index.index_map import MmapIndexMap
+    from photon_tpu_torch.io.avro import read_records
+    from photon_tpu_torch.io.data_reader import (
+        AvroDataReader,
+        FeatureShardConfig,
+        InputColumnNames,
+    )
+    from photon_tpu_torch.io.parallel_ingest import read_parallel
+    from photon_tpu_torch.io.prefetch import PinnedStaging, read_bundle_pipelined
+    from photon_tpu_torch.io.streaming import StreamingAvroReader
+
+    f32 = torch.float32
+    failures: list = []
+    data = write_ingest_data(sizes, root)
+    out = {"rows_per_user": sizes["rows_per_user"], "data": data}
+    index_root = os.path.join(root, "out", "index")
+    maps = {"global": MmapIndexMap(os.path.join(index_root, "global"))}
+    cfgs = {"global": FeatureShardConfig(("features",), True)}
+    cols, tags = InputColumnNames(), ["userId"]
+    reader = AvroDataReader(maps, cfgs, cols, tags)
+
+    def staging():
+        return PinnedStaging(dev) if dev.type == "cuda" else None
+
+    # the pipelined reads' one reader: its decode programs and the index's
+    # hash table are built in its first read (the small file's), as
+    # reader's are in its first streaming read
+    piped_reader = StreamingAvroReader(maps, cfgs, cols, tags,
+                                       chunk_rows=SCORE_CHUNK_ROWS)
+
+    def pipelined(path, st):
+        return read_bundle_pipelined(maps, cfgs, cols, tags, path, dev,
+                                     reader=piped_reader, staging=st)
+
+    small = os.path.join(root, "data.avro")
+    per_record, t_pr = _timed(torch, dev, lambda: reader.read_per_record(
+        small, dtype=f32, device=dev))
+    streamed, t_st = _timed(torch, dev, lambda: reader.read(small, dtype=f32,
+                                                          device=dev))
+    if reader.last_reader != "native":
+        failures.append(f"the streaming read fell back to {reader.last_reader}")
+    piped, t_pl = _timed(torch, dev, lambda: pipelined(small, staging()))
+    for name, b in (("streaming", streamed), ("pipelined", piped)):
+        bad = _bundle_diffs(torch, b, per_record)
+        if bad:
+            failures.append(f"32,768 rows: the {name} bundle differs from the "
+                            f"per-record one in {bad}")
+    out["small"] = {"rows": per_record.n_rows, "per_record_s": t_pr,
+                    "streaming_s": t_st, "pipelined_s": t_pl,
+                    "per_record_over_streaming": t_pr / t_st}
+    del per_record, streamed, piped
+
+    big = data["dir"]
+    full, t_full = _timed(torch, dev, lambda: reader.read(big, dtype=f32, device=dev))
+    # chunks of SCORE_CHUNK_ROWS rows decoded ahead on the producer thread
+    st = staging()
+    piped, t_piped = _timed(torch, dev, lambda: pipelined(big, st))
+    workers, t_workers = _timed(torch, dev, lambda: read_parallel(
+        big, maps, cfgs, dev, cols, tags, n_workers=4))
+    for name, b in (("pipelined", piped), ("4-worker", workers)):
+        bad = _bundle_diffs(torch, b, full)
+        if bad:
+            failures.append(f"2^19 rows: the {name} bundle differs from the "
+                            f"streaming one in {bad}")
+    out["full"] = {"rows": full.n_rows, "k": full.features["global"].idx.shape[1],
+                   "streaming_s": t_full, "pipelined_s": t_piped,
+                   "workers_4_s": t_workers,
+                   "rows_per_s_streaming": full.n_rows / t_full}
+    if st is not None:
+        st2 = PinnedStaging(dev)
+        busy = device_busy(torch, lambda: pipelined(big, st2), t_piped,
+                           ours=("Memcpy HtoD",))
+        out["full"].update(h2d_bytes=st.bytes, h2d_copies=st.copies,
+                           h2d_gbytes_per_s_of_read=st.bytes / t_piped / 1e9,
+                           read_profile=busy)
+    del full, piped, workers
+
+    cs.reset_launch_counts()
+    scoring = {}
+    for chunk in (SCORE_CHUNK_ROWS, 0):
+        dest = os.path.join(root, f"ingest_scores_{chunk}")
+        summary, wall = _timed(torch, dev, lambda: game_scoring_driver.run([
+            "--data", big, "--model-dir", os.path.join(root, "out", "best"),
+            "--output-dir", dest, "--device", dev.type,
+            "--chunk-rows", str(chunk)]))
+        if summary != {"n_rows": data["rows"], "evaluation": None,
+                       "reader": "native"}:
+            failures.append(f"scoring --chunk-rows {chunk}: summary {summary}")
+        recs = read_records(os.path.join(dest, "scores.avro"))
+        scoring[chunk] = {"wall_s": wall,
+                          "scores": np.array([r["predictionScore"] for r in recs]),
+                          "uids": [r["uid"] for r in recs],
+                          **_stage_seconds(os.path.join(dest, "photon.log"))}
+    a, b = scoring[SCORE_CHUNK_ROWS], scoring[0]
+    if a["uids"] != b["uids"] or not np.isfinite(a["scores"]).all():
+        failures.append("chunked scores are not the whole-dataset rows")
+    err = float(np.abs(a["scores"] - b["scores"]).max())
+    if not err <= SCORE_ATOL_F32:
+        failures.append(f"chunked scores differ from the whole-dataset scores "
+                        f"by {err} (> {SCORE_ATOL_F32})")
+    equal = float(np.mean(a["scores"] == b["scores"]))
+    for r in scoring.values():
+        del r["scores"], r["uids"]
+    out["scoring"] = {"chunk_rows": SCORE_CHUNK_ROWS, "runs": scoring,
+                      "max_abs_err_chunked_vs_whole": err,
+                      "bit_equal_share": equal}
+    # a fixed effect: a per-user random effect over these rows would spend
+    # ~80 s writing its 4,096 x ~4,000-column model (the export is host
+    # Python), the GAME driver path runs in phase game_training_driver
+    dest = os.path.join(root, "ingest_train")
+    summary, wall = _timed(torch, dev, lambda: game_training_driver.run([
+        "--train-data", big, "--output-dir", dest, "--task", "LOGISTIC_REGRESSION",
+        "--index-dir", index_root, "--device", dev.type, "--coordinate",
+        "fixed:type=fixed,shard=global,reg=L2,reg_weights=1,max_iter=20,variance=SIMPLE"]))
+    if summary["reader"] != "native":
+        failures.append(f"training driver read with {summary['reader']}")
+    out["training_driver"] = {"wall_s": wall, "fit_seconds": summary["fit_seconds"],
+                              "read_seconds": summary["read_seconds"],
+                              **_stage_seconds(os.path.join(dest, "photon.log"))}
+    out["launches"] = cs.launch_counts()
+    if failures:
+        emit({"phase": "ingest", **{k: v for k, v in out.items() if k != "launches"}})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+# ------------------------------------------------------------------ checkpoints
+
+JAX_SNAPSHOT = os.path.join(REPO, "tests", "data", "jax_checkpoint")
+
+
+def _values(evaluation):
+    return None if evaluation is None else evaluation.values
+
+
+def _tracker_diffs(torch, got, want) -> list:
+    """Where two fits' results differ: coefficients, evaluations, tracker
+    records (position, validation metrics, every result tensor)."""
+    bad = []
+    for i, (rg, rw) in enumerate(zip(got, want)):
+        if not all(torch.equal(a, b) for a, b in zip(_game_tensors(rg),
+                                                     _game_tensors(rw))):
+            bad.append(f"config {i}: coefficients")
+        if _values(rg.evaluation) != _values(rw.evaluation):
+            bad.append(f"config {i}: evaluation")
+        if len(rg.tracker) != len(rw.tracker):
+            bad.append(f"config {i}: tracker length")
+        for tg, tw in zip(rg.tracker, rw.tracker):
+            where = f"config {i} sweep {tw.sweep} {tw.coordinate_id}"
+            if (tg.sweep, tg.coordinate_id) != (tw.sweep, tw.coordinate_id):
+                bad.append(f"{where}: position")
+            if _values(tg.validation) != _values(tw.validation):
+                bad.append(f"{where}: validation metrics")
+            res = [(tg.result, tw.result)] if not isinstance(tw.result, list) \
+                else list(zip(tg.result, tw.result))
+            for a, b in res:
+                for k, v in vars(b).items():
+                    x = getattr(a, k)
+                    if isinstance(v, torch.Tensor):
+                        same = torch.equal(x, v)
+                    else:
+                        same = x == v
+                    if not same:
+                        bad.append(f"{where}: result {k}")
+    return bad
+
+
+def phase_checkpoint(torch, cs, keep: dict, root: str) -> dict:
+    """Fit A of phase ``game_training`` (same estimator, bundles and
+    configurations) with ``CheckpointManager(fail_after=2)``: killed after
+    its second coordinate step, resumed in a fresh manager; the result is
+    bit-identical to phase ``game_training``'s uninterrupted fit A (models,
+    tracker records, their results and validation metrics): fit A's repeat
+    on the card. A snapshot the JAX package wrote
+    (``tests/data/jax_checkpoint``) is refused by its magic."""
+    from photon_tpu_torch.checkpoint import CheckpointManager, ForeignCheckpoint
+
+    est, (train, valid), cfgs = keep["est"], keep["data"], keep["cfgs"]
+    dev = train.device
+    ckdir = os.path.join(root, "checkpoint")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    cs.reset_launch_counts()
+    mgr = CheckpointManager(ckdir, fail_after=2)
+    t0 = time.perf_counter()
+    try:
+        est.fit(train, valid, cfgs, checkpoint_manager=mgr)
+        raise AssertionError("the checkpointed fit was not killed by fail_after")
+    except KeyboardInterrupt:
+        killed_s = time.perf_counter() - t0
+    mgr.close()
+    out = {"steps_before_kill": 2, "killed_fit_s": killed_s,
+           "save_host_copy_s": mgr.last_save_seconds,
+           "save_write_s": mgr.last_write_seconds,
+           "snapshot_bytes": mgr.last_bytes,
+           "snapshots": sorted(os.listdir(ckdir))}
+    fresh = CheckpointManager(ckdir)
+    payload, load_s = _timed(torch, dev, lambda: fresh.load_latest(dev))
+    out["load_s"] = load_s
+    out["resumed_from"] = {k: payload["meta"][k] for k in ("sweep", "coord_index",
+                                                           "config_index")}
+    del payload
+    resumed, resume_s = _timed(torch, dev, lambda: est.fit(
+        train, valid, cfgs, checkpoint_manager=fresh))
+    fresh.close()
+    out["resume_fit_s"] = resume_s
+    out["launches"] = cs.launch_counts()
+    bad = _tracker_diffs(torch, resumed, keep["results"])
+    out["bit_identical"] = not bad
+    jdir = os.path.join(root, "jax_checkpoint")
+    shutil.rmtree(jdir, ignore_errors=True)
+    shutil.copytree(JAX_SNAPSHOT, jdir)
+    try:
+        CheckpointManager(jdir).load_latest(dev)
+        bad.append("the JAX package's snapshot was not refused")
+    except ForeignCheckpoint as e:
+        out["jax_snapshot_refused"] = str(e).split(":", 1)[1].strip()[:120]
+    if bad:
+        emit({"phase": "checkpoint", **out})
+        raise AssertionError("resume: " + "; ".join(bad[:10]))
+    return out
+
+
+# ------------------------------------------------------------------ routing
+
+
+def phase_routing(torch, cs, keep: dict, root: str) -> dict:
+    """Fit A's random-effect coordinate (its prepared dataset, at fit A's
+    final fixed-effect offsets) under the static plan, then under
+    ``PHOTON_RE_ROUTING=measured`` with a cost table in ``root``: the first
+    measured solve races each shape class's candidates and saves the table;
+    each bucket whose winner is its static plan solves bit for bit as the
+    static solve; a second solve with the table reloaded (as a restarted
+    process loads it) calibrates nothing, repeats every decision and the
+    coefficients bit for bit. Then the chunked vmapped baseline: the table
+    seeded with the lanes cheapest routes every bucket to lanes over
+    entity slices of ``VMAPPED_CHUNK_CAP``, held within ``COEF_BAR_F32`` of
+    the whole-bucket lanes (``PHOTON_RE_NEWTON=0``'s static plan) on the
+    same offsets."""
+    from photon_tpu_torch.functions.objective import intercept_reg_mask
+    from photon_tpu_torch.game import solver_routing
+    from photon_tpu_torch.game.random_effect import bucket_records, train_random_effects
+    from photon_tpu_torch.types import TaskType
+
+    est, (train, _), cfgs = keep["est"], keep["data"], keep["cfgs"]
+    dev = train.device
+    ds = est._prepare_cached(train)["datasets"]["perUser"]
+    problem = cfgs[0]["perUser"].problem(TaskType.LOGISTIC_REGRESSION)
+    mask = intercept_reg_mask(ds.global_dim, None, device=dev)
+    offsets = train.features["global"].with_matvec_layout().matvec(
+        keep["results"][0].model["fixed"].model.coefficients.means)
+
+    def solve():
+        return train_random_effects(problem, ds, offsets, global_reg_mask=mask)
+
+    def run():
+        return solve()[0]
+
+    run()
+    static, static_s = _timed(torch, dev, run)
+    static_plans = [(r["solver"], r["chunk"]) for r in bucket_records()]
+    table = os.path.join(root, "solver_costs.json")
+    if os.path.exists(table):
+        os.remove(table)
+    cs.reset_launch_counts()
+    with _env("PHOTON_RE_ROUTING", "measured"), _env("PHOTON_RE_COST_TABLE", table):
+        solver_routing.reset_process_table()
+        first, first_s = _timed(torch, dev, run)
+        rec1 = bucket_records()
+        solver_routing.reset_process_table()      # a restart reloads the file
+        second, second_s = _timed(torch, dev, run)
+        rec2 = bucket_records()
+    solver_routing.reset_process_table()
+    with open(table) as f:
+        entries = json.load(f)["entries"]
+    # every candidate raced is priced; the lanes cheapest
+    seeded = os.path.join(root, "solver_costs_lanes.json")
+    with open(seeded, "w") as f:
+        json.dump({"version": 1, "entries": {
+            key: {ck: 1e-9 if ck.startswith("vmapped_lbfgs@") else 1e9
+                  for ck in costs} for key, costs in entries.items()}}, f)
+    with _env("PHOTON_RE_ROUTING", "measured"), _env("PHOTON_RE_COST_TABLE", seeded):
+        solver_routing.reset_process_table()
+        (chunked, chunked_res), chunked_s = _timed(torch, dev, solve)
+        rec3 = bucket_records()
+    solver_routing.reset_process_table()
+    launches = cs.launch_counts()
+    with _env("PHOTON_RE_NEWTON", "0"):
+        (whole, whole_res), whole_s = _timed(torch, dev, solve)
+        rec4 = bucket_records()
+    classes = {}
+    for b, r in zip(ds.buckets, rec1):
+        key = solver_routing.shape_class(b)
+        c = classes.setdefault(key, {"buckets": 0, "entities": 0,
+                                     "calibration_s": 0.0, "costs": entries.get(key)})
+        c["buckets"] += 1
+        c["entities"] += r["entities"]
+        c["calibration_s"] += r["calibration_seconds"]
+        c["winner"] = f"{r['solver']}@{r['chunk']}"
+        c["static_plan"] = f"{static_plans[r['bucket']][0]}@{static_plans[r['bucket']][1]}"
+    out = {"classes": classes, "re_step_s": {"static": static_s,
+                                             "measured_first": first_s,
+                                             "measured_reloaded": second_s},
+           "calibrated_buckets": sum(r["calibrated"] for r in rec1),
+           "coef_rel_err_measured_vs_static": _stack_rel_err(
+               torch, first.bucket_coefs, static.bucket_coefs),
+           "launches": launches}
+    bad = []
+    if not any(r["calibrated"] for r in rec1):
+        bad.append("the first measured solve raced nothing")
+    same_plan = [b for b, r in enumerate(rec1)
+                 if (r["solver"], r["chunk"]) == static_plans[b]]
+    out["static_plan_buckets_bit_equal"] = [
+        torch.equal(first.bucket_coefs[b], static.bucket_coefs[b]) for b in same_plan]
+    if not all(out["static_plan_buckets_bit_equal"]):
+        bad.append("a bucket routed to its static plan solved otherwise than "
+                   "the static solve")
+    lanes_rel = _stack_rel_err(torch, chunked.bucket_coefs, whole.bucket_coefs)
+    out["chunked_lanes"] = {
+        "plans": [f"{r['solver']}@{r['chunk']}" for r in rec3],
+        "whole_plans": [f"{r['solver']}@{r['chunk']}" for r in rec4],
+        "re_step_s": {"chunked": chunked_s, "whole_bucket": whole_s},
+        "coef_rel_err_vs_whole_bucket": lanes_rel, "bar": COEF_BAR_F32,
+        "lanes_iterations_equal_share": float(np.mean(np.concatenate([
+            (a.iterations == b.iterations).cpu().numpy()
+            for a, b in zip(chunked_res, whole_res)])))}
+    # the lanes' raced chunk: the widest Newton chunk, capped at
+    # VMAPPED_CHUNK_CAP (4,096 at fit A's size)
+    if any(r["solver"] != "vmapped_lbfgs" or r["calibrated"]
+           or f"vmapped_lbfgs@{r['chunk']}" not in entries[
+               solver_routing.shape_class(ds.buckets[r["bucket"]])]
+           for r in rec3):
+        bad.append(f"the lanes-cheapest table routed {out['chunked_lanes']['plans']}")
+    if any((r["solver"], r["chunk"]) != ("vmapped_lbfgs", None) for r in rec4):
+        bad.append(f"PHOTON_RE_NEWTON=0 planned {out['chunked_lanes']['whole_plans']}")
+    if not lanes_rel <= COEF_BAR_F32:
+        bad.append(f"the chunked lanes are {lanes_rel} from the whole-bucket "
+                   f"lanes (> {COEF_BAR_F32})")
+    if any(r["calibrated"] for r in rec2):
+        bad.append("the reloaded table calibrated again")
+    if [(r["solver"], r["chunk"]) for r in rec2] != [(r["solver"], r["chunk"])
+                                                     for r in rec1]:
+        bad.append("the reloaded table routed otherwise")
+    if not all(torch.equal(a, b) for a, b in zip(first.bucket_coefs,
+                                                 second.bucket_coefs)):
+        bad.append("the reloaded table's coefficients differ")
+    out["repeat_bit_equal"] = "the reloaded table's coefficients differ" not in bad
+    if bad:
+        emit({"phase": "routing", **{k: v for k, v in out.items()
+                                     if k != "launches"}})
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+# ------------------------------------------------------------------ sweep cache
+
+
+class _StepUploads:
+    """Host-to-device bytes of host-resident random-effect data at the end
+    of every coordinate step (bucket uploads and the sweep cache's
+    mirror), by the descent logger's per-step message."""
+
+    def __init__(self, cache_of):
+        import logging
+
+        from photon_tpu_torch.data import random_effect as re_data
+
+        self.snaps = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda rec: self.snaps.append(
+            (rec.args[0], re_data.UPLOADS["bytes"] + cache_of().uploaded_bytes))
+        self.logger = logging.getLogger("photon_tpu_torch.game")
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(20)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def per_sweep(self) -> list:
+        out, prev = {}, 0
+        for sweep, total in self.snaps:
+            out[sweep] = out.get(sweep, 0) + total - prev
+            prev = total
+        return [out[k] for k in sorted(out)]
+
+
+def phase_sweep_cache(torch, cs, sizes, dev) -> dict:
+    """Fit B (the ``user`` shard, SIMPLE variances, 2 sweeps, no validation)
+    with host-resident random-effect buckets, the device sweep cache at
+    2048 MB and at 0 (off): bit-identical models; the host-to-device bytes
+    of each sweep, the cache's resident and spilled bytes, hits and
+    misses. With the cache on, sweep 2 uploads nothing."""
+    from photon_tpu_torch.data import random_effect as re_data
+    from photon_tpu_torch.estimators.config import (
+        FixedEffectDataConfig,
+        RandomEffectDataConfig,
+    )
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.types import TaskType
+
+    arrays = game_arrays_bench(seed=2, **sizes)
+    train = game_bundle(torch, arrays, dev, torch.float32)
+    cfgs = game_configs((1.0,), sizes["iterations"], "SIMPLE")
+    runs, models = {}, {}
+    cs.reset_launch_counts()
+    for mb in (2048, 0):
+        est = GameEstimator(
+            TaskType.LOGISTIC_REGRESSION,
+            {"fixed": FixedEffectDataConfig("global"),
+             "perUser": RandomEffectDataConfig("userId", "user", host_resident=True)},
+            n_sweeps=2, intercept_indices={"user": 0}, sweep_cache_mb=mb)
+        re_data.reset_uploads()
+        with _StepUploads(lambda: est._prep_cache[1]["device_cache"]) as ups:
+            results, wall = _timed(torch, dev, lambda: est.fit(train, None, cfgs))
+        cache = est._prep_cache[1]["device_cache"]
+        runs[mb] = {"fit_s": wall, "h2d_bytes_per_sweep": ups.per_sweep(),
+                    "bucket_uploads": re_data.UPLOADS["buckets"],
+                    "resident_bytes": cache.resident_bytes,
+                    "spilled_bytes": cache.spilled_bytes, "hits": cache.hits,
+                    "misses": cache.misses}
+        models[mb] = results
+        del est
+    launches = cs.launch_counts()
+    bad = [f"cache on against off: {d}"
+           for d in _tracker_diffs(torch, models[2048], models[0])]
+    on, off = runs[2048]["h2d_bytes_per_sweep"], runs[0]["h2d_bytes_per_sweep"]
+    if len(on) != 2 or on[1] != 0:
+        bad.append(f"sweep 2 uploaded {on[1:]} bytes with the cache on")
+    if len(off) != 2 or not off[1] > 0:
+        bad.append(f"sweep 2 uploaded {off[1:]} bytes with the cache off")
+    out = {"runs": {"cache_2048mb": runs[2048], "cache_off": runs[0]},
+           "bit_identical": not bad, "launches": launches}
+    if bad:
+        emit({"phase": "sweep_cache", **out})
+        raise AssertionError("; ".join(bad))
+    return out
 
 
 KERNEL_SYMBOLS = {"ell_panel_kernel": "ell_panel_matvec",
@@ -2276,15 +2885,21 @@ def main() -> int:
     from photon_tpu_torch.ops import cuda_sparse as cs
 
     t_start = time.perf_counter()
+    _START[0] = t_start
     dev, cpu = resolve_device(), torch.device("cpu")
     card = card_line()
     build = cs.build_library()
+    from photon_tpu_torch import native
+
+    if native.get_lib() is None:
+        raise AssertionError("the native Avro decoder did not build")
     os.makedirs(WORK, exist_ok=True)
     emit({"phase": "card", "nvidia_smi": card,
           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "kind": torch.cuda.get_device_name(0), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build["seconds"],
           "built": build["built"], "library": os.path.relpath(build["path"], REPO),
+          "native_decoder_build_s": native.BUILD_SECONDS,
           "ptxas": ptxas_usage(build["log"])})
 
     kern = phase_kernels(torch, dev)
@@ -2323,7 +2938,8 @@ def main() -> int:
         if td_launches[name] < 1:
             raise AssertionError(f"training driver phase never launched {name}")
 
-    gt = phase_game_training(torch, cs, GAME, GAME_F64_USERS, dev, cpu)
+    fit_a: dict = {}
+    gt = phase_game_training(torch, cs, GAME, GAME_F64_USERS, dev, cpu, keep=fit_a)
     gt_fits = gt.pop("launches")
     gt_launches = {k: sum(f[k] for f in gt_fits.values()) for k in cs.KERNELS}
     emit({"phase": "game_training", "launches": gt_launches,
@@ -2338,17 +2954,44 @@ def main() -> int:
         if gd_launches[name] < 1:
             raise AssertionError(f"GAME training driver phase never launched {name}")
 
+    ck = phase_checkpoint(torch, cs, fit_a, WORK)
+    ck_launches = ck.pop("launches")
+    emit({"phase": "checkpoint", "launches": ck_launches, **ck})
+    rt = phase_routing(torch, cs, fit_a, WORK)
+    rt_launches = rt.pop("launches")
+    emit({"phase": "routing", "launches": rt_launches, **rt})
+    del fit_a
+
+    sc = phase_sweep_cache(torch, cs, GAME, dev)
+    sc_launches = sc.pop("launches")
+    emit({"phase": "sweep_cache", "launches": sc_launches, **sc})
+
     vm = phase_game_training_vmapped(torch, cs, GAME, GAME_F64_USERS, dev, cpu)
     vm_fits = vm.pop("launches")
     vm_launches = {k: sum(f[k] for f in vm_fits.values()) for k in cs.KERNELS}
     emit({"phase": "game_training_vmapped", "launches": vm_launches,
           "launches_by_fit": vm_fits, **vm})
 
+    ig = phase_ingest(torch, cs, dict(FULL, rows_per_user=INGEST_ROWS_PER_USER),
+                      dev, WORK, inputs)
+    ig_launches = ig.pop("launches")
+    emit({"phase": "ingest", "launches": ig_launches, "matvec_kernel": chosen, **ig})
+    # the fixed effect's gradients in every resumed, cached or ingested fit;
+    # the ingest phase's drivers score through a matvec kernel
+    for name, launched in (("checkpoint", ck_launches), ("sweep_cache", sc_launches),
+                           ("ingest", ig_launches)):
+        if launched["csc_rmatvec"] < 1:
+            raise AssertionError(f"phase {name} never launched csc_rmatvec")
+    if ig_launches["ell_matvec"] + ig_launches["ell_panel_matvec"] < 1:
+        raise AssertionError("phase ingest never launched a matvec kernel")
+
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
     by_phase = {"transformer": tr_launches, "driver": dr_launches,
                 "training": tn_launches, "training_driver": td_launches,
                 "game_training": gt_launches, "game_training_driver": gd_launches,
-                "game_training_vmapped": vm_launches}
+                "checkpoint": ck_launches, "routing": rt_launches,
+                "sweep_cache": sc_launches,
+                "game_training_vmapped": vm_launches, "ingest": ig_launches}
     status = {"ell_panel_matvec": "ported; redesigned: column panels of w staged by TMA",
               "ell_matvec": "ported; redesigned: row tiles streamed by TMA",
               "csc_rmatvec": "ported; redesigned: merge-path segmented reduction",

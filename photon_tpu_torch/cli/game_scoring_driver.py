@@ -1,6 +1,7 @@
 """GAME scoring driver: load a model directory + data → scores Avro.
 
-Port of ``photon_tpu/cli/game_scoring_driver.py`` (the whole-dataset path).
+Port of ``photon_tpu/cli/game_scoring_driver.py``: the whole-dataset path
+and the streamed one (``--chunk-rows``).
 Reads data through the SAME index maps the model was trained with, loads the
 GAME model, scores additively per coordinate (unseen entities → zero model)
 and writes ``scores.avro`` (``ScoringResultAvro`` records) and
@@ -13,9 +14,12 @@ index maps (``<output>/index/<shard>``) and per-coordinate metadata, so only
 Runs on the card by default (``--device cuda``, which fails when no GPU is
 visible); ``--device cpu`` runs the plain versions of the kernels.
 ``--evaluators`` evaluates the scores against the data's labels (grouped
-evaluators read their id-tag columns) into the summary. ``--chunk-rows``
-other than 0 and ``--devices`` other than 1 belong to later slices of the
-port and are refused.
+evaluators read their id-tag columns) into the summary. ``--chunk-rows N``
+streams the data through the block decoder N rows at a time (each chunk
+padded to a multiple of N rows and to the widest K seen, as the JAX driver
+pads it), scores each chunk and appends its scores; the whole-dataset path
+(0) reads through the same decoder. ``--devices`` other than 1 belongs to
+the multi-GPU slice and is refused.
 
     python -m photon_tpu_torch.cli.game_scoring_driver --data DATA.avro \\
         --model-dir OUT/best --output-dir SCORES [--device cuda]
@@ -27,6 +31,7 @@ import json
 import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from photon_tpu_torch.device import resolve_device
@@ -77,16 +82,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--devices", type=int, default=1,
                    help="only 1: multi-device scoring is a later slice")
     p.add_argument("--chunk-rows", type=int, default=0,
-                   help="only 0 (whole dataset): streamed scoring is a later slice")
+                   help="stream and score this many rows at a time (0: the "
+                        "whole dataset at once)")
     return p
 
 
 def _parse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
     p = build_arg_parser()
     args = p.parse_args(argv)
-    if args.chunk_rows != 0:
-        p.error("--chunk-rows: streamed scoring is not in the port yet "
-                "(it comes with the streaming ingest slice); use 0")
+    if args.chunk_rows < 0:
+        p.error("--chunk-rows must be >= 0")
     if args.devices != 1:
         p.error("--devices: multi-device scoring is not in the port yet "
                 "(it comes with the multi-GPU slice); use 1")
@@ -158,33 +163,124 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             },
         )
         scores_path = os.path.join(args.output_dir, "scores.avro")
-        with Timed("read data", logger) as t_read:
-            # Labels are required only when evaluators are requested.
-            bundle = reader.read(args.data, dtype=dtype, device=device,
-                                 require_labels=suite is not None)
-        logger.info("scoring %d rows on %s", bundle.n_rows, device)
-        evaluation = None
-        with Timed("score", logger) as t_score:
+        if args.chunk_rows > 0:
+            n_rows, evaluation, reader_used = _score_chunked(
+                args, reader, transformer, suite, scores_path, logger, dtype,
+                device)
+        else:
+            with Timed("read data", logger) as t_read:
+                # Labels are required only when evaluators are requested.
+                bundle = reader.read(args.data, dtype=dtype, device=device,
+                                     require_labels=suite is not None)
+            reader_used = reader.last_reader
+            logger.info("scoring %d rows on %s (%s reader)", bundle.n_rows,
+                        device, reader_used)
+            evaluation = None
+            with Timed("score", logger) as t_score:
+                if suite:
+                    scores, evaluation = transformer.transform_and_evaluate(
+                        bundle, suite)
+                else:
+                    scores = transformer.transform(bundle)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            with Timed("save scores", logger):
+                save_scores(
+                    scores_path, scores, uids=bundle.uids, labels=bundle.labels
+                )
+            n_rows = bundle.n_rows
+            logger.info("read %.3fs, score %.3fs", t_read.seconds,
+                        t_score.seconds)
+        summary = {
+            "n_rows": int(n_rows),
+            "evaluation": dict(evaluation.values) if evaluation else None,
+            "reader": reader_used,
+        }
+        with open(os.path.join(args.output_dir, "scoring-summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+        logger.info("done: %s", summary)
+        return summary
+
+
+def _score_chunked(args, reader, transformer, suite, scores_path, logger,
+                   dtype, device):
+    """Stream, score and append, chunk by chunk: ``(n_rows, evaluation,
+    reader)``. Rows and each shard's K are padded to stable shapes (rows to
+    the next ``--chunk-rows`` multiple: chunks end on Avro block
+    boundaries). A schema outside the streaming engine's dialect falls back
+    to the whole-dataset per-record path."""
+    from photon_tpu_torch.estimators.game_transformer import evaluate_scored_arrays
+    from photon_tpu_torch.data.random_effect import numpy_dtype
+    from photon_tpu_torch.io.model_io import ScoresWriter
+    from photon_tpu_torch.io.streaming import StreamingAvroReader, Unsupported
+
+    sr = StreamingAvroReader(reader.index_maps, reader.shard_configs,
+                             reader.columns, reader.id_tag_columns,
+                             chunk_rows=args.chunk_rows)
+    n_rows = 0
+    k_targets: dict = {}
+    acc_scores, acc_labels, acc_weights = [], [], []
+    # Grouped evaluators need every row's group id: dictionary-encoded per
+    # chunk, so what accumulates is int32 codes and one entry per group.
+    group_cols = ({ev.group_column for ev in suite.evaluators if ev.group_column}
+                  if suite else set())
+    tag_codes: dict = {col: {} for col in group_cols}
+    acc_tags: dict = {col: [] for col in group_cols}
+
+    def encode_tags(col, values):
+        cmap = tag_codes[col]
+        uniq, inv = np.unique(np.asarray(values, object), return_inverse=True)
+        lut = np.fromiter((cmap.setdefault(u, len(cmap)) for u in uniq),
+                          np.int32, len(uniq))
+        return lut[inv.reshape(-1).astype(np.int64)]
+
+    with Timed("score chunked", logger), ScoresWriter(scores_path) as writer:
+        try:
+            for chunk in sr.iter_chunks(args.data, dtype=numpy_dtype(dtype),
+                                        require_labels=suite is not None):
+                for s, sf in chunk.features.items():
+                    k_targets[s] = max(k_targets.get(s, 0), sf.idx.shape[1])
+                n_pad = -(-chunk.n_rows // args.chunk_rows) * args.chunk_rows
+                bundle = chunk.to_bundle(device, dtype, pad_rows_to=n_pad,
+                                         pad_nnz_to=k_targets)
+                scores = transformer.transform(bundle)[: chunk.n_rows]
+                writer.append(scores, uids=bundle.uids[: chunk.n_rows],
+                              labels=chunk.labels)
+                if suite:
+                    acc_scores.append(scores)
+                    acc_labels.append(chunk.labels)
+                    acc_weights.append(chunk.weights)
+                    for col in group_cols:
+                        acc_tags[col].append(encode_tags(
+                            col, bundle.id_tags[col][: chunk.n_rows]))
+                n_rows += chunk.n_rows
+                logger.info("scored %d rows", n_rows)
+        except Unsupported as e:
+            if n_rows:
+                # Chunks were written already: a per-record restart would
+                # duplicate them.
+                raise
+            bundle = reader.fall_back(e, args.data, dtype=dtype, device=device,
+                                      require_labels=suite is not None)
+            evaluation = None
             if suite:
                 scores, evaluation = transformer.transform_and_evaluate(
                     bundle, suite)
             else:
                 scores = transformer.transform(bundle)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-        with Timed("save scores", logger):
-            save_scores(
-                scores_path, scores, uids=bundle.uids, labels=bundle.labels
-            )
-        summary = {
-            "n_rows": int(bundle.n_rows),
-            "evaluation": dict(evaluation.values) if evaluation else None,
-        }
-        with open(os.path.join(args.output_dir, "scoring-summary.json"), "w") as f:
-            json.dump(summary, f, indent=2)
-        logger.info("done: %s (read %.3fs, score %.3fs)", summary,
-                    t_read.seconds, t_score.seconds)
-        return summary
+            writer.append(scores, uids=bundle.uids, labels=bundle.labels)
+            return bundle.n_rows, evaluation, reader.last_reader
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    evaluation = None
+    if suite and n_rows:
+        evaluation = evaluate_scored_arrays(
+            suite, torch.cat(acc_scores), np.concatenate(acc_labels),
+            np.concatenate(acc_weights), {},
+            factorized={col: (np.concatenate(parts), len(tag_codes[col]))
+                        for col, parts in acc_tags.items()})
+    return n_rows, evaluation, "native"
 
 
 def main() -> None:  # pragma: no cover - console entry

@@ -15,11 +15,20 @@ JAX driver's (``best/``, ``models/<i>/`` under ``--output-mode ALL``,
 writes.
 
 Runs on the card by default (``--device cuda``, which fails when no GPU is
-visible); ``--device cpu`` runs the plain versions of the kernels. Flags of
-the JAX driver that belong to later slices of the port (checkpoints and
-restarts, tuning, meshes, the ingest pipeline, profiling,
-the runtime guards, measured solver routing) are refused with a message
-naming the slice; ``--re-routing static`` is the port's only routing.
+visible); ``--device cpu`` runs the plain versions of the kernels. The data
+is read as the JAX driver reads it: one ``StreamingAvroReader`` (native
+block decoder) for the training and validation reads, chunks decoded ahead
+on a thread (``--prefetch-depth``) or by worker processes
+(``--ingest-workers``) and copied to the card through pinned staging
+buffers; a schema the streaming engine cannot express falls back, logged,
+to the per-record reader (``training-summary.json`` names the reader that
+ran). ``--checkpoint-dir`` snapshots every coordinate step and resumes a
+killed run; ``--re-routing measured`` routes the random-effect solves by a
+measured cost table (``--re-cost-table``); ``--sweep-cache-mb`` sizes the
+device cache of host-resident random-effect buckets. Flags of the JAX
+driver that belong to later slices of the port (restarts, tuning, meshes,
+the bfloat16 feed, profiling, the runtime guards) are refused with a
+message naming the slice.
 
     python -m photon_tpu_torch.cli.game_training_driver \\
       --train-data data/train --output-dir out --task LOGISTIC_REGRESSION \\
@@ -33,12 +42,15 @@ import dataclasses
 import json
 import os
 import shutil
+from contextlib import contextmanager
 from typing import Optional, Sequence
 
 import torch
 
 from photon_tpu_torch.cli.params import (
+    add_re_routing_flags,
     configs_from_specs,
+    enable_re_routing,
     parse_coordinates,
     parse_feature_shard,
 )
@@ -69,8 +81,6 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # Flags of the JAX driver that belong to later slices: (flag, is it set,
 # the slice it comes with). Each is refused when set, never ignored.
 _LATER_SLICES = (
-    ("--checkpoint-dir", lambda a: a.checkpoint_dir is not None,
-     "checkpoints come with the checkpoint slice (M9)"),
     ("--max-restarts", lambda a: a.max_restarts > 0,
      "supervised restarts come with the runtime-guards slice (M13); use 0"),
     ("--restart-backoff", lambda a: a.restart_backoff is not None,
@@ -87,14 +97,9 @@ _LATER_SLICES = (
      "multi-device training comes with the multi-GPU slice (M14); use 1"),
     ("--mesh", lambda a: a.mesh is not None,
      "meshes come with the multi-GPU slice (M14)"),
-    ("--ingest-workers", lambda a: a.ingest_workers > 1,
-     "parallel decode comes with the ingest slice (M10); use 0 or 1"),
-    ("--prefetch-depth", lambda a: a.prefetch_depth is not None,
-     "the pipelined reader comes with the ingest slice (M10)"),
     ("--bf16-feed", lambda a: a.bf16_feed,
-     "the bfloat16 feed comes with the ingest slice (M10)"),
-    ("--sweep-cache-mb", lambda a: a.sweep_cache_mb is not None,
-     "the device sweep cache comes with the ingest slice (M10)"),
+     "the bfloat16 feed needs the kernels that read bfloat16 values "
+     "(the K1-bf16 slice, with M2's with_value_dtype)"),
     ("--profile-dir", lambda a: a.profile_dir is not None,
      "profiling comes with the observability slice"),
     ("--debug-nans", lambda a: a.debug_nans,
@@ -116,12 +121,6 @@ _LATER_SLICES = (
      "compile stores come with the runtime-guards slice (M13)"),
     ("--clear-caches-per-config", lambda a: a.clear_caches_per_config,
      "executable-cache bounds come with the runtime-guards slice (M13)"),
-    ("--re-routing", lambda a: a.re_routing == "measured",
-     "measured random-effect solver routing comes with the solver-routing "
-     "slice (game/solver_routing.py); use static"),
-    ("--re-cost-table", lambda a: a.re_cost_table is not None,
-     "the measured-routing cost table comes with the solver-routing slice "
-     "(game/solver_routing.py)"),
 )
 
 
@@ -165,16 +164,27 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--evaluators", nargs="+", default=None,
                    help="evaluator specs (AUC, RMSE, LOGISTIC_LOSS, AUC:col, "
                         "PRECISION@k:col, ...); the first selects the best model")
-    p.add_argument("--re-routing", choices=["static", "measured"], default=None,
-                   help="random-effect solver routing (the port runs static)")
     p.add_argument("--normalization", default="NONE",
                    choices=[n.name for n in NormalizationType])
     p.add_argument("--feature-summary", action="store_true",
                    help="write per-feature summary statistics (mean/var/min/"
                         "max/nnz) of every shard to <output-dir>/summary/"
                         "<shard>.avro")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="snapshot every coordinate step here; a run over the "
+                        "same inputs resumes from the newest snapshot")
+    p.add_argument("--ingest-workers", type=int, default=0,
+                   help="decode worker processes (one file each at a time; "
+                        "0 or 1 decodes in this process)")
+    p.add_argument("--prefetch-depth", type=int, default=None,
+                   help="chunks decoded ahead of the device copies (default "
+                        "$PHOTON_PREFETCH_DEPTH or 2; 0 disables)")
+    p.add_argument("--sweep-cache-mb", type=float, default=None,
+                   help="device cache budget for host-resident random-effect "
+                        "buckets (default $PHOTON_SWEEP_CACHE_MB or 2048; 0 "
+                        "disables)")
+    add_re_routing_flags(p)
     # The JAX driver's flags that later slices bring: refused when set.
-    p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--max-restarts", type=int, default=0)
     p.add_argument("--restart-backoff", type=float, default=None)
     p.add_argument("--heartbeat-dir", default=None)
@@ -183,10 +193,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--tuning-range", action="append", default=None)
     p.add_argument("--devices", type=int, default=1)
     p.add_argument("--mesh", default=None)
-    p.add_argument("--ingest-workers", type=int, default=0)
-    p.add_argument("--prefetch-depth", type=int, default=None)
     p.add_argument("--bf16-feed", action="store_true")
-    p.add_argument("--sweep-cache-mb", type=float, default=None)
     p.add_argument("--profile-dir", default=None)
     p.add_argument("--debug-nans", action="store_true")
     p.add_argument("--trace-out", default=None)
@@ -197,7 +204,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--compilation-cache-dir", default=None)
     p.add_argument("--compile-store", default=None)
     p.add_argument("--clear-caches-per-config", action="store_true")
-    p.add_argument("--re-cost-table", default=None)
     return p
 
 
@@ -212,6 +218,28 @@ def _parse(argv: Optional[Sequence[str]]):
     except NotImplementedError as e:
         p.error(f"--coordinate: {e}")
     return args, specs
+
+
+@contextmanager
+def _checkpointing(directory: Optional[str]):
+    """A CheckpointManager's lifecycle: closed on success; on failure
+    drained without masking the original error."""
+    if not directory:
+        yield None
+        return
+    from photon_tpu_torch.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(directory)
+    try:
+        yield mgr
+    except BaseException:
+        try:
+            mgr.close()
+        except Exception:  # noqa: BLE001 - the original error wins
+            pass
+        raise
+    else:
+        mgr.close()
 
 
 def _load_or_build_indexes(args, shard_specs, logger):
@@ -242,6 +270,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     with PhotonLogger(args.output_dir) as logger:
+        enable_re_routing(args, args.output_dir)
         return _run_inner(args, specs, TaskType[args.task], device, logger)
 
 
@@ -283,14 +312,27 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         id_tag_columns=id_tags,
     )
     dtype = _DTYPES[args.dtype]
-    with Timed("read training data", logger):
-        train = reader.read(args.train_data, dtype=dtype, device=device)
-    logger.info("training rows: %d on %s", train.n_rows, device)
+    # The reader keeps one streaming reader for the training and validation
+    # reads: its compiled decode programs and hash tables are reused.
+    depth = None if args.prefetch_depth is None else max(0, args.prefetch_depth)
+    readers_used = []
+
+    def read_data(paths):
+        # Training never reads the uid column.
+        bundle = reader.read(paths, dtype=dtype, device=device,
+                             capture_uids=False, depth=depth,
+                             workers=args.ingest_workers)
+        readers_used.append(reader.last_reader)
+        return bundle
+
+    with Timed("read training data", logger) as t_read:
+        train = read_data(args.train_data)
+    logger.info("training rows: %d on %s (%s reader)", train.n_rows, device,
+                readers_used[-1])
     validation = None
     if args.validation_data:
         with Timed("read validation data", logger):
-            validation = reader.read(args.validation_data, dtype=dtype,
-                                     device=device)
+            validation = read_data(args.validation_data)
         logger.info("validation rows: %d", validation.n_rows)
 
     vtype = DataValidationType[args.data_validation]
@@ -321,11 +363,13 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         evaluator_specs=tuple(args.evaluators or ()),
         normalization=NormalizationType[args.normalization],
         intercept_indices={s: im.intercept_index for s, im in index_maps.items()},
+        sweep_cache_mb=args.sweep_cache_mb,
     )
-    with Timed("fit", logger) as fit_timer:
+    with _checkpointing(args.checkpoint_dir) as ckpt, \
+            Timed("fit", logger) as fit_timer:
         results = estimator.fit(
             train, validation if suite else None, configs,
-            initial_model=initial_model)
+            initial_model=initial_model, checkpoint_manager=ckpt)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     # Without evaluators the first configuration is the selected one, as in
@@ -379,6 +423,8 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         },
         "evaluation": dict(best.evaluation.values) if best.evaluation else None,
         "fit_seconds": fit_timer.seconds,
+        "read_seconds": t_read.seconds,
+        "reader": readers_used[0],
         "model_dirs": saved,
     }
     # enums are not JSON-serializable through asdict

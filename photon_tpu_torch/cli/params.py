@@ -2,8 +2,9 @@
 
 Port of the parts of ``photon_tpu/cli/params.py`` that the training
 driver needs: the coordinate mini-DSL (``parse_coordinate_spec``,
-``parse_coordinates``), the sweep expansion (``configs_from_specs``) and
-``parse_feature_shard``.
+``parse_coordinates``), the sweep expansion (``configs_from_specs``),
+``parse_feature_shard`` and the random-effect routing flags
+(``add_re_routing_flags``, ``enable_re_routing``).
 
 Coordinate spec (one ``--coordinate`` flag per coordinate):
 
@@ -12,14 +13,15 @@ Coordinate spec (one ``--coordinate`` flag per coordinate):
 keys: ``type`` fixed|random (required); ``shard`` feature shard id;
 ``re_type`` entity id column (random, required); ``active_bound`` int;
 ``min_rows`` int; ``max_features`` int (Pearson filter);
-``max_bucket_entities`` int; ``optimizer`` LBFGS|OWLQN|TRON; ``max_iter``
+``max_bucket_entities`` int; ``host_resident`` 0|1 (buckets kept on the
+host for the device sweep cache); ``optimizer`` LBFGS|OWLQN|TRON; ``max_iter``
 int; ``tol`` float; ``reg`` NONE|L1|L2|ELASTIC_NET; ``alpha`` elastic-net α;
 ``reg_weights`` '|'-separated floats (sweep, default 0); ``downsample``
 rate in (0, 1]; ``variance`` NONE|SIMPLE|FULL; ``incremental`` prior weight
 for incremental training from --model-input-dir. The JAX package's
-``type=factored`` (with ``latent`` / ``alternations``) and
-``host_resident`` belong to later slices of the port and raise
-``NotImplementedError`` naming them; their keys are still recognized.
+``type=factored`` (with ``latent`` / ``alternations``) belongs to a later
+slice of the port and raises ``NotImplementedError`` naming it; its keys
+are still recognized.
 """
 from __future__ import annotations
 
@@ -104,12 +106,6 @@ def parse_coordinate_spec(spec: str) -> CoordinateSpec:
         if "latent" in kv or "alternations" in kv:
             raise ValueError(
                 f"coordinate {cid!r}: latent/alternations need type=factored")
-        if _parse_bool(cid, "host_resident", kv.get("host_resident", "0")):
-            raise NotImplementedError(
-                f"coordinate {cid!r}: host_resident is not in the port yet "
-                "(host-resident buckets need the device sweep cache of the "
-                "ingest slice, M10)"
-            )
         data = RandomEffectDataConfig(
             re_type=kv["re_type"],
             feature_shard=shard,
@@ -120,6 +116,8 @@ def parse_coordinate_spec(spec: str) -> CoordinateSpec:
             max_bucket_entities=(
                 int(kv["max_bucket_entities"])
                 if "max_bucket_entities" in kv else None),
+            host_resident=_parse_bool(cid, "host_resident",
+                                      kv.get("host_resident", "0")),
         )
 
     reg_type = RegularizationType(kv.get("reg", "NONE").upper())
@@ -201,3 +199,45 @@ def parse_feature_shard(spec: str) -> FeatureShardSpec:
             raise ValueError(f"feature shard {shard!r}: expected 'no-intercept', got {parts[2]!r}")
         add_intercept = False
     return FeatureShardSpec(shard, bags, add_intercept)
+
+
+def add_re_routing_flags(parser) -> None:
+    """The random-effect solver-routing flags: ``--re-routing`` picks the
+    static gate ladder or the measured cost table
+    (``game/solver_routing.py``); ``--re-cost-table`` keeps the calibration
+    results, so a restart skips the race and repeats the first run's
+    decisions."""
+    import os
+
+    parser.add_argument(
+        "--re-routing", choices=["static", "measured"],
+        default=os.environ.get("PHOTON_RE_ROUTING") or "static",
+        help="random-effect bucket solver routing: 'static' = the "
+             "eligibility gates (primal / dual Newton, chunked tiers, lanes); "
+             "'measured' = a per-shape cost table filled by a one-time "
+             "calibration race (default: $PHOTON_RE_ROUTING or static)")
+    parser.add_argument(
+        "--re-cost-table",
+        default=os.environ.get("PHOTON_RE_COST_TABLE") or None,
+        help="JSON file of the measured-routing cost table (loaded at start "
+             "if present, saved after every race); under --re-routing "
+             "measured it defaults to <output-dir>/solver_costs.json "
+             "(default: $PHOTON_RE_COST_TABLE)")
+
+
+def enable_re_routing(args, output_dir=None) -> None:
+    """Install the routing flags for the process (the bucket solver reads
+    the environment). Under measured routing with no table path, the table
+    is kept beside the model in ``output_dir``."""
+    import logging
+    import os
+
+    os.environ["PHOTON_RE_ROUTING"] = args.re_routing
+    table = args.re_cost_table
+    if table is None and args.re_routing == "measured" and output_dir:
+        table = os.path.join(output_dir, "solver_costs.json")
+    if table:
+        os.environ["PHOTON_RE_COST_TABLE"] = table
+        logging.getLogger("photon_tpu_torch.cli").info(
+            "RE solver routing: %s (cost table: %s%s)", args.re_routing,
+            table, ", resuming" if os.path.exists(table) else "")

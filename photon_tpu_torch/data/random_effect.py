@@ -4,8 +4,8 @@ Port of ``photon_tpu/data/random_effect.py``: ``EntityBucket`` (scores and
 the per-entity training batches), ``RandomEffectDataset.scatter_scores``,
 ``pearson_scores`` and ``build_random_effect_dataset`` with its training
 options (active/passive split, minimum rows per entity, the Pearson feature
-filter and the bucket cap), and ``down_sample_dataset``. Host-resident
-buckets (the device sweep cache's input) are not ported yet.
+filter and the bucket cap), host-resident buckets (the device sweep
+cache's input) and ``down_sample_dataset``.
 
 Entities are grouped on the host and packed into buckets of identical
 padded shape ``[E, S, K]`` (entities x max-samples x max-nnz), quantized to
@@ -29,6 +29,14 @@ from photon_tpu_torch.data.batch import LabeledBatch, LaneFeatures, SparseFeatur
 from photon_tpu_torch.utils import threefry
 
 Tensor = torch.Tensor
+
+# Buckets and bytes uploaded from host-resident datasets (``bucket(b)``),
+# for the device sweep cache's measurements.
+UPLOADS = {"buckets": 0, "bytes": 0}
+
+
+def reset_uploads() -> None:
+    UPLOADS.update(buckets=0, bytes=0)
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
@@ -82,6 +90,17 @@ class EntityBucket:
             weights=self.train_weights,
         )
 
+    def to(self, device: torch.device) -> "EntityBucket":
+        """This bucket with every array on ``device`` (copied without
+        blocking from page-locked host memory)."""
+        return EntityBucket(**{
+            f.name: getattr(self, f.name).to(device, non_blocking=True)
+            for f in dataclasses.fields(self)})
+
+    @property
+    def nbytes(self) -> int:
+        return sum(getattr(self, f.name).nbytes for f in dataclasses.fields(self))
+
     def scores(self, coefs: Tensor) -> Tensor:
         """Per-slot scores [E, S] from per-entity coefficients [E, P]
         (offsets NOT included — GAME composes scores additively)."""
@@ -96,7 +115,9 @@ class RandomEffectDataset:
     """All buckets for one random-effect coordinate + host-side entity index.
 
     ``entity_to_slot`` maps dense REId → (bucket_index, lane); ``n_rows`` is
-    the global sample count the ``row_ids`` refer to.
+    the global sample count the ``row_ids`` refer to. ``device`` is where
+    the solves and scores run; a host-resident dataset keeps its buckets
+    in (page-locked) host memory and ``bucket(b)`` uploads one at a time.
     """
 
     re_type: str
@@ -106,6 +127,9 @@ class RandomEffectDataset:
     n_rows: int
     global_dim: int
     device: torch.device
+    # buckets kept in host memory, uploaded by bucket(b) (or pinned on the
+    # device by the sweep cache's mirror)
+    host_resident: bool = False
     # bucket index -> (its idx tensor, its LaneFeatures with layouts): built
     # at a bucket's first vmapped solve, shared by every sweep and by the
     # down-sampled copies (which keep idx / val).
@@ -116,9 +140,25 @@ class RandomEffectDataset:
     def n_entities(self) -> int:
         return len(self.entity_keys)
 
-    def lane_features(self, b: int) -> LaneFeatures:
+    def bucket(self, b: int) -> EntityBucket:
+        """Bucket ``b`` on the dataset's device: the bucket itself, or for a
+        host-resident dataset a fresh upload (counted in ``UPLOADS``)."""
+        bucket = self.buckets[b]
+        if not self.host_resident:
+            return bucket
+        UPLOADS["buckets"] += 1
+        UPLOADS["bytes"] += bucket.nbytes
+        return bucket.to(self.device)
+
+    def lane_features(self, b: int,
+                      bucket: Optional[EntityBucket] = None) -> LaneFeatures:
         """Bucket ``b`` as one block-diagonal batch of lanes, with its
-        accelerator layouts: built once per bucket of the prepared data."""
+        accelerator layouts: built once per bucket of the prepared data.
+        ``bucket`` is bucket ``b`` on the device where the dataset is
+        host-resident (its layouts are then built for this use only)."""
+        if bucket is not None and bucket is not self.buckets[b]:
+            return LaneFeatures.from_bucket(
+                bucket.idx, bucket.val, bucket.local_dim).with_accelerator_paths()
         bucket = self.buckets[b]
         hit = self.lane_layouts.get(b)
         if hit is None or hit[0] is not bucket.idx:
@@ -135,7 +175,8 @@ class RandomEffectDataset:
         ghost row every padding slot points at) is dropped."""
         out = torch.zeros(self.n_rows + 1, dtype=dtype, device=self.device)
         for b, s in zip(self.buckets, per_bucket_scores):
-            out.index_put_((b.row_ids.reshape(-1).long(),), s.reshape(-1).to(dtype))
+            rows = b.row_ids.to(self.device, non_blocking=True)
+            out.index_put_((rows.reshape(-1).long(),), s.reshape(-1).to(dtype))
         return out[: self.n_rows]
 
 
@@ -211,8 +252,10 @@ def build_random_effect_dataset(
     ``max_features_per_entity`` keeps each entity's ``m`` features most
     |correlated| with the label (ties to the lower column id; the intercept
     kept on top of ``m``). ``max_bucket_entities`` splits each size class
-    into buckets of at most that many entities. ``host_resident`` (buckets
-    left on the host for the device sweep cache) is refused.
+    into buckets of at most that many entities. ``host_resident`` keeps the
+    bucket arrays in host memory (page-locked when ``device`` is CUDA): the
+    trainer then uploads one bucket at a time, and the device sweep cache
+    can pin the whole dataset on the device after its first use.
 
     Vectorized over entities as the JAX builder is: per-entity subspaces
     come from uniques over (entity, column) pair keys, the local remap is
@@ -221,11 +264,6 @@ def build_random_effect_dataset(
     are global ``bincount``s, and bucket packing is flat fancy-index writes.
     The arrays equal the JAX builder's.
     """
-    if host_resident:
-        raise NotImplementedError(
-            "host_resident buckets are not in the port yet (they need the "
-            "device sweep cache of the ingest slice, M10)"
-        )
     if max_bucket_entities is not None and max_bucket_entities < 1:
         raise ValueError(
             f"max_bucket_entities must be >= 1, got {max_bucket_entities}"
@@ -349,7 +387,10 @@ def build_random_effect_dataset(
     cols_flat = upairs % stride
 
     def put(a: np.ndarray) -> Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if not host_resident:
+            return t.to(device)
+        return t.pin_memory() if device.type == "cuda" else t.clone()
 
     buckets = []
     entity_keys_out = list(keys[kept][ent_sort])
@@ -406,6 +447,7 @@ def build_random_effect_dataset(
         n_rows=n,
         global_dim=global_dim,
         device=device,
+        host_resident=host_resident,
     )
 
 

@@ -36,8 +36,9 @@ class RandomEffectDataConfig:
     with fewer rows (they score through the zero model);
     ``max_features_per_entity`` keeps each entity's features most
     correlated with the label (Pearson); ``max_bucket_entities`` caps the
-    entities of a bucket. ``host_resident`` (buckets left on the host for
-    the device sweep cache) is refused by the builder (ingest slice, M10).
+    entities of a bucket. ``host_resident`` keeps the buckets in host memory:
+    the device sweep cache pins them on the device at first use, or they
+    upload one bucket at a time.
     """
 
     re_type: str

@@ -12,8 +12,13 @@ builds one context per feature shard from its feature statistics, shared
 by the shard's fixed and random effects; a coordinate's
 ``down_sampling_rate`` below 1 trains it on a down-sampled copy of its data
 (fresh per configuration, keyed from ``seed`` as in the JAX package).
-Factored random effects and checkpoints belong to later slices of the port
-and raise ``NotImplementedError`` naming them.
+With a ``checkpoint_manager`` every coordinate step and every finished
+configuration is snapshotted, and a fit over the same inputs resumes from
+the newest snapshot, ending bit-identical to the uninterrupted fit.
+Host-resident random-effect datasets are pinned on the device by one
+``DeviceSweepCache`` per prepared bundle (``sweep_cache_mb``). Factored
+random effects belong to a later slice and raise ``NotImplementedError``
+naming it.
 """
 from __future__ import annotations
 
@@ -134,6 +139,10 @@ class GameEstimator:
     evaluator_specs: Sequence[str] = ()
     normalization: NormalizationType = NormalizationType.NONE
     intercept_indices: Optional[Mapping[str, int]] = None
+    # Device sweep cache budget in MB for host-resident random-effect data
+    # (data/device_cache.py); None = PHOTON_SWEEP_CACHE_MB (default 2048),
+    # 0 disables.
+    sweep_cache_mb: Optional[float] = None
     seed: int = 0
 
     def __post_init__(self):
@@ -155,17 +164,36 @@ class GameEstimator:
         if isinstance(self.normalization, str):
             self.normalization = NormalizationType.parse(self.normalization)
 
+    def fingerprint_parts(self) -> tuple:
+        """The estimator's training-semantics identity, for checkpoint
+        fingerprints."""
+        return (
+            self.task,
+            tuple(self.update_sequence),
+            self.n_sweeps,
+            tuple(self.evaluator_specs),
+            self.normalization,
+            sorted((cid, repr(c))
+                   for cid, c in self.coordinate_data_configs.items()),
+        )
+
     def fit(
         self,
         data: GameDataBundle,
         validation_data: Optional[GameDataBundle] = None,
         configs: Sequence[GameOptimizationConfiguration] = (),
         initial_model: Optional[GameModel] = None,
+        checkpoint_manager=None,
     ) -> list[GameFitResult]:
         """Train one GameModel per optimization configuration, on the
         device of the bundle's features. The datasets, their accelerator
         layouts and the validation structures are built once for the whole
-        sweep; ``initial_model`` warm-starts every configuration."""
+        sweep; ``initial_model`` warm-starts every configuration.
+
+        ``checkpoint_manager`` (``photon_tpu_torch.checkpoint
+        .CheckpointManager``) snapshots every coordinate step and every
+        finished configuration; a fit over the same inputs resumes from the
+        newest snapshot (checked against this run's fingerprint)."""
         if not configs:
             raise ValueError("at least one GameOptimizationConfiguration required")
         for cfg in configs:
@@ -188,7 +216,34 @@ class GameEstimator:
         # (and across fits on the same bundle).
         accel_cache = prep["accel_cache"]
         results: list[GameFitResult] = []
+        start_config, descent_resume, fingerprint = 0, None, None
+        if checkpoint_manager is not None:
+            from photon_tpu_torch.checkpoint import run_fingerprint
+
+            fingerprint = run_fingerprint((
+                self.fingerprint_parts(),
+                [sorted((cid, repr(c)) for cid, c in cfg.items())
+                 for cfg in configs],
+                data.n_rows,
+            ))
+            payload = checkpoint_manager.load_checked(
+                "game_fit", fingerprint, device=data.device)
+            if payload is not None:
+                meta = payload["meta"]
+                results = list(payload["state"].get("completed_results", []))
+                if meta.get("phase") == "config_done":
+                    start_config = meta["config_index"] + 1
+                else:
+                    start_config = meta["config_index"]
+                    descent_resume = payload
+                logger.info("resuming from checkpoint step %d (config %d)",
+                            payload["step"], start_config)
+        # Each configuration owns steps_per_config descent steps and one
+        # config-done slot.
+        steps_per_config = self.n_sweeps * len(self.update_sequence)
         for i, cfg in enumerate(configs):
+            if i < start_config:
+                continue
             logger.info("=== configuration %d/%d ===", i + 1, len(configs))
             coordinates = self._build_coordinates(
                 prep, cfg, i, initial_model, accel_cache)
@@ -202,10 +257,25 @@ class GameEstimator:
                 validation=validation,
                 suite=suite,
                 initial_models=dict(initial_model.models) if initial_model else None,
+                checkpointer=checkpoint_manager,
+                resume=descent_resume if i == start_config else None,
+                step_base=i * (steps_per_config + 1),
+                checkpoint_meta={"config_index": i, "kind": "game_fit",
+                                 "fingerprint": fingerprint},
+                extra_state={"completed_results": results},
             )
             evaluation = (self._evaluate(model, validation, suite)
                           if validation is not None else None)
             results.append(GameFitResult(model, evaluation, cfg, tracker))
+            if checkpoint_manager is not None:
+                checkpoint_manager.save(
+                    i * (steps_per_config + 1) + steps_per_config,
+                    state={"completed_results": results},
+                    meta={"phase": "config_done", "config_index": i,
+                          "kind": "game_fit", "fingerprint": fingerprint},
+                )
+        if checkpoint_manager is not None:
+            checkpoint_manager.wait()
         return results
 
     def _intercept_for(self, shard: str) -> Optional[int]:
@@ -220,6 +290,9 @@ class GameEstimator:
         cached = getattr(self, "_prep_cache", None)
         if cached is not None and cached[0] is data:
             return cached[1]
+        if cached is not None:
+            # a new bundle: drop the old one's device pins
+            cached[1]["device_cache"].release()
         prep = self._prepare(data)
         self._prep_cache = (data, prep)
         return prep
@@ -259,8 +332,15 @@ class GameEstimator:
             for cid, dcfg in self.coordinate_data_configs.items()
             if isinstance(dcfg, RandomEffectDataConfig)
         }
+        # One sweep cache per prepared bundle, shared by every configuration
+        # (same data: one upload for the whole sweep of configurations).
+        from photon_tpu_torch.data.device_cache import DeviceSweepCache
+
+        cache = DeviceSweepCache(None if self.sweep_cache_mb is None
+                                 else int(self.sweep_cache_mb * 1e6))
         return {"batches": batches, "norm": norm, "datasets": datasets,
-                "prior_proj": {}, "accel_cache": accel_cache}
+                "prior_proj": {}, "accel_cache": accel_cache,
+                "device_cache": cache}
 
     def _build_coordinates(
         self,
@@ -343,6 +423,11 @@ class GameEstimator:
                         dataset.global_dim, intercept, device=dataset.device),
                     normalization=norm,
                     priors=priors,
+                    # The cache pins only the shared prepared dataset: a
+                    # down-sampled copy is a fresh object per configuration
+                    # and streams per sweep.
+                    device_cache=(prep["device_cache"] if sampler is None
+                                  else None),
                 )
         return coordinates
 

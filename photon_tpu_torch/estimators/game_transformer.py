@@ -102,15 +102,23 @@ class GameTransformer:
 
 
 def evaluate_scored_arrays(suite: EvaluationSuite, scores: Tensor, labels,
-                           weights, id_tags: Mapping) -> EvaluationResults:
+                           weights, id_tags: Mapping,
+                           factorized: Optional[Mapping] = None) -> EvaluationResults:
     """Evaluate precomputed scores: factorize each grouped evaluator's id
-    column, cast to float32 on the scores' device, run the suite."""
+    column, cast to float32 on the scores' device, run the suite.
+    ``factorized`` maps a group column to ``(codes, n_groups)`` already
+    dense (the chunked scoring driver encodes them chunk by chunk)."""
     dev = scores.device
     gids, ngroups = {}, {}
     for col in {ev.group_column for ev in suite.evaluators if ev.group_column}:
-        if col not in id_tags:
+        if factorized is not None and col in factorized:
+            codes, n = factorized[col]
+            gids[col] = torch.from_numpy(np.asarray(codes, np.int32)).to(dev)
+            ngroups[col] = int(n)
+        elif col not in id_tags:
             raise ValueError(f"grouped evaluator needs id column {col!r}")
-        gids[col], ngroups[col] = _factorize_group_ids(id_tags[col], dev)
+        else:
+            gids[col], ngroups[col] = _factorize_group_ids(id_tags[col], dev)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)

@@ -4,9 +4,14 @@ Port of ``photon_tpu/evaluation/metrics.py``: AUC, RMSE, the squared,
 logistic, Poisson and smoothed-hinge losses, and the grouped ("sharded")
 forms — AUC, precision@k and every pointwise metric by group. Each is a
 function of ``(scores, labels, weights[, group_ids])`` tensors on any
-device; weight 0 marks padding. Group sums are ``index_add_`` over dense
-group ids, the JAX ``segment_sum``. Each returns a 0-dim tensor in the
-promoted dtype of its inputs, as the JAX functions do.
+device; weight 0 marks padding. Group sums (the JAX ``segment_sum``) sort
+the rows by group once per grouping and reduce each segment in a fixed
+order (``_Segments``), and prefix sums double in a fixed tree (``_cumsum``):
+on CUDA an ``index_add_`` or a ``cumsum`` of floats adds in an order that
+varies from run to run, and a checkpoint resume compares these metrics bit
+for bit.
+Each returns a 0-dim tensor in the promoted dtype of its inputs, as the
+JAX functions do.
 
 AUC is the weighted Mann-Whitney statistic with half credit for score ties
 (trapezoidal ROC integration).
@@ -26,9 +31,29 @@ def _ones_like(scores: Tensor, weights: Optional[Tensor]) -> Tensor:
     return torch.ones_like(scores) if weights is None else weights
 
 
-def _segment_sum(values: Tensor, ids: Tensor, n: int) -> Tensor:
-    return torch.zeros(n, dtype=values.dtype, device=values.device).index_add_(
-        0, ids, values)
+class _Segments:
+    """Rows grouped by dense ids in [0, n): sorted once (stably), then each
+    ``sum`` adds every segment in row order, the same on every run."""
+
+    def __init__(self, ids: Tensor, n: int):
+        self.order = torch.argsort(ids, stable=True)
+        self.lengths = torch.bincount(ids, minlength=n)
+
+    def sum(self, values: Tensor) -> Tensor:
+        return torch.segment_reduce(values[self.order], "sum",
+                                    lengths=self.lengths, unsafe=True)
+
+
+def _cumsum(x: Tensor) -> Tensor:
+    """Inclusive prefix sum by doubling (y[i] += y[i - k] for k = 1, 2, 4,
+    ...): each element sums its predecessors in a tree fixed by its index,
+    the same on every run and device. (A CUDA ``torch.cumsum`` of floats
+    over a whole vector adds in an order that varies from run to run.)"""
+    y, k, n = x, 1, x.shape[0]
+    while k < n:
+        y = torch.cat([y[:k], y[k:] + y[:-k]])
+        k *= 2
+    return y
 
 
 def _segment_min(values: Tensor, ids: Tensor, n: int) -> Tensor:
@@ -62,8 +87,8 @@ def auc(scores: Tensor, labels: Tensor, weights: Optional[Tensor] = None) -> Ten
 
     g = _tie_group_ids(s)
     n = s.shape[0]
-    neg_per_group = _segment_sum(neg_w, g, n)
-    neg_below = torch.cumsum(neg_per_group, 0) - neg_per_group  # exclusive
+    neg_per_group = _Segments(g, n).sum(neg_w)
+    neg_below = _cumsum(neg_per_group) - neg_per_group  # exclusive
 
     credit = pos_w * (neg_below[g] + 0.5 * neg_per_group[g])
     w_pos = torch.sum(pos_w)
@@ -152,8 +177,8 @@ def grouped_auc(scores: Tensor, labels: Tensor, group_ids: Tensor,
 
     pos_w = wsort * (ysort > 0.5)
     neg_w = wsort * (ysort <= 0.5)
-    neg_per_tie = _segment_sum(neg_w, tie, n)
-    neg_cum_incl = torch.cumsum(neg_per_tie, 0)
+    neg_per_tie = _Segments(tie, n).sum(neg_w)
+    neg_cum_incl = _cumsum(neg_per_tie)
 
     # Exclusive prefix of negatives within the group: less the value at the
     # group's first tie run.
@@ -163,9 +188,10 @@ def grouped_auc(scores: Tensor, labels: Tensor, group_ids: Tensor,
     neg_below_in_group = neg_before_tie[tie] - group_base[gsort]
 
     credit = pos_w * (neg_below_in_group + 0.5 * neg_per_tie[tie])
-    auc_num = _segment_sum(credit, gsort, m)
-    w_pos = _segment_sum(pos_w, gsort, m)
-    w_neg = _segment_sum(neg_w, gsort, m)
+    groups = _Segments(gsort, m)
+    auc_num = groups.sum(credit)
+    w_pos = groups.sum(pos_w)
+    w_neg = groups.sum(neg_w)
     valid = (w_pos > 0) & (w_neg > 0)
     per_group = auc_num / torch.clamp(w_pos * w_neg, min=_EPS)
     n_valid = torch.sum(valid)
@@ -194,8 +220,9 @@ def grouped_precision_at_k(scores: Tensor, labels: Tensor, group_ids: Tensor,
     rank = pos_idx - group_start[gsort]
     in_top_k = (rank < k) & valid_row[order]
 
-    hits = _segment_sum((ysort & in_top_k).to(scores.dtype), gsort, m)
-    group_rows = _segment_sum(valid_row[order].to(scores.dtype), gsort, m)
+    groups = _Segments(gsort, m)
+    hits = groups.sum((ysort & in_top_k).to(scores.dtype))
+    group_rows = groups.sum(valid_row[order].to(scores.dtype))
     has_rows = group_rows > 0
     per_group = hits / k
     n_valid = torch.sum(has_rows)
@@ -226,8 +253,9 @@ def grouped_pointwise(kind: str, scores: Tensor, labels: Tensor,
     m = num_groups if num_groups is not None else scores.shape[0]
     group_ids = group_ids.long()
     per_row = _per_row_loss(kind, scores, labels)
-    num = _segment_sum(w * per_row, group_ids, m)
-    den = _segment_sum(w, group_ids, m)
+    groups = _Segments(group_ids, m)
+    num = groups.sum(w * per_row)
+    den = groups.sum(w)
     val = num / torch.clamp(den, min=_EPS)
     if kind == "RMSE":
         val = torch.sqrt(val)

@@ -1,13 +1,16 @@
 """Coordinate descent: the GAME outer loop.
 
 Port of ``photon_tpu/game/descent.py`` (``GameModel``, ``ValidationData``,
-``CoordinateStepRecord`` and ``CoordinateDescent.run`` without checkpoints,
-resume or device-loss recovery, which come with later slices): for each
+``CoordinateStepRecord`` and ``CoordinateDescent.run`` with checkpoints and
+resume; device-loss recovery comes with the runtime-guards slice): for each
 sweep, for each coordinate in the update sequence, remove the coordinate's
 own score from the total, train against the residual as offset, and add the
 new score back; with validation data, evaluate after every coordinate step
 and keep the best complete model seen. Scores are [N] tensors in one global
-row order, so the residuals are elementwise.
+row order, so the residuals are elementwise. With a ``checkpointer`` the
+whole state is saved after every step; ``resume`` restores such a snapshot
+and skips the steps it covers, so a killed and resumed run ends where the
+uninterrupted one does, bit for bit.
 """
 from __future__ import annotations
 
@@ -89,6 +92,9 @@ class CoordinateDescent:
         initial_models: Optional[Mapping[str, DatumScoringModel]] = None,
         checkpointer=None,
         resume: Optional[dict] = None,
+        step_base: int = 0,
+        checkpoint_meta: Optional[dict] = None,
+        extra_state: Optional[dict] = None,
     ) -> tuple[GameModel, list[CoordinateStepRecord]]:
         """``base_offsets`` [n_rows] are the data's own offsets (float32 in
         the JAX package's estimator). Warm-start models in
@@ -96,12 +102,12 @@ class CoordinateDescent:
         update sequence are "locked": scored so the residuals are right,
         never retrained, kept in the output. With ``validation`` the
         returned model is the best complete one by the suite's primary
-        evaluator. ``checkpointer`` / ``resume`` are refused (checkpoint
-        slice, M9)."""
-        if checkpointer is not None or resume is not None:
-            raise NotImplementedError(
-                "checkpoints and resume are not in the port yet (they come "
-                "with the checkpoint slice, M9)")
+        evaluator.
+
+        ``checkpointer`` (a ``CheckpointManager``) snapshots the state after
+        every step as step ``step_base + k``, with ``checkpoint_meta`` and
+        ``extra_state`` added; ``resume`` is a payload of ``load_latest``
+        (its tensors on this run's device) whose position is skipped."""
         for cid in self.update_sequence:
             if cid not in coordinates:
                 raise ValueError(f"update sequence names unknown coordinate {cid!r}")
@@ -109,29 +115,45 @@ class CoordinateDescent:
             raise ValueError("validation data provided without an evaluation suite")
         base = base_offsets
 
-        models = dict(initial_models or {})
-        scores: dict = {}
-        for cid in self.update_sequence:
-            if cid in models:
+        resumed_pos = None
+        if resume is not None:
+            st = resume["state"]
+            models = {cid: _adopt(coordinates.get(cid), m)
+                      for cid, m in st["models"].items()}
+            scores = dict(st["scores"])
+            total = st["total"]
+            v_cache = dict(st["v_cache"])
+            best_metric = st["best_metric"]
+            best_models = st["best_models"]
+            tracker = list(st["tracker"])
+            resumed_pos = (resume["meta"]["sweep"], resume["meta"]["coord_index"])
+            logger.info("resuming after sweep %d coordinate %d", *resumed_pos)
+        else:
+            models = dict(initial_models or {})
+            scores = {}
+            for cid in self.update_sequence:
+                if cid in models:
+                    scores[cid] = coordinates[cid].score(models[cid])
+                else:
+                    scores[cid] = torch.zeros(n_rows, dtype=base.dtype,
+                                              device=base.device)
+            for cid in sorted(set(models) - set(self.update_sequence)):
+                if cid not in coordinates:
+                    raise ValueError(
+                        f"initial model {cid!r} is outside the update sequence "
+                        "and has no coordinate to score it (locked coordinates "
+                        "need a coordinate for residual bookkeeping)"
+                    )
                 scores[cid] = coordinates[cid].score(models[cid])
-            else:
-                scores[cid] = torch.zeros(n_rows, dtype=base.dtype, device=base.device)
-        for cid in sorted(set(models) - set(self.update_sequence)):
-            if cid not in coordinates:
-                raise ValueError(
-                    f"initial model {cid!r} is outside the update sequence "
-                    "and has no coordinate to score it (locked coordinates "
-                    "need a coordinate for residual bookkeeping)"
-                )
-            scores[cid] = coordinates[cid].score(models[cid])
-        total = base + sum(scores.values())
-
-        best_metric = None
-        best_models = None
-        # Validation scores cached per coordinate: only the coordinate just
-        # trained is re-scored (a random effect's projection is host work).
-        v_cache = ({cid: validation.scorers[cid](models[cid]) for cid in models}
-                   if validation is not None else {})
+            total = base + sum(scores.values())
+            tracker = []
+            best_metric = None
+            best_models = None
+            # Validation scores cached per coordinate: only the coordinate
+            # just trained is re-scored (a random effect's projection is
+            # host work).
+            v_cache = ({cid: validation.scorers[cid](models[cid]) for cid in models}
+                       if validation is not None else {})
         if validation is not None:
             need = set(self.update_sequence) | set(models)
             missing = sorted(c for c in need if c not in validation.scorers)
@@ -139,9 +161,12 @@ class CoordinateDescent:
                 raise ValueError(
                     f"validation scorers missing for coordinates {missing}")
 
-        tracker: list[CoordinateStepRecord] = []
+        step = step_base
         for sweep in range(self.n_sweeps):
-            for cid in self.update_sequence:
+            for ci, cid in enumerate(self.update_sequence):
+                if resumed_pos is not None and (sweep, ci) <= resumed_pos:
+                    step += 1
+                    continue
                 t0 = time.perf_counter()
                 residual_offset = total - scores[cid]
                 model, result = coordinates[cid].train(
@@ -179,5 +204,30 @@ class CoordinateDescent:
                 else:
                     logger.info("sweep %d coord %s done (%.2fs)", sweep, cid, dt)
                 tracker.append(record)
+                if checkpointer is not None:
+                    checkpointer.save(
+                        step,
+                        state={
+                            "models": models,
+                            "scores": scores,
+                            "total": total,
+                            "v_cache": v_cache,
+                            "best_metric": best_metric,
+                            "best_models": best_models,
+                            "tracker": tracker,
+                            **(extra_state or {}),
+                        },
+                        meta={"phase": "step", "sweep": sweep,
+                              "coord_index": ci, **(checkpoint_meta or {})},
+                    )
+                step += 1
         final = best_models if best_models is not None else models
         return GameModel(dict(final)), tracker
+
+
+def _adopt(coordinate, model):
+    """A restored model re-attached to its coordinate's data structures
+    (``coordinate.adopt``, where the coordinate has one), so the resumed
+    steps score it as the uninterrupted run scored the live model."""
+    adopt = getattr(coordinate, "adopt", None)
+    return model if adopt is None else adopt(model)

@@ -61,6 +61,7 @@ from photon_tpu_torch.optim.base import (
 Tensor = torch.Tensor
 
 NEWTON_MAX_P = 64           # [P,P] solves stay tiny; beyond this, no primal
+NEWTON_CHUNK_MAX_P = 128    # wider P admitted for chunked primal candidates
 DUAL_MAX_T = 80             # S + U cap; beyond this the systems stop being tiny
 _DEFAULT_BUDGET_MB = 2048   # dense X + H + probe buffers cap
 # Blessed entity-chunk sizes of a sub-batched solve (the last chunk padded
@@ -531,6 +532,9 @@ def fit_bucket_newton_dual(problem, batches: LabeledBatch, w0: Tensor,
     alpha, beta = theta[:, :s], theta[:, s:]
     w = d_pinv * (torch.bmm(alpha[:, None, :], x)[:, 0] + q)
     if u_max > 0:
+        # A lane's real u_idx entries are distinct columns (where w is 0);
+        # only its padding entries repeat, all at the dropped column P, so
+        # no kept sum depends on the order of the adds.
         w_full = torch.cat([w, w.new_zeros((e, 1))], dim=1)
         w_full.scatter_add_(1, u_idx, beta)
         w = w_full[:, :p]
@@ -602,7 +606,8 @@ def _map_fit(fn, model: GeneralizedLinearModel, result: OptimizerResult):
 
 def fit_bucket_in_chunks(fit_one, chunk: int, batches: LabeledBatch,
                          w0: Tensor, local_mask: Tensor,
-                         local_prior: Optional[PriorDistribution]):
+                         local_prior: Optional[PriorDistribution],
+                         with_lo: bool = False):
     """Solve one bucket in entity chunks of a blessed size and restack.
 
     ``fit_one(batches, w0, local_mask, local_prior) -> (model, result)``
@@ -610,7 +615,8 @@ def fit_bucket_in_chunks(fit_one, chunk: int, batches: LabeledBatch,
     ``chunk`` lanes; the padded tail carries weight-0 rows, mask 1 (so the
     ridge keeps its Hessians PD) and precision-0 priors, converges at the
     zero model and is sliced away before the restack. Each chunk's loop
-    stops when its own slowest lane converges.
+    stops when its own slowest lane converges. ``with_lo`` passes each
+    chunk's first lane to ``fit_one`` as ``lo=``.
     """
     e = w0.shape[0]
     outs = []
@@ -627,6 +633,7 @@ def fit_bucket_in_chunks(fit_one, chunk: int, batches: LabeledBatch,
             _slice_pad_lanes(w0, lo, hi, chunk),
             _slice_pad_lanes(local_mask, lo, hi, chunk, fill=1),
             prior,
+            **({"lo": lo} if with_lo else {}),
         )
         n = hi - lo
         outs.append(_map_fit(lambda a, n=n: a[:n], model, result))

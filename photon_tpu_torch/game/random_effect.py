@@ -13,10 +13,10 @@ the bucket's block-diagonal layout (``RandomEffectDataset.lane_features``).
 A shard-level normalization context is gathered into each bucket's lanes
 with ``project_context``.
 
-Not in this slice, each raising ``NotImplementedError`` that names where it
-comes: measured solver routing (``PHOTON_RE_ROUTING=measured``); the OOM
-ladder (with its chunked vmapped tier), meshes, the compile store and the
-obs counters are not ported.
+Under ``PHOTON_RE_ROUTING=measured`` the plan comes from the measured cost
+table of ``game/solver_routing.py`` instead (its vmapped baseline runs in
+chunks over entity slices of the lane layout). The OOM ladder, meshes, the
+compile store and the obs counters are not ported.
 
 ``LAST_BUCKET_TIMINGS`` keeps one record per bucket of the most recent
 ``train_random_effects`` call (bucket, entities, S, P, solver, chunk and the
@@ -28,17 +28,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from photon_tpu_torch.data.batch import LabeledBatch
+from photon_tpu_torch.data.batch import LabeledBatch, LaneFeatures
 from photon_tpu_torch.data.normalization import project_context
 from photon_tpu_torch.data.random_effect import RandomEffectDataset
 from photon_tpu_torch.functions.prior import PriorDistribution
-from photon_tpu_torch.game import newton_re
+from photon_tpu_torch.game import newton_re, solver_routing
 from photon_tpu_torch.optim.base import OptimizerResult
 from photon_tpu_torch.types import TaskType
 
@@ -118,7 +117,7 @@ class RandomEffectModel:
         """Scores for every row of the dataset this model was trained on
         (or any dataset with identical bucket structure)."""
         per_bucket = [
-            b.scores(c) for b, c in zip(dataset.buckets, self.bucket_coefs)
+            dataset.bucket(i).scores(c) for i, c in enumerate(self.bucket_coefs)
         ]
         dtype = per_bucket[0].dtype if per_bucket else torch.float32
         return dataset.scatter_scores(per_bucket, dtype)
@@ -203,24 +202,10 @@ class RandomEffectModel:
         """Scores for a dataset built from different rows (e.g. validation)."""
         coef_stacks = self.project_to(dataset)
         per_bucket = [
-            b.scores(c) for b, c in zip(dataset.buckets, coef_stacks)
+            dataset.bucket(i).scores(c) for i, c in enumerate(coef_stacks)
         ]
         dtype = per_bucket[0].dtype if per_bucket else self.bucket_coefs[0].dtype
         return dataset.scatter_scores(per_bucket, dtype)
-
-
-def routing_mode() -> str:
-    """``PHOTON_RE_ROUTING`` as the JAX package reads it; the port runs the
-    static plan only and refuses ``measured``."""
-    mode = (os.environ.get("PHOTON_RE_ROUTING") or "static").strip().lower()
-    if mode not in ("static", "measured"):
-        raise ValueError(
-            f"PHOTON_RE_ROUTING must be one of ('static', 'measured'), got {mode!r}")
-    if mode == "measured":
-        raise NotImplementedError(
-            "measured random-effect solver routing is not in the port yet "
-            "(it comes with the solver-routing slice, game/solver_routing.py)")
-    return mode
 
 
 def plan_bucket(problem, bucket, local_mask: Tensor,
@@ -231,14 +216,9 @@ def plan_bucket(problem, bucket, local_mask: Tensor,
     the vmapped fallback (``chunk`` None = the whole bucket at once;
     ``u_max`` -1 when no dual gate was consulted). ``u_max`` costs one
     device fetch and is computed only when a dual gate asks for it."""
-    routing_mode()
     if newton_re.newton_eligible(problem, bucket, normalization):
         return "newton_primal", None, -1
-    u_max = (
-        newton_re.u_max_for(newton_re.penalty_terms(
-            problem, local_mask, local_prior)[3])
-        if newton_re.dual_precheck(problem, bucket, normalization) else -1
-    )
+    u_max = _u_max(problem, bucket, local_mask, local_prior, normalization)
     if u_max >= 0 and newton_re.dual_eligible(problem, bucket, normalization,
                                               u_max):
         return "newton_dual", None, u_max
@@ -252,18 +232,51 @@ def plan_bucket(problem, bucket, local_mask: Tensor,
     return "vmapped_lbfgs", None, u_max
 
 
-def lane_batch(dataset: RandomEffectDataset, b: int, batches) -> LabeledBatch:
-    """Bucket ``b``'s local batches over its block-diagonal lane layout."""
-    return LabeledBatch(features=dataset.lane_features(b), labels=batches.labels,
-                        offsets=batches.offsets, weights=batches.weights)
+def _u_max(problem, bucket, local_mask, local_prior, normalization) -> int:
+    """The dual gates' count of unpenalized columns (one device fetch), or
+    -1 when the dual precheck refuses the bucket."""
+    if not newton_re.dual_precheck(problem, bucket, normalization):
+        return -1
+    return newton_re.u_max_for(newton_re.penalty_terms(
+        problem, local_mask, local_prior)[3])
+
+
+def lane_batch(dataset: RandomEffectDataset, b: int, batches,
+               bucket=None) -> LabeledBatch:
+    """Bucket ``b``'s local batches over its block-diagonal lane layout
+    (``bucket``: bucket ``b`` on the device, for a host-resident
+    dataset)."""
+    return LabeledBatch(features=dataset.lane_features(b, bucket),
+                        labels=batches.labels, offsets=batches.offsets,
+                        weights=batches.weights)
+
+
+def _chunk_lanes(dataset: RandomEffectDataset, b: int, bucket, chunk_batch,
+                 lo: int) -> LabeledBatch:
+    """The lane layout of lanes [lo, lo + chunk) of bucket ``b`` (the
+    padded entity slice ``chunk_batch`` of the measured routing's chunked
+    vmapped baseline): built once per (bucket, lo, chunk) of the prepared
+    data, beside the whole bucket's layout."""
+    f = chunk_batch.features
+    key = ("chunk", b, lo, f.idx.shape[0])
+    hit = dataset.lane_layouts.get(key)
+    if hit is None or hit[0] is not bucket.idx:
+        hit = (bucket.idx, LaneFeatures.from_bucket(
+            f.idx, f.val, f.dim).with_accelerator_paths())
+        if bucket is dataset.buckets[b]:
+            dataset.lane_layouts[key] = hit
+    return LabeledBatch(features=hit[1], labels=chunk_batch.labels,
+                        offsets=chunk_batch.offsets, weights=chunk_batch.weights)
 
 
 def bucket_inputs(dataset: RandomEffectDataset, b: int, offsets: Tensor,
-                  global_reg_mask: Optional[Tensor] = None, normalization=None):
+                  global_reg_mask: Optional[Tensor] = None, normalization=None,
+                  bucket=None):
     """Bucket ``b``'s solve inputs: its local regularization mask ``[E, P]``
     (``global_reg_mask`` projected, ghost slots at 1), its local batches at
-    ``offsets`` and its local normalization context (or None)."""
-    bucket = dataset.buckets[b]
+    ``offsets`` and its local normalization context (or None). ``bucket``
+    is bucket ``b`` on the device (default ``dataset.bucket(b)``)."""
+    bucket = dataset.bucket(b) if bucket is None else bucket
     dev, dt = bucket.val.device, bucket.val.dtype
     if global_reg_mask is not None:
         ext = torch.cat([global_reg_mask.to(device=dev, dtype=dt),
@@ -279,24 +292,57 @@ def bucket_inputs(dataset: RandomEffectDataset, b: int, offsets: Tensor,
 
 def _solve_bucket(problem, dataset: RandomEffectDataset, b: int, batches,
                   w0, local_mask, local_prior, normalization=None,
-                  local_norm=None):
+                  local_norm=None, bucket=None):
     """Pick and run the solver of bucket ``b``: ``(model, result, info)``
-    with ``info`` = {solver, chunk, u_max}. The vmapped plan runs on the
-    bucket's device, whatever it is: never moved elsewhere."""
-    bucket = dataset.buckets[b]
-    solver, chunk, u_max = plan_bucket(problem, bucket, local_mask,
-                                       local_prior, normalization)
-    info = {"solver": solver, "chunk": chunk, "u_max": u_max}
-    if solver == "vmapped_lbfgs":
-        model, result = problem.run_lanes(lane_batch(dataset, b, batches), w0,
-                                          local_mask, local_norm, local_prior)
+    with ``info`` = {solver, chunk, u_max, routing, calibrated,
+    calibration_seconds}. Under ``PHOTON_RE_ROUTING=measured`` the cost
+    table of ``game/solver_routing.py`` picks the plan, else the static
+    gates do. The vmapped plan runs on the bucket's device, whatever it is:
+    never moved elsewhere."""
+    bucket = dataset.buckets[b] if bucket is None else bucket
+    u_max_cell: list = []
+
+    def u_max() -> int:
+        if not u_max_cell:
+            u_max_cell.append(_u_max(problem, bucket, local_mask, local_prior,
+                                     normalization))
+        return u_max_cell[0]
+
+    def fit_primal(bb, w, m, pr, lo=0):
+        return newton_re.fit_bucket_newton(problem, bb, w, m, pr)
+
+    def fit_dual(bb, w, m, pr, lo=0):
+        return newton_re.fit_bucket_newton_dual(problem, bb, w, m, pr, u_max())
+
+    def fit_vmapped(bb, w, m, pr, lo=None):
+        if lo is None:      # the whole bucket
+            return problem.run_lanes(lane_batch(dataset, b, bb, bucket), w, m,
+                                     local_norm, pr)
+        return problem.run_lanes(_chunk_lanes(dataset, b, bucket, bb, lo),
+                                 w, m, None, pr)
+
+    fits = {"newton_primal": fit_primal, "newton_dual": fit_dual,
+            "vmapped_lbfgs": fit_vmapped}
+    if solver_routing.routing_mode() == "measured":
+        dev = bucket.val.device
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        model, result, info = solver_routing.solve_measured(
+            problem, bucket, batches, w0, local_mask, local_prior,
+            normalization, u_max(), fits.__getitem__, sync)
+        info["u_max"] = u_max()
         return model, result, info
-    if solver == "newton_primal":
-        def fit(b, w, m, pr):
-            return newton_re.fit_bucket_newton(problem, b, w, m, pr)
-    else:
-        def fit(b, w, m, pr):
-            return newton_re.fit_bucket_newton_dual(problem, b, w, m, pr, u_max)
+
+    solver, chunk, u = plan_bucket(problem, bucket, local_mask, local_prior,
+                                   normalization)
+    if u >= 0:
+        u_max_cell.append(u)
+    info = {"solver": solver, "chunk": chunk, "u_max": u, "routing": "static",
+            "calibrated": False, "calibration_seconds": 0.0}
+    fit = fits[solver]
     if chunk is None:
         model, result = fit(batches, w0, local_mask, local_prior)
     else:
@@ -325,12 +371,13 @@ def train_random_effects(
     of priors with [E, P] leaves (``RandomEffectModel.project_prior_to``).
     ``normalization`` is the shard's ``NormalizationContext`` (None without
     one): it turns the Newton tiers off and is gathered into each bucket's
-    lanes.
+    lanes. A host-resident dataset's buckets are uploaded one at a time.
     """
     coefs_out, var_out, results = [], [], []
     want_var = problem.variance_type.name != "NONE"
     LAST_BUCKET_TIMINGS.clear()
-    for b_i, bucket in enumerate(dataset.buckets):
+    for b_i in range(len(dataset.buckets)):
+        bucket = dataset.bucket(b_i)
         e, p = bucket.n_entities, bucket.local_dim
         dt = bucket.val.dtype
         if init_coefs is not None:
@@ -338,12 +385,12 @@ def train_random_effects(
         else:
             w0 = torch.zeros((e, p), dtype=dt, device=bucket.val.device)
         local_mask, batches, local_norm = bucket_inputs(
-            dataset, b_i, offsets, global_reg_mask, normalization)
+            dataset, b_i, offsets, global_reg_mask, normalization, bucket)
         local_prior = priors[b_i] if priors is not None else None
 
         model, result, info = _solve_bucket(
             problem, dataset, b_i, batches, w0, local_mask, local_prior,
-            normalization, local_norm)
+            normalization, local_norm, bucket)
         coefs_out.append(model.coefficients.means)
         if want_var:
             var_out.append(model.coefficients.variances)
@@ -351,7 +398,10 @@ def train_random_effects(
         LAST_BUCKET_TIMINGS.append({
             "bucket": b_i, "entities": e, "S": bucket.max_samples, "P": p,
             "solver": info["solver"], "chunk": info["chunk"],
-            "u_max": info["u_max"], "_iterations": result.iterations,
+            "u_max": info["u_max"], "routing": info["routing"],
+            "calibrated": info["calibrated"],
+            "calibration_seconds": info["calibration_seconds"],
+            "_iterations": result.iterations,
         })
 
     model = RandomEffectModel(

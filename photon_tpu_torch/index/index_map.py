@@ -225,5 +225,13 @@ class MmapIndexMap(IndexMap):
         name, _, term = blob[s:e].tobytes().decode("utf-8").partition(DELIMITER)
         return name, term
 
+    def key_blob(self) -> tuple[np.ndarray, np.ndarray]:
+        """Every key's utf-8 bytes in column order, in bulk: ``(blob uint8,
+        offsets int64 [size + 1])`` of the reverse store (key ``i`` is
+        ``blob[offsets[i]:offsets[i + 1]]``)."""
+        off = np.load(os.path.join(self._dir, "reverse.off.npy"))
+        blob = np.fromfile(os.path.join(self._dir, "reverse.keys.bin"), np.uint8)
+        return blob, off.astype(np.int64)
+
     def __len__(self) -> int:
         return self._size

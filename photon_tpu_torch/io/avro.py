@@ -23,8 +23,9 @@ enums ↔ strings, null union branches ↔ None. Schemas are plain parsed-JSON
 dicts; named-type references are resolved through a registry so photon's
 nested ``NameTermValueAvro`` reuse works.
 
-This is the port's only decoder: the native block decoder and the streaming
-reader of the JAX package are not ported yet.
+The readers decode training data with the native block decoder
+(``io/streaming.py``); this codec is the per-record reference and fallback,
+and it writes every container.
 """
 from __future__ import annotations
 

@@ -1,10 +1,13 @@
 """Avro training data → ELL feature tensors per feature shard.
 
-Port of ``photon_tpu/io/data_reader.py`` through its per-record path
-(``read_per_record``), plus ``InputColumnNames``, ``FeatureShardConfig``,
-``GameDataBundle`` and ``build_index_from_avro`` (its per-record scan). The JAX ``read()`` first tries its streaming block engine
-and native decoder, with the same semantics; that engine is ingest work and
-not ported yet, so here ``read()`` is the per-record path itself.
+Port of ``photon_tpu/io/data_reader.py``: ``InputColumnNames``,
+``FeatureShardConfig``, ``GameDataBundle``, ``AvroDataReader`` and
+``build_index_from_avro``. ``read()`` decodes through the streaming block
+engine and the native decoder (``io/streaming.py``); only a schema that
+engine cannot express (``Unsupported``) falls back, logged, to the
+per-record path ``read_per_record``, which gives the same bundle and is
+the oracle the streaming reader is tested against. The index scan of
+``build_index_from_avro`` likewise runs through the decoder's collect mode.
 
 Records are ``TrainingExampleAvro``-shaped: every ``(name, term)`` feature is
 looked up in the shard's index map and one sparse row is assembled per shard,
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import glob as globlib
+import logging
 import os
 from typing import Iterable, Mapping, Optional, Sequence
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.data.batch import LabeledBatch, ell_from_rows
+from photon_tpu_torch.data.random_effect import numpy_dtype
 from photon_tpu_torch.index.index_map import (
     INTERCEPT_NAME,
     INTERCEPT_TERM,
@@ -30,6 +35,8 @@ from photon_tpu_torch.index.index_map import (
     build_index_from_features,
 )
 from photon_tpu_torch.io.avro import read_container
+
+logger = logging.getLogger("photon_tpu_torch.io")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,14 +152,64 @@ class AvroDataReader:
             )
         self.columns = columns
         self.id_tag_columns = tuple(id_tag_columns)
+        self._streaming = None
+        self.last_reader: Optional[str] = None
 
     def read(
         self, paths, *, dtype: torch.dtype, device: torch.device,
-        require_labels: bool = True,
+        require_labels: bool = True, capture_uids: bool = True,
+        depth: Optional[int] = 0, workers: int = 0,
     ) -> GameDataBundle:
-        """Per-record pure-Python decode, as the JAX ``read_per_record``.
+        """Read Avro files into a bundle with its features on ``device``.
         ``require_labels=False`` admits unlabeled records (label → NaN), as
-        scoring does."""
+        scoring does; ``capture_uids=False`` leaves the uid column empty
+        (training never reads it).
+
+        Decodes through the streaming block engine (``io/prefetch.py``'s
+        ``read_bundle_pipelined``: ``depth`` chunks decoded ahead on a
+        thread, None for ``PHOTON_PREFETCH_DEPTH``; ``workers > 1`` decodes
+        on the worker pool of ``io/parallel_ingest.py``); a schema it
+        cannot express falls back to ``read_per_record``, with the same
+        results. ``last_reader`` names the reader that ran (``"native"`` or
+        ``"per_record"``)."""
+        from photon_tpu_torch.io.prefetch import read_bundle_pipelined
+        from photon_tpu_torch.io.streaming import StreamingAvroReader, Unsupported
+
+        try:
+            if self._streaming is None or (
+                    self._streaming.capture_uids != capture_uids):
+                # Cached: the per-shard hash tables and compiled programs are
+                # fixed by the configuration and reused across reads.
+                self._streaming = StreamingAvroReader(
+                    self.index_maps, self.shard_configs, self.columns,
+                    self.id_tag_columns, capture_uids=capture_uids)
+            bundle = read_bundle_pipelined(
+                self.index_maps, self.shard_configs, self.columns,
+                self.id_tag_columns, paths, device, dtype=numpy_dtype(dtype),
+                require_labels=require_labels, depth=depth, workers=workers,
+                reader=self._streaming)
+            self.last_reader = "native"
+            return bundle
+        except Unsupported as e:
+            return self.fall_back(e, paths, dtype=dtype, device=device,
+                                  require_labels=require_labels,
+                                  capture_uids=capture_uids)
+
+    def fall_back(self, reason, paths, **kw) -> GameDataBundle:
+        """``read_per_record`` in place of a streaming read that raised
+        ``Unsupported`` (``reason``): logged, and named in
+        ``last_reader``."""
+        logger.info("streaming ingest unavailable (%s); per-record read", reason)
+        self.last_reader = "per_record"
+        return self.read_per_record(paths, **kw)
+
+    def read_per_record(
+        self, paths, *, dtype: torch.dtype, device: torch.device,
+        require_labels: bool = True, capture_uids: bool = True,
+    ) -> GameDataBundle:
+        """Per-record pure-Python decode, as the JAX ``read_per_record``:
+        the oracle of the streaming engine and the fallback for schemas its
+        compiler cannot express."""
         cols = self.columns
         labels, offsets, weights, uids = [], [], [], []
         tags: dict[str, list] = {t: [] for t in self.id_tag_columns}
@@ -173,7 +230,8 @@ class AvroDataReader:
             offsets.append(rec.get(cols.offset) or 0.0)
             w = rec.get(cols.weight)
             weights.append(1.0 if w is None else w)
-            uids.append(rec.get(cols.uid) or "")
+            if capture_uids:
+                uids.append(rec.get(cols.uid) or "")
             meta = rec.get("metadataMap") or {}
             for t in self.id_tag_columns:
                 v = rec.get(t)
@@ -215,7 +273,8 @@ class AvroDataReader:
             labels=np.asarray(labels, np.float64),
             offsets=np.asarray(offsets, np.float64),
             weights=np.asarray(weights, np.float64),
-            uids=np.asarray(uids, object),
+            uids=(np.asarray(uids, object) if capture_uids
+                  else np.full(len(labels), "", object)),
             id_tags={t: np.asarray(v, object) for t, v in tags.items()},
         )
 
@@ -242,9 +301,18 @@ def build_index_from_avro(
     add_intercept: bool = True,
 ) -> DefaultIndexMap:
     """Scan Avro files and index every (name, term) seen, in first-seen
-    order with the intercept first (the JAX package's per-record scan; its
-    native collect mode is ingest work not ported yet). Bags are read in
-    record field order."""
+    order with the intercept first: through the native decoder's collect
+    mode, else (``Unsupported``) the per-record scan, which indexes in the
+    same order. Bags are read in record field order."""
+    from photon_tpu_torch.io.streaming import Unsupported, collect_feature_keys
+
+    try:
+        keys = collect_feature_keys(
+            paths, {"__index__": FeatureShardConfig(tuple(feature_bags))})
+        return build_index_from_features(keys["__index__"],
+                                         add_intercept=add_intercept)
+    except Unsupported:
+        pass
     bags = set(feature_bags)
 
     def pairs():

@@ -31,7 +31,7 @@ from photon_tpu_torch.data.random_effect import numpy_dtype
 from photon_tpu_torch.game.coordinates import FixedEffectModel
 from photon_tpu_torch.game.descent import GameModel
 from photon_tpu_torch.game.random_effect import RandomEffectModel
-from photon_tpu_torch.index.index_map import IndexMap
+from photon_tpu_torch.index.index_map import IndexMap, feature_key
 from photon_tpu_torch.io.avro import ContainerWriter, read_records, write_container
 from photon_tpu_torch.io.schemas import (
     BAYESIAN_LINEAR_MODEL_AVRO,
@@ -80,10 +80,33 @@ def _nt_list(imap: IndexMap, indices, values) -> list[dict]:
     return out
 
 
-def _from_nt_list(imap: IndexMap, items) -> tuple[np.ndarray, np.ndarray]:
+def _key_lookup(imap: IndexMap):
+    """``(name, term) -> column`` (-1 if absent) for one load: a dict of the
+    whole index where the map stores its keys in bulk (``key_blob``), else
+    the map's own lookups, memoized (a model names most columns many
+    times)."""
+    bulk = getattr(imap, "key_blob", None)
+    if bulk is not None:
+        blob, off = bulk()
+        raw = blob.tobytes()
+        table = {raw[off[i]:off[i + 1]].decode("utf-8"): i
+                 for i in range(len(off) - 1)}
+        return lambda name, term: table.get(feature_key(name, term), -1)
+    memo: dict = {}
+
+    def lookup(name, term):
+        i = memo.get((name, term))
+        if i is None:
+            i = memo[(name, term)] = imap.get_index(name, term)
+        return i
+
+    return lookup
+
+
+def _from_nt_list(lookup, items) -> tuple[np.ndarray, np.ndarray]:
     idx, val = [], []
     for it in items:
-        i = imap.get_index(it["name"], it.get("term"))
+        i = lookup(it["name"], it.get("term"))
         if i >= 0:
             idx.append(i)
             val.append(it["value"])
@@ -202,8 +225,13 @@ def load_game_model(
         return torch.as_tensor(a).to(device=device, dtype=torch_dtype)
 
     models: dict = {}
+    lookups: dict = {}
     for cid, info in meta["coordinates"].items():
-        imap = index_maps[info["feature_shard"]]
+        shard = info["feature_shard"]
+        imap = index_maps[shard]
+        if shard not in lookups:
+            lookups[shard] = _key_lookup(imap)
+        lookup = lookups[shard]
         task = TaskType(info["task"])
         if info["type"] == "fixed":
             recs = read_records(
@@ -211,12 +239,12 @@ def load_game_model(
             )
             if len(recs) != 1:
                 raise ValueError(f"{cid}: expected 1 model record, got {len(recs)}")
-            gi, gv = _from_nt_list(imap, recs[0]["means"])
+            gi, gv = _from_nt_list(lookup, recs[0]["means"])
             w = np.zeros(len(imap), np.float64)
             w[gi] = gv
             variances = None
             if recs[0].get("variances"):
-                vi, vv = _from_nt_list(imap, recs[0]["variances"])
+                vi, vv = _from_nt_list(lookup, recs[0]["variances"])
                 variances = np.zeros(len(imap), np.float64)
                 variances[vi] = vv
                 variances = put(variances)
@@ -235,11 +263,11 @@ def load_game_model(
             for part in parts:
                 for rec in read_records(part):
                     entity_keys.append(rec["modelId"])
-                    sparse.append(_from_nt_list(imap, rec["means"]))
+                    sparse.append(_from_nt_list(lookup, rec["means"]))
                     # null = variances not computed; [] = entity with no
                     # active features (still "has variances" as a coordinate)
                     sparse_var.append(
-                        _from_nt_list(imap, rec["variances"])
+                        _from_nt_list(lookup, rec["variances"])
                         if rec.get("variances") is not None
                         else None
                     )

@@ -141,3 +141,48 @@ def test_suite_matches_and_bad_specs_raise():
             parse_evaluator(bad) if bad else EvaluationSuite.parse([])
     with pytest.raises(ValueError, match="group ids"):
         EvaluationSuite.parse(["AUC:queryId"]).evaluate(ts, ty, tw)
+
+
+def _grouped_inputs(n=5000, groups=40, seed=3):
+    rng = np.random.default_rng(seed)
+    scores = torch.from_numpy(rng.normal(size=n))
+    labels = torch.from_numpy((rng.random(n) < 0.4).astype(np.float64))
+    weights = torch.from_numpy(rng.random(n))
+    gids = torch.from_numpy(rng.integers(0, groups, size=n))
+    return scores, labels, weights, gids, groups
+
+
+def test_segment_sum_equals_index_add():
+    """The sorted, segmented group sum equals the index_add_ it replaced,
+    and the doubling prefix sum the cumsum it replaced (f64, within 1e-12
+    of the largest)."""
+    scores, _, weights, gids, m = _grouped_inputs()
+    old = torch.zeros(m, dtype=torch.float64).index_add_(0, gids, weights * scores)
+    new = tm._Segments(gids, m).sum(weights * scores)
+    assert torch.abs(new - old).max() <= 1e-12 * torch.abs(old).max()
+    for n in (1, 2, 7, 5000):
+        old = torch.cumsum(weights[:n] * scores[:n], 0)
+        new = tm._cumsum(weights[:n] * scores[:n])
+        assert torch.abs(new - old).max() <= 1e-12 * torch.abs(old).max()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the port's CUDA paths have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_grouped_metrics_repeat_bit_equal_on_card(cuda_device):
+    """Grouped metrics on the card repeat bit for bit (a resumed fit's
+    tracker compares them so)."""
+    scores, labels, weights, gids, m = (
+        t.to(cuda_device) if isinstance(t, torch.Tensor) else t
+        for t in _grouped_inputs(n=1 << 18, groups=1000))
+    for fn in (lambda: tm.grouped_auc(scores, labels, gids, weights, m),
+               lambda: tm.grouped_pointwise("LOGISTIC_LOSS", scores, labels,
+                                            gids, weights, m)):
+        first = fn()
+        for _ in range(5):
+            assert torch.equal(fn(), first)

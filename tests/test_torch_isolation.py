@@ -1,10 +1,12 @@
 """The PyTorch port stands alone and never falls back to the CPU.
 
-* A fresh interpreter imports every module of ``photon_tpu_torch`` and runs
-  the CPU-importable parts of ``chip_smoke.py`` (its data, model, bound and
-  phase functions, the training, GAME training and vmapped GAME training
-  phases included, at a tiny size, with the CPU as both devices); afterwards neither ``jax`` nor any ``photon_tpu``
-  module is loaded.
+* A fresh interpreter imports every module of ``photon_tpu_torch`` (the
+  native decoder's loader included) and runs the CPU-importable parts of
+  ``chip_smoke.py`` (its data, model, bound and phase functions, the
+  training, GAME training, checkpoint, routing, sweep-cache, vmapped GAME
+  training and ingest phases included, at a tiny size, with the CPU as both
+  devices); afterwards neither ``jax`` nor any ``photon_tpu`` module is
+  loaded.
 * No source line of the port or of ``chip_smoke.py`` imports them.
 * Without a GPU, ``resolve_device()`` and the port's scoring driver run
   without ``--device cpu`` raise instead of running on the CPU (the GPU is
@@ -65,18 +67,40 @@ gd = chip_smoke.phase_game_training_driver(torch, cs, tiny, cpu, cpu, root, inpu
 assert gd["saved_rel_err_vs_ref"] == {"fixed_means": 0.0, "random_means": 0.0}, gd
 assert gd["random_effect_coefficients"] > 0 and gd["validation_rows"] == 32, gd
 assert set(gd["scoring"]["evaluation"]) == {"AUC"}, gd
+keep = {}
 gt = chip_smoke.phase_game_training(
     torch, cs, dict(n_users=40, rows_per_user=6, d_global=48, d_user=4,
-                    iterations=4), 12, cpu, cpu, f64_users_full_dual=10)
+                    iterations=4), 12, cpu, cpu, f64_users_full_dual=10, keep=keep)
 assert not gt["tf32_matmul"] and set(gt["launches"]) == {"fit_a", "fit_b"}, gt
+assert gt["fit_a"]["bit_equal_repeat"] == "in phase checkpoint", gt["fit_a"]
 for fit in ("fit_a", "fit_b"):
     assert gt[fit]["bit_equal_repeat"] and gt[fit]["plans"], gt[fit]
+    assert len(gt[fit]["ref_steps"]) == 2 * len(gt[fit]["re_weights"]), gt[fit]
     assert len(gt[fit]["steps"]) == 4 * len(gt[fit]["re_weights"]), gt[fit]
     assert gt[fit]["vs_ref"]["metric_abs_err"] == 0.0, gt[fit]
     assert gt[fit]["vs_ref"]["lane_objective_rel_err"] == 0.0, gt[fit]
     assert gt[fit]["vs_ref"]["coef_rel_err"]["0/fixed/user_block"] == 0.0, gt[fit]
     assert gt[fit + "_f64"]["coef_rel_err_vs_ref"] == 0.0, gt
 assert gt["fit_a_f64_full_dual"]["coef_rel_err_vs_ref"] == 0.0, gt
+ck = chip_smoke.phase_checkpoint(torch, cs, keep, root)
+assert ck["bit_identical"] and ck["jax_snapshot_refused"], ck
+assert ck["resumed_from"] == {"sweep": 0, "coord_index": 1, "config_index": 0}, ck
+rt = chip_smoke.phase_routing(torch, cs, keep, root)
+assert rt["repeat_bit_equal"] and rt["calibrated_buckets"] > 0, rt
+assert all(rt["static_plan_buckets_bit_equal"]), rt
+assert rt["chunked_lanes"]["coef_rel_err_vs_whole_bucket"] <= 1e-3, rt
+assert all(c["costs"] and c["winner"] for c in rt["classes"].values()), rt
+sc = chip_smoke.phase_sweep_cache(
+    torch, cs, dict(n_users=40, rows_per_user=6, d_global=48, d_user=4,
+                    iterations=4), cpu)
+on, off = sc["runs"]["cache_2048mb"], sc["runs"]["cache_off"]
+assert sc["bit_identical"] and on["h2d_bytes_per_sweep"][1] == 0, sc
+assert off["h2d_bytes_per_sweep"][1] > 0 and on["hits"] > 0, sc
+ig = chip_smoke.phase_ingest(torch, cs, dict(tiny, rows_per_user=6), cpu, root,
+                             inputs)
+assert ig["full"]["rows"] == 32 * 6 and ig["small"]["rows"] == 64, ig
+assert ig["scoring"]["bit_equal_share"] == 1.0, ig
+assert ig["training_driver"]["read_seconds"] > 0, ig
 vm = chip_smoke.phase_game_training_vmapped(
     torch, cs, dict(n_users=40, rows_per_user=6, d_global=48, d_user=4,
                     iterations=4), 12, cpu, cpu)

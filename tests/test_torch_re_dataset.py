@@ -159,11 +159,25 @@ def test_pearson_scores_equal_jax():
 
 
 def test_host_resident_is_refused():
+    """Host-resident buckets (the sweep cache's input) hold the JAX
+    builder's host arrays; each upload through ``bucket(b)`` is counted.
+    A bucket cap of 0 is still refused."""
     keys, idx, val, labels, dg, _ = grid_data("float32")
-    with pytest.raises(NotImplementedError, match="M10"):
-        build_random_effect_dataset("re", keys, idx, val, labels, dg,
-                                    dtype=torch.float32, device=CPU,
-                                    host_resident=True)
+    from photon_tpu_torch.data import random_effect as tre_data
+
+    want = jax_build("re", keys, idx, val, labels, dg, dtype=np.float32,
+                     host_resident=True)
+    got = build_random_effect_dataset("re", keys, idx, val, labels, dg,
+                                      dtype=torch.float32, device=CPU,
+                                      host_resident=True)
+    assert got.host_resident and isinstance(want.buckets[0].idx, np.ndarray)
+    assert_same(got, want)
+    tre_data.reset_uploads()
+    up = [got.bucket(b) for b in range(len(got.buckets))]
+    assert tre_data.UPLOADS == {"buckets": len(got.buckets),
+                                "bytes": sum(b.nbytes for b in got.buckets)}
+    for gb, ub in zip(got.buckets, up):
+        assert all(torch.equal(getattr(gb, f), getattr(ub, f)) for f in FIELDS)
     with pytest.raises(ValueError, match="max_bucket_entities"):
         build_random_effect_dataset("re", keys, idx, val, labels, dg,
                                     dtype=torch.float32, device=CPU,

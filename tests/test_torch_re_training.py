@@ -303,8 +303,10 @@ def test_incremental_priors_fit_as_jax():
 
 def test_vmapped_plan_and_measured_routing_raise(monkeypatch):
     """A bucket whose static plan is the vmapped tier (OWL-QN / L1) solves
-    as masked batched lanes, as JAX's vmapped solve does; a ``measured``
-    routing request still raises, naming its slice."""
+    as masked batched lanes, as JAX's vmapped solve does; under ``measured``
+    routing such a bucket admits no Newton candidate, so it races nothing
+    and solves the whole bucket as lanes, to the static run's coefficients
+    bit for bit."""
     jd, td, offsets, mask = re_datasets("primal")
     jp, tp = re_problems(optimizer="OWLQN", reg="L1")
     jm, jr = jre.train_random_effects(jp, jd, jnp.asarray(offsets),
@@ -315,10 +317,16 @@ def test_vmapped_plan_and_measured_routing_raise(monkeypatch):
     assert plans == [(r["solver"], r["chunk"]) for r in jre.LAST_BUCKET_TIMINGS]
     assert plans and all(p == ("vmapped_lbfgs", None) for p in plans)
     assert_same_fit(jm, jr, tm, tr)
-    _, tp = re_problems()
     monkeypatch.setenv("PHOTON_RE_ROUTING", "measured")
-    with pytest.raises(NotImplementedError, match="solver_routing"):
-        tre.train_random_effects(tp, td, torch.from_numpy(offsets))
+    monkeypatch.delenv("PHOTON_RE_COST_TABLE", raising=False)
+    mm, _ = tre.train_random_effects(tp, td, torch.from_numpy(offsets),
+                                     global_reg_mask=torch.from_numpy(mask))
+    recs = tre.bucket_records()
+    assert recs and all(
+        (r["routing"], r["solver"], r["chunk"], r["calibrated"])
+        == ("measured", "vmapped_lbfgs", None, False) for r in recs)
+    for a, b in zip(tm.bucket_coefs, mm.bucket_coefs):
+        assert torch.equal(a, b)
 
 
 def assert_same_fit(jm, jr, tm, tr, coef_tol=1e-9):
@@ -450,7 +458,7 @@ def test_drivers_cross_score_random_effect_models(avro_data, tmp_path):
     ps = game_training_driver.run(common + ["--output-dir", str(tmp_path / "port"),
                                             "--device", "cpu", "--re-routing",
                                             "static"])
-    strip = ("fit_seconds", "model_dirs", "evaluation")
+    strip = ("fit_seconds", "model_dirs", "evaluation", "reader", "read_seconds")
     assert {k: v for k, v in ps.items() if k not in strip} == \
         {k: v for k, v in js.items() if k not in strip}
     assert set(ps["evaluation"]) == {"AUC", "LOGISTIC_LOSS"}

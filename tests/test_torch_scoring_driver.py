@@ -115,8 +115,11 @@ def test_port_driver_matches_jax_driver(trained, tmp_path, dtype, atol):
     js, jrecs = _score(jax_scoring_driver, d, out, tmp_path / "jax", ["--dtype", dtype])
     ps, precs = _score(game_scoring_driver, d, out, tmp_path / "port",
                        ["--dtype", dtype, "--device", "cpu"])
+    # the port's summary also names the reader that ran
+    assert ps.pop("reader") == "native"
     assert ps == js == {"n_rows": n_score, "evaluation": None}
-    assert json.loads((tmp_path / "port" / "scoring-summary.json").read_text()) == ps
+    assert json.loads((tmp_path / "port" / "scoring-summary.json").read_text()) == {
+        **ps, "reader": "native"}
     assert [r["uid"] for r in precs] == [r["uid"] for r in jrecs] == [
         str(i) for i in range(n_score)]
     assert [r["label"] for r in precs] == [r["label"] for r in jrecs]
@@ -144,9 +147,8 @@ def test_port_driver_evaluators_match_jax(trained, tmp_path, dtype):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--chunk-rows", "100"], "streaming"),
     (["--devices", "2"], "multi-GPU"),
-], ids=["chunk_rows", "devices"])
+], ids=["devices"])
 def test_port_driver_refuses_later_slices(tmp_path, capsys, flags, slice_name):
     with pytest.raises(SystemExit) as e:
         game_scoring_driver.run([
@@ -155,3 +157,28 @@ def test_port_driver_refuses_later_slices(tmp_path, capsys, flags, slice_name):
         ])
     assert e.value.code == 2
     assert slice_name in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("float64", 1e-12)])
+def test_chunked_scoring_matches_jax_and_whole(trained, tmp_path, dtype, atol):
+    """``--chunk-rows`` streams 20 rows at a time (padded as JAX pads them):
+    the same scores and grouped evaluation as the JAX driver with the same
+    flags, and as the port's whole-dataset path."""
+    d, out, n_score = trained
+    ev = ["--evaluators", "AUC", "AUC:userId"]
+    js, jrecs = _score(jax_scoring_driver, d, out, tmp_path / "jax",
+                       ["--dtype", dtype, "--chunk-rows", "20", *ev])
+    ps, precs = _score(game_scoring_driver, d, out, tmp_path / "port",
+                       ["--dtype", dtype, "--device", "cpu", "--chunk-rows", "20",
+                        *ev])
+    ws, wrecs = _score(game_scoring_driver, d, out, tmp_path / "whole",
+                       ["--dtype", dtype, "--device", "cpu", *ev])
+    assert ps["n_rows"] == js["n_rows"] == n_score and ps["reader"] == "native"
+    for recs in (jrecs, wrecs):
+        assert [r["uid"] for r in precs] == [r["uid"] for r in recs]
+        np.testing.assert_allclose([r["predictionScore"] for r in precs],
+                                   [r["predictionScore"] for r in recs],
+                                   rtol=0, atol=atol)
+    for k, want in js["evaluation"].items():
+        assert abs(ps["evaluation"][k] - want) <= 1e-6
+        assert abs(ps["evaluation"][k] - ws["evaluation"][k]) <= 1e-6

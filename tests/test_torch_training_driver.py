@@ -19,6 +19,7 @@ the JAX package's. Random-effect training through the drivers is held
 against JAX in ``tests/test_torch_re_training.py``.
 """
 import json
+import os
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from photon_tpu.cli import game_scoring_driver as jax_scoring
 from photon_tpu.cli import game_training_driver as jax_training
 from photon_tpu.io.avro import read_records
 from photon_tpu_torch.cli import game_scoring_driver, game_training_driver
+from photon_tpu_torch.game import random_effect as tre
 from test_torch_scoring_driver import _write_game_avro
 
 CONFIGS = {
@@ -87,8 +89,11 @@ def test_port_training_driver_matches_jax(data, tmp_path, name):
     ps = _train(game_training_driver, data, tmp_path / "port", task, spec,
                 ["--device", "cpu"])
     assert set(ps["model_dirs"]) == set(js["model_dirs"]) >= {"best", "0"}
-    assert {k: v for k, v in ps.items() if k not in ("fit_seconds", "model_dirs")} == \
-        {k: v for k, v in js.items() if k not in ("fit_seconds", "model_dirs")}
+    # the port's summary also names the reader that ran and its seconds
+    assert ps["reader"] == "native" and ps["read_seconds"] >= 0
+    port_only = ("fit_seconds", "model_dirs", "reader", "read_seconds")
+    assert {k: v for k, v in ps.items() if k not in port_only} == \
+        {k: v for k, v in js.items() if k not in port_only}
     assert json.loads((tmp_path / "port" / "training-summary.json").read_text()) == ps
     for sub in ps["model_dirs"]:
         rel = "best" if sub == "best" else f"models/{sub}"
@@ -137,7 +142,7 @@ def test_normalized_drivers_cross_score_and_summaries_agree(data, tmp_path):
                                     "--devices", "1"])
     ps = game_training_driver.run(common + ["--output-dir", str(tmp_path / "port"),
                                             "--device", "cpu"])
-    strip = ("fit_seconds", "model_dirs")
+    strip = ("fit_seconds", "model_dirs", "reader", "read_seconds")
     assert {k: v for k, v in ps.items() if k not in strip} == \
         {k: v for k, v in js.items() if k not in strip}
     jsum = _summary(tmp_path / "jax" / "summary" / "global.avro")
@@ -164,20 +169,17 @@ def test_normalized_drivers_cross_score_and_summaries_agree(data, tmp_path):
 
 # Each refused flag with a value that sets it.
 REFUSED = {
-    "--checkpoint-dir": ["ckpt"], "--max-restarts": ["1"],
+    "--max-restarts": ["1"],
     "--restart-backoff": ["2"], "--heartbeat-dir": ["hb"], "--tuning": ["gp"],
     "--tuning-iterations": ["3"], "--tuning-range": ["fixed:0.1:10"],
-    "--devices": ["2"], "--mesh": ["data=2"], "--ingest-workers": ["4"],
-    "--prefetch-depth": ["2"], "--bf16-feed": [], "--sweep-cache-mb": ["64"],
+    "--devices": ["2"], "--mesh": ["data=2"], "--bf16-feed": [],
     "--profile-dir": ["prof"], "--debug-nans": [], "--trace-out": ["t.json"],
     "--telemetry-dir": ["tel"], "--backend-policy": ["strict"],
     "--distributed-policy": ["strict"], "--fault-plan": ["plan.json"],
     "--compilation-cache-dir": ["cc"], "--compile-store": ["cs"],
-    "--clear-caches-per-config": [], "--re-routing": ["measured"],
-    "--re-cost-table": ["costs.json"],
+    "--clear-caches-per-config": [],
 }
 REFUSED_COORDINATES = {
-    "random": "perUser:type=random,re_type=userId,shard=global,host_resident=1",
     "factored": "perUser:type=factored,re_type=userId,shard=global,latent=2",
 }
 
@@ -276,3 +278,98 @@ def test_sanity_checks_match_jax(task, mode):
             torch.from_numpy(y), torch.from_numpy(off), torch.from_numpy(wt)),
             TaskType[task], DataValidationType[mode], sample)
         assert got == want and len(want) >= 3
+
+
+def test_bf16_feed_names_its_slice(tmp_path, capsys):
+    with pytest.raises(SystemExit):
+        game_training_driver.run(_base_args(tmp_path) + ["--bf16-feed"])
+    assert "K1-bf16" in capsys.readouterr().err
+
+
+GAME_SPECS = [
+    "fixed:type=fixed,shard=global,reg=L2,reg_weights=1,max_iter=30",
+    "perUser:type=random,re_type=userId,shard=global,reg=L2,reg_weights=1,"
+    "max_iter=30",
+]
+
+
+def _seed_cost_table(path, train_avro):
+    """One cost table for both packages: every (solver, ladder chunk) of
+    every bucket shape of the drivers' random effect, the vmapped lanes
+    cheapest, under each package's own key (bucket shapes are equal)."""
+    from photon_tpu_torch.estimators.config import RandomEffectDataConfig
+    from photon_tpu_torch.estimators.game_estimator import build_re_dataset_from_bundle
+    from photon_tpu_torch.game import newton_re, solver_routing
+    from photon_tpu_torch.io.data_reader import AvroDataReader, build_index_from_avro
+
+    im = build_index_from_avro(train_avro)
+    bundle = AvroDataReader({"global": im}, id_tag_columns=["userId"]).read(
+        train_avro, dtype=torch.float64, device=torch.device("cpu"))
+    ds = build_re_dataset_from_bundle(bundle, RandomEffectDataConfig("userId"),
+                                      im.intercept_index)
+    costs = {f"{s}@{c}": (1e-9 if s == "vmapped_lbfgs" else 1e9)
+             for s in ("newton_primal", "newton_dual", "vmapped_lbfgs")
+             for c in newton_re.chunk_ladder()}
+    entries = {}
+    for b in ds.buckets:
+        key = solver_routing.shape_class(b)
+        entries[key] = entries[key.split("/")[-1]] = costs
+    json.dump({"version": 1, "entries": entries}, open(path, "w"))
+
+
+FLAG_CASES = {
+    "checkpoint_ingest": (GAME_SPECS, ["--checkpoint-dir", "{tmp}/{pkg}_ck",
+                                       "--ingest-workers", "2",
+                                       "--prefetch-depth", "1"]),
+    "measured_routing": (GAME_SPECS, ["--re-routing", "measured",
+                                      "--re-cost-table", "{tmp}/costs.json"]),
+    "sweep_cache": ([GAME_SPECS[0], GAME_SPECS[1] + ",host_resident=1"],
+                    ["--sweep-cache-mb", "64"]),
+}
+
+
+@pytest.mark.parametrize("case", list(FLAG_CASES))
+def test_ported_flags_write_jax_models(data, tmp_path, monkeypatch, case):
+    """The flags this slice ports run, and the port's driver writes the
+    model the JAX driver writes given the same flags (f64, 2 sweeps)."""
+    from test_torch_re_training import _saved_re
+    from photon_tpu.game import solver_routing as jsr
+    from photon_tpu_torch.game import solver_routing as tsr
+
+    specs, flags = FLAG_CASES[case]
+    flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
+    # the drivers install their routing flags in the environment
+    monkeypatch.setenv("PHOTON_RE_ROUTING", "static")
+    monkeypatch.setenv("PHOTON_RE_COST_TABLE", "")
+    monkeypatch.setenv("PHOTON_RE_CHUNK_LADDER", "4,8")
+    for mod in (tsr, jsr):
+        mod.reset_process_table()
+    if case == "measured_routing":
+        _seed_cost_table(tmp_path / "costs.json", str(data / "train.avro"))
+    train = [str(data / "train.avro")] + (
+        [str(data / "score.avro")] if case == "checkpoint_ingest" else [])
+    common = ["--train-data", *train, "--task", "LOGISTIC_REGRESSION",
+              "--coordinate", specs[0], "--coordinate", specs[1],
+              "--sweeps", "2", "--dtype", "float64", *flags]
+    try:
+        jax_training.run([a.replace("{pkg}", "jax") for a in common]
+                         + ["--output-dir", str(tmp_path / "jax"), "--devices", "1"])
+        ps = game_training_driver.run(
+            [a.replace("{pkg}", "port") for a in common]
+            + ["--output-dir", str(tmp_path / "port"), "--device", "cpu"])
+    finally:
+        for mod in (tsr, jsr):
+            mod.reset_process_table()
+    assert ps["reader"] == "native"
+    pm, jm = _saved(tmp_path / "port" / "best")[0], _saved(tmp_path / "jax" / "best")[0]
+    _close_maps(pm, jm)
+    pr, jr = _saved_re(tmp_path / "port" / "best"), _saved_re(tmp_path / "jax" / "best")
+    assert set(pr) == set(jr) and len(pr) > 20
+    assert max(abs(pr[k] - jr[k]) for k in jr) <= 1e-8
+    if case == "checkpoint_ingest":
+        # each package refuses the other's snapshots: separate directories
+        assert any(n.startswith("step-") for n in os.listdir(tmp_path / "port_ck"))
+    if case == "measured_routing":
+        recs = tre.bucket_records()
+        assert recs and all(r["routing"] == "measured" and not r["calibrated"]
+                            and r["solver"] == "vmapped_lbfgs" for r in recs)
