@@ -157,7 +157,9 @@ WORK = os.path.join(REPO, "photon_tpu_torch", "_build", "chip_smoke")
 FULL = dict(n_users=4096, rows_per_user=128, d_global=262144, d_user=16,
             k_global=28, k_user=4, driver_rows_per_user=8)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # outside tensor cores
+# outside the tensor cores; bf16 values are upcast and summed as f32 / f64
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12}
+VALUE_BYTES = {"float32": 4, "float64": 8, "bfloat16": 2}
 REPLACES = "photon_tpu/ops/pallas_sparse.py:248"        # _gather_onehot_kernel
 TPU_ENTRY = {"ell_panel_matvec": "matvec_pallas (pallas_sparse.py:331)",
              "ell_matvec": "matvec_pallas (pallas_sparse.py:331)",
@@ -245,13 +247,15 @@ def model_spec(n_users, d_global, d_user, intercept: bool, seed=9, **_) -> dict:
 
 def kernel_bound(name: str, n: int, k: int, dim: int, nnz: int, dtype: str) -> dict:
     """Least time the card could take: each input read once, each output
-    written once, over 3.35 TB/s; operations over the peak for the type."""
-    vb = 4 if dtype == "float32" else 8
+    written once, over 3.35 TB/s; operations over the peak for the type.
+    ``dtype`` is the values' type; bf16 values go with f32 vectors."""
+    vb = VALUE_BYTES[dtype]
+    xb = 8 if dtype == "float64" else 4
     if name in ("ell_matvec", "ell_panel_matvec"):
-        nbytes = n * k * (4 + vb) + dim * vb + n * vb
+        nbytes = n * k * (4 + vb) + dim * xb + n * xb
         ops = 2 * n * k
     else:
-        nbytes = (dim + 1) * 8 + nnz * (4 + vb) + n * vb + dim * vb
+        nbytes = (dim + 1) * 8 + nnz * (4 + vb) + n * xb + dim * xb
         ops = (3 if name == "csc_sq_rmatvec" else 2) * nnz
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -550,15 +554,20 @@ def feature_names(sizes) -> list:
 
 
 def write_game_avro(sizes, path: str, rows_per_user: int, seed: int,
-                    label_seed: int, uid_prefix: str) -> int:
+                    label_seed: int, uid_prefix: str, bf16: bool = False) -> int:
     """Rows laid out by ``game_arrays`` (intercept in column 0) as Avro
     training examples with coin-flip labels and small offsets; returns the
-    row count."""
+    row count. ``bf16`` writes the feature values rounded to bfloat16 (the
+    values a ``--bf16-feed`` read of the unrounded file gives)."""
     from photon_tpu_torch.io.avro import ContainerWriter
     from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
 
     idx, val, dim, users, keys = game_arrays(
         col0=1, seed=seed, **dict(sizes, rows_per_user=rows_per_user))
+    if bf16:
+        import torch
+
+        val = torch.from_numpy(val).to(torch.bfloat16).float().numpy()
     name_term = [n.split("\x01") for n in feature_names(sizes)]
     assert len(name_term) == dim
     rng = np.random.default_rng(label_seed)
@@ -1164,7 +1173,7 @@ class _StepLaunches:
 
     def per_sweep(self) -> list:
         """Launches of each (config, sweep): deltas between snapshots."""
-        out, prev = [], {k: 0 for k in self.cs.KERNELS}
+        out, prev = [], {k: 0 for k in self.cs.ALL_KERNELS}
         for (sweep, cid), snap in self.snaps:
             delta = {k: snap[k] - prev[k] for k in snap}
             prev = snap
@@ -2130,7 +2139,8 @@ def vm_point_gap(torch, ests, bundles, cfg, ref_fit, dev, ref_dev) -> dict:
     return out
 
 
-def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev) -> dict:
+def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev,
+                                keep=None) -> dict:
     """GAME fits whose random-effect buckets take the vmapped tier, through
     ``GameEstimator.fit`` at ``sizes`` (fit A's shape), validated on a
     seed-3 bundle with AUC and LOGISTIC_LOSS:
@@ -2200,6 +2210,10 @@ def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev) -> 
             ds = est._prepare_cached(train)["datasets"]["perUser"]
             big = max(range(len(ds.buckets)), key=lambda i: ds.buckets[i].n_entities)
             flat = ds.lane_features(big).flat
+            if name == "fit_c" and keep is not None:
+                # phase bf16_kernels' lane layout
+                keep["fit_c_lanes"] = (flat.idx.cpu().numpy(), flat.val.cpu().numpy(),
+                                       flat.dim)
             if name == "fit_c":
                 res["lane_matvec"] = matvec_at(
                     torch, cs, flat.idx.cpu().numpy(), flat.val.cpu().numpy(),
@@ -2506,6 +2520,475 @@ def phase_ingest(torch, cs, sizes, dev, root: str, inputs: dict) -> dict:
     if failures:
         emit({"phase": "ingest", **{k: v for k, v in out.items() if k != "launches"}})
         raise AssertionError("; ".join(failures))
+    return out
+
+
+# ------------------------------------------------------------ bf16 values
+
+# The GLM driver phase's iterations (a cap at tolerance 1e-7; the λ grid is
+# one weight) and its out-of-core chunk: 2^19 rows / 65,536 = 8 chunks.
+GLM_ITERATIONS = 20
+GLM_CHUNK_ROWS = 65536
+# The f64 witness's iterations (out-of-core against in-core, 1e-9).
+GLM_F64_ITERATIONS = 10
+GLM_F64_RTOL = 1e-9
+# f32 on equal inputs: the in-core and streamed objective at one point
+# (each sums in float64 and rounds once; the streamed sum adds 8 rounded
+# chunk partials), value and gradient.
+GLM_POINT_RTOL_F32 = 1e-5
+# --bf16-feed against the float32 driver run on the unrounded values: the
+# validation metrics (the values rounded to 8 bits of mantissa move the
+# model a little). The gate that decides is bit equality with the float32
+# run on the rounded values.
+BF16_FEED_METRIC_ATOL = 1e-2
+
+
+# The yardstick for a bf16 kernel: cuSPARSE SpMV with bf16 values and
+# vector (torch's CSR ``@`` on bf16 operands, float accumulation).
+BF16_LIBRARY_CALL = "cuSPARSE SpMV, bf16 values and vector (torch.sparse_csr @)"
+
+
+def bf16_case(torch, cs, dev, idx_np, val_np, dim, seed, names) -> dict:
+    """The bf16 entry points of ``names`` on one layout, values rounded to
+    bf16: each bit-equal to its f32 kernel on the upcast values, bit-equal
+    on repeat, within the f32 tolerance of its plain version; times of the
+    bf16 kernel and of the f32 kernel (in turns), the plain version, the
+    library call; the bound from the bf16 layout's bytes."""
+    import dataclasses
+
+    n, k = idx_np.shape
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(idx_np).to(dev)
+    vb = torch.from_numpy(val_np).to(dev, torch.float32).to(torch.bfloat16)
+    up = vb.float()
+    w = torch.from_numpy(rng.normal(size=dim)).to(dev, torch.float32)
+    v = torch.from_numpy(rng.normal(size=n)).to(dev, torch.float32)
+    csc_up = cs.build_csc(idx, up, dim)
+    csc_b = dataclasses.replace(csc_up, vals=csc_up.vals.to(torch.bfloat16))
+    p_up = p_b = None
+    if "ell_panel_matvec" in names:
+        p_up = cs.panel_layout(idx, up, dim, cs.tile_rows_for(n), cs.panel_cols(torch.float32))
+        p_b = dataclasses.replace(p_up, vals=p_up.vals.to(torch.bfloat16))
+    calls_b = kernel_calls(cs, idx, vb, w, v, csc_b, p_b, dim)
+    calls_f = kernel_calls(cs, idx, up, w, v, csc_up, p_up, dim)
+    lib = library_calls(torch, idx, vb, w.to(torch.bfloat16), v.to(torch.bfloat16),
+                        csc_b, dim)
+    out = {"rows": n, "k": k, "dim": dim, "nnz": csc_up.nnz,
+           "library_call": BF16_LIBRARY_CALL}
+    for name in names:
+        (kb, pb), (kf, _) = calls_b[name], calls_f[name]
+        got, ref, again = kb(), kf(), kb()
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or not torch.equal(got, ref):
+            raise AssertionError(f"{name}_bf16 at {n} x {k} is not its f32 kernel on "
+                                 "the upcast values bit for bit")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}_bf16 at {n} x {k}: two runs differ")
+        ms, f32_ms = time_pair(torch, kb, kf)
+        lib_ms = time_ms(torch, lib[name])
+        out[name] = {"bit_equal_f32_on_upcast": True, "bit_equal_repeat": True,
+                     "max_abs_err": _close(torch, got, pb(), "float32"),
+                     "ms": ms, "f32_kernel_ms": f32_ms, "over_f32": ms / f32_ms,
+                     "plain_ms": time_ms(torch, pb), "library_ms": lib_ms,
+                     "library_ratio": ms / lib_ms,
+                     **kernel_bound(name, n, k, dim, csc_up.nnz, "bfloat16")}
+        if name == "ell_matvec":
+            plan = cs.ell_tile_plan(k, torch.bfloat16)
+            out[name].update(tile_rows=plan.tile_rows, group=plan.group)
+    return out
+
+
+def phase_bf16_kernels(torch, cs, dev, lanes) -> dict:
+    """The four kernels' bf16 entry points (``bf16_case``) at the 2^19-row
+    scoring layout (all four), at fit C's lanes (``lanes``: the block-
+    diagonal layout of phase ``game_training_vmapped``'s biggest fit C
+    bucket; ``ell_matvec`` and the transposes, as the lanes run them) and at
+    the drivers' 32,768 rows x 33 (the same three)."""
+    idx_np, val_np, dim, _, _ = game_arrays(**FULL)
+    out = {"game": bf16_case(torch, cs, dev, idx_np, val_np, dim, 21, cs.KERNELS)}
+    three = ("ell_matvec", "csc_rmatvec", "csc_sq_rmatvec")
+    out["lanes"] = bf16_case(torch, cs, dev, *lanes, 22, three)
+    d_idx, d_val, d_dim, _, _ = game_arrays(**dict(FULL, rows_per_user=FULL[
+        "driver_rows_per_user"]), col0=1)
+    n = d_idx.shape[0]
+    out["drivers"] = bf16_case(
+        torch, cs, dev, np.concatenate([np.zeros((n, 1), np.int32), d_idx], 1),
+        np.concatenate([np.ones((n, 1), np.float32), d_val], 1), d_dim, 23, three)
+    return out
+
+
+def _ooc_pass(torch, data, loss, w, reps=3) -> dict:
+    """One streamed data pass of the out-of-core solver as it runs one
+    (the matvec's ELL pass, then the gradient's CSC pass): seconds and H2D
+    bytes a pass (the median of ``reps``), and the device's busy share over
+    one pass."""
+    from photon_tpu_torch.optim.out_of_core import OutOfCoreLBFGS
+
+    scores, _, _, grad = OutOfCoreLBFGS(loss=loss, l2_weight=1.0)._streams(data)
+
+    def two():
+        return grad(scores(w))
+
+    walls, h2d = [], []
+    for _ in range(reps + 1):            # the first pass warms up
+        b0 = data.h2d_bytes
+        _, t = _timed(torch, data.device, two)
+        walls.append(t)
+        h2d.append(data.h2d_bytes - b0)
+    wall = statistics.median(walls[1:])
+    busy = (device_busy(torch, two, wall, ours=OUR_KERNELS + ("Memcpy HtoD",))
+            if data.device.type == "cuda" else "not measured (cpu)")
+    return {"seconds_a_pass": wall / 2, "h2d_bytes_a_pass": h2d[0] / 2,
+            "h2d_ell_bytes": data.streamed_bytes_per_pass("ell"),
+            "h2d_csc_bytes": data.streamed_bytes_per_pass("csc"),
+            "h2d_gbytes_per_s": h2d[0] / wall / 1e9, "profile": busy}
+
+
+def glm_witness(torch, cs, dev, big: str, index_root: str, w_point, root: str,
+                chunk_rows: int = GLM_CHUNK_ROWS) -> dict:
+    """The GLM path's checks on the driver phase's files, outside the
+    drivers: f32 in-core and out-of-core objectives at one point (the
+    in-core driver's model); out-of-core L-BFGS against in-core in f64;
+    bf16 values against f32 values rounded to bf16, bit for bit; a solve
+    killed after 3 iterations and resumed from its checkpoint, bit for bit;
+    one streamed pass timed at f32 and at bf16 values."""
+    import dataclasses
+
+    from photon_tpu_torch.functions.objective import GLMObjective
+    from photon_tpu_torch.functions.problem import GLMOptimizationProblem
+    from photon_tpu_torch.index.index_map import MmapIndexMap
+    from photon_tpu_torch.io.data_reader import AvroDataReader, FeatureShardConfig
+    from photon_tpu_torch.io.streaming import StreamingAvroReader
+    from photon_tpu_torch.ops.losses import loss_for_task
+    from photon_tpu_torch.optim import OptimizerConfig, OptimizerType
+    from photon_tpu_torch.optim.out_of_core import (
+        ChunkedGLMData,
+        HostChunk,
+        OutOfCoreLBFGS,
+        run_out_of_core,
+    )
+    from photon_tpu_torch.optim.regularization import (
+        RegularizationContext,
+        RegularizationType,
+    )
+    from photon_tpu_torch.types import TaskType
+
+    maps = {"global": MmapIndexMap(os.path.join(index_root, "global"))}
+    cfgs = {"global": FeatureShardConfig(("features",), True)}
+    loss = loss_for_task(TaskType.LOGISTIC_REGRESSION)
+    failures, out = [], {}
+
+    def chunked(dtype, value_dtype=None):
+        sr = StreamingAvroReader(maps, cfgs, chunk_rows=chunk_rows, capture_uids=False)
+        return ChunkedGLMData.from_stream(sr.iter_chunks(big), "global", len(maps["global"]),
+                                          chunk_rows=chunk_rows, device=dev,
+                                          dtype=dtype, value_dtype=value_dtype)
+
+    def problem(iters, tol):
+        return GLMOptimizationProblem(
+            task=TaskType.LOGISTIC_REGRESSION, optimizer_type=OptimizerType.LBFGS,
+            optimizer_config=OptimizerConfig(max_iterations=iters, tolerance=tol),
+            regularization=RegularizationContext(RegularizationType.L2), reg_weight=1.0)
+
+    reader = AvroDataReader(maps, cfgs)
+    # f32 at one point: the in-core objective against the streamed one
+    batch = reader.read(big, dtype=torch.float32, device=dev,
+                        capture_uids=False).batch("global").with_accelerator_paths()
+    data = chunked(torch.float32)
+    # halfway to the in-core optimum, where the gradient is far from 0
+    w = 0.5 * w_point.to(dev, torch.float32)
+    obj = GLMObjective(loss=loss, l2_weight=1.0)
+    f_in, g_in = obj.value_and_grad(w, batch)
+    scores, _, _, grad = OutOfCoreLBFGS(loss=loss, l2_weight=1.0)._streams(data)
+    f_d, g_d = grad(scores(w))
+    f_out, g_out = f_d + 0.5 * torch.sum(w * w), g_d + w
+    point = {"value_rel_err": abs(float(f_out) - float(f_in)) / abs(float(f_in)),
+             "grad_rel_err": float((g_out - g_in).abs().max() / g_in.abs().max())}
+    for key, e in point.items():
+        if not e <= GLM_POINT_RTOL_F32:
+            failures.append(f"f32 out-of-core {key} at one point {e} > {GLM_POINT_RTOL_F32}")
+    out["f32_at_one_point"] = point
+    del batch
+
+    # bf16 values against f32 values rounded to bf16, and the pass times
+    def cast(src, dt):
+        c = ChunkedGLMData(chunks=[], labels=src.labels, offsets=src.offsets,
+                           weights=src.weights, dim=src.dim, n_rows=src.n_rows,
+                           chunk_rows=src.chunk_rows, device=src.device, dtype=src.dtype)
+        def pin(t):
+            return t.pin_memory() if dev.type == "cuda" else t
+
+        for h in src.chunks:
+            val = pin(h.val.to(torch.bfloat16).to(dt))
+            c.chunks.append(HostChunk(idx=h.idx, val=val, csc=dataclasses.replace(
+                h.csc, vals=pin(h.csc.vals.to(torch.bfloat16).to(dt)))))
+        return c
+
+    b16 = chunked(torch.float32, "bfloat16")
+    rounded = cast(data, torch.float32)
+    same_layout = all(torch.equal(a.idx, b.idx) and torch.equal(a.csc.rows, b.csc.rows)
+                      and torch.equal(a.val.float(), b.val)
+                      for a, b in zip(b16.chunks, rounded.chunks))
+    _, r_b = run_out_of_core(problem(5, 1e-7), b16)
+    _, r_r = run_out_of_core(problem(5, 1e-7), rounded)
+    bf16_equal = same_layout and torch.equal(r_b.x, r_r.x) and \
+        r_b.data_passes == r_r.data_passes
+    if not bf16_equal:
+        failures.append("out-of-core bf16 values are not the f32 fit on the rounded "
+                        "values bit for bit")
+    out["bf16_vs_f32_on_rounded"] = {"bit_identical": bf16_equal,
+                                     "iterations": r_b.iterations}
+    out["pass"] = {"f32": _ooc_pass(torch, data, loss, w),
+                   "bf16": _ooc_pass(torch, b16, loss, w)}
+    out["pass"]["bf16_over_f32_seconds"] = (out["pass"]["bf16"]["seconds_a_pass"]
+                                            / out["pass"]["f32"]["seconds_a_pass"])
+    del b16, rounded
+
+    # killed after 3 iterations and resumed
+    ck = os.path.join(root, "glm_resume.ckpt")
+
+    class _Stop(Exception):
+        pass
+
+    def bomb(it, *_):
+        if it >= 3:
+            raise _Stop
+
+    def solver(progress=None):
+        return OutOfCoreLBFGS(loss=loss, l2_weight=1.0,
+                              config=OptimizerConfig(max_iterations=8, tolerance=1e-7),
+                              progress=progress, checkpoint_path=ck,
+                              checkpoint_min_interval_s=0.0)
+
+    zero = torch.zeros(data.dim, device=dev)
+    ref = dataclasses.replace(solver(), checkpoint_path=None).optimize(data, zero)
+    t0 = time.perf_counter()
+    try:
+        solver(bomb).optimize(data, zero)
+        failures.append("the killed out-of-core solve was not stopped")
+    except _Stop:
+        pass
+    killed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = solver().optimize(data, zero)
+    resumed_s = time.perf_counter() - t0
+    resumed_equal = (torch.equal(res.x, ref.x) and res.iterations == ref.iterations
+                     and res.data_passes == ref.data_passes)
+    if not resumed_equal:
+        failures.append("the resumed out-of-core solve is not bit-identical")
+    out["resume"] = {"bit_identical": resumed_equal, "iterations": res.iterations,
+                     "killed_after": 3, "killed_run_s": killed_s, "resumed_s": resumed_s,
+                     "checkpoint_bytes": os.path.getsize(ck)}
+    del data
+
+    # f64: out-of-core against in-core
+    b64 = reader.read(big, dtype=torch.float64, device=dev,
+                      capture_uids=False).batch("global").with_accelerator_paths()
+    m_in, r_in = problem(GLM_F64_ITERATIONS, 1e-9).run(
+        b64, torch.zeros(b64.dim, dtype=torch.float64, device=dev))
+    del b64
+    d64 = chunked(torch.float64)
+    m_out, r_out = run_out_of_core(problem(GLM_F64_ITERATIONS, 1e-9), d64)
+    a, b = m_out.coefficients.means, m_in.coefficients.means
+    rel = float((a - b).abs().max() / b.abs().max())
+    same = (r_out.iterations, r_out.converged_reason) == (r_in.iterations,
+                                                          r_in.converged_reason)
+    if not (rel <= GLM_F64_RTOL and same):
+        failures.append(f"f64 out-of-core against in-core: coefficients {rel} apart, "
+                        f"iterations/reasons {(r_out.iterations, r_out.converged_reason)} "
+                        f"against {(r_in.iterations, r_in.converged_reason)}")
+    out["f64_vs_in_core"] = {"coef_rel_err": rel, "limit": GLM_F64_RTOL,
+                             "iterations": r_out.iterations,
+                             "reason": r_out.reason_name(),
+                             "data_passes": {"out_of_core": r_out.data_passes,
+                                             "in_core": r_in.data_passes}}
+    out["failures"] = failures
+    return out
+
+
+GLM_RUNS = {   # name: (driver flags, PHOTON_VALUE_DTYPE)
+    "in_core": (["--row-chunk-rows", "0", "--variance", "NONE"], ""),
+    "in_core_bf16": (["--row-chunk-rows", "0", "--variance", "SIMPLE"], "bfloat16"),
+    "out_of_core": (["--row-chunk-rows", str(GLM_CHUNK_ROWS), "--variance", "NONE"], ""),
+    "out_of_core_bf16": (["--row-chunk-rows", str(GLM_CHUNK_ROWS), "--variance", "NONE"],
+                         "bfloat16"),
+    "out_of_core_owlqn_l1": (["--row-chunk-rows", str(GLM_CHUNK_ROWS), "--variance",
+                              "NONE", "--optimizer", "OWLQN", "--regularization", "L1"], ""),
+}
+
+
+def phase_glm_driver(torch, cs, dev, root: str, big: str,
+                     chunk_rows: int = GLM_CHUNK_ROWS) -> dict:
+    """The port's GLM training driver on phase ``ingest``'s 2^19 rows (FULL's
+    widths: 327,681 columns, 32 + 1 entries a row), logistic L-BFGS L2 (one
+    λ, ``GLM_ITERATIONS`` iterations at most): in-core, in-core with bf16
+    values (``PHOTON_VALUE_DTYPE``; SIMPLE variances), out-of-core in chunks
+    of ``GLM_CHUNK_ROWS`` rows at f32 and at bf16 values, and out-of-core
+    OWL-QN L1; each run's stages, passes an iteration and H2D bytes; the
+    out-of-core model scored by the port's scoring driver. Then
+    ``glm_witness`` and ``feature_indexing_driver`` on the same files.
+    Returns the drivers' launches under ``launches``."""
+    from photon_tpu_torch.cli import feature_indexing_driver, game_scoring_driver
+    from photon_tpu_torch.cli import glm_training_driver
+
+    index_root = os.path.join(root, "out", "index")
+    common = ["--train-data", big, "--task", "LOGISTIC_REGRESSION", "--index-dir",
+              index_root, "--device", dev.type, "--no-report", "--reg-weights", "1",
+              "--max-iterations", str(GLM_ITERATIONS)]
+    runs, failures = {}, []
+    launches = {k: 0 for k in cs.ALL_KERNELS}
+    for name, (flags, vd) in GLM_RUNS.items():
+        flags = [str(chunk_rows) if f == str(GLM_CHUNK_ROWS) else f for f in flags]
+        dest = os.path.join(root, f"glm_{name}")
+        cs.reset_launch_counts()
+        with _env("PHOTON_VALUE_DTYPE", vd):
+            summary, wall = _timed(torch, dev, lambda: glm_training_driver.run(
+                common + flags + ["--output-dir", dest]))
+        got = cs.launch_counts()
+        launches = {k: launches[k] + got[k] for k in launches}
+        sweep = summary["sweep"][0]
+        run = {"wall_s": wall, "mode": summary["mode"],
+               "value_dtype": summary["value_dtype"], "iterations": sweep["iterations"],
+               "objective": sweep["objective"], "AUC": sweep["AUC"],
+               "read_seconds": summary["read_seconds"],
+               "fit_seconds": summary["fit_seconds"], "launches": got,
+               **_stage_seconds(os.path.join(dest, "photon.log"))}
+        if summary["mode"] == "out_of_core":
+            passes = sweep["data_passes"]
+            run.update(n_chunks=summary["n_chunks"], data_passes=passes,
+                       passes_an_iteration=(passes - 2) / max(sweep["iterations"], 1),
+                       h2d_bytes=summary["h2d_bytes"],
+                       h2d_bytes_a_pass=summary["h2d_bytes"] / max(passes, 1),
+                       fit_seconds_a_pass=summary["fit_seconds"] / max(passes, 1),
+                       streamed_gb_per_pass=summary["streamed_gb_per_pass"],
+                       streamed_gb_per_gradient_pass=summary[
+                           "streamed_gb_per_gradient_pass"])
+            want = -(-summary["n_rows"] // chunk_rows)
+            if summary["n_chunks"] != want:
+                failures.append(f"{name}: {summary['n_chunks']} chunks, not {want}")
+        # in-core values narrow where the layouts attach: on the card
+        narrow = vd and (summary["mode"] == "out_of_core" or dev.type == "cuda")
+        if not np.isfinite(sweep["objective"]) or summary["value_dtype"] != (
+                vd if narrow else "float32"):
+            failures.append(f"{name}: objective {sweep['objective']}, values "
+                            f"{summary['value_dtype']}")
+        runs[name] = run
+    a, b = runs["out_of_core"], runs["in_core"]
+    runs["out_of_core_vs_in_core"] = {
+        "objective_rel_err": abs(a["objective"] - b["objective"]) / abs(b["objective"]),
+        "iterations": (a["iterations"], b["iterations"])}
+    bf, f = runs["out_of_core_bf16"], runs["out_of_core"]
+    runs["bf16_over_f32"] = {
+        k: (bf[k] / f[k] if f[k] else None)
+        for k in ("h2d_bytes_a_pass", "fit_seconds_a_pass", "streamed_gb_per_pass",
+                  "streamed_gb_per_gradient_pass")}
+    # the out-of-core model through the scoring driver
+    dest = os.path.join(root, "glm_scores")
+    scored = game_scoring_driver.run([
+        "--data", big, "--model-dir", os.path.join(root, "glm_out_of_core", "best"),
+        "--output-dir", dest, "--device", dev.type, "--evaluators", "AUC"])
+    if abs(scored["evaluation"]["AUC"] - f["AUC"]) > 1e-4:
+        failures.append(f"the scoring driver's AUC {scored['evaluation']['AUC']} is not "
+                        f"the driver's {f['AUC']}")
+    from photon_tpu_torch.io.avro import read_records
+
+    (rec,) = read_records(os.path.join(root, "glm_in_core", "best", "fixed-effect",
+                                       "fixed", "coefficients.avro"))
+    from photon_tpu_torch.index.index_map import MmapIndexMap
+
+    imap = MmapIndexMap(os.path.join(index_root, "global"))
+    w = torch.zeros(len(imap), dtype=torch.float64)
+    for m in rec["means"]:
+        w[imap.get_index(m["name"], m["term"])] = m["value"]
+    witness = glm_witness(torch, cs, dev, big, index_root, w, root, chunk_rows)
+    failures += witness.pop("failures")
+    # the feature index of the same files
+    t0 = time.perf_counter()
+    idx = feature_indexing_driver.run(["--data", big, "--output-dir",
+                                       os.path.join(root, "glm_index")])
+    n_feat = idx["features_per_shard"]["global"]
+    if not 0 < n_feat <= len(imap):
+        failures.append(f"feature indexing found {n_feat} features")
+    out = {"rows": scored["n_rows"], "runs": runs, "scoring": scored["evaluation"],
+           "witness": witness,
+           "feature_indexing": {"features": n_feat, "index_features": len(imap),
+                                "seconds": time.perf_counter() - t0},
+           "launches": launches}
+    if failures:
+        emit({"phase": "glm_driver", **{k: v for k, v in out.items() if k != "launches"}})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def phase_bf16_feed(torch, cs, sizes, dev, root: str, f32_run: dict) -> dict:
+    """``game_training_driver --bf16-feed`` on the drivers' 32,768 rows with
+    phase ``game_training_driver``'s configuration on the card, held bit for
+    bit against the float32 driver on the same rows with their values
+    rounded to bfloat16 (the bf16 kernels upcast on load, the random effect
+    re-packs float32: both fits see the same numbers); its validation
+    metrics beside that phase's f32 run on the unrounded values; its model
+    scored by the port's scoring driver. Returns its launches under
+    ``launches``."""
+    from photon_tpu_torch.cli import game_scoring_driver, game_training_driver
+
+    specs = ["fixed:type=fixed,shard=global,reg=L2,reg_weights=1,max_iter=20",
+             "perUser:type=random,re_type=userId,shard=global,reg=L2,"
+             "reg_weights=1|10,max_iter=20"]
+    # the same rows as phase driver_inputs' and game_training_driver's files
+    t0 = time.perf_counter()
+    rounded = {name: os.path.join(root, f"{name}_bf16.avro") for name in ("data", "valid")}
+    write_game_avro(sizes, rounded["data"], sizes["driver_rows_per_user"], seed=3,
+                    label_seed=8, uid_prefix="r", bf16=True)
+    write_game_avro(sizes, rounded["valid"], max(1, sizes["driver_rows_per_user"] // 4),
+                    seed=4, label_seed=10, uid_prefix="v", bf16=True)
+    write_s = time.perf_counter() - t0
+
+    def train(data, valid, dest, flags):
+        return _timed(torch, dev, lambda: game_training_driver.run([
+            "--train-data", data, "--validation-data", valid,
+            "--evaluators", "AUC", "LOGISTIC_LOSS", "--output-dir", dest,
+            "--task", "LOGISTIC_REGRESSION", "--coordinate", specs[0],
+            "--coordinate", specs[1], "--sweeps", "2",
+            "--index-dir", os.path.join(root, "out", "index"),
+            "--re-routing", "static", "--device", dev.type, *flags]))
+
+    dest = os.path.join(root, "game_train_bf16")
+    cs.reset_launch_counts()
+    summary, wall = train(os.path.join(root, "data.avro"),
+                          os.path.join(root, "valid.avro"), dest, ["--bf16-feed"])
+    launches = cs.launch_counts()
+    ctl_dest = os.path.join(root, "game_train_f32_rounded")
+    control, ctl_wall = train(rounded["data"], rounded["valid"], ctl_dest, [])
+    best, ctl_best = os.path.join(dest, "best"), os.path.join(ctl_dest, "best")
+    diffs = [k for k, a, b in (
+        ("fixed_means", _read_fixed(best)["means"], _read_fixed(ctl_best)["means"]),
+        ("random_means", _read_random(best), _read_random(ctl_best)),
+        ("evaluation", summary["evaluation"], control["evaluation"]),
+        ("best_config_index", summary["best_config_index"],
+         control["best_config_index"])) if a != b]
+    err = max(abs(summary["evaluation"][k] - f32_run["evaluation"][k])
+              for k in f32_run["evaluation"])
+    scored = game_scoring_driver.run([
+        "--data", os.path.join(root, "valid.avro"), "--model-dir", best,
+        "--output-dir", os.path.join(root, "bf16_scores"),
+        "--device", dev.type, "--evaluators", "AUC"])
+    out = {"wall_s": wall, "fit_seconds": summary["fit_seconds"],
+           "read_seconds": summary["read_seconds"], "reader": summary["reader"],
+           "evaluation": summary["evaluation"],
+           "bit_equal_f32_on_rounded": not diffs, "differs_from_f32_on_rounded": diffs,
+           "f32_on_rounded": {"wall_s": ctl_wall, "fit_seconds": control["fit_seconds"],
+                              "write_rounded_s": write_s},
+           "evaluation_f32": f32_run["evaluation"],
+           "metric_abs_err_vs_f32": err, "limit": BF16_FEED_METRIC_ATOL,
+           "best_config_index": summary["best_config_index"],
+           "scoring": scored["evaluation"],
+           **_stage_seconds(os.path.join(dest, "photon.log")), "launches": launches}
+    if summary["reader"] != "native" or diffs or not err <= BF16_FEED_METRIC_ATOL or \
+            not np.isfinite(scored["evaluation"]["AUC"]):
+        emit({"phase": "bf16_feed", **{k: v for k, v in out.items() if k != "launches"}})
+        raise AssertionError(f"--bf16-feed: reader {summary['reader']}, differs from "
+                             f"the f32 fit on rounded values in {diffs}, metrics "
+                             f"{err} from the f32 run, scoring {scored['evaluation']}")
     return out
 
 
@@ -2941,7 +3424,7 @@ def main() -> int:
     fit_a: dict = {}
     gt = phase_game_training(torch, cs, GAME, GAME_F64_USERS, dev, cpu, keep=fit_a)
     gt_fits = gt.pop("launches")
-    gt_launches = {k: sum(f[k] for f in gt_fits.values()) for k in cs.KERNELS}
+    gt_launches = {k: sum(f[k] for f in gt_fits.values()) for k in cs.ALL_KERNELS}
     emit({"phase": "game_training", "launches": gt_launches,
           "launches_by_fit": gt_fits, **gt})
     check_game_plans(gt)
@@ -2966,11 +3449,16 @@ def main() -> int:
     sc_launches = sc.pop("launches")
     emit({"phase": "sweep_cache", "launches": sc_launches, **sc})
 
-    vm = phase_game_training_vmapped(torch, cs, GAME, GAME_F64_USERS, dev, cpu)
+    lanes: dict = {}
+    vm = phase_game_training_vmapped(torch, cs, GAME, GAME_F64_USERS, dev, cpu,
+                                     keep=lanes)
     vm_fits = vm.pop("launches")
-    vm_launches = {k: sum(f[k] for f in vm_fits.values()) for k in cs.KERNELS}
+    vm_launches = {k: sum(f[k] for f in vm_fits.values()) for k in cs.ALL_KERNELS}
     emit({"phase": "game_training_vmapped", "launches": vm_launches,
           "launches_by_fit": vm_fits, **vm})
+
+    bk = phase_bf16_kernels(torch, cs, dev, lanes.pop("fit_c_lanes"))
+    emit({"phase": "bf16_kernels", **bk})
 
     ig = phase_ingest(torch, cs, dict(FULL, rows_per_user=INGEST_ROWS_PER_USER),
                       dev, WORK, inputs)
@@ -2985,13 +3473,29 @@ def main() -> int:
     if ig_launches["ell_matvec"] + ig_launches["ell_panel_matvec"] < 1:
         raise AssertionError("phase ingest never launched a matvec kernel")
 
+    gl = phase_glm_driver(torch, cs, dev, WORK, ig["data"]["dir"])
+    gl_launches = gl.pop("launches")
+    emit({"phase": "glm_driver", "launches": gl_launches, **gl})
+    bf = phase_bf16_feed(torch, cs, FULL, dev, WORK, gd)
+    bf_launches = bf.pop("launches")
+    emit({"phase": "bf16_feed", "launches": bf_launches, "matvec_kernel": chosen, **bf})
+    # every kernel in both value types on the GLM driver's path; the bf16
+    # feed's fixed effect through the bf16 kernels
+    missing = [k for k in ("ell_panel_matvec", "ell_matvec", "csc_rmatvec",
+                           *cs.BF16_KERNELS) if gl_launches[k] < 1]
+    missing += [f"bf16_feed:{k}" for k in (f"{chosen}_bf16", "csc_rmatvec_bf16")
+                if bf_launches[k] < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: {missing}")
+
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
     by_phase = {"transformer": tr_launches, "driver": dr_launches,
                 "training": tn_launches, "training_driver": td_launches,
                 "game_training": gt_launches, "game_training_driver": gd_launches,
                 "checkpoint": ck_launches, "routing": rt_launches,
                 "sweep_cache": sc_launches,
-                "game_training_vmapped": vm_launches, "ingest": ig_launches}
+                "game_training_vmapped": vm_launches, "ingest": ig_launches,
+                "glm_driver": gl_launches, "bf16_feed": bf_launches}
     status = {"ell_panel_matvec": "ported; redesigned: column panels of w staged by TMA",
               "ell_matvec": "ported; redesigned: row tiles streamed by TMA",
               "csc_rmatvec": "ported; redesigned: merge-path segmented reduction",
@@ -3006,6 +3510,7 @@ def main() -> int:
             "replaces": REPLACES, "via": TPU_ENTRY[name], "status": status[name],
             "launches": sum(c[name] for c in by_phase.values()),
             "launches_by_phase": {k: c[name] for k, c in by_phase.items()},
+            "launches_counted": "f32 and f64 entry points (bf16: the _bf16 rows)",
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
@@ -3030,6 +3535,27 @@ def main() -> int:
             rows[-1]["lane_layouts"] = {
                 fit: vm[fit]["lane_layout"][name] for fit in ("fit_c", "fit_e")
                 if name in vm[fit]["lane_layout"]}
+    for name in cs.KERNELS:
+        bname, g = f"{name}_bf16", bk["game"][name]
+        row = {
+            "name": bname, "route": "cuda", "source": sources, "replaces": REPLACES,
+            "via": TPU_ENTRY[name] + " on with_value_dtype(bfloat16) values",
+            "status": "ported (bf16 values upcast on load, bit-equal to the f32 "
+                      "kernel on the upcast values)",
+            "launches": sum(c[bname] for c in by_phase.values()),
+            "launches_by_phase": {k: c[bname] for k, c in by_phase.items()},
+            "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+            "library_ms": g["library_ms"], "library_call": bk["game"]["library_call"],
+            "f32_kernel_ms": g["f32_kernel_ms"], "over_f32": g["over_f32"],
+            "library_ratio": g["library_ratio"]}
+        for shape in ("lanes", "drivers"):
+            if name in bk[shape]:
+                row[f"{shape}_shape"] = {k: bk[shape][name][k] for k in (
+                    "ms", "f32_kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err")} | {"rows": bk[shape]["rows"],
+                                                   "k": bk[shape]["k"]}
+        rows.append(row)
     emit({"kernels": rows})
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)

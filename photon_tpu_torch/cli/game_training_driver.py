@@ -97,9 +97,6 @@ _LATER_SLICES = (
      "multi-device training comes with the multi-GPU slice (M14); use 1"),
     ("--mesh", lambda a: a.mesh is not None,
      "meshes come with the multi-GPU slice (M14)"),
-    ("--bf16-feed", lambda a: a.bf16_feed,
-     "the bfloat16 feed needs the kernels that read bfloat16 values "
-     "(the K1-bf16 slice, with M2's with_value_dtype)"),
     ("--profile-dir", lambda a: a.profile_dir is not None,
      "profiling comes with the observability slice"),
     ("--debug-nans", lambda a: a.debug_nans,
@@ -183,6 +180,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="device cache budget for host-resident random-effect "
                         "buckets (default $PHOTON_SWEEP_CACHE_MB or 2048; 0 "
                         "disables)")
+    p.add_argument("--bf16-feed", action="store_true",
+                   help="copy the feature VALUES to the device as bfloat16 "
+                        "(narrowed on the host; the kernels upcast on load "
+                        "and sum as with float32 values): half the value "
+                        "bytes of every copy and pass. Float32 only")
     add_re_routing_flags(p)
     # The JAX driver's flags that later slices bring: refused when set.
     p.add_argument("--max-restarts", type=int, default=0)
@@ -193,7 +195,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--tuning-range", action="append", default=None)
     p.add_argument("--devices", type=int, default=1)
     p.add_argument("--mesh", default=None)
-    p.add_argument("--bf16-feed", action="store_true")
     p.add_argument("--profile-dir", default=None)
     p.add_argument("--debug-nans", action="store_true")
     p.add_argument("--trace-out", default=None)
@@ -213,6 +214,10 @@ def _parse(argv: Optional[Sequence[str]]):
     for flag, is_set, later in _LATER_SLICES:
         if is_set(args):
             p.error(f"{flag}: not in the port yet; {later}")
+    if args.bf16_feed and args.dtype == "float64":
+        raise ValueError(
+            "--bf16-feed narrows the device feed below float32; it cannot "
+            "honor --dtype float64 (pick one)")
     try:
         specs = parse_coordinates(args.coordinate)
     except NotImplementedError as e:
@@ -312,6 +317,7 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         id_tag_columns=id_tags,
     )
     dtype = _DTYPES[args.dtype]
+    feed_dtype = "bfloat16" if args.bf16_feed else None
     # The reader keeps one streaming reader for the training and validation
     # reads: its compiled decode programs and hash tables are reused.
     depth = None if args.prefetch_depth is None else max(0, args.prefetch_depth)
@@ -321,8 +327,11 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         # Training never reads the uid column.
         bundle = reader.read(paths, dtype=dtype, device=device,
                              capture_uids=False, depth=depth,
-                             workers=args.ingest_workers)
+                             workers=args.ingest_workers, feed_dtype=feed_dtype)
         readers_used.append(reader.last_reader)
+        if feed_dtype is not None and reader.last_reader != "native":
+            logger.info("--bf16-feed inactive on the per-record fallback "
+                        "reader (values stay %s)", args.dtype)
         return bundle
 
     with Timed("read training data", logger) as t_read:

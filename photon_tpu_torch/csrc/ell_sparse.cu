@@ -20,6 +20,19 @@
 //                        (colptr[D+1], rows, vals), as a merge-path
 //                        segmented reduction (below).
 //
+// Each kernel is a template on the stored value type V and on T, the type
+// of the vector and the result: V = T in float or double (the `_f32` /
+// `_f64` entry points), or V = bfloat16 with T = float (`_bf16`, the
+// values stored narrow: `with_value_dtype`, the bf16 feed). A bfloat16
+// value is a float with the low 16 mantissa bits zero, so the upcast on
+// load is exact and, since no summation order depends on V, a bf16 kernel
+// gives the bits of its float kernel run on the upcast values (held so on
+// the card by tests/test_torch_bf16.py). The layouts keep their float
+// shape: a bf16 panel layout is the float one (w stays float in shared
+// memory), the row-tile plan keeps its rows a multiple of 8 / gcd(K, 8) so
+// that a tile's value run stays a multiple of 16 bytes, and the 2-byte
+// values of a chunk load 8 bytes at a time.
+//
 // Semantics shared with the plain PyTorch versions in
 // photon_tpu_torch/ops/cuda_sparse.py:
 //   * an entry whose column lies outside [0, dim) (the ELL ghost column
@@ -34,8 +47,8 @@
 //
 // What bounds them on an H100: device-memory bytes in principle. Each
 // entry streams 8 bytes (a 4-byte index and a 4-byte f32 value; 12 for
-// f64) once, and the outputs are written once: at ~3.35 TB/s, 2^19 rows x
-// 32 entries is about 40 us. Gathering the vector (w or v, a few MB, held
+// f64, 6 for bf16) once, and the outputs are written once: at ~3.35 TB/s,
+// 2^19 rows x 32 entries is about 40 us. Gathering the vector (w or v, a few MB, held
 // in the 50 MB L2) at random costs one 32-byte L2 sector per 4-byte read,
 // which the bytes bound cannot see: on the GAME layout 537 MB of sector
 // traffic against 134 MB of streamed entries. The arithmetic (two flops an
@@ -153,6 +166,7 @@
 // and returns a CUDA error code (0 on success).
 
 #include <climits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -209,6 +223,19 @@ constexpr int kEllWarps = kEllThreads / kWarp;
 // ties, and a hot column's long sum loses no digits. It costs nothing
 // measurable in a kernel bound by memory bytes.
 using Acc = double;
+
+// Stored values upcast to the accumulator on load (exactly; see the top of
+// the file for the value types V and T).
+using Bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ Acc upcast(float x) { return (Acc)x; }
+__device__ __forceinline__ Acc upcast(double x) { return x; }
+__device__ __forceinline__ Acc upcast(Bf16 x) { return (Acc)__bfloat162float(x); }
+
+template <typename V>
+__device__ __forceinline__ V vzero() { return V(0); }
+template <>
+__device__ __forceinline__ Bf16 vzero<Bf16>() { return __ushort_as_bfloat16((unsigned short)0); }
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T acc) {
@@ -357,10 +384,10 @@ __device__ __forceinline__ int next_panel(const int64_t* off, int p, int n_panel
 
 // One thread's entries of a chunk (registers), and the code of the entry
 // just before them: the key its walk starts in.
-template <typename T>
+template <typename V>
 struct PanelChunk {
   uint32_t code[kPanelItems];
-  T val[kPanelItems];
+  V val[kPanelItems];
   uint32_t prev;
 };
 
@@ -375,13 +402,23 @@ __device__ __forceinline__ void load_vals4(double* v, const double* p) {
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
+// Four bfloat16 values: one aligned 8-byte load (a group of 4 entries
+// starts at a multiple of 4 entries of a 16-byte-aligned array).
+__device__ __forceinline__ void load_vals4(Bf16* v, const Bf16* p) {
+  const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+  v[0] = __ushort_as_bfloat16((unsigned short)(a.x & 0xFFFFu));
+  v[1] = __ushort_as_bfloat16((unsigned short)(a.x >> 16));
+  v[2] = __ushort_as_bfloat16((unsigned short)(a.y & 0xFFFFu));
+  v[3] = __ushort_as_bfloat16((unsigned short)(a.y >> 16));
+}
+
 // Chunk [pos, pos + n) of a segment: n and pos are multiples of 4 (the
 // segments are padded), so each group of 4 entries of a thread is one
 // aligned 16-byte load of codes.
-template <typename T>
-__device__ __forceinline__ void load_chunk(PanelChunk<T>& c,
+template <typename V>
+__device__ __forceinline__ void load_chunk(PanelChunk<V>& c,
                                            const uint32_t* __restrict__ codes,
-                                           const T* __restrict__ vals,
+                                           const V* __restrict__ vals,
                                            int64_t pos, int n) {
   const int d = (int)threadIdx.x * kPanelItems;
 #pragma unroll
@@ -396,15 +433,21 @@ __device__ __forceinline__ void load_chunk(PanelChunk<T>& c,
 }
 
 // Ask L2 for entries [a, b) of the stream ahead of the register loads
-// (a, b multiples of 4: 16-byte aligned in both arrays).
-template <typename T>
-__device__ __forceinline__ void prefetch_entries(const uint32_t* codes, const T* vals,
+// (a, b multiples of 4: 16-byte aligned in the codes and in 4- or 8-byte
+// values). A bulk prefetch takes 16-byte-aligned runs of whole 16-byte
+// units, so for 2-byte values the run is cut to multiples of 8 entries:
+// it is only a hint.
+template <typename V>
+__device__ __forceinline__ void prefetch_entries(const uint32_t* codes, const V* vals,
                                                  int64_t a, int64_t b) {
   if (b <= a) return;
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
                :: "l"(codes + a), "r"((uint32_t)((b - a) * 4)) : "memory");
+  constexpr int64_t kUnit = sizeof(V) >= 4 ? 4 : 16 / (int64_t)sizeof(V);
+  const int64_t va = (a + kUnit - 1) / kUnit * kUnit, vb = b / kUnit * kUnit;
+  if (vb <= va) return;
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
-               :: "l"(vals + a), "r"((uint32_t)((b - a) * sizeof(T))) : "memory");
+               :: "l"(vals + va), "r"((uint32_t)((vb - va) * sizeof(V))) : "memory");
 }
 
 // A run of device memory as its head (the bytes before its first 16-byte
@@ -424,14 +467,16 @@ __device__ __forceinline__ Run split_run(const void* p, int64_t bytes) {
 }
 
 // The plain-load part of a run that lands at dst + lead: its head and tail
-// elements (at most 3 of each), one each from threads first .. first + 7.
+// elements (fewer than 16 / sizeof(E) of each), one each from threads
+// first .. first + 2 * 16 / sizeof(E) - 1.
 template <typename E>
 __device__ __forceinline__ void copy_run_ends(unsigned char* dst, const E* __restrict__ src,
                                               const Run& r, int first) {
+  constexpr int kPer = 16 / (int)sizeof(E);
   E* out = reinterpret_cast<E*>(dst + r.lead);
   const int i = (int)threadIdx.x - first;
   if (i >= 0 && i < (int)(r.head / sizeof(E))) out[i] = src[i];
-  const int j = i - 4;
+  const int j = i - kPer;
   if (j >= 0 && j < (int)(r.tail / sizeof(E))) {
     const int64_t o = (r.head + r.body) / sizeof(E) + j;
     out[o] = src[o];
@@ -440,17 +485,18 @@ __device__ __forceinline__ void copy_run_ends(unsigned char* dst, const E* __res
 
 // Bring entries [e0, e1) of both ELL arrays into stage `st` (indices at st,
 // values at st + stage*4 + 16), each at its run's `lead`: the bodies by two
-// bulk copies completing on `bar`, the ends by plain loads, visible to the
-// block after its next __syncthreads().
-template <typename T>
+// bulk copies completing on `bar`, the ends by plain loads (threads 32..39
+// for the indices, 40.. for the values), visible to the block after its
+// next __syncthreads().
+template <typename V>
 __device__ __forceinline__ void load_entries(unsigned char* st, int stage,
                                              const int32_t* __restrict__ idx,
-                                             const T* __restrict__ val, int64_t e0,
+                                             const V* __restrict__ val, int64_t e0,
                                              int64_t e1, uint64_t* bar) {
   unsigned char* s_idx = st;
   unsigned char* s_val = st + (int64_t)stage * 4 + 16;
   const Run ri = split_run(idx + e0, (e1 - e0) * 4);
-  const Run rv = split_run(val + e0, (e1 - e0) * (int64_t)sizeof(T));
+  const Run rv = split_run(val + e0, (e1 - e0) * (int64_t)sizeof(V));
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar, ri.body + rv.body);
     if (ri.body) {
@@ -469,18 +515,19 @@ __device__ __forceinline__ void load_entries(unsigned char* st, int stage,
 // acc + the entries [lo, hi) of a stage, in order: kEllItems at a time, all
 // their gathers of w in flight before the first add. An entry whose column
 // lies outside [0, dim) adds nothing and reads no w.
-template <typename T>
-__device__ __forceinline__ Acc slice_sum(Acc acc, const int32_t* s_idx, const T* s_val,
+template <typename V, typename T>
+__device__ __forceinline__ Acc slice_sum(Acc acc, const int32_t* s_idx, const V* s_val,
                                          int lo, int hi, const T* __restrict__ w,
                                          int64_t dim) {
   for (int e = lo; e < hi; e += kEllItems) {
     int32_t c[kEllItems];
-    T v[kEllItems], x[kEllItems];
+    V v[kEllItems];
+    T x[kEllItems];
 #pragma unroll
     for (int i = 0; i < kEllItems; ++i) {
       const bool in = e + i < hi;
       c[i] = in ? s_idx[e + i] : -1;
-      v[i] = in ? s_val[e + i] : T(0);
+      v[i] = in ? s_val[e + i] : vzero<V>();
     }
 #pragma unroll
     for (int i = 0; i < kEllItems; ++i) {
@@ -488,7 +535,7 @@ __device__ __forceinline__ Acc slice_sum(Acc acc, const int32_t* s_idx, const T*
     }
 #pragma unroll
     for (int i = 0; i < kEllItems; ++i) {
-      if (c[i] >= 0 && c[i] < dim) acc = acc + __dmul_rn((Acc)v[i], (Acc)x[i]);
+      if (c[i] >= 0 && c[i] < dim) acc = acc + __dmul_rn(upcast(v[i]), (Acc)x[i]);
     }
   }
   return acc;
@@ -521,15 +568,15 @@ __device__ __forceinline__ Acc group_sum(Acc acc, int group, Acc* s_warp) {
 // Persistent blocks over the row tiles; see "The matvec over row tiles"
 // above. A unit of work is one stage: a whole tile, or one chunk of a long
 // row's tile (tile_rows == 1, K > stage).
-template <typename T>
+template <typename V, typename T>
 __global__ void __launch_bounds__(kEllThreads)
-ell_matvec_kernel(const int32_t* __restrict__ idx, const T* __restrict__ val,
+ell_matvec_kernel(const int32_t* __restrict__ idx, const V* __restrict__ val,
                   const T* __restrict__ w, T* __restrict__ z, int64_t n, int64_t k,
                   int64_t dim, int tile_rows, int group, int stage) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t s_full[2];
   __shared__ Acc s_warp[kEllWarps];
-  const int64_t stage_bytes = (int64_t)stage * (4 + (int64_t)sizeof(T)) + 32;
+  const int64_t stage_bytes = (int64_t)stage * (4 + (int64_t)sizeof(V)) + 32;
 
   const int tid = threadIdx.x;
   const int g = tid % group, gid = tid / group, rows_per_pass = kEllThreads / group;
@@ -578,7 +625,7 @@ ell_matvec_kernel(const int32_t* __restrict__ idx, const T* __restrict__ val,
     unsigned char* st = smem + (u & 1) * stage_bytes;
     const int32_t* s_idx = reinterpret_cast<const int32_t*>(
         st + ((uintptr_t)(idx + c0) & 15u));
-    const T* s_val = reinterpret_cast<const T*>(
+    const V* s_val = reinterpret_cast<const V*>(
         st + (int64_t)stage * 4 + 16 + ((uintptr_t)(val + c0) & 15u));
     const int n_here = (int)(c1 - c0);
     const bool last = (u % n_chunks) == n_chunks - 1;
@@ -602,9 +649,9 @@ ell_matvec_kernel(const int32_t* __restrict__ idx, const T* __restrict__ val,
 
 // One block per row tile; see "The matvec over column panels" above.
 // offsets[tile, p] .. offsets[tile, p + 1] is segment (tile, p).
-template <typename T>
+template <typename V, typename T>
 __global__ void __launch_bounds__(kPanelThreads, 1)
-ell_panel_kernel(const uint32_t* __restrict__ codes, const T* __restrict__ vals,
+ell_panel_kernel(const uint32_t* __restrict__ codes, const V* __restrict__ vals,
                  const int64_t* __restrict__ offsets, const T* __restrict__ w,
                  T* __restrict__ z, int64_t n_rows, int64_t dim, int tile_rows,
                  int n_panels) {
@@ -655,7 +702,7 @@ ell_panel_kernel(const uint32_t* __restrict__ codes, const T* __restrict__ vals,
     int64_t s0 = off[p], s1 = off[p + 1], pos = s0;   // segment, chunk start
     const int64_t tile_end = off[n_panels];
     int64_t fetched = pos;   // thread 0: entries asked of L2 so far
-    PanelChunk<T> chunk;
+    PanelChunk<V> chunk;
     load_chunk(chunk, codes, vals, pos, (int)min((int64_t)kPanelChunk, s1 - pos));
     mbar_wait(&s_full[0], 0);
     for (;;) {
@@ -688,7 +735,7 @@ ell_panel_kernel(const uint32_t* __restrict__ codes, const T* __restrict__ vals,
             key = row;
           }
           if (row != kPadRow) {
-            walk.run = walk.run + __dmul_rn((Acc)chunk.val[k], (Acc)wp[c & kColMask]);
+            walk.run = walk.run + __dmul_rn(upcast(chunk.val[k]), (Acc)wp[c & kColMask]);
           }
         }
       }
@@ -729,10 +776,10 @@ ell_panel_kernel(const uint32_t* __restrict__ codes, const T* __restrict__ vals,
   for (int r = tid; r < rows; r += kPanelThreads) z[row0 + r] = (T)s_acc[r];
 }
 
-template <typename T, bool SQUARE>
+template <typename V, typename T, bool SQUARE>
 __global__ void __launch_bounds__(kCscThreads, kCscMinBlocks)
 csc_tile_kernel(const int64_t* __restrict__ colptr,
-                const int32_t* __restrict__ rows, const T* __restrict__ vals,
+                const int32_t* __restrict__ rows, const V* __restrict__ vals,
                 const T* __restrict__ v, const int64_t* __restrict__ tiles,
                 double* __restrict__ partials, T* __restrict__ g,
                 int64_t n_rows) {
@@ -754,13 +801,13 @@ csc_tile_kernel(const int64_t* __restrict__ colptr,
     s_ends[c] = (int32_t)(colptr[i0 + 1 + c] - j0);
   }
   int32_t r[kCscItemsPerThread];
-  T x[kCscItemsPerThread];
+  V x[kCscItemsPerThread];
   T vr[kCscItemsPerThread];
 #pragma unroll
   for (int k = 0; k < kCscItemsPerThread; ++k) {
     const int e = tid + k * kCscThreads;
     r[k] = -1;
-    x[k] = T(0);
+    x[k] = vzero<V>();
     if (e < ne) {
       r[k] = rows[j0 + e];
       x[k] = vals[j0 + e];
@@ -776,8 +823,8 @@ csc_tile_kernel(const int64_t* __restrict__ colptr,
   for (int k = 0; k < kCscItemsPerThread; ++k) {
     const int e = tid + k * kCscThreads;
     if (e < ne) {
-      Acc a = (Acc)x[k];
-      if (SQUARE) a = a * a;
+      Acc a = upcast(x[k]);
+      if (SQUARE) a = a * a;   // after the upcast
       s_prod[e] = ok[k] ? a * (Acc)vr[k] : Acc(0);
     }
   }
@@ -847,12 +894,12 @@ int64_t blocks_for(int64_t warps) {
 }
 
 // Shared memory of the row-tile matvec: two stages of `stage` entries.
-template <typename T>
+template <typename V>
 int64_t ell_smem_bytes(int64_t stage) {
-  return 2 * (stage * (4 + (int64_t)sizeof(T)) + 32);
+  return 2 * (stage * (4 + (int64_t)sizeof(V)) + 32);
 }
 
-template <typename T>
+template <typename V, typename T>
 int launch_matvec(const void* idx, const void* val, const void* w, void* z,
                   int64_t n, int64_t k, int64_t dim, int64_t tile_rows,
                   int64_t group, int64_t stage, void* stream) {
@@ -862,7 +909,7 @@ int launch_matvec(const void* idx, const void* val, const void* w, void* z,
       (tile_rows > 1 && tile_rows * k > stage)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int smem = (int)ell_smem_bytes<T>(stage);
+  const int smem = (int)ell_smem_bytes<V>(stage);
   // The shared-memory attribute and the resident blocks of the card, set and
   // asked once per device and stage size: both cost more host time than a
   // small launch.
@@ -873,13 +920,13 @@ int launch_matvec(const void* idx, const void* val, const void* w, void* z,
   if (err != cudaSuccess) return (int)err;
   if (device != cached_device || smem != cached_smem) {
     int sms = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(ell_matvec_kernel<T>,
+    if ((err = cudaFuncSetAttribute(ell_matvec_kernel<V, T>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
             cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
             cudaSuccess ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, ell_matvec_kernel<T>, kEllThreads, smem)) != cudaSuccess) {
+             &per_sm, ell_matvec_kernel<V, T>, kEllThreads, smem)) != cudaSuccess) {
       return (int)err;
     }
     cached_blocks = (int64_t)max(per_sm, 1) * sms;
@@ -888,14 +935,14 @@ int launch_matvec(const void* idx, const void* val, const void* w, void* z,
   }
   const int64_t n_tiles = (n + tile_rows - 1) / tile_rows;
   const int64_t blocks = min(n_tiles, cached_blocks);
-  ell_matvec_kernel<T><<<(unsigned)blocks, kEllThreads, (size_t)smem,
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)idx, (const T*)val, (const T*)w, (T*)z, n, k, dim,
+  ell_matvec_kernel<V, T><<<(unsigned)blocks, kEllThreads, (size_t)smem,
+                            (cudaStream_t)stream>>>(
+      (const int32_t*)idx, (const V*)val, (const T*)w, (T*)z, n, k, dim,
       (int)tile_rows, (int)group, (int)stage);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename V, typename T>
 int launch_panel_matvec(const void* codes, const void* vals, const void* offsets,
                         const void* w, void* z, int64_t n_rows, int64_t dim,
                         int64_t tile_rows, int64_t n_tiles, int64_t n_panels,
@@ -912,16 +959,16 @@ int launch_panel_matvec(const void* codes, const void* vals, const void* offsets
                        (n_panels + 1) * (int64_t)sizeof(int64_t);
   if (smem > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      ell_panel_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ell_panel_kernel<V, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ell_panel_kernel<T><<<(unsigned)n_tiles, kPanelThreads, (size_t)smem,
-                        (cudaStream_t)stream>>>(
-      (const uint32_t*)codes, (const T*)vals, (const int64_t*)offsets,
+  ell_panel_kernel<V, T><<<(unsigned)n_tiles, kPanelThreads, (size_t)smem,
+                           (cudaStream_t)stream>>>(
+      (const uint32_t*)codes, (const V*)vals, (const int64_t*)offsets,
       (const T*)w, (T*)z, n_rows, dim, (int)tile_rows, (int)n_panels);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool SQUARE>
+template <typename V, typename T, bool SQUARE>
 int launch_rmatvec(const void* colptr, const void* rows, const void* vals,
                    const void* v, const void* tiles, const void* splits,
                    void* partials, void* g, int64_t n_tiles, int64_t n_splits,
@@ -931,8 +978,8 @@ int launch_rmatvec(const void* colptr, const void* rows, const void* vals,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = (cudaStream_t)stream;
-  csc_tile_kernel<T, SQUARE><<<(unsigned)n_tiles, kCscThreads, 0, st>>>(
-      (const int64_t*)colptr, (const int32_t*)rows, (const T*)vals,
+  csc_tile_kernel<V, T, SQUARE><<<(unsigned)n_tiles, kCscThreads, 0, st>>>(
+      (const int64_t*)colptr, (const int32_t*)rows, (const V*)vals,
       (const T*)v, (const int64_t*)tiles, (double*)partials, (T*)g, n_rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_splits == 0) return (int)err;
@@ -948,14 +995,14 @@ extern "C" {
 int ell_matvec_f32(const void* idx, const void* val, const void* w, void* z,
                    int64_t n, int64_t k, int64_t dim, int64_t tile_rows,
                    int64_t group, int64_t stage, void* stream) {
-  return launch_matvec<float>(idx, val, w, z, n, k, dim, tile_rows, group, stage,
+  return launch_matvec<float, float>(idx, val, w, z, n, k, dim, tile_rows, group, stage,
                               stream);
 }
 
 int ell_matvec_f64(const void* idx, const void* val, const void* w, void* z,
                    int64_t n, int64_t k, int64_t dim, int64_t tile_rows,
                    int64_t group, int64_t stage, void* stream) {
-  return launch_matvec<double>(idx, val, w, z, n, k, dim, tile_rows, group, stage,
+  return launch_matvec<double, double>(idx, val, w, z, n, k, dim, tile_rows, group, stage,
                                stream);
 }
 
@@ -963,7 +1010,7 @@ int ell_panel_matvec_f32(const void* codes, const void* vals,
     const void* offsets, const void* w, void* z, int64_t n_rows, int64_t dim,
     int64_t tile_rows, int64_t n_tiles, int64_t n_panels, int64_t panel_cols,
     void* stream) {
-  return launch_panel_matvec<float>(codes, vals, offsets, w, z, n_rows, dim,
+  return launch_panel_matvec<float, float>(codes, vals, offsets, w, z, n_rows, dim,
       tile_rows, n_tiles, n_panels, panel_cols, stream);
 }
 
@@ -971,7 +1018,7 @@ int ell_panel_matvec_f64(const void* codes, const void* vals,
     const void* offsets, const void* w, void* z, int64_t n_rows, int64_t dim,
     int64_t tile_rows, int64_t n_tiles, int64_t n_panels, int64_t panel_cols,
     void* stream) {
-  return launch_panel_matvec<double>(codes, vals, offsets, w, z, n_rows, dim,
+  return launch_panel_matvec<double, double>(codes, vals, offsets, w, z, n_rows, dim,
       tile_rows, n_tiles, n_panels, panel_cols, stream);
 }
 
@@ -979,7 +1026,7 @@ int csc_rmatvec_f32(const void* colptr, const void* rows, const void* vals,
     const void* v, const void* tiles, const void* splits, void* partials,
     void* g, int64_t n_tiles, int64_t n_splits, int64_t n_rows,
     int64_t tile_items, void* stream) {
-  return launch_rmatvec<float, false>(colptr, rows, vals, v, tiles, splits,
+  return launch_rmatvec<float, float, false>(colptr, rows, vals, v, tiles, splits,
       partials, g, n_tiles, n_splits, n_rows, tile_items, stream);
 }
 
@@ -987,7 +1034,7 @@ int csc_rmatvec_f64(const void* colptr, const void* rows, const void* vals,
     const void* v, const void* tiles, const void* splits, void* partials,
     void* g, int64_t n_tiles, int64_t n_splits, int64_t n_rows,
     int64_t tile_items, void* stream) {
-  return launch_rmatvec<double, false>(colptr, rows, vals, v, tiles, splits,
+  return launch_rmatvec<double, double, false>(colptr, rows, vals, v, tiles, splits,
       partials, g, n_tiles, n_splits, n_rows, tile_items, stream);
 }
 
@@ -995,7 +1042,7 @@ int csc_sq_rmatvec_f32(const void* colptr, const void* rows, const void* vals,
     const void* v, const void* tiles, const void* splits, void* partials,
     void* g, int64_t n_tiles, int64_t n_splits, int64_t n_rows,
     int64_t tile_items, void* stream) {
-  return launch_rmatvec<float, true>(colptr, rows, vals, v, tiles, splits,
+  return launch_rmatvec<float, float, true>(colptr, rows, vals, v, tiles, splits,
       partials, g, n_tiles, n_splits, n_rows, tile_items, stream);
 }
 
@@ -1003,7 +1050,41 @@ int csc_sq_rmatvec_f64(const void* colptr, const void* rows, const void* vals,
     const void* v, const void* tiles, const void* splits, void* partials,
     void* g, int64_t n_tiles, int64_t n_splits, int64_t n_rows,
     int64_t tile_items, void* stream) {
-  return launch_rmatvec<double, true>(colptr, rows, vals, v, tiles, splits,
+  return launch_rmatvec<double, double, true>(colptr, rows, vals, v, tiles, splits,
+      partials, g, n_tiles, n_splits, n_rows, tile_items, stream);
+}
+
+// bfloat16 values, float vector and result: the four kernels reading values
+// stored as bf16 (upcast on load), each bit-equal to its f32 form run on the
+// upcast values.
+int ell_matvec_bf16(const void* idx, const void* val, const void* w, void* z,
+                    int64_t n, int64_t k, int64_t dim, int64_t tile_rows,
+                    int64_t group, int64_t stage, void* stream) {
+  return launch_matvec<Bf16, float>(idx, val, w, z, n, k, dim, tile_rows, group,
+                                    stage, stream);
+}
+
+int ell_panel_matvec_bf16(const void* codes, const void* vals,
+    const void* offsets, const void* w, void* z, int64_t n_rows, int64_t dim,
+    int64_t tile_rows, int64_t n_tiles, int64_t n_panels, int64_t panel_cols,
+    void* stream) {
+  return launch_panel_matvec<Bf16, float>(codes, vals, offsets, w, z, n_rows, dim,
+      tile_rows, n_tiles, n_panels, panel_cols, stream);
+}
+
+int csc_rmatvec_bf16(const void* colptr, const void* rows, const void* vals,
+    const void* v, const void* tiles, const void* splits, void* partials,
+    void* g, int64_t n_tiles, int64_t n_splits, int64_t n_rows,
+    int64_t tile_items, void* stream) {
+  return launch_rmatvec<Bf16, float, false>(colptr, rows, vals, v, tiles, splits,
+      partials, g, n_tiles, n_splits, n_rows, tile_items, stream);
+}
+
+int csc_sq_rmatvec_bf16(const void* colptr, const void* rows, const void* vals,
+    const void* v, const void* tiles, const void* splits, void* partials,
+    void* g, int64_t n_tiles, int64_t n_splits, int64_t n_rows,
+    int64_t tile_items, void* stream) {
+  return launch_rmatvec<Bf16, float, true>(colptr, rows, vals, v, tiles, splits,
       partials, g, n_tiles, n_splits, n_rows, tile_items, stream);
 }
 

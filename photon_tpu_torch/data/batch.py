@@ -1,9 +1,16 @@
 """Batched data as tensors: ELL sparse features and labeled batches.
 
 Port of ``photon_tpu/data/batch.py``: ``DenseFeatures``, ``SparseFeatures``
-with its three data passes, ``LabeledBatch`` and ``ell_from_rows``
-(``with_value_dtype`` is not ported yet), plus ``LaneFeatures``, the port's
-layout of a random-effect bucket for its batched lane solves.
+with its three data passes and ``with_value_dtype``, ``LabeledBatch`` and
+``ell_from_rows``, plus ``LaneFeatures``, the port's layout of a
+random-effect bucket for its batched lane solves.
+
+Values may be stored as bfloat16 (``with_value_dtype``, or
+``PHOTON_VALUE_DTYPE=bfloat16`` through ``with_accelerator_paths`` on
+CUDA): the passes then take and give float32 vectors (JAX's
+``promote_types(bfloat16, float32)``), the kernels upcasting each value on
+load. ``SparseFeatures.dtype`` is that compute dtype; ``val.dtype`` the
+stored one.
 
 ``SparseFeatures`` is padded ELL: ``idx[N, K] int32`` / ``val[N, K]`` with
 K = max nnz per row; padding slots point at column ``dim`` (the zero "ghost"
@@ -19,6 +26,7 @@ host. Each pass is recorded by ``ops/pass_counter.py``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -28,8 +36,10 @@ from photon_tpu_torch.ops import pass_counter
 from photon_tpu_torch.ops.cuda_sparse import (
     CscLayout,
     PanelLayout,
+    as_value_dtype,
     build_csc,
     build_panels,
+    compute_dtype,
     csc_rmatvec,
     ell_matvec,
     ell_panel_matvec,
@@ -106,21 +116,62 @@ class SparseFeatures:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.val.dtype
+        """The dtype of the passes' vectors and results: the values' own,
+        float32 for bfloat16 values."""
+        return compute_dtype(self.val.dtype)
 
     @property
     def n_rows(self) -> int:
         return self.idx.shape[0]
 
-    def with_accelerator_paths(self) -> "SparseFeatures":
+    def with_layouts(self) -> "SparseFeatures":
         """On CUDA, attach the transposes' CSC layout (always) and the
         matvec's panel layout (see ``with_matvec_layout``), each built
-        once. On the CPU nothing is attached."""
+        once; the values keep their dtype. On the CPU nothing is
+        attached."""
         if self.device.type != "cuda" or self.csc is not None:
             return self
         out = self.with_matvec_layout()
-        return dataclasses.replace(
-            out, csc=build_csc(self.idx, self.val, self.dim))
+        return dataclasses.replace(out, csc=build_csc(self.idx, self.val, self.dim))
+
+    def with_accelerator_paths(self) -> "SparseFeatures":
+        """``with_layouts``, then, under ``PHOTON_VALUE_DTYPE``
+        (``bfloat16``), the values of the data and of both layouts narrowed
+        (``with_value_dtype``), as the JAX package narrows on its
+        accelerators: a shard's batch for the GLM driver, the fixed effect
+        and scoring. Random-effect lanes attach ``with_layouts`` and stay
+        float32. On the CPU nothing is attached and nothing narrows."""
+        if self.device.type != "cuda":
+            return self
+        out = self.with_layouts()
+        vd = os.environ.get("PHOTON_VALUE_DTYPE")
+        return out.with_value_dtype(vd) if vd else out
+
+    def with_value_dtype(self, dtype) -> "SparseFeatures":
+        """Store the values as ``dtype`` (``torch.bfloat16`` or
+        ``"bfloat16"``; the current dtype is a no-op), the attached panel and
+        CSC layouts' values too. Port of JAX's ``with_value_dtype``: only
+        storage narrows; the kernels upcast each value on load and sum in
+        float64, so the passes give float32 results (JAX keeps its
+        accumulation in the operand precision). One-hot and small-integer
+        values are exact in bfloat16; continuous values round to 8 mantissa
+        bits. Only float32 data narrows: bfloat16 values go with float32
+        vectors."""
+        dt = as_value_dtype(dtype)
+        if dt == self.val.dtype:
+            return self
+        if dt != torch.bfloat16 or self.val.dtype != torch.float32:
+            raise TypeError(
+                f"with_value_dtype narrows float32 values to bfloat16; got "
+                f"{self.val.dtype} -> {dt}")
+        out = dataclasses.replace(self, val=self.val.to(dt))
+        if out.panels is not None:
+            out = dataclasses.replace(
+                out, panels=dataclasses.replace(out.panels, vals=out.panels.vals.to(dt)))
+        if out.csc is not None:
+            out = dataclasses.replace(
+                out, csc=dataclasses.replace(out.csc, vals=out.csc.vals.to(dt)))
+        return out
 
     def with_matvec_layout(self) -> "SparseFeatures":
         """On CUDA, attach the matvec's panel layout, unless
@@ -255,7 +306,9 @@ class LaneFeatures:
         return self.flat.dtype
 
     def with_accelerator_paths(self) -> "LaneFeatures":
-        return dataclasses.replace(self, flat=self.flat.with_accelerator_paths())
+        """The flat layout's CSC and panels; the values stay as they are
+        (never narrowed: the lanes' buckets are float32 or float64)."""
+        return dataclasses.replace(self, flat=self.flat.with_layouts())
 
     def matvec(self, w: Tensor) -> Tensor:
         return self.flat.matvec(w.reshape(-1)).reshape(self.n_lanes, self.n_samples)

@@ -70,7 +70,7 @@ def compute_feature_statistics(batch: LabeledBatch) -> FeatureDataStatistics:
     elif isinstance(feats, SparseFeatures):
         d = feats.dim
         if feats.device.type == "cuda":
-            feats = feats.with_accelerator_paths()
+            feats = feats.with_layouts()
         m = mask.to(feats.dtype)
         s1 = feats.rmatvec(m)
         s2 = feats.sq_rmatvec(m)
@@ -79,7 +79,7 @@ def compute_feature_statistics(batch: LabeledBatch) -> FeatureDataStatistics:
         present = ((feats.val != 0) & (mask[:, None] > 0)).reshape(-1)
         nnz = torch.zeros(d + 1, dtype=torch.float64, device=feats.device)
         nnz = nnz.index_add_(0, cols, present.to(torch.float64))[:d].to(torch.float32)
-        val = feats.val.reshape(-1)
+        val = feats.val.reshape(-1).to(feats.dtype)   # bfloat16 values upcast
 
         def extreme(fill: float, reduce: str) -> Tensor:
             src = torch.where(present, val, fill)

@@ -85,16 +85,20 @@ def build_re_dataset_from_bundle(
             f"random effect {cfg.re_type!r} needs id tag column "
             f"{cfg.re_type!r}; bundle has {sorted(bundle.id_tags)}"
         )
+    # The bucket values follow the features' dtype, except that values
+    # stored narrower than float32 (the bf16 feed) re-pack as float32, the
+    # already rounded values, as the JAX package does: the Newton solves'
+    # batched matmul and Cholesky run in float32.
     return build_random_effect_dataset(
         re_type=cfg.re_type,
         entity_keys_per_row=bundle.id_tags[cfg.re_type],
         idx=sf.idx.detach().cpu().numpy(),
-        val=sf.val.detach().cpu().numpy(),
+        val=sf.val.detach().cpu().to(sf.dtype).numpy(),
         labels=np.asarray(bundle.labels),
         global_dim=sf.dim,
         weights=bundle.weights,
         intercept_index=intercept_index,
-        dtype=sf.val.dtype,
+        dtype=sf.dtype,
         device=sf.device,
         active_bound=None if for_scoring else cfg.active_bound,
         min_entity_rows=1 if for_scoring else cfg.min_entity_rows,

@@ -158,7 +158,7 @@ class AvroDataReader:
     def read(
         self, paths, *, dtype: torch.dtype, device: torch.device,
         require_labels: bool = True, capture_uids: bool = True,
-        depth: Optional[int] = 0, workers: int = 0,
+        depth: Optional[int] = 0, workers: int = 0, feed_dtype=None,
     ) -> GameDataBundle:
         """Read Avro files into a bundle with its features on ``device``.
         ``require_labels=False`` admits unlabeled records (label → NaN), as
@@ -171,7 +171,10 @@ class AvroDataReader:
         on the worker pool of ``io/parallel_ingest.py``); a schema it
         cannot express falls back to ``read_per_record``, with the same
         results. ``last_reader`` names the reader that ran (``"native"`` or
-        ``"per_record"``)."""
+        ``"per_record"``). ``feed_dtype`` (``"bfloat16"``) narrows the
+        feature values on the host before their copy, on the streaming read
+        only (the per-record fallback keeps ``dtype``, as the JAX driver's
+        does)."""
         from photon_tpu_torch.io.prefetch import read_bundle_pipelined
         from photon_tpu_torch.io.streaming import StreamingAvroReader, Unsupported
 
@@ -187,7 +190,7 @@ class AvroDataReader:
                 self.index_maps, self.shard_configs, self.columns,
                 self.id_tag_columns, paths, device, dtype=numpy_dtype(dtype),
                 require_labels=require_labels, depth=depth, workers=workers,
-                reader=self._streaming)
+                reader=self._streaming, feed_dtype=feed_dtype)
             self.last_reader = "native"
             return bundle
         except Unsupported as e:

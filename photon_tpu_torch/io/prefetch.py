@@ -1,8 +1,7 @@
 """Pipelined ingest → device data path: prefetched decode and staged copies.
 
-Port of ``photon_tpu/io/prefetch.py`` (without the bf16 feed, which comes
-with the K1-bf16 slice, and without the fault points, spans and metrics of
-the observability slice):
+Port of ``photon_tpu/io/prefetch.py`` (without the fault points, spans and
+metrics of the observability slice):
 
 * :func:`prefetch` runs any chunk iterator (``StreamingAvroReader
   .iter_chunks`` or the worker pool of ``io/parallel_ingest.py``) on a
@@ -23,6 +22,8 @@ the observability slice):
 * :func:`read_bundle_pipelined` is the whole-dataset read: chunks decoded
   ahead, assembled by ``io.streaming.chunks_to_bundle`` into the same
   ``GameDataBundle`` as ``StreamingAvroReader.read``, bit for bit.
+* :func:`host_feed_array` is the bf16 feed: the feature values narrow on
+  the host, before the pinned copy, so the copy itself halves.
 
 On a CPU device the staging is skipped: the arrays become tensors in place.
 """
@@ -45,6 +46,7 @@ __all__ = [
     "device_put_chunk",
     "iter_chunks_pipelined",
     "read_bundle_pipelined",
+    "host_feed_array",
 ]
 
 
@@ -169,18 +171,26 @@ class PinnedStaging:
         self._ring[slot] = held
         return slot, held
 
-    def put(self, a: np.ndarray) -> torch.Tensor:
-        a = np.ascontiguousarray(a)
-        slot, (buf, event) = self._buffer(a.nbytes)
-        host = buf[: a.nbytes]
-        if a.nbytes:
-            host.numpy()[:] = a.reshape(-1).view(np.uint8)
+    def put(self, a) -> torch.Tensor:
+        """Copy a host numpy array, or a CPU tensor (the bf16 feed's
+        values, which numpy cannot hold), to the device."""
+        if isinstance(a, torch.Tensor):
+            t = a.contiguous()
+            raw, dtype, shape = t.reshape(-1).view(torch.uint8).numpy(), t.dtype, t.shape
+        else:
+            a = np.ascontiguousarray(a)
+            raw, dtype, shape = a.reshape(-1).view(np.uint8), _torch_dtype(a.dtype), a.shape
+        nbytes = raw.nbytes
+        slot, (buf, event) = self._buffer(nbytes)
+        host = buf[:nbytes]
+        if nbytes:
+            host.numpy()[:] = raw
         with torch.cuda.stream(self.stream):
             out = host.to(self.device, non_blocking=True)
             event.record(self.stream)
-        self.bytes += a.nbytes
+        self.bytes += nbytes
         self.copies += 1
-        return out.view(_torch_dtype(a.dtype)).reshape(a.shape)
+        return out.view(dtype).reshape(shape)
 
     def ready(self, tensors: Iterable[torch.Tensor]) -> None:
         current = torch.cuda.current_stream(self.device)
@@ -191,6 +201,25 @@ class PinnedStaging:
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dt)).dtype
+
+
+def host_feed_array(a: np.ndarray, feed_dtype=None):
+    """Narrow a host value array to the feed dtype ON THE HOST, so that the
+    copy to the device shrinks (casting after the copy would ship f32).
+    ``feed_dtype`` None returns ``a`` unchanged; ``"bfloat16"`` (or
+    ``torch.bfloat16``) returns a CPU bfloat16 tensor (numpy has no
+    bfloat16), and any other raises ValueError. A float64 array narrows
+    through float32, as the JAX package's ``ml_dtypes`` cast does, so both
+    give the same bits (round to nearest even at each step; the f32
+    rounding can land on a bf16 tie that a direct rounding would not)."""
+    if feed_dtype is None:
+        return a
+    if str(feed_dtype).removeprefix("torch.") != "bfloat16":
+        raise ValueError(f"the feed narrows to bfloat16 only, not {feed_dtype!r}")
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(a).to(torch.bfloat16)
 
 
 def _chunk_tensors(chunk) -> list:
@@ -280,6 +309,7 @@ def read_bundle_pipelined(
     chunk_rows: int = 1 << 20,
     reader=None,
     staging: Optional[PinnedStaging] = None,
+    feed_dtype=None,
 ):
     """Whole-dataset read through the prefetched decode stage: block decode
     of chunk N+1 runs on the producer thread while the consumer takes chunk
@@ -289,7 +319,9 @@ def read_bundle_pipelined(
     ``io.streaming.Unsupported`` exactly where that read would, so callers
     keep their per-record fallback. ``reader`` (a ``StreamingAvroReader``)
     reuses its compiled programs and hash tables across calls; given, it
-    overrides the construction arguments."""
+    overrides the construction arguments. ``feed_dtype`` (``"bfloat16"``)
+    narrows the feature values on the host before their copy
+    (``host_feed_array``)."""
     from photon_tpu_torch.io.streaming import StreamingAvroReader, chunks_to_bundle
 
     if reader is None:
@@ -300,4 +332,4 @@ def read_bundle_pipelined(
         reader, paths, dtype=dtype, require_labels=require_labels,
         depth=depth, workers=workers))
     return chunks_to_bundle(chunks, index_maps, id_tag_columns, device, dtype,
-                            staging=staging)
+                            staging=staging, feed_dtype=feed_dtype)

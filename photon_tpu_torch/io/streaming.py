@@ -1181,12 +1181,15 @@ def chunks_to_bundle(
     device,
     dtype=np.float32,
     staging=None,
+    feed_dtype=None,
 ):
     """Concatenate streamed chunks (in order) into one GameDataBundle with
     its features on ``device``: shared by in-process, pipelined and
     parallel reads. On CUDA each assembled array is copied through
     ``staging`` (an ``io/prefetch.py`` ``PinnedStaging``, made here if not
-    given)."""
+    given). ``feed_dtype`` (``"bfloat16"``) narrows the feature VALUE
+    arrays on the host before the copy (the bf16 feed: half the value
+    bytes; the passes accumulate as with float32 values)."""
     import torch
 
     from photon_tpu_torch.data.batch import SparseFeatures
@@ -1201,7 +1204,7 @@ def chunks_to_bundle(
         put = staging.put
     else:
         def put(a):
-            return torch.from_numpy(a).to(device)
+            return (a if isinstance(a, torch.Tensor) else torch.from_numpy(a)).to(device)
 
     if not chunks:
         # A valid zero-record dataset (an empty scoring partition, say):
@@ -1244,6 +1247,10 @@ def chunks_to_bundle(
             iarr[at:at + m, :kk] = sf.idx
             varr[at:at + m, :kk] = sf.val
             at += m
+        if feed_dtype is not None:
+            from photon_tpu_torch.io.prefetch import host_feed_array
+
+            varr = host_feed_array(varr, feed_dtype)
         features[shard] = SparseFeatures(idx=put(iarr), val=put(varr), dim=dim)
     if staging is not None:
         staging.ready([t for sf in features.values() for t in (sf.idx, sf.val)])

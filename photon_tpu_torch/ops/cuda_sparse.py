@@ -24,6 +24,13 @@ merge-path tiles of equal work, so a column of any length is summed by as
 many blocks as its entries fill. Every sum runs in an order fixed by the
 layout, with no float atomics — two runs give bit-identical results.
 
+Values come as float32, float64 or bfloat16; the vector and the result are
+float32 or float64, the values' own type, except that bfloat16 values go
+with a float32 vector and give a float32 result (JAX's ``promote_types``):
+each kernel has a ``*_bf16`` entry point that upcasts a value to float on
+load (before squaring, in ``csc_sq_rmatvec``) and is bit-equal to its f32
+form run on the upcast values. The plain versions upcast the same way.
+
 Each wrapper checks device, dtype, shape and contiguity. A CPU tensor takes
 the plain PyTorch version beside it; a CUDA tensor launches the kernel or
 raises. ``LAUNCHES`` counts kernel launches per kernel, so a run can show
@@ -59,25 +66,54 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("ell_panel_matvec", "ell_matvec", "csc_rmatvec", "csc_sq_rmatvec")
+# The four kernels' bf16-value entry points, counted apart: ``KERNELS`` counts
+# the float32 and float64 ones.
+BF16_KERNELS = tuple(f"{name}_bf16" for name in KERNELS)
+ALL_KERNELS = KERNELS + BF16_KERNELS
 # Launches per kernel since the last reset_launch_counts(); a wrapper adds one
 # where it launches its kernel and nowhere else.
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = {name: 0 for name in ALL_KERNELS}
 _COUNT_LOCK = threading.Lock()
 _LIB_LOCK = threading.Lock()
 _LIB = None
 
 _FLOAT_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# Stored value types, each with its kernels' entry-point suffix.
+_VALUE_SUFFIX = {**_FLOAT_SUFFIX, torch.bfloat16: "bf16"}
+
+
+def as_value_dtype(spec) -> torch.dtype:
+    """A value dtype from a torch dtype or its name (``"bfloat16"``, as
+    ``PHOTON_VALUE_DTYPE`` gives it); any other name raises ValueError."""
+    if isinstance(spec, torch.dtype):
+        return spec
+    dt = getattr(torch, str(spec).removeprefix("torch."), None)
+    if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+        raise ValueError(f"unknown value dtype {spec!r}")
+    return dt
+
+
+def compute_dtype(value_dtype: torch.dtype) -> torch.dtype:
+    """The type of the vectors and results that go with values stored as
+    ``value_dtype``: float32 for bfloat16 values, else the values' own."""
+    return torch.float32 if value_dtype == torch.bfloat16 else value_dtype
 
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
-        for name in KERNELS:
+        for name in ALL_KERNELS:
             LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
+    """Launches of every entry point (``ALL_KERNELS``) since the last
+    reset."""
     with _COUNT_LOCK:
         return dict(LAUNCHES)
+
+
+def _counted(name: str, value_dtype: torch.dtype) -> str:
+    return f"{name}_bf16" if value_dtype == torch.bfloat16 else name
 
 
 def _count(name: str) -> None:
@@ -145,7 +181,7 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(build_library()["path"])
             vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            for sfx in ("f32", "f64"):
+            for sfx in ("f32", "f64", "bf16"):
                 fn = getattr(lib, f"ell_matvec_{sfx}")
                 fn.argtypes = [vp] * 4 + [i64] * 6 + [vp]
                 fn.restype = ctypes.c_int
@@ -189,6 +225,18 @@ def _check_float(t: Tensor, what: str) -> None:
         raise TypeError(f"{what} must be float32 or float64, got {t.dtype}")
 
 
+def _check_values(values: Tensor, vec: Tensor, what: str, vwhat: str) -> None:
+    """Values of one of the three stored types, with a vector of their
+    compute type: bfloat16 values take a float32 vector; float32 and
+    float64 values a vector of their own type."""
+    _check_float(vec, vwhat)
+    if values.dtype not in _VALUE_SUFFIX:
+        raise TypeError(f"{what} must be float32, float64 or bfloat16, got {values.dtype}")
+    if vec.dtype != compute_dtype(values.dtype):
+        raise TypeError(f"{vwhat} dtype {vec.dtype} does not go with {what} dtype "
+                        f"{values.dtype} (bfloat16 values take a float32 {vwhat})")
+
+
 def _check_same_device(*named) -> torch.device:
     dev = named[0][1].device
     for what, t in named[1:]:
@@ -213,7 +261,8 @@ def _check_ell(idx: Tensor, val: Tensor, dim: int) -> None:
             f"idx and val must be [N, K] of one shape, got {tuple(idx.shape)} "
             f"and {tuple(val.shape)}"
         )
-    _check_float(val, "val")
+    if val.dtype not in _VALUE_SUFFIX:
+        raise TypeError(f"val must be float32, float64 or bfloat16, got {val.dtype}")
     if dim < 0:
         raise ValueError(f"dim must be >= 0, got {dim}")
 
@@ -225,10 +274,11 @@ def ell_matvec_plain(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
     """z = A·w over ELL arrays, as ``photon_tpu/data/batch.py`` computes it:
     gather through w extended by a zero ghost column. Entries whose column
     lies outside [0, dim) read the ghost and contribute 0. Sums in float64
-    and rounds once, as the kernel does."""
+    and rounds once to w's dtype, as the kernel does (bfloat16 values are
+    upcast exactly, as the f32 path on the upcast values)."""
     w_ext = torch.cat([w, w.new_zeros(1)]).double()
     safe = torch.where((idx >= 0) & (idx < dim), idx, dim).long()
-    return (w_ext[safe] * val.double()).sum(dim=-1).to(val.dtype)
+    return (w_ext[safe] * val.double()).sum(dim=-1).to(w.dtype)
 
 
 def ell_rmatvec_plain(idx: Tensor, val: Tensor, v: Tensor, dim: int,
@@ -238,7 +288,7 @@ def ell_rmatvec_plain(idx: Tensor, val: Tensor, v: Tensor, dim: int,
     to its column; ghost and out-of-range entries land in the dropped ghost
     slot. Sums in float64 and rounds once, as the kernel does. The CPU
     version of ``csc_rmatvec`` where no CSC layout is attached."""
-    x = val.double()
+    x = val.double()          # upcast before squaring
     if square:
         x = x * x
     safe = torch.where((idx >= 0) & (idx < dim), idx, dim).long()
@@ -294,13 +344,15 @@ def ell_tile_plan(k: int, dtype: torch.dtype, stage: int = ELL_STAGE_ENTRIES,
     R is the most rows whose R·K entries fit one stage, rounded down to a
     multiple of 4 / gcd(K, 4), so that a tile's run of indices (4 bytes an
     entry) and of values (4 or 8) is a multiple of 16 bytes and every tile
-    of an aligned layout starts 16-byte aligned. A row longer than a
+    of an aligned layout starts 16-byte aligned (a multiple of 8 / gcd(K,
+    8) for 2-byte bfloat16 values; R does not enter the summation order,
+    so the bf16 kernel stays bit-equal to the f32 one). A row longer than a
     quarter stage is a tile of its own, brought in stage-sized chunks.
     With ELL_STAGE_ENTRIES entries a tile, the tiles cover the H100's 132
     SMs wherever the matrix holds 132 stages of entries (132 rows, where a
     row is longer than a stage)."""
-    if dtype not in _FLOAT_SUFFIX:
-        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    if dtype not in _VALUE_SUFFIX:
+        raise TypeError(f"dtype must be float32, float64 or bfloat16, got {dtype}")
     if k < 0:
         raise ValueError(f"K must be >= 0, got {k}")
     if stage < 4 or stage % 4 or ell_smem_bytes(dtype, stage) > ELL_SMEM_LIMIT:
@@ -308,7 +360,8 @@ def ell_tile_plan(k: int, dtype: torch.dtype, stage: int = ELL_STAGE_ENTRIES,
     if k > stage // 4:
         rows = 1
     else:
-        step = 4 // math.gcd(k, 4)
+        unit = 16 // min(4, torch.finfo(dtype).bits // 8)
+        step = unit // math.gcd(k, unit)
         rows = stage // max(k, 1) // step * step
     return EllPlan(tile_rows=rows, group=ell_group(k, items), stage=stage)
 
@@ -317,7 +370,8 @@ def ell_matvec(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
     """z[r] = Σ_k val[r,k]·w[idx[r,k]] — kernel ``ell_matvec`` on CUDA.
 
     ``idx [N, K]`` int32 (ghost column == dim, value 0), ``val [N, K]`` and
-    ``w [dim]`` float32 or float64 of one dtype → ``z [N]``. Replaces
+    ``w [dim]`` float32 or float64 of one dtype, or bfloat16 values with a
+    float32 w → ``z [N]`` in w's dtype. Replaces
     ``matvec_pallas`` (photon_tpu/ops/pallas_sparse.py).
 
     Tiles of whole rows (``ell_tile_plan``) stream into shared memory by
@@ -329,18 +383,18 @@ def ell_matvec(idx: Tensor, val: Tensor, w: Tensor, dim: int) -> Tensor:
     _check_ell(idx, val, dim)
     if w.dim() != 1 or w.shape[0] != dim:
         raise ValueError(f"w must be [{dim}], got {tuple(w.shape)}")
-    if w.dtype != val.dtype:
-        raise TypeError(f"w dtype {w.dtype} != val dtype {val.dtype}")
+    _check_values(val, w, "val", "w")
     dev = _check_same_device(("idx", idx), ("val", val), ("w", w))
     _check_contiguous(("idx", idx), ("val", val), ("w", w))
     if dev.type == "cpu":
         return ell_matvec_plain(idx, val, w, dim)
     n, k = idx.shape
-    z = torch.empty(n, dtype=val.dtype, device=dev)
+    z = torch.empty(n, dtype=w.dtype, device=dev)
     if n == 0:
         return z
     plan = ell_tile_plan(k, val.dtype)
-    _launch("ell_matvec", dev, getattr(_lib(), f"ell_matvec_{_FLOAT_SUFFIX[val.dtype]}"),
+    _launch(_counted("ell_matvec", val.dtype), dev,
+            getattr(_lib(), f"ell_matvec_{_VALUE_SUFFIX[val.dtype]}"),
             idx.data_ptr(), val.data_ptr(), w.data_ptr(), z.data_ptr(),
             n, k, dim, plan.tile_rows, plan.group, plan.stage)
     return z
@@ -368,10 +422,11 @@ PANEL_SMEM_BYTES = 232448 - 16 * 1024
 
 def panel_cols(dtype: torch.dtype) -> int:
     """Columns of one panel: one shared-memory stage of w (16,384 in f32,
-    8,192 in f64)."""
-    if dtype not in _FLOAT_SUFFIX:
-        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
-    return PANEL_BYTES // (torch.finfo(dtype).bits // 8)
+    8,192 in f64). Given a value dtype, the panel of its compute type (a
+    bfloat16 layout stages a float32 w)."""
+    if dtype not in _VALUE_SUFFIX:
+        raise TypeError(f"dtype must be float32, float64 or bfloat16, got {dtype}")
+    return PANEL_BYTES // (torch.finfo(compute_dtype(dtype)).bits // 8)
 
 
 def tile_rows_for(n_rows: int) -> int:
@@ -492,11 +547,14 @@ def build_panels(idx: Tensor, val: Tensor, dim: int) -> PanelLayout | None:
     """The panel layout at the kernel's own tile and panel sizes, or
     ``None`` where reloading w for every tile would cost more L2 bytes than
     the gathers it saves (``panels_pay_off``): the caller then keeps
-    ``ell_matvec``. Built once per layout, on ``idx``'s device."""
+    ``ell_matvec``. Built once per layout, on ``idx``'s device. Bfloat16
+    values give the float32 layout (the same decision, tiles and panels:
+    w is float32) with its values kept in bfloat16."""
     _check_ell(idx, val, dim)
     nnz = int(((idx >= 0) & (idx < dim)).sum())
     n = idx.shape[0]
-    if n == 0 or not panels_pay_off(n, dim, nnz, val.element_size()):
+    w_size = torch.finfo(compute_dtype(val.dtype)).bits // 8
+    if n == 0 or not panels_pay_off(n, dim, nnz, w_size):
         return None
     return panel_layout(idx, val, dim, tile_rows_for(n), panel_cols(val.dtype))
 
@@ -537,9 +595,7 @@ def ell_panel_matvec(panels: PanelLayout, w: Tensor) -> Tensor:
     """
     if w.dim() != 1 or w.shape[0] != panels.dim:
         raise ValueError(f"w must be [{panels.dim}], got {tuple(w.shape)}")
-    _check_float(w, "w")
-    if w.dtype != panels.vals.dtype:
-        raise TypeError(f"w dtype {w.dtype} != panel value dtype {panels.vals.dtype}")
+    _check_values(panels.vals, w, "panel values", "w")
     named = (("codes", panels.codes), ("vals", panels.vals),
              ("offsets", panels.offsets), ("w", w))
     dev = _check_same_device(*named)
@@ -557,8 +613,8 @@ def ell_panel_matvec(panels: PanelLayout, w: Tensor) -> Tensor:
     z = torch.empty(panels.n_rows, dtype=w.dtype, device=dev)
     if panels.n_rows == 0:
         return z
-    _launch("ell_panel_matvec", dev,
-            getattr(_lib(), f"ell_panel_matvec_{_FLOAT_SUFFIX[w.dtype]}"),
+    _launch(_counted("ell_panel_matvec", panels.vals.dtype), dev,
+            getattr(_lib(), f"ell_panel_matvec_{_VALUE_SUFFIX[panels.vals.dtype]}"),
             panels.codes.data_ptr(), panels.vals.data_ptr(),
             panels.offsets.data_ptr(), w.data_ptr(), z.data_ptr(),
             panels.n_rows, panels.dim, panels.tile_rows, panels.n_tiles,
@@ -678,7 +734,8 @@ def build_csc(idx: Tensor, val: Tensor, dim: int) -> CscLayout:
 def csc_rmatvec_plain(csc: CscLayout, v: Tensor, square: bool = False) -> Tensor:
     """g = Aᵀ·v (with ``square``, (A∘A)ᵀ·v) as a segment sum of per-entry
     contributions by column, as ``photon_tpu/data/batch.py`` computes it.
-    Sums in float64 and rounds once, as the kernel does."""
+    Sums in float64 and rounds once, as the kernel does; bfloat16 values
+    upcast first, and square after."""
     cols = torch.repeat_interleave(
         torch.arange(csc.dim, device=csc.device), csc.colptr.diff()
     )
@@ -703,9 +760,7 @@ def csc_rmatvec(csc: CscLayout, v: Tensor, square: bool = False) -> Tensor:
     """
     if v.dim() != 1 or v.shape[0] != csc.n_rows:
         raise ValueError(f"v must be [{csc.n_rows}], got {tuple(v.shape)}")
-    _check_float(v, "v")
-    if v.dtype != csc.vals.dtype:
-        raise TypeError(f"v dtype {v.dtype} != CSC value dtype {csc.vals.dtype}")
+    _check_values(csc.vals, v, "CSC values", "v")
     named = (("colptr", csc.colptr), ("rows", csc.rows), ("vals", csc.vals),
              ("tiles", csc.tiles), ("splits", csc.splits), ("v", v))
     dev = _check_same_device(*named)
@@ -718,7 +773,8 @@ def csc_rmatvec(csc: CscLayout, v: Tensor, square: bool = False) -> Tensor:
         return g
     n_tiles, n_splits = csc.tiles.shape[0] - 1, csc.splits.shape[0]
     partials = torch.empty(2 * n_tiles, dtype=torch.float64, device=dev)
-    _launch(name, dev, getattr(_lib(), f"{name}_{_FLOAT_SUFFIX[v.dtype]}"),
+    _launch(_counted(name, csc.vals.dtype), dev,
+            getattr(_lib(), f"{name}_{_VALUE_SUFFIX[csc.vals.dtype]}"),
             csc.colptr.data_ptr(), csc.rows.data_ptr(),
             csc.vals.data_ptr(), v.data_ptr(), csc.tiles.data_ptr(),
             csc.splits.data_ptr(), partials.data_ptr(), g.data_ptr(),

@@ -53,6 +53,7 @@ from photon_tpu_torch.estimators.game_estimator import GameEstimator
 from photon_tpu_torch.io.data_reader import GameDataBundle
 from photon_tpu_torch.optim import RegularizationContext, RegularizationType
 from photon_tpu_torch.types import TaskType
+from test_torch_jax_decoder import jax_decoder  # noqa: F401
 
 CPU = torch.device("cpu")
 JAX_SNAPSHOT = os.path.join(os.path.dirname(__file__), "data", "jax_checkpoint")

@@ -4,9 +4,9 @@
   native decoder's loader included) and runs the CPU-importable parts of
   ``chip_smoke.py`` (its data, model, bound and phase functions, the
   training, GAME training, checkpoint, routing, sweep-cache, vmapped GAME
-  training and ingest phases included, at a tiny size, with the CPU as both
-  devices); afterwards neither ``jax`` nor any ``photon_tpu`` module is
-  loaded.
+  training, ingest, GLM driver and bf16-feed phases included, at a tiny
+  size, with the CPU as both devices); afterwards neither ``jax`` nor any
+  ``photon_tpu`` (nor ``ml_dtypes``) module is loaded.
 * No source line of the port or of ``chip_smoke.py`` imports them.
 * Without a GPU, ``resolve_device()`` and the port's scoring driver run
   without ``--device cpu`` raise instead of running on the CPU (the GPU is
@@ -27,7 +27,7 @@ from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.ops import cuda_sparse as cs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|photon_tpu)(\.|\s|$)")
+FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|photon_tpu|ml_dtypes)(\.|\s|$)")
 
 _CHILD = r"""
 import importlib, os, pkgutil, sys
@@ -109,8 +109,21 @@ for fit in ("fit_c", "fit_d", "fit_e"):
     assert vm[fit]["bit_equal_repeat"] and vm[fit]["plans"], vm[fit]
     assert set(vm[fit]["plans"]) == {("vmapped_lbfgs", None)}, vm[fit]
     assert vm[fit]["small"]["f64"]["coef_rel_err_vs_ref"] == 0.0, vm[fit]
+gl = chip_smoke.phase_glm_driver(torch, cs, cpu, root, ig["data"]["dir"],
+                                chunk_rows=48)
+runs = gl["runs"]
+assert runs["out_of_core"]["n_chunks"] == 4 and runs["in_core"]["iterations"] > 0, gl
+assert runs["out_of_core_bf16"]["value_dtype"] == "bfloat16", gl
+assert runs["out_of_core"]["passes_an_iteration"] == 2.0, gl
+w = gl["witness"]
+assert w["bf16_vs_f32_on_rounded"]["bit_identical"] and w["resume"]["bit_identical"], w
+assert w["f64_vs_in_core"]["coef_rel_err"] <= 1e-9, w
+assert gl["feature_indexing"]["features"] > 0, gl
+bf = chip_smoke.phase_bf16_feed(torch, cs, tiny, cpu, root, gd)
+assert bf["reader"] == "native" and bf["metric_abs_err_vs_f32"] <= 1e-2, bf
+assert bf["bit_equal_f32_on_rounded"], bf
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "photon_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "photon_tpu", "ml_dtypes"))
 print("MODULES", len(names), "BAD", bad)
 """
 

@@ -49,6 +49,7 @@ from test_torch_checkpoint import (
     torch_bundle,
 )
 from test_torch_streaming import assert_bundles_equal, dataset  # noqa: F401
+from test_torch_jax_decoder import jax_decoder  # noqa: F401
 
 CPU = torch.device("cpu")
 

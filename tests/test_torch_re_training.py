@@ -81,6 +81,7 @@ from photon_tpu_torch.optim import (
 )
 from photon_tpu_torch.types import TaskType
 from test_torch_scoring_driver import _write_game_avro
+from test_torch_jax_decoder import jax_decoder  # noqa: F401
 
 CPU = torch.device("cpu")
 

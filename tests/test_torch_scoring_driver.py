@@ -19,6 +19,7 @@ from photon_tpu.cli import game_scoring_driver as jax_scoring_driver
 from photon_tpu.cli import game_training_driver
 from photon_tpu.io.avro import read_records, write_container
 from photon_tpu_torch.cli import game_scoring_driver
+from test_torch_jax_decoder import jax_decoder  # noqa: F401
 
 RECORD_SCHEMA = {
     "type": "record",

@@ -42,6 +42,7 @@ from photon_tpu_torch.io.streaming import (
     collect_feature_keys,
     ell_from_triples,
 )
+from test_torch_jax_decoder import jax_decoder  # noqa: F401
 
 CPU = torch.device("cpu")
 

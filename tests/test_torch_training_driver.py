@@ -33,6 +33,7 @@ from photon_tpu.io.avro import read_records
 from photon_tpu_torch.cli import game_scoring_driver, game_training_driver
 from photon_tpu_torch.game import random_effect as tre
 from test_torch_scoring_driver import _write_game_avro
+from test_torch_jax_decoder import jax_decoder  # noqa: F401
 
 CONFIGS = {
     "logistic_lbfgs": ("LOGISTIC_REGRESSION",
@@ -172,7 +173,7 @@ REFUSED = {
     "--max-restarts": ["1"],
     "--restart-backoff": ["2"], "--heartbeat-dir": ["hb"], "--tuning": ["gp"],
     "--tuning-iterations": ["3"], "--tuning-range": ["fixed:0.1:10"],
-    "--devices": ["2"], "--mesh": ["data=2"], "--bf16-feed": [],
+    "--devices": ["2"], "--mesh": ["data=2"],
     "--profile-dir": ["prof"], "--debug-nans": [], "--trace-out": ["t.json"],
     "--telemetry-dir": ["tel"], "--backend-policy": ["strict"],
     "--distributed-policy": ["strict"], "--fault-plan": ["plan.json"],
@@ -281,9 +282,12 @@ def test_sanity_checks_match_jax(task, mode):
 
 
 def test_bf16_feed_names_its_slice(tmp_path, capsys):
-    with pytest.raises(SystemExit):
-        game_training_driver.run(_base_args(tmp_path) + ["--bf16-feed"])
-    assert "K1-bf16" in capsys.readouterr().err
+    """``--bf16-feed`` is ported (``tests/test_torch_bf16.py``); as in the
+    JAX driver it cannot honor ``--dtype float64`` and says so."""
+    with pytest.raises(ValueError, match="--bf16-feed.*float64"):
+        game_training_driver.run(_base_args(tmp_path) + ["--bf16-feed",
+                                                         "--dtype", "float64"])
+    assert "--bf16-feed" not in {f for f, _, _ in game_training_driver._LATER_SLICES}
 
 
 GAME_SPECS = [

@@ -39,6 +39,7 @@ from photon_tpu_torch.game.coordinates import FixedEffectModel
 from photon_tpu_torch.game.random_effect import RandomEffectModel
 from photon_tpu_torch.io.convert import game_model_from_numpy
 from photon_tpu_torch.io.data_reader import GameDataBundle
+from test_torch_jax_decoder import jax_decoder  # noqa: F401
 
 CPU = torch.device("cpu")
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32, 1e-5),
