@@ -131,6 +131,16 @@ result line:
    the card's busy share) and 4-worker reads, bit-equal; the scoring driver
    with ``--chunk-rows 65536`` and 0 (scores within 1e-5) and the training
    driver on the 2^19 rows, with their stage times.
+13. bf16_kernels, glm_driver, bf16_feed: the kernels' bf16 entry points
+   against their f32 kernels, the GLM driver in-core and out of core, and
+   the GAME driver with ``--bf16-feed``, its model files byte for byte those
+   of the f32 driver on bf16-rounded values (see each phase's docstring).
+14. factored: a factored per-user random effect at phase 6's widths
+   (``phase_factored``): its steps timed, the projection gradient bit-equal
+   on repeat and against cpu, an f64 witness, the model saved and scored.
+15. tuning: GP regularization tuning at BASELINE config 4's widths, killed
+   after a trial and resumed bit for bit, then the training driver's
+   ``--tuning gp`` with a factored random effect (``phase_tuning``).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
@@ -1066,17 +1076,21 @@ def _env(name: str, value: str):
             os.environ[name] = saved
 
 
-def game_arrays_bench(n_users, rows_per_user, d_global, d_user, seed=2, **_):
-    """bench.py's ``_game_bundle`` arithmetic (no item block): 12 global
-    entries and 4 of the row's user block; labels from latent weights of a
-    fixed rng, shared by every ``seed``. Also the ``user`` shard: an
-    intercept (column 0) plus the row's user-block entries."""
+def game_arrays_bench(n_users, rows_per_user, d_global, d_user, seed=2,
+                      n_items=0, **_):
+    """bench.py's ``_game_bundle`` arithmetic: 12 global entries and 4 of
+    the row's user block, and with ``n_items`` 3 of the row's item block
+    (an ``itemId`` tag); labels from latent weights of a fixed rng, shared
+    by every ``seed``. Also the ``user`` shard: an intercept (column 0)
+    plus the row's user-block entries."""
     wrng = np.random.default_rng(1234)
     wg = wrng.normal(size=d_global).astype(np.float32) * 0.5
     wu = wrng.normal(size=(n_users, d_user)).astype(np.float32) * 0.8
+    wi = (wrng.normal(size=(n_items, d_user)).astype(np.float32) * 0.6
+          if n_items else None)
     rng = np.random.default_rng(seed)
     n = n_users * rows_per_user
-    dim = d_global + n_users * d_user
+    dim = d_global + n_users * d_user + n_items * d_user
     users = np.repeat(np.arange(n_users), rows_per_user)
     rng.shuffle(users)
     k = 12
@@ -1085,14 +1099,23 @@ def game_arrays_bench(n_users, rows_per_user, d_global, d_user, seed=2, **_):
     ul = rng.integers(0, d_user, size=(n, 4))
     ui = (d_global + users[:, None] * d_user + ul).astype(np.int32)
     uv = (rng.normal(size=(n, 4)) / 2.0).astype(np.float32)
+    parts_i, parts_v = [gi, ui], [gv, uv]
     z = (gv * wg[gi]).sum(1) + (uv * wu[users[:, None], ul]).sum(1)
+    tags = {"userId": np.array([f"u{u}" for u in users], object)}
+    if n_items:
+        items = rng.integers(0, n_items, size=n)
+        il = rng.integers(0, d_user, size=(n, 3))
+        parts_i.append((d_global + n_users * d_user + items[:, None] * d_user
+                        + il).astype(np.int32))
+        parts_v.append((rng.normal(size=(n, 3)) / 2.0).astype(np.float32))
+        tags["itemId"] = np.array([f"i{it}" for it in items], object)
+        z = z + (parts_v[-1] * wi[items[:, None], il]).sum(1)
     labels = (rng.random(n) < 1 / (1 + np.exp(-z))).astype(np.float64)
     user_idx = np.concatenate([np.zeros((n, 1), np.int32),
                                (1 + users[:, None] * d_user + ul).astype(np.int32)], 1)
     user_val = np.concatenate([np.ones((n, 1), np.float32), uv], 1)
-    return {"idx": np.concatenate([gi, ui], 1), "val": np.concatenate([gv, uv], 1),
-            "dim": dim, "labels": labels,
-            "keys": np.array([f"u{u}" for u in users], object),
+    return {"idx": np.concatenate(parts_i, 1), "val": np.concatenate(parts_v, 1),
+            "dim": dim, "labels": labels, "tags": tags,
             "user_idx": user_idx, "user_val": user_val,
             "user_dim": 1 + n_users * d_user}
 
@@ -1112,7 +1135,7 @@ def game_bundle(torch, arrays, dev, dtype, offsets=None):
                              arrays["user_dim"])},
         labels=arrays["labels"], offsets=np.zeros(n) if offsets is None else offsets,
         weights=np.ones(n), uids=np.arange(n).astype(object),
-        id_tags={"userId": arrays["keys"]})
+        id_tags=dict(arrays["tags"]))
 
 
 def game_estimator(re_shard: str, n_sweeps: int, evaluators=("AUC", "LOGISTIC_LOSS")):
@@ -1239,6 +1262,7 @@ def _game_tensors(result) -> list:
     out = []
     for cid in sorted(result.model.keys()):
         m = result.model[cid]
+        m = getattr(m, "effective", m)      # a factored model's effective model
         if hasattr(m, "bucket_coefs"):
             out += list(m.bucket_coefs) + list(m.bucket_variances or [])
         else:
@@ -1560,11 +1584,13 @@ def re_step_stats(torch, est, bundle, re_shard, variance, fit_result) -> dict:
 
 GAME_FITS = (("fit_a", "global", (1.0, 10.0), "NONE"),
              ("fit_b", "user", (1.0,), "SIMPLE"))
-# The full-size f32 cpu references run one of the fits' two sweeps (a cut of
-# depth, to keep the script well inside its time: the references are host
-# work) and are held against the card's fit cut to the same sweep; both
-# sweeps are compared across the devices in f64 (fit_a_f64 / fit_b_f64).
+# The full-size f32 cpu references run one of the fits' two sweeps, and fit
+# A's only its first configuration of two (cuts of depth, to keep the script
+# well inside its time: the references are host work), held against the
+# card's fit cut alike; both sweeps and both configurations are compared
+# across the devices in f64 (fit_a_f64 / fit_b_f64).
 GAME_REF_SWEEPS = 1
+GAME_REF_CONFIGS = 1
 
 
 def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
@@ -1577,8 +1603,9 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
     LOGISTIC_LOSS. Fit B: the same users, the random effect over the
     ``user`` shard (user block + intercept), SIMPLE variances on both
     coordinates. Each in f32 on ``dev`` twice (bit-equality asserted), and
-    cut to ``GAME_REF_SWEEPS`` on ``dev`` and on ``ref_dev`` at the full
-    size (the f32 bounds of
+    cut to ``GAME_REF_SWEEPS`` sweeps and ``GAME_REF_CONFIGS``
+    configurations on ``dev`` and on ``ref_dev`` at the full size (the f32
+    bounds of
     ``compare_game_fits`` hold where the devices' fixed effects start
     alike: at 8,192 users the f32 fixed effect's first step already stops
     an iteration apart between the devices); each again in f64 at ``f64_users`` users on both devices under a
@@ -1615,9 +1642,10 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
         # the card's fit cut to the reference's sweeps: the same estimator,
         # its prepared datasets reused
         card_est.n_sweeps = GAME_REF_SWEEPS
-        cut = game_fit(torch, cs, card_est, *data[dev.type], cfgs)
+        ref_cfgs = cfgs[:GAME_REF_CONFIGS]
+        cut = game_fit(torch, cs, card_est, *data[dev.type], ref_cfgs)
         card_est.n_sweeps = 2
-        ref = game_fit(torch, cs, ref_est, *data[ref_dev.type], cfgs)
+        ref = game_fit(torch, cs, ref_est, *data[ref_dev.type], ref_cfgs)
         bit_equal = second is None or all(
             torch.equal(a, b) for ra, rb in zip(first["results"], second["results"])
             for a, b in zip(_game_tensors(ra), _game_tensors(rb)))
@@ -1654,7 +1682,7 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
             "fit_s": {"run": first["fit_s"],
                       "repeat": None if second is None else second["fit_s"],
                       "cut_to_ref_sweeps": cut["fit_s"], "ref": ref["fit_s"]},
-            "ref_sweeps": GAME_REF_SWEEPS,
+            "ref_sweeps": GAME_REF_SWEEPS, "ref_configs": len(ref_cfgs),
             "steps": first["steps"], "ref_steps": ref["steps"],
             "buckets": first["buckets"], "plans": plans,
             "best_config": first.get("best_config"),
@@ -1709,14 +1737,59 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
     return out
 
 
-def _read_random(path: str, cid: str = "perUser") -> dict:
-    from photon_tpu_torch.io.avro import read_records
+def _load_model(torch, path: str, index_root: str):
+    """A saved GAME model (shard ``global``) through the port's
+    ``io/model_io`` loader, in f64 on the CPU."""
+    from photon_tpu_torch.index.index_map import MmapIndexMap
+    from photon_tpu_torch.io.model_io import load_game_model
 
-    out = {}
-    for rec in read_records(os.path.join(path, "random-effect", cid, "part-00000.avro")):
-        for m in rec["means"]:
-            out[(rec["modelId"], m["name"], m["term"])] = m["value"]
-    return out
+    imap = MmapIndexMap(os.path.join(index_root, "global"))
+    return load_game_model(path, {"global": imap}, dtype=torch.float64,
+                           device=torch.device("cpu"))[0]
+
+
+def _re_rel_err(a, b) -> float:
+    """max |a - b| over max |b| of two loaded random effects' means, matched
+    by entity key and global column (absent entries are 0): array work,
+    no Python pass over the coefficients."""
+    ids = {k: i for i, k in enumerate(sorted(set(a.entity_keys) | set(b.entity_keys)))}
+
+    def entries(m):
+        ks, vs = [], []
+        for coefs, proj, eids in zip(m.bucket_coefs, m.bucket_proj, m.bucket_entity_ids):
+            p = proj.numpy().astype(np.int64)
+            ent = np.array([ids[m.entity_keys[e]] for e in eids.tolist()], np.int64)
+            ok = p < m.global_dim
+            ks.append((ent[:, None] * (m.global_dim + 1) + p)[ok])
+            vs.append(coefs.numpy()[ok])
+        return np.concatenate(ks), np.concatenate(vs)
+
+    (ka, va), (kb, vb) = entries(a), entries(b)
+    keys = np.union1d(ka, kb)
+    xa, xb = np.zeros(keys.size), np.zeros(keys.size)
+    xa[np.searchsorted(keys, ka)] = va
+    xb[np.searchsorted(keys, kb)] = vb
+    return float(np.abs(xa - xb).max() / max(np.abs(xb).max(), 1e-30))
+
+
+def _model_dirs_differ(a: str, b: str) -> list:
+    """The files in which two saved model directories differ: each Avro
+    file compared byte for byte without its sync marker (a random 16 bytes
+    the writer draws per file, the file's last 16 bytes), every other file
+    byte for byte. Equal bytes are equal schemas, blocks and records."""
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    def payload(path):
+        with open(path, "rb") as f:
+            data = f.read()
+        return data.replace(data[-16:], b"") if path.endswith(".avro") else data
+
+    fa, fb = files(a), files(b)
+    if fa != fb:
+        return sorted(set(fa) ^ set(fb))
+    return [f for f in fa if payload(os.path.join(a, f)) != payload(os.path.join(b, f))]
 
 
 def check_game_plans(gt: dict) -> None:
@@ -1798,9 +1871,13 @@ def phase_game_training_driver(torch, cs, sizes, dev, ref_dev, root: str,
     best = {d.type: os.path.join(root, f"game_train_{d.type}", "best")
             for d in (dev, ref_dev)}
     fa, fb = _read_fixed(best[dev.type]), _read_fixed(best[ref_dev.type])
-    ra, rb = _read_random(best[dev.type]), _read_random(best[ref_dev.type])
+    t0 = time.perf_counter()
+    index_root = os.path.join(root, "out", "index")
+    ra = _load_model(torch, best[dev.type], index_root)["perUser"]
+    rb = _load_model(torch, best[ref_dev.type], index_root)["perUser"]
     errs = {"fixed_means": _saved_rel_err(fa["means"], fb["means"]),
-            "random_means": _saved_rel_err(ra, rb)}
+            "random_means": _re_rel_err(ra, rb)}
+    compare_s = time.perf_counter() - t0
     for k, e in errs.items():
         if not e <= DRIVER_COEF_RTOL_F32:
             raise AssertionError(f"saved {k} differ between devices: {e}")
@@ -1815,7 +1892,9 @@ def phase_game_training_driver(torch, cs, sizes, dev, ref_dev, root: str,
             "write_validation_s": write_s, "best_config_index": sa["best_config_index"],
             "evaluation": sa["evaluation"], "evaluation_ref": sb["evaluation"],
             "metric_abs_err_vs_ref": metric_err, "saved_rel_err_vs_ref": errs,
-            "random_effect_coefficients": len(ra), "runs": runs,
+            "random_effect_coefficients": sum(int((p < ra.global_dim).sum())
+                                              for p in ra.bucket_proj),
+            "compare_saved_models_s": compare_s, "runs": runs,
             "scoring": {"evaluation": scored["evaluation"],
                         **_stage_seconds(os.path.join(dest, "photon.log"))},
             "launches": launches}
@@ -2960,9 +3039,10 @@ def phase_bf16_feed(torch, cs, sizes, dev, root: str, f32_run: dict) -> dict:
     ctl_dest = os.path.join(root, "game_train_f32_rounded")
     control, ctl_wall = train(rounded["data"], rounded["valid"], ctl_dest, [])
     best, ctl_best = os.path.join(dest, "best"), os.path.join(ctl_dest, "best")
-    diffs = [k for k, a, b in (
-        ("fixed_means", _read_fixed(best)["means"], _read_fixed(ctl_best)["means"]),
-        ("random_means", _read_random(best), _read_random(ctl_best)),
+    # The models bit for bit, as files: loading both through io/model_io
+    # costs what phase game_training_driver's compare_saved_models_s reads.
+    files_differ, bytes_s = _timed(torch, dev, lambda: _model_dirs_differ(best, ctl_best))
+    diffs = [f"model file {f}" for f in files_differ] + [k for k, a, b in (
         ("evaluation", summary["evaluation"], control["evaluation"]),
         ("best_config_index", summary["best_config_index"],
          control["best_config_index"])) if a != b]
@@ -2976,6 +3056,7 @@ def phase_bf16_feed(torch, cs, sizes, dev, root: str, f32_run: dict) -> dict:
            "read_seconds": summary["read_seconds"], "reader": summary["reader"],
            "evaluation": summary["evaluation"],
            "bit_equal_f32_on_rounded": not diffs, "differs_from_f32_on_rounded": diffs,
+           "compare_model_files_s": bytes_s,
            "f32_on_rounded": {"wall_s": ctl_wall, "fit_seconds": control["fit_seconds"],
                               "write_rounded_s": write_s},
            "evaluation_f32": f32_run["evaluation"],
@@ -2989,6 +3070,459 @@ def phase_bf16_feed(torch, cs, sizes, dev, root: str, f32_run: dict) -> dict:
         raise AssertionError(f"--bf16-feed: reader {summary['reader']}, differs from "
                              f"the f32 fit on rounded values in {diffs}, metrics "
                              f"{err} from the f32 run, scoring {scored['evaluation']}")
+    return out
+
+
+# ----------------------------------------------- factored random effects (M12)
+
+FACTORED = dict(latent=8, alternations=2)
+# The projection objective and its gradient at one point, cuda against cpu
+# on equal inputs (f32): |fa - fb| / |fb| and max |ga - gb| / max |gb|.
+FACTORED_POINT_RTOL_F32 = 1e-5
+FACTORED_F64_USERS = 8192
+# f64 effective coefficients, cuda against cpu (max |a - b| over max |b|),
+# where both devices took every decision alike, else the second bound.
+FACTORED_RTOL_F64 = 1e-9
+FACTORED_RTOL_F64_SPLIT = 1e-6
+# rows of the f64 witness written as Avro for the scoring driver
+FACTORED_SCORE_ROWS = 16384
+
+
+class _FactoredSteps:
+    """Seconds, solver readings and kernel launches of each step of
+    ``train_factored_random_effects``: its module functions wrapped (the
+    device synchronized around each) while the block runs, restored after."""
+
+    NAMES = ("train_random_effects", "_factor_model", "_latent_step",
+             "_projection_step")
+
+    def __init__(self, torch, cs, dev):
+        self.torch, self.cs, self.dev = torch, cs, dev
+        self.records: list = []
+
+    def _sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize()
+
+    def __enter__(self):
+        from photon_tpu_torch.game import factored_random_effect as fre
+
+        self.fre, self.saved = fre, {n: getattr(fre, n) for n in self.NAMES}
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                self._sync()
+                c0, t0 = self.cs.launch_counts(), time.perf_counter()
+                out = fn(*a, **kw)
+                self._sync()
+                rec = {"step": name, "seconds": time.perf_counter() - t0}
+                c1 = self.cs.launch_counts()
+                rec["launches"] = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+                if name == "_latent_step":
+                    res = out[1]
+                    rec.update(lanes=a[2].n_entities,
+                               iterations_max=int(res.iterations.max()),
+                               iterations_median=float(res.iterations.double().median()))
+                    rec["lanes_per_s"] = rec["lanes"] / rec["seconds"]
+                elif name == "_projection_step":
+                    # an evaluation of the objective is 2 data passes
+                    res = out[1]
+                    rec.update(iterations=res.iterations, reason=res.reason_name(),
+                               data_passes=res.data_passes, value=res.value)
+                self.records.append(rec)
+                return out
+            return run
+
+        for n in self.NAMES:
+            setattr(fre, n, timed(n, self.saved[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.fre, n, fn)
+
+    def summary(self) -> dict:
+        def of(name):
+            return [r for r in self.records if r["step"] == name]
+
+        return {"spectral_init_s": {"plain_re_solve": sum(r["seconds"] for r in of(
+                    "train_random_effects")), "svds": sum(r["seconds"] for r in of(
+                    "_factor_model"))},
+                "latent_steps": of("_latent_step"),
+                "projection_steps": of("_projection_step")}
+
+
+def factored_estimator(latent: int, alternations: int, evaluators=("AUC",),
+                       n_sweeps: int = 1):
+    from photon_tpu_torch.estimators.config import (
+        FactoredRandomEffectDataConfig,
+        FixedEffectDataConfig,
+    )
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.types import TaskType
+
+    return GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {"fixed": FixedEffectDataConfig("global"),
+         "perUser": FactoredRandomEffectDataConfig(
+             "userId", "global", latent_dim=latent, n_alternations=alternations)},
+        n_sweeps=n_sweeps, evaluator_specs=evaluators)
+
+
+def _factored_fit(torch, cs, est, train, valid, cfgs, dev) -> tuple:
+    """One factored ``GameEstimator.fit`` on ``dev``, its steps measured."""
+    with _FactoredSteps(torch, cs, dev) as steps:
+        out = game_fit(torch, cs, est, train, valid, cfgs)
+    return out, steps
+
+
+def _decisions_apart(torch, a_steps, b_steps, run, ref) -> dict:
+    """Stopping decisions that differ between two factored fits: the
+    latent steps' lanes (iterations or reason; the final step's through the
+    tracker), each projection step's iterations, reason or data passes, and
+    the fixed-effect steps'."""
+    proj = [i for i, (x, y) in enumerate(zip(a_steps.summary()["projection_steps"],
+                                            b_steps.summary()["projection_steps"]))
+            if (x["iterations"], x["reason"], x["data_passes"])
+            != (y["iterations"], y["reason"], y["data_passes"])]
+    lanes = _lane_path_diffs(run, ref)
+    fixed = [st for st in _fixed_steps(torch, run, ref)
+             if len(set(st["iterations"])) > 1 or len(set(st["reasons"])) > 1
+             or len(set(st["data_passes"])) > 1]
+    return {"projection_steps": proj, "final_latent_lanes": lanes,
+            "fixed_steps": len(fixed)}
+
+
+def write_rows_avro(path: str, arrays: dict, names: list, rows: int) -> int:
+    """The first ``rows`` rows of ``arrays`` (``game_arrays_bench``'s
+    global shard) as Avro training examples, uid = row index."""
+    from photon_tpu_torch.io.avro import ContainerWriter
+    from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
+
+    name_term = [n.split("\x01") for n in names]
+    idx, val = arrays["idx"], arrays["val"]
+    with ContainerWriter(path, TRAINING_EXAMPLE_AVRO) as w:
+        for r in range(rows):
+            w.write({"uid": str(r), "label": float(arrays["labels"][r]),
+                     "weight": None, "offset": 0.0,
+                     "features": [{"name": name_term[c][0], "term": name_term[c][1],
+                                   "value": float(x)} for c, x in zip(idx[r], val[r])],
+                     "metadataMap": {"userId": arrays["tags"]["userId"][r]}})
+    return rows
+
+
+def _bench_names(sizes, n_users: int) -> list:
+    """Feature keys of ``game_arrays_bench``'s global shard, in column order."""
+    from photon_tpu_torch.index.index_map import feature_key
+
+    return ([feature_key("g", str(j)) for j in range(sizes["d_global"])]
+            + [feature_key("u", f"{u}_{j}") for u in range(n_users)
+               for j in range(sizes["d_user"])])
+
+
+def factored_save_and_score(torch, sizes, arrays, est, bundle, result, dev,
+                            root: str) -> dict:
+    """Save ``result``'s model (f64, ``arrays``' users) with the port's
+    ``save_game_model``, score its first ``FACTORED_SCORE_ROWS`` rows with
+    the port's scoring driver, and hold the scores against the in-memory
+    model's on the same rows (1e-9)."""
+    from photon_tpu_torch.cli import game_scoring_driver
+    from photon_tpu_torch.index.index_map import DefaultIndexMap, build_mmap_index
+    from photon_tpu_torch.io.avro import read_records
+    from photon_tpu_torch.io.data_reader import FeatureShardConfig
+    from photon_tpu_torch.io.model_io import save_game_model
+
+    n_users = len(arrays["labels"]) // sizes["rows_per_user"]
+    names = _bench_names(sizes, n_users)
+    assert len(names) == arrays["dim"]
+    base = os.path.join(root, "factored_model")
+    imap = DefaultIndexMap(names)
+    build_mmap_index(imap, os.path.join(base, "index", "global"))
+    t0 = time.perf_counter()
+    save_game_model(os.path.join(base, "best"), result.model, {"global": imap},
+                    {"fixed": "global", "perUser": "global"},
+                    {"global": FeatureShardConfig(("features",), False)})
+    save_s = time.perf_counter() - t0
+    rows = min(FACTORED_SCORE_ROWS, len(arrays["labels"]))
+    data = os.path.join(base, "rows.avro")
+    t0 = time.perf_counter()
+    write_rows_avro(data, arrays, names, rows)
+    write_s = time.perf_counter() - t0
+    dest = os.path.join(base, "scores")
+    scored = game_scoring_driver.run([
+        "--data", data, "--model-dir", os.path.join(base, "best"),
+        "--output-dir", dest, "--device", dev.type, "--dtype", "float64"])
+    got = np.array([r["predictionScore"] for r in read_records(
+        os.path.join(dest, "scores.avro"))])
+    model = result.model
+    ds = est._prepare_cached(bundle)["datasets"]["perUser"]
+    want = (bundle.features["global"].matvec(model["fixed"].model.coefficients.means)
+            + model["perUser"].score_dataset(ds))[:rows].cpu().numpy()
+    err = float(np.abs(got - want).max())
+    if not (scored["n_rows"] == rows and err <= 1e-9 and np.std(got) > 0):
+        raise AssertionError(f"the saved factored model scores {err} from the "
+                             f"in-memory model ({scored['n_rows']} rows)")
+    return {"rows": rows, "save_s": save_s, "write_rows_s": write_s,
+            "scores_max_abs_err_vs_model": err,
+            "projection_npy": os.path.exists(os.path.join(
+                base, "best", "random-effect", "perUser", "projection.npy")),
+            **_stage_seconds(os.path.join(dest, "photon.log"))}
+
+
+def phase_factored(torch, cs, sizes, f64_users, dev, ref_dev, root: str) -> dict:
+    """A factored random effect at fit A's data and widths (phase 6's
+    ``bench_game_scale`` bundle: 100,000 users x 16 rows, 2^14 global + 8
+    columns a user): fixed + ``perUser`` as ``FactoredRandomEffectDataConfig``
+    (latent 8, 2 alternations), logistic L2 1, ``sizes['iterations']``
+    iterations, 1 sweep, f32, through ``GameEstimator.fit`` on ``dev``
+    (no validation data: the checks below hold what comes out). Prints the
+    spectral init (the plain RE solve, then ``svds``), each latent step
+    (seconds, lanes/s) and projection step (seconds, iterations, data
+    passes, two an evaluation, its launches: a matvec kernel and
+    ``csc_rmatvec`` asserted) and the phase's launches; the projection objective and gradient at the fit's final point
+    on ``dev`` twice (bit-equal) and on ``ref_dev`` from equal inputs
+    (``FACTORED_POINT_RTOL_F32``); an f64 witness at ``f64_users`` users on
+    both devices (``FACTORED_RTOL_F64`` where every decision agrees); the
+    witness's card model saved and scored back by the port's scoring
+    driver. Returns the phase's launches under ``launches``."""
+    import dataclasses
+
+    from photon_tpu_torch.game import factored_random_effect as fre
+    from photon_tpu_torch.types import TaskType
+
+    arrays = game_arrays_bench(seed=2, **sizes)
+    cfgs = game_configs((1.0,), sizes["iterations"], "NONE")
+    train = game_bundle(torch, arrays, dev, torch.float32)
+    est = factored_estimator(FACTORED["latent"], FACTORED["alternations"], ())
+    cs.reset_launch_counts()
+    fit, steps = _factored_fit(torch, cs, est, train, None, cfgs, dev)
+    launches = cs.launch_counts()
+    result = fit["results"][0]
+    model = result.model["perUser"]
+    out = {"shape": {k: sizes[k] for k in ("n_users", "rows_per_user", "d_global",
+                                           "d_user")},
+           "rows": len(arrays["labels"]), **FACTORED, "fit_s": fit["fit_s"],
+           "steps": fit["steps"], **steps.summary(),
+           "projection_shape": list(model.projection.shape)}
+    failures = []
+    if not all(torch.isfinite(t).all() for t in _game_tensors(result)):
+        failures.append("non-finite coefficients")
+    if dev.type == "cuda":
+        for st in out["projection_steps"]:
+            if not (st["launches"].get("csc_rmatvec", 0) and (
+                    st["launches"].get("ell_matvec", 0)
+                    + st["launches"].get("ell_panel_matvec", 0))):
+                failures.append(f"a projection step launched no matvec kernel or "
+                                f"csc_rmatvec: {st['launches']}")
+
+    # the projection objective at the fit's final point, on equal inputs
+    ds = est._prepare_cached(train)["datasets"]["perUser"]
+    problem = cfgs[0]["perUser"].problem(TaskType.LOGISTIC_REGRESSION)
+    offsets = train.features["global"].matvec(
+        result.model["fixed"].model.coefficients.means)
+    lats, P = list(model.bucket_latent), model.projection
+    vg = fre.projection_value_and_grad(
+        problem, list(ds.buckets), fre._designs(ds, list(ds.buckets)), offsets, lats,
+        tuple(P.shape))
+    (f1, g1), t1 = _timed(torch, dev, lambda: vg(P.reshape(-1)))
+    f2, g2 = vg(P.reshape(-1))
+    bit_equal = bool(torch.equal(f1, f2) and torch.equal(g1, g2))
+    cpu_buckets = [b.to(ref_dev) for b in ds.buckets]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    cpu_ds = dataclasses.replace(ds, buckets=tuple(cpu_buckets), device=ref_dev,
+                                 lane_layouts={})
+    t0 = time.perf_counter()
+    vg_ref = fre.projection_value_and_grad(
+        problem, cpu_buckets, fre._designs(cpu_ds, cpu_buckets), offsets.to(ref_dev),
+        [b.to(ref_dev) for b in lats], tuple(P.shape))
+    fr, gr = vg_ref(P.reshape(-1).to(ref_dev))
+    ref_s = time.perf_counter() - t0
+    f_err = abs(f1.item() - fr.item()) / abs(fr.item())
+    g_err = _stack_rel_err(torch, [g1], [gr])
+    out["point"] = {"value": f1.item(), "value_rel_err_vs_ref": f_err,
+                    "grad_rel_err_vs_ref": g_err, "limit": FACTORED_POINT_RTOL_F32,
+                    "bit_equal_repeat": bit_equal, "evaluation_s": t1,
+                    "ref_evaluation_s": ref_s}
+    if not (bit_equal and f_err <= FACTORED_POINT_RTOL_F32
+            and g_err <= FACTORED_POINT_RTOL_F32):
+        failures.append(f"projection objective at one point: {out['point']}")
+    del vg, vg_ref, cpu_buckets, cpu_ds, g1, g2, gr
+
+    # the f64 witness, cuda against cpu
+    small = game_arrays_bench(seed=2, **dict(sizes, n_users=f64_users))
+    wit, wsteps, kept = {}, {}, {}
+    for d in (dev, ref_dev):
+        b64 = game_bundle(torch, small, d, torch.float64)
+        e64 = factored_estimator(FACTORED["latent"], FACTORED["alternations"], ())
+        wit[d.type], wsteps[d.type] = _factored_fit(torch, cs, e64, b64, None, cfgs, d)
+        if d == dev:
+            kept = {"est": e64, "bundle": b64}
+    apart = _decisions_apart(torch, wsteps[dev.type], wsteps[ref_dev.type], wit[dev.type],
+                             wit[ref_dev.type])
+    rel = _stack_rel_err(torch, _game_tensors(wit[dev.type]["results"][0]),
+                         _game_tensors(wit[ref_dev.type]["results"][0]))
+    split = bool(apart["projection_steps"] or sum(apart["final_latent_lanes"].values())
+                 or apart["fixed_steps"])
+    lim = FACTORED_RTOL_F64_SPLIT if split else FACTORED_RTOL_F64
+    out["f64"] = {"users": f64_users, "coef_rel_err_vs_ref": rel, "limit": lim,
+                  "decisions_apart": apart,
+                  "fit_s": {k: v["fit_s"] for k, v in wit.items()},
+                  "projection_iterations": {
+                      k: [s["iterations"] for s in v.summary()["projection_steps"]]
+                      for k, v in wsteps.items()}}
+    if not rel <= lim:
+        failures.append(f"f64 witness: effective coefficients {rel} apart "
+                        f"(decisions apart {apart}) > {lim}")
+    out["save_and_score"] = factored_save_and_score(
+        torch, dict(sizes, n_users=f64_users), small, kept["est"], kept["bundle"],
+        wit[dev.type]["results"][0], dev, root)
+    if failures:
+        emit({"phase": "factored", **out})
+        raise AssertionError("; ".join(failures))
+    out["launches"] = launches
+    return out
+
+
+# ----------------------------------------------------------- tuning (M12)
+
+# BASELINE config 4 (``bench.py``'s ``bench_tuner``): per-user + per-item
+# random effects, GP over three (0.01, 100) ranges, 3 trials.
+TUNER = dict(n_users=2000, rows_per_user=16, valid_rows_per_user=4, d_global=4096,
+             d_user=8, n_items=500, iterations=10, trials=3)
+TUNER_RANGES = {"fixed": (0.01, 100.0), "perUser": (0.01, 100.0),
+                "perItem": (0.01, 100.0)}
+
+
+def tuner_estimator():
+    from photon_tpu_torch.estimators.config import (
+        FixedEffectDataConfig,
+        RandomEffectDataConfig,
+    )
+    from photon_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_tpu_torch.types import TaskType
+
+    return GameEstimator(
+        TaskType.LOGISTIC_REGRESSION,
+        {"fixed": FixedEffectDataConfig("global"),
+         "perUser": RandomEffectDataConfig("userId", "global"),
+         "perItem": RandomEffectDataConfig("itemId", "global")},
+        n_sweeps=1, evaluator_specs=("AUC",))
+
+
+def phase_tuning(torch, cs, sizes, dev, root: str) -> dict:
+    """Regularization tuning at BASELINE config 4's widths (``bench_tuner``:
+    2,000 users x 16 rows, validation 2,000 x 4, 4,096 global columns, 500
+    items; fixed + perUser + perItem, AUC, ``sizes['iterations']``
+    iterations, 1 sweep; GP over three (0.01, 100) ranges,
+    ``sizes['trials']`` trials) through ``tune_regularization`` on ``dev``:
+    seconds a trial and the best AUC. Killed after trial 1 under the port's
+    ``CheckpointManager`` and resumed: the history (points, values) and the
+    best model bit-identical to the uninterrupted search. Then
+    ``game_training_driver`` on the drivers' rows (``root/data.avro``,
+    validated on ``root/valid.avro``) with ``--tuning gp`` over
+    ``fixed`` and a factored ``perUser`` (latent 4) and ``--checkpoint-dir``;
+    its best model scored by the port's scoring driver. Returns the
+    phase's launches under ``launches``."""
+    from photon_tpu_torch.checkpoint import CheckpointManager
+    from photon_tpu_torch.cli import game_scoring_driver, game_training_driver
+    from photon_tpu_torch.estimators.config import GLMOptimizationConfiguration
+    from photon_tpu_torch.hyperparameter import tune_regularization
+    from photon_tpu_torch.optim.regularization import (
+        RegularizationContext,
+        RegularizationType,
+    )
+
+    shape = {k: sizes[k] for k in ("n_users", "rows_per_user", "d_global", "d_user",
+                                   "n_items")}
+    train = game_bundle(torch, game_arrays_bench(seed=5, **shape), dev, torch.float32)
+    valid = game_bundle(torch, game_arrays_bench(
+        seed=6, **dict(shape, rows_per_user=sizes["valid_rows_per_user"])),
+        dev, torch.float32)
+    base = {cid: GLMOptimizationConfiguration(
+        regularization=RegularizationContext(RegularizationType.L2), reg_weight=1.0,
+        max_iterations=sizes["iterations"]) for cid in TUNER_RANGES}
+    n = sizes["trials"]
+    cs.reset_launch_counts()
+    est = tuner_estimator()
+    trial_s: list = []
+    fit = est.fit
+
+    def timed_fit(*a, **kw):
+        out, dt = _timed(torch, dev, lambda: fit(*a, **kw))
+        trial_s.append(dt)
+        return out
+
+    est.fit = timed_fit
+    ref, wall = _timed(torch, dev, lambda: tune_regularization(
+        est, train, valid, base, TUNER_RANGES, n_iterations=n, strategy="gp", seed=0))
+    ck = os.path.join(root, "tuning_ck")
+    shutil.rmtree(ck, ignore_errors=True)
+    mgr = CheckpointManager(ck, fail_after=1)
+    killed = False
+    try:
+        tune_regularization(tuner_estimator(), train, valid, base, TUNER_RANGES,
+                            n_iterations=n, strategy="gp", seed=0,
+                            checkpoint_manager=mgr)
+    except KeyboardInterrupt:
+        killed = True
+    mgr.close()
+    mgr = CheckpointManager(ck)
+    resumed, resume_s = _timed(torch, dev, lambda: tune_regularization(
+        tuner_estimator(), train, valid, base, TUNER_RANGES, n_iterations=n,
+        strategy="gp", seed=0, checkpoint_manager=mgr))
+    mgr.close()
+    identical = (killed
+                 and np.array_equal(resumed.search.points, ref.search.points)
+                 and np.array_equal(resumed.search.values, ref.search.values)
+                 and all(torch.equal(a, b) for a, b in zip(
+                     _game_tensors(resumed.best_result),
+                     _game_tensors(ref.best_result))))
+    out = {"shape": shape, "iterations": sizes["iterations"], "trials": n,
+           "wall_s": wall, "trial_s": trial_s,
+           "points": ref.search.points.tolist(), "values": ref.search.values.tolist(),
+           "best_auc": -ref.search.best_value,
+           "best_reg_weights": {c: ref.best_config[c].reg_weight for c in TUNER_RANGES},
+           "killed_after_trial": 1, "resume_s": resume_s,
+           "resumed_bit_identical": identical}
+
+    # the driver: GP tuning over a fixed and a factored random effect
+    dest = os.path.join(root, "game_train_tuned")
+    shutil.rmtree(os.path.join(root, "tuned_ck"), ignore_errors=True)
+    specs = ["fixed:type=fixed,shard=global,reg=L2,reg_weights=1,max_iter=20",
+             "perUser:type=factored,re_type=userId,shard=global,latent=4,reg=L2,"
+             "reg_weights=1,max_iter=20"]
+    summary, dwall = _timed(torch, dev, lambda: game_training_driver.run([
+        "--train-data", os.path.join(root, "data.avro"),
+        "--validation-data", os.path.join(root, "valid.avro"),
+        "--evaluators", "AUC", "--output-dir", dest, "--task", "LOGISTIC_REGRESSION",
+        "--coordinate", specs[0], "--coordinate", specs[1],
+        "--index-dir", os.path.join(root, "out", "index"),
+        "--tuning", "gp", "--tuning-iterations", "3",
+        "--tuning-range", "fixed:0.01:100", "--tuning-range", "perUser:0.01:100",
+        "--checkpoint-dir", os.path.join(root, "tuned_ck"),
+        "--re-routing", "static", "--device", dev.type]))
+    scored = game_scoring_driver.run([
+        "--data", os.path.join(root, "valid.avro"), "--model-dir",
+        os.path.join(dest, "best"), "--output-dir", os.path.join(root, "tuned_scores"),
+        "--device", dev.type, "--evaluators", "AUC"])
+    out["driver"] = {"wall_s": dwall, "fit_seconds": summary["fit_seconds"],
+                     "evaluation": summary["evaluation"],
+                     "best_config": {c: summary["best_config"][c]["reg_weight"]
+                                     for c in ("fixed", "perUser")},
+                     "factored_latent_dim": json.load(open(os.path.join(
+                         dest, "best", "game-metadata.json")))["coordinates"][
+                             "perUser"].get("factored_latent_dim"),
+                     "scoring": scored["evaluation"],
+                     **_stage_seconds(os.path.join(dest, "photon.log"))}
+    ok = (identical and np.isfinite(out["values"]).all() and out["best_auc"] > 0.5
+          and out["driver"]["factored_latent_dim"] == 4
+          and np.isfinite(scored["evaluation"]["AUC"]))
+    if not ok:
+        emit({"phase": "tuning", **out})
+        raise AssertionError(f"tuning: resumed bit-identical {identical}, values "
+                             f"{out['values']}, driver {out['driver']}")
+    out["launches"] = cs.launch_counts()
     return out
 
 
@@ -3488,6 +4022,23 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
 
+    fc = phase_factored(torch, cs, GAME, FACTORED_F64_USERS, dev, cpu, WORK)
+    fc_launches = fc.pop("launches")
+    emit({"phase": "factored", "launches": fc_launches, **fc})
+    tu = phase_tuning(torch, cs, TUNER, dev, WORK)
+    tu_launches = tu.pop("launches")
+    emit({"phase": "tuning", "launches": tu_launches, "matvec_kernel": chosen, **tu})
+    # the projection step's passes (asserted per step in the phase), and the
+    # tuning trials' fixed effects and factored driver runs
+    missing = [f"{ph}:{k}" for ph, c in (("factored", fc_launches),
+                                         ("tuning", tu_launches))
+               for k in ("csc_rmatvec",) if c[k] < 1]
+    missing += [f"{ph}:matvec" for ph, c in (("factored", fc_launches),
+                                             ("tuning", tu_launches))
+                if c["ell_matvec"] + c["ell_panel_matvec"] < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: {missing}")
+
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
     by_phase = {"transformer": tr_launches, "driver": dr_launches,
                 "training": tn_launches, "training_driver": td_launches,
@@ -3495,7 +4046,8 @@ def main() -> int:
                 "checkpoint": ck_launches, "routing": rt_launches,
                 "sweep_cache": sc_launches,
                 "game_training_vmapped": vm_launches, "ingest": ig_launches,
-                "glm_driver": gl_launches, "bf16_feed": bf_launches}
+                "glm_driver": gl_launches, "bf16_feed": bf_launches,
+                "factored": fc_launches, "tuning": tu_launches}
     status = {"ell_panel_matvec": "ported; redesigned: column panels of w staged by TMA",
               "ell_matvec": "ported; redesigned: row tiles streamed by TMA",
               "csc_rmatvec": "ported; redesigned: merge-path segmented reduction",

@@ -5,9 +5,9 @@ on one device: parse flags → build (or load) the feature index maps → read
 the Avro training (and validation) data → sanity checks →
 the feature summary (``--feature-summary``) →
 ``GameEstimator.fit`` over the regularization-weight sweep (with
-``--normalization`` and per-coordinate ``downsample``), fixed and random
-effects by coordinate descent, evaluated after every step when
-``--evaluators`` and ``--validation-data`` are given → select the best
+``--normalization`` and per-coordinate ``downsample``), fixed, random and
+factored random effects by coordinate descent, evaluated after every step
+when ``--evaluators`` and ``--validation-data`` are given → select the best
 configuration by the primary evaluator → save the model(s), the index maps,
 ``training-summary.json`` and ``metrics.jsonl``. The output layout is the
 JAX driver's (``best/``, ``models/<i>/`` under ``--output-mode ALL``,
@@ -23,12 +23,16 @@ on a thread (``--prefetch-depth``) or by worker processes
 buffers; a schema the streaming engine cannot express falls back, logged,
 to the per-record reader (``training-summary.json`` names the reader that
 ran). ``--checkpoint-dir`` snapshots every coordinate step and resumes a
-killed run; ``--re-routing measured`` routes the random-effect solves by a
-measured cost table (``--re-cost-table``); ``--sweep-cache-mb`` sizes the
-device cache of host-resident random-effect buckets. Flags of the JAX
-driver that belong to later slices of the port (restarts, tuning, meshes,
-the bfloat16 feed, profiling, the runtime guards) are refused with a
-message naming the slice.
+killed run; ``--tuning gp|random`` (with ``--tuning-iterations`` and
+``--tuning-range CID:MIN:MAX``) replaces the regularization-weight sweep by
+a Bayesian or random search over the coordinates' weights, one GAME fit a
+trial (``hyperparameter/tuner.py``), checkpointed a trial at a time under
+``--checkpoint-dir``; ``--re-routing measured`` routes the random-effect
+solves by a measured cost table (``--re-cost-table``); ``--sweep-cache-mb``
+sizes the device cache of host-resident random-effect buckets. Flags of the JAX
+driver that belong to later slices of the port (restarts, meshes,
+profiling, the runtime guards) are refused with a message naming the
+slice.
 
     python -m photon_tpu_torch.cli.game_training_driver \\
       --train-data data/train --output-dir out --task LOGISTIC_REGRESSION \\
@@ -87,12 +91,6 @@ _LATER_SLICES = (
      "supervised restarts come with the runtime-guards slice (M13)"),
     ("--heartbeat-dir", lambda a: a.heartbeat_dir is not None,
      "heartbeats come with the runtime-guards slice (M13)"),
-    ("--tuning", lambda a: a.tuning is not None,
-     "hyperparameter tuning comes with the tuning slice (M12)"),
-    ("--tuning-iterations", lambda a: a.tuning_iterations is not None,
-     "hyperparameter tuning comes with the tuning slice (M12)"),
-    ("--tuning-range", lambda a: a.tuning_range is not None,
-     "hyperparameter tuning comes with the tuning slice (M12)"),
     ("--devices", lambda a: a.devices != 1,
      "multi-device training comes with the multi-GPU slice (M14); use 1"),
     ("--mesh", lambda a: a.mesh is not None,
@@ -185,14 +183,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(narrowed on the host; the kernels upcast on load "
                         "and sum as with float32 values): half the value "
                         "bytes of every copy and pass. Float32 only")
+    p.add_argument("--tuning", default=None, choices=["gp", "random"],
+                   help="auto-tune per-coordinate reg weights (replaces the grid sweep)")
+    p.add_argument("--tuning-iterations", type=int, default=10)
+    p.add_argument("--tuning-range", action="append", default=None,
+                   metavar="CID:MIN:MAX",
+                   help="reg-weight search range for a coordinate (repeatable)")
     add_re_routing_flags(p)
     # The JAX driver's flags that later slices bring: refused when set.
     p.add_argument("--max-restarts", type=int, default=0)
     p.add_argument("--restart-backoff", type=float, default=None)
     p.add_argument("--heartbeat-dir", default=None)
-    p.add_argument("--tuning", default=None)
-    p.add_argument("--tuning-iterations", type=int, default=None)
-    p.add_argument("--tuning-range", action="append", default=None)
     p.add_argument("--devices", type=int, default=1)
     p.add_argument("--mesh", default=None)
     p.add_argument("--profile-dir", default=None)
@@ -374,13 +375,46 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
         intercept_indices={s: im.intercept_index for s, im in index_maps.items()},
         sweep_cache_mb=args.sweep_cache_mb,
     )
-    with _checkpointing(args.checkpoint_dir) as ckpt, \
-            Timed("fit", logger) as fit_timer:
-        results = estimator.fit(
-            train, validation if suite else None, configs,
-            initial_model=initial_model, checkpoint_manager=ckpt)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    if args.tuning:
+        if not (args.evaluators and validation is not None):
+            raise ValueError("--tuning needs --evaluators and --validation-data")
+        if not args.tuning_range:
+            raise ValueError("--tuning needs at least one --tuning-range CID:MIN:MAX")
+        if args.tuning_iterations < 1:
+            raise ValueError(
+                f"--tuning-iterations must be >= 1, got {args.tuning_iterations}")
+        if len(configs) > 1:
+            raise ValueError(
+                "--tuning replaces the reg-weight grid sweep; remove the "
+                "multi-value reg_weights axes from --coordinate specs")
+        from photon_tpu_torch.hyperparameter import tune_regularization
+
+        ranges = {}
+        for spec in args.tuning_range:
+            cid, lo, hi = spec.split(":")
+            ranges[cid] = (float(lo), float(hi))
+        with _checkpointing(args.checkpoint_dir) as tuning_ckpt, \
+                Timed("hyperparameter tuning", logger) as fit_timer:
+            tuning = tune_regularization(
+                estimator, train, validation, configs[0], ranges,
+                n_iterations=args.tuning_iterations, strategy=args.tuning,
+                seed=0, initial_model=initial_model,
+                checkpoint_manager=tuning_ckpt)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+        logger.info("tuning best params %s -> %.6g",
+                    dict(zip(sorted(ranges), tuning.best_params)),
+                    tuning.search.best_value)
+        # The best configuration's model was trained during the search.
+        results = [tuning.best_result]
+    else:
+        with _checkpointing(args.checkpoint_dir) as ckpt, \
+                Timed("fit", logger) as fit_timer:
+            results = estimator.fit(
+                train, validation if suite else None, configs,
+                initial_model=initial_model, checkpoint_manager=ckpt)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
     # Without evaluators the first configuration is the selected one, as in
     # the JAX driver.
     best = select_best(results, suite) if suite else results[0]

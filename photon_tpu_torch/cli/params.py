@@ -10,7 +10,7 @@ Coordinate spec (one ``--coordinate`` flag per coordinate):
 
     <cid>:<k>=<v>,<k>=<v>,...
 
-keys: ``type`` fixed|random (required); ``shard`` feature shard id;
+keys: ``type`` fixed|random|factored (required); ``shard`` feature shard id;
 ``re_type`` entity id column (random, required); ``active_bound`` int;
 ``min_rows`` int; ``max_features`` int (Pearson filter);
 ``max_bucket_entities`` int; ``host_resident`` 0|1 (buckets kept on the
@@ -18,10 +18,9 @@ host for the device sweep cache); ``optimizer`` LBFGS|OWLQN|TRON; ``max_iter``
 int; ``tol`` float; ``reg`` NONE|L1|L2|ELASTIC_NET; ``alpha`` elastic-net α;
 ``reg_weights`` '|'-separated floats (sweep, default 0); ``downsample``
 rate in (0, 1]; ``variance`` NONE|SIMPLE|FULL; ``incremental`` prior weight
-for incremental training from --model-input-dir. The JAX package's
-``type=factored`` (with ``latent`` / ``alternations``) belongs to a later
-slice of the port and raises ``NotImplementedError`` naming it; its keys
-are still recognized.
+for incremental training from --model-input-dir; ``latent`` int and
+``alternations`` int (``type=factored`` only: the latent dimension and the
+latent/projection alternations, default 8 and 2).
 """
 from __future__ import annotations
 
@@ -30,6 +29,7 @@ from typing import Sequence
 
 from photon_tpu_torch.estimators.config import (
     CoordinateDataConfig,
+    FactoredRandomEffectDataConfig,
     FixedEffectDataConfig,
     GLMOptimizationConfiguration,
     RandomEffectDataConfig,
@@ -89,12 +89,6 @@ def parse_coordinate_spec(spec: str) -> CoordinateSpec:
             f"'factored', got {ctype!r}"
         )
     shard = kv.get("shard", "global")
-    if ctype == "factored":
-        raise NotImplementedError(
-            f"coordinate {cid!r}: type=factored is not in the port yet "
-            "(factored random effects come with the factored-random-effect "
-            "slice, M12)"
-        )
     if ctype == "fixed":
         for k in _RANDOM_ONLY:
             if k in kv:
@@ -103,10 +97,7 @@ def parse_coordinate_spec(spec: str) -> CoordinateSpec:
     else:
         if "re_type" not in kv:
             raise ValueError(f"coordinate {cid!r}: random effects need re_type")
-        if "latent" in kv or "alternations" in kv:
-            raise ValueError(
-                f"coordinate {cid!r}: latent/alternations need type=factored")
-        data = RandomEffectDataConfig(
+        re_kwargs = dict(
             re_type=kv["re_type"],
             feature_shard=shard,
             active_bound=int(kv["active_bound"]) if "active_bound" in kv else None,
@@ -119,6 +110,17 @@ def parse_coordinate_spec(spec: str) -> CoordinateSpec:
             host_resident=_parse_bool(cid, "host_resident",
                                       kv.get("host_resident", "0")),
         )
+        if ctype == "factored":
+            data = FactoredRandomEffectDataConfig(
+                latent_dim=int(kv.get("latent", 8)),
+                n_alternations=int(kv.get("alternations", 2)),
+                **re_kwargs,
+            )
+        else:
+            if "latent" in kv or "alternations" in kv:
+                raise ValueError(
+                    f"coordinate {cid!r}: latent/alternations need type=factored")
+            data = RandomEffectDataConfig(**re_kwargs)
 
     reg_type = RegularizationType(kv.get("reg", "NONE").upper())
     if reg_type == RegularizationType.ELASTIC_NET:

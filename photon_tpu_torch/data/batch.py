@@ -3,7 +3,8 @@
 Port of ``photon_tpu/data/batch.py``: ``DenseFeatures``, ``SparseFeatures``
 with its three data passes and ``with_value_dtype``, ``LabeledBatch`` and
 ``ell_from_rows``, plus ``LaneFeatures``, the port's layout of a
-random-effect bucket for its batched lane solves.
+random-effect bucket for its batched lane solves, and ``DenseLaneFeatures``,
+the dense lanes of a factored random effect's latent step.
 
 Values may be stored as bfloat16 (``with_value_dtype``, or
 ``PHOTON_VALUE_DTYPE=bfloat16`` through ``with_accelerator_paths`` on
@@ -228,7 +229,7 @@ class LabeledBatch:
     """A batch of labeled examples for one feature shard. ``weights``
     doubles as the validity mask: padded rows carry weight 0."""
 
-    features: SparseFeatures     # or DenseFeatures / LaneFeatures
+    features: SparseFeatures     # or Dense(Lane)Features / LaneFeatures
     labels: Tensor               # [N] ([E, S] over LaneFeatures)
     offsets: Tensor              # [N]
     weights: Tensor              # [N]
@@ -318,6 +319,36 @@ class LaneFeatures:
 
     def sq_rmatvec(self, v: Tensor) -> Tensor:
         return self.flat.sq_rmatvec(v.reshape(-1)).reshape(self.n_lanes, self.dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseLaneFeatures:
+    """Dense per-lane designs ``x[E, S, p]``: the lanes of a factored random
+    effect's latent step (each entity's rows projected to its ``p`` latent
+    features), the counterpart of JAX's ``jax.vmap`` over ``DenseFeatures``.
+
+    ``matvec`` takes per-lane coefficients ``[E, p]`` to margins ``[E, S]``
+    and the transposes go back, each one batched product over the whole
+    bucket (``torch.bmm``: cuBLAS on CUDA, as the JAX package computes these
+    dense products outside any Pallas kernel too)."""
+
+    x: Tensor
+
+    @property
+    def dim(self) -> int:
+        return self.x.shape[2]
+
+    def matvec(self, w: Tensor) -> Tensor:
+        pass_counter.record("matvec")
+        return torch.bmm(self.x, w.unsqueeze(-1)).squeeze(-1)
+
+    def rmatvec(self, v: Tensor) -> Tensor:
+        pass_counter.record("rmatvec")
+        return torch.bmm(v.unsqueeze(1), self.x).squeeze(1)
+
+    def sq_rmatvec(self, v: Tensor) -> Tensor:
+        pass_counter.record("sq_rmatvec")
+        return torch.bmm(v.unsqueeze(1), self.x * self.x).squeeze(1)
 
 
 def ell_from_rows(

@@ -2,8 +2,8 @@
 
 Port of ``photon_tpu/estimators/config.py``: what data a coordinate trains
 on (a data config, fixed per estimator) apart from how it optimizes (an
-optimization config, swept over by ``GameEstimator.fit``). The factored
-random-effect data config comes with a later slice (M12).
+optimization config, swept over by ``GameEstimator.fit``), the factored
+random effect's included.
 """
 from __future__ import annotations
 
@@ -50,7 +50,27 @@ class RandomEffectDataConfig:
     host_resident: bool = False
 
 
-CoordinateDataConfig = Union[FixedEffectDataConfig, RandomEffectDataConfig]
+@dataclasses.dataclass(frozen=True)
+class FactoredRandomEffectDataConfig(RandomEffectDataConfig):
+    """Random effects constrained to a learned latent space ``w_e = P·β_e``
+    (``game/factored_random_effect.py``). Dataset preparation is a plain
+    random effect's; training alternates latent and projection steps."""
+
+    latent_dim: int = 8
+    n_alternations: int = 2
+
+    def __post_init__(self):
+        if self.latent_dim < 1:
+            raise ValueError(f"latent_dim must be >= 1, got {self.latent_dim}")
+        if self.n_alternations < 1:
+            raise ValueError(
+                f"n_alternations must be >= 1, got {self.n_alternations}"
+            )
+
+
+CoordinateDataConfig = Union[
+    FixedEffectDataConfig, RandomEffectDataConfig, FactoredRandomEffectDataConfig
+]
 
 
 @dataclasses.dataclass(frozen=True)

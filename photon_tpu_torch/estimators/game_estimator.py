@@ -16,9 +16,10 @@ With a ``checkpoint_manager`` every coordinate step and every finished
 configuration is snapshotted, and a fit over the same inputs resumes from
 the newest snapshot, ending bit-identical to the uninterrupted fit.
 Host-resident random-effect datasets are pinned on the device by one
-``DeviceSweepCache`` per prepared bundle (``sweep_cache_mb``). Factored
-random effects belong to a later slice and raise ``NotImplementedError``
-naming it.
+``DeviceSweepCache`` per prepared bundle (``sweep_cache_mb``). A factored
+random effect (``FactoredRandomEffectDataConfig``) trains on a plain random
+effect's dataset; it refuses incremental training, down-sampling,
+variances and normalization, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from photon_tpu_torch.data.sampling import down_sampler_for_task
 from photon_tpu_torch.data.statistics import compute_feature_statistics
 from photon_tpu_torch.estimators.config import (
     CoordinateDataConfig,
+    FactoredRandomEffectDataConfig,
     FixedEffectDataConfig,
     GameOptimizationConfiguration,
     GLMOptimizationConfiguration,
@@ -52,6 +54,7 @@ from photon_tpu_torch.functions.objective import intercept_reg_mask
 from photon_tpu_torch.functions.prior import PriorDistribution
 from photon_tpu_torch.game.coordinates import (
     Coordinate,
+    FactoredRandomEffectCoordinate,
     FixedEffectCoordinate,
     RandomEffectCoordinate,
 )
@@ -160,11 +163,8 @@ class GameEstimator:
         for cid, dcfg in self.coordinate_data_configs.items():
             if not isinstance(dcfg, (FixedEffectDataConfig,
                                      RandomEffectDataConfig)):
-                raise NotImplementedError(
-                    f"coordinate {cid!r}: {type(dcfg).__name__} is not in the "
-                    "port yet (factored random effects come with the "
-                    "factored-random-effect slice, M12)"
-                )
+                raise TypeError(f"coordinate {cid!r}: unknown data config "
+                                f"{type(dcfg).__name__}")
         if isinstance(self.normalization, str):
             self.normalization = NormalizationType.parse(self.normalization)
 
@@ -400,6 +400,30 @@ class GameEstimator:
                     problem=problem,
                     feature_shard=dcfg.feature_shard,
                     normalization=norm,
+                )
+            elif isinstance(dcfg, FactoredRandomEffectDataConfig):
+                # Options the factored solve does not take fail loudly
+                # rather than silently do nothing.
+                unsupported = []
+                if ocfg.incremental_weight > 0.0:
+                    unsupported.append("incremental training")
+                if ocfg.down_sampling_rate < 1.0:
+                    unsupported.append("down-sampling")
+                if ocfg.variance_type.name != "NONE":
+                    unsupported.append("coefficient variances")
+                if norm is not None:
+                    unsupported.append("feature normalization")
+                if unsupported:
+                    raise ValueError(
+                        f"coordinate {cid!r}: {', '.join(unsupported)} "
+                        "not supported for factored random effects"
+                    )
+                coordinates[cid] = FactoredRandomEffectCoordinate(
+                    dataset=prep["datasets"][cid],
+                    problem=problem,
+                    latent_dim=dcfg.latent_dim,
+                    n_alternations=dcfg.n_alternations,
+                    seed=self.seed,
                 )
             else:
                 dataset = prep["datasets"][cid]

@@ -1,9 +1,9 @@
 """GAME coordinate models.
 
 Port of ``photon_tpu/game/coordinates.py``: ``FixedEffectModel``, the
-trainable ``FixedEffectCoordinate`` and ``RandomEffectCoordinate`` on one
-device, with the device sweep cache's hook (no mesh, no feature-sharded
-model axis; the factored random effect comes with a later slice). A coordinate owns its
+trainable ``FixedEffectCoordinate``, ``RandomEffectCoordinate`` (with the
+device sweep cache's hook) and ``FactoredRandomEffectCoordinate``, on one
+device (no mesh, no feature-sharded model axis). A coordinate owns its
 training data, its problem and its shard's normalization context (None
 without one) and exposes ``train(offsets, init) -> (model, result)`` and
 ``score(model) -> [N]``; offsets are per-row tensors in the global sample
@@ -21,6 +21,10 @@ from photon_tpu_torch.data.normalization import NormalizationContext
 from photon_tpu_torch.data.random_effect import RandomEffectDataset
 from photon_tpu_torch.functions.prior import PriorDistribution
 from photon_tpu_torch.functions.problem import GLMOptimizationProblem
+from photon_tpu_torch.game.factored_random_effect import (
+    FactoredRandomEffectModel,
+    train_factored_random_effects,
+)
 from photon_tpu_torch.game.random_effect import (
     RandomEffectModel,
     train_random_effects,
@@ -108,18 +112,7 @@ class RandomEffectCoordinate:
         """``model`` with this dataset's own structure tensors in place of
         equal copies (a model restored from a checkpoint), so it scores by
         the same path as the model the run trained; else ``model``."""
-        dataset = self._data()
-        if len(model.bucket_proj) != len(dataset.buckets) or not all(
-                torch.equal(p.to(b.proj.device), b.proj)
-                for p, b in zip(model.bucket_proj, dataset.buckets)):
-            return model
-        return dataclasses.replace(
-            model,
-            bucket_proj=[b.proj for b in dataset.buckets],
-            bucket_entity_ids=[b.entity_ids for b in dataset.buckets],
-            entity_keys=dataset.entity_keys,
-            entity_to_slot=dataset.entity_to_slot,
-        )
+        return adopt_structure(model, self._data())
 
     def _init_coefs(self, init: Optional[RandomEffectModel]):
         if init is None:
@@ -145,5 +138,70 @@ class RandomEffectCoordinate:
         return model.score_new_dataset(dataset)
 
 
-Coordinate = Union[FixedEffectCoordinate, RandomEffectCoordinate]
-DatumScoringModel = Union[FixedEffectModel, RandomEffectModel]
+def adopt_structure(model: RandomEffectModel,
+                    dataset: RandomEffectDataset) -> RandomEffectModel:
+    """``model`` with ``dataset``'s own structure tensors in place of equal
+    copies, when its projections equal the dataset's; else ``model``."""
+    if len(model.bucket_proj) != len(dataset.buckets) or not all(
+            torch.equal(p.to(b.proj.device), b.proj)
+            for p, b in zip(model.bucket_proj, dataset.buckets)):
+        return model
+    return dataclasses.replace(
+        model,
+        bucket_proj=[b.proj for b in dataset.buckets],
+        bucket_entity_ids=[b.entity_ids for b in dataset.buckets],
+        entity_keys=dataset.entity_keys,
+        entity_to_slot=dataset.entity_to_slot,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredRandomEffectCoordinate:
+    """Per-entity models in a learned latent space
+    (``game/factored_random_effect.py``). ``train`` returns the model and
+    the final latent step's per-bucket results."""
+
+    dataset: RandomEffectDataset
+    problem: GLMOptimizationProblem
+    latent_dim: int = 8
+    n_alternations: int = 2
+    seed: int = 0
+
+    def train(self, offsets: Tensor, init=None):
+        # A loaded warm start arrives as the saved EFFECTIVE RandomEffectModel:
+        # train_factored_random_effects re-factors it spectrally (the
+        # effective matrix is exactly rank-p).
+        if not isinstance(init, (FactoredRandomEffectModel, RandomEffectModel)):
+            init = None
+        return train_factored_random_effects(
+            self.problem, self.dataset, offsets,
+            latent_dim=self.latent_dim,
+            n_alternations=self.n_alternations,
+            seed=self.seed,
+            init=init,
+        )
+
+    def adopt(self, model):
+        """A restored factored model whose effective model shares this
+        dataset's structure tensors (``adopt_structure``), so a resumed run
+        scores it as the uninterrupted run scored the live model."""
+        if isinstance(model, FactoredRandomEffectModel):
+            return dataclasses.replace(
+                model, effective=adopt_structure(model.effective, self.dataset))
+        return model
+
+    def score(self, model) -> Tensor:
+        # Through the effective per-entity model; a foreign model (a loaded
+        # warm start or a locked coordinate, possibly a plain
+        # RandomEffectModel) is projected into this dataset's structure.
+        eff = getattr(model, "effective", model)
+        same = len(eff.bucket_proj) == len(self.dataset.buckets) and all(
+            p is b.proj for p, b in zip(eff.bucket_proj, self.dataset.buckets))
+        return (eff.score_dataset(self.dataset) if same
+                else eff.score_new_dataset(self.dataset))
+
+
+Coordinate = Union[FixedEffectCoordinate, RandomEffectCoordinate,
+                   FactoredRandomEffectCoordinate]
+DatumScoringModel = Union[FixedEffectModel, RandomEffectModel,
+                          FactoredRandomEffectModel]

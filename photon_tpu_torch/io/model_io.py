@@ -13,7 +13,10 @@ on-disk layout is the same, so either package reads what the other writes:
       summary .avro via save_feature_summary  FeatureSummarizationResultAvro
 
 Coefficients are stored as (name, term, value) lists resolved through the
-shard's IndexMap. Loading a random-effect coordinate packs the per-entity
+shard's IndexMap. A factored random effect is saved as the JAX package saves
+it: its EFFECTIVE per-entity model in the random-effect layout, plus
+``projection.npy`` beside it and ``factored_latent_dim`` in the metadata;
+loading gives the effective model. Loading a random-effect coordinate packs the per-entity
 sparse vectors into size-bucketed stacks (power-of-two widths), the same
 shapes the JAX loader builds.
 """
@@ -30,6 +33,7 @@ import torch
 from photon_tpu_torch.data.random_effect import numpy_dtype
 from photon_tpu_torch.game.coordinates import FixedEffectModel
 from photon_tpu_torch.game.descent import GameModel
+from photon_tpu_torch.game.factored_random_effect import FactoredRandomEffectModel
 from photon_tpu_torch.game.random_effect import RandomEffectModel
 from photon_tpu_torch.index.index_map import IndexMap, feature_key
 from photon_tpu_torch.io.avro import ContainerWriter, read_records, write_container
@@ -144,6 +148,13 @@ def save_game_model(
 
     for cid in model.keys():
         m = model[cid]
+        projection = None
+        if isinstance(m, FactoredRandomEffectModel):
+            # The effective coefficients in the standard layout: scoring
+            # loads them as a plain random effect, and a factored warm start
+            # re-factors them (the effective matrix is exactly rank-p).
+            projection = _host(m.projection)
+            m = m.effective
         if isinstance(m, FixedEffectModel):
             shard = shard_by_coordinate.get(cid, m.feature_shard)
             imap = index_maps[shard]
@@ -202,6 +213,10 @@ def save_game_model(
                 "task": m.task.value,
                 "re_type": m.re_type,
             }
+            if projection is not None:
+                np.save(os.path.join(cdir, "projection.npy"), projection)
+                meta["coordinates"][cid]["factored_latent_dim"] = int(
+                    projection.shape[1])
         else:
             raise TypeError(f"coordinate {cid}: unknown model type {type(m)}")
 

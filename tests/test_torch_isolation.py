@@ -4,8 +4,8 @@
   native decoder's loader included) and runs the CPU-importable parts of
   ``chip_smoke.py`` (its data, model, bound and phase functions, the
   training, GAME training, checkpoint, routing, sweep-cache, vmapped GAME
-  training, ingest, GLM driver and bf16-feed phases included, at a tiny
-  size, with the CPU as both devices); afterwards neither ``jax`` nor any
+  training, ingest, GLM driver, bf16-feed, factored and tuning phases
+  included, at a tiny size, with the CPU as both devices); afterwards neither ``jax`` nor any
   ``photon_tpu`` (nor ``ml_dtypes``) module is loaded.
 * No source line of the port or of ``chip_smoke.py`` imports them.
 * Without a GPU, ``resolve_device()`` and the port's scoring driver run
@@ -75,7 +75,7 @@ assert not gt["tf32_matmul"] and set(gt["launches"]) == {"fit_a", "fit_b"}, gt
 assert gt["fit_a"]["bit_equal_repeat"] == "in phase checkpoint", gt["fit_a"]
 for fit in ("fit_a", "fit_b"):
     assert gt[fit]["bit_equal_repeat"] and gt[fit]["plans"], gt[fit]
-    assert len(gt[fit]["ref_steps"]) == 2 * len(gt[fit]["re_weights"]), gt[fit]
+    assert len(gt[fit]["ref_steps"]) == 2 * gt[fit]["ref_configs"] == 2, gt[fit]
     assert len(gt[fit]["steps"]) == 4 * len(gt[fit]["re_weights"]), gt[fit]
     assert gt[fit]["vs_ref"]["metric_abs_err"] == 0.0, gt[fit]
     assert gt[fit]["vs_ref"]["lane_objective_rel_err"] == 0.0, gt[fit]
@@ -122,6 +122,19 @@ assert gl["feature_indexing"]["features"] > 0, gl
 bf = chip_smoke.phase_bf16_feed(torch, cs, tiny, cpu, root, gd)
 assert bf["reader"] == "native" and bf["metric_abs_err_vs_f32"] <= 1e-2, bf
 assert bf["bit_equal_f32_on_rounded"], bf
+fc = chip_smoke.phase_factored(
+    torch, cs, dict(n_users=40, rows_per_user=6, d_global=48, d_user=4,
+                    iterations=4), 12, cpu, cpu, root)
+assert fc["point"]["bit_equal_repeat"] and fc["point"]["grad_rel_err_vs_ref"] == 0.0, fc
+assert fc["f64"]["coef_rel_err_vs_ref"] == 0.0 and fc["projection_shape"] == [208, 8], fc
+assert len(fc["latent_steps"]) == 3 and len(fc["projection_steps"]) == 2, fc
+assert fc["save_and_score"]["scores_max_abs_err_vs_model"] <= 1e-9, fc
+tu = chip_smoke.phase_tuning(
+    torch, cs, dict(n_users=30, rows_per_user=6, valid_rows_per_user=3,
+                    d_global=40, d_user=3, n_items=7, iterations=4, trials=3),
+    cpu, root)
+assert tu["resumed_bit_identical"] and len(tu["trial_s"]) == 3, tu
+assert tu["driver"]["factored_latent_dim"] == 4, tu
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "photon_tpu", "ml_dtypes"))
 print("MODULES", len(names), "BAD", bad)

@@ -9,13 +9,17 @@ TRON L2, and linear OWL-QN L1. Saved means and variances agree to ``atol
 the other package's model, and those scores agree with the package's scores
 of its own model to the scoring test's float64 ``atol 1e-12``. Every flag
 of the JAX driver is either taken by the port's or refused with the slice
-that brings it (``--re-routing`` only with ``measured``), and so is every
-coordinate kind or option of a later slice (factored random effects,
-host-resident buckets). With ``--normalization STANDARDIZATION
---feature-summary``, down-sampling and an L1 OWL-QN random effect, each
-driver's model scores alike under both scoring drivers and the two feature
-summaries agree. The driver's data sanity checks fail on the same rows as
-the JAX package's. Random-effect training through the drivers is held
+that brings it (``--re-routing`` only with ``measured``). With
+``--normalization STANDARDIZATION --feature-summary``, down-sampling and an
+L1 OWL-QN random effect, each driver's model scores alike under both
+scoring drivers and the two feature summaries agree. The driver's data
+sanity checks fail on the same rows as the JAX package's. ``--tuning gp``
+and ``--tuning random`` (with ``--checkpoint-dir``) choose the JAX driver's
+weights and write its model, a rerun resuming from the trial snapshots, and
+the tuning checks fail with the JAX driver's messages; a ``type=factored``
+random effect trains the JAX driver's model, which the JAX scoring driver
+scores as the port's does, and the factored refusals (down-sampling,
+normalization, variances, incremental training) are the JAX driver's. Random-effect training through the drivers is held
 against JAX in ``tests/test_torch_re_training.py``.
 """
 import json
@@ -171,20 +175,13 @@ def test_normalized_drivers_cross_score_and_summaries_agree(data, tmp_path):
 # Each refused flag with a value that sets it.
 REFUSED = {
     "--max-restarts": ["1"],
-    "--restart-backoff": ["2"], "--heartbeat-dir": ["hb"], "--tuning": ["gp"],
-    "--tuning-iterations": ["3"], "--tuning-range": ["fixed:0.1:10"],
-    "--devices": ["2"], "--mesh": ["data=2"],
+    "--restart-backoff": ["2"], "--heartbeat-dir": ["hb"], "--devices": ["2"], "--mesh": ["data=2"],
     "--profile-dir": ["prof"], "--debug-nans": [], "--trace-out": ["t.json"],
     "--telemetry-dir": ["tel"], "--backend-policy": ["strict"],
     "--distributed-policy": ["strict"], "--fault-plan": ["plan.json"],
     "--compilation-cache-dir": ["cc"], "--compile-store": ["cs"],
     "--clear-caches-per-config": [],
 }
-REFUSED_COORDINATES = {
-    "factored": "perUser:type=factored,re_type=userId,shard=global,latent=2",
-}
-
-
 def _base_args(tmp_path, coordinate="fixed:type=fixed,shard=global"):
     return ["--train-data", str(tmp_path / "x.avro"), "--output-dir",
             str(tmp_path / "out"), "--task", "LOGISTIC_REGRESSION",
@@ -209,15 +206,6 @@ def test_later_slice_flags_are_refused(tmp_path, capsys, flag):
     err = capsys.readouterr().err
     assert flag in err and "not in the port yet" in err and "slice" in err
     assert not (tmp_path / "out").exists()
-
-
-@pytest.mark.parametrize("kind", list(REFUSED_COORDINATES))
-def test_later_slice_coordinates_are_refused(tmp_path, capsys, kind):
-    with pytest.raises(SystemExit) as e:
-        game_training_driver.run(_base_args(tmp_path, REFUSED_COORDINATES[kind]))
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "--coordinate" in err and "not in the port yet" in err and "slice" in err
 
 
 def test_training_driver_defaults_to_cuda_and_raises_without_gpu(tmp_path, monkeypatch):
@@ -377,3 +365,154 @@ def test_ported_flags_write_jax_models(data, tmp_path, monkeypatch, case):
         recs = tre.bucket_records()
         assert recs and all(r["routing"] == "measured" and not r["calibrated"]
                             and r["solver"] == "vmapped_lbfgs" for r in recs)
+
+
+TUNING_SPECS = [
+    "fixed:type=fixed,shard=global,reg=L2,reg_weights=1,max_iter=20",
+    "perUser:type=random,re_type=userId,shard=global,reg=L2,reg_weights=1,"
+    "max_iter=20",
+]
+
+
+def _tuning_args(data, out, strategy, extra=()):
+    return ["--train-data", str(data / "train.avro"),
+            "--validation-data", str(data / "score.avro"),
+            "--evaluators", "AUC", "--output-dir", str(out),
+            "--task", "LOGISTIC_REGRESSION", "--dtype", "float64",
+            "--coordinate", TUNING_SPECS[0], "--coordinate", TUNING_SPECS[1],
+            "--tuning", strategy, "--tuning-iterations", "3",
+            "--tuning-range", "fixed:0.01:100", "--tuning-range", "perUser:0.01:100",
+            *extra]
+
+
+@pytest.mark.parametrize("strategy", ["gp", "random"])
+def test_tuning_driver_matches_jax_and_resumes(data, tmp_path, strategy):
+    """``--tuning`` with ``--checkpoint-dir``: the port picks the JAX
+    driver's weights (1e-9) and saves its model (1e-8); a rerun over the
+    same checkpoint directory resumes past every trial and writes the same
+    summary."""
+    from test_torch_re_training import _saved_re
+
+    js = jax_training.run(_tuning_args(
+        data, tmp_path / "jax", strategy,
+        ["--checkpoint-dir", str(tmp_path / "jax_ck"), "--devices", "1"]))
+    port = _tuning_args(data, tmp_path / "port", strategy,
+                        ["--checkpoint-dir", str(tmp_path / "port_ck"),
+                         "--device", "cpu"])
+    ps = game_training_driver.run(port)
+    assert ps["n_configs"] == 1 and ps["best_config_index"] == 0
+    for cid in ("fixed", "perUser"):
+        got = ps["best_config"][cid]["reg_weight"]
+        want = js["best_config"][cid]["reg_weight"]
+        assert abs(got - want) <= 1e-9 * want and 0.01 <= got <= 100
+    assert abs(ps["evaluation"]["AUC"] - js["evaluation"]["AUC"]) <= 1e-9
+    _close_maps(_saved(tmp_path / "port" / "best")[0],
+                _saved(tmp_path / "jax" / "best")[0])
+    pr, jr = _saved_re(tmp_path / "port" / "best"), _saved_re(tmp_path / "jax" / "best")
+    assert set(pr) == set(jr) and max(abs(pr[k] - jr[k]) for k in jr) <= 1e-8
+    steps = sorted(n for n in os.listdir(tmp_path / "port_ck") if n.startswith("step-"))
+    assert steps == ["step-2", "step-3"]
+    log = (tmp_path / "port" / "photon.log").read_text()
+    assert "tuning best params" in log and "hyperparameter tuning: done" in log
+    again = game_training_driver.run(port)
+    assert {k: v for k, v in again.items() if not k.endswith("seconds")} == \
+        {k: v for k, v in ps.items() if not k.endswith("seconds")}
+
+
+TUNING_CHECKS = {
+    "no_evaluators": (["--tuning", "gp", "--tuning-range", "fixed:0.1:10"], False),
+    "no_range": (["--tuning", "gp"], True),
+    "no_iterations": (["--tuning", "random", "--tuning-iterations", "0",
+                       "--tuning-range", "fixed:0.1:10"], True),
+    "grid_sweep": (["--tuning", "gp", "--tuning-range", "fixed:0.1:10"], True),
+}
+
+
+@pytest.mark.parametrize("case", list(TUNING_CHECKS))
+def test_tuning_checks_match_jax(data, tmp_path, case):
+    flags, validated = TUNING_CHECKS[case]
+    spec = ("fixed:type=fixed,shard=global,reg=L2,reg_weights="
+            + ("1|10" if case == "grid_sweep" else "1"))
+    common = ["--train-data", str(data / "train.avro"), "--task",
+              "LOGISTIC_REGRESSION", "--coordinate", spec, *flags]
+    if validated:
+        common += ["--validation-data", str(data / "score.avro"),
+                   "--evaluators", "AUC"]
+    with pytest.raises(ValueError) as jerr:
+        jax_training.run(common + ["--output-dir", str(tmp_path / "j"),
+                                   "--devices", "1"])
+    with pytest.raises(ValueError) as terr:
+        game_training_driver.run(common + ["--output-dir", str(tmp_path / "t"),
+                                           "--device", "cpu"])
+    assert str(terr.value) == str(jerr.value) and "--tuning" in str(terr.value)
+
+
+FACTORED_SPECS = [
+    "fixed:type=fixed,shard=global,reg=L2,reg_weights=1,max_iter=20",
+    "perUser:type=factored,re_type=userId,shard=global,reg=L2,reg_weights=1,"
+    "max_iter=20,latent=2",
+]
+
+
+@pytest.fixture(scope="module")
+def factored_runs(data, tmp_path_factory):
+    """Both drivers' f64 runs with a factored random effect (2 sweeps)."""
+    root = tmp_path_factory.mktemp("factored_drivers")
+    common = ["--train-data", str(data / "train.avro"), "--task",
+              "LOGISTIC_REGRESSION", "--dtype", "float64", "--sweeps", "2",
+              "--coordinate", FACTORED_SPECS[0], "--coordinate", FACTORED_SPECS[1]]
+    js = jax_training.run(common + ["--output-dir", str(root / "jax"),
+                                    "--devices", "1"])
+    ps = game_training_driver.run(common + ["--output-dir", str(root / "port"),
+                                            "--device", "cpu"])
+    return root, js, ps
+
+
+def test_factored_driver_scored_by_jax(data, factored_runs):
+    """The port's factored model: the JAX driver's (saved means 1e-6),
+    saved in its layout, and the JAX scoring driver scores it as the port's
+    scoring driver does (1e-9)."""
+    from test_torch_re_training import _saved_re
+
+    root, js, ps = factored_runs
+    cdir = root / "port" / "best" / "random-effect" / "perUser"
+    assert np.load(cdir / "projection.npy").shape[1] == 2
+    meta = json.loads((root / "port" / "best" / "game-metadata.json").read_text())
+    assert meta["coordinates"]["perUser"]["factored_latent_dim"] == 2
+    pr, jr = _saved_re(root / "port" / "best"), _saved_re(root / "jax" / "best")
+    assert set(pr) == set(jr) and len(pr) > 10
+    scale = max(map(abs, jr.values()))
+    assert max(abs(pr[k] - jr[k]) for k in jr) <= 1e-6 * scale
+    port_own = _scores(game_scoring_driver, data, root / "port" / "best",
+                       root / "s_pp", ["--device", "cpu"])
+    jax_on_port = _scores(jax_scoring, data, root / "port" / "best", root / "s_jp")
+    assert np.std(port_own) > 0.05
+    np.testing.assert_allclose(jax_on_port, port_own, rtol=0, atol=1e-9)
+
+
+FACTORED_REFUSALS = {
+    "down-sampling": ([FACTORED_SPECS[1] + ",downsample=0.5"], []),
+    "feature normalization": ([FACTORED_SPECS[1]],
+                              ["--normalization", "STANDARDIZATION"]),
+    "coefficient variances": ([FACTORED_SPECS[1] + ",variance=SIMPLE"], []),
+    "incremental training": ([FACTORED_SPECS[1] + ",incremental=1"],
+                             ["--model-input-dir", "{model}"]),
+}
+
+
+@pytest.mark.parametrize("knob", list(FACTORED_REFUSALS))
+def test_factored_refusals_match_jax(data, factored_runs, tmp_path, knob):
+    root = factored_runs[0]
+    specs, flags = FACTORED_REFUSALS[knob]
+    flags = [f.replace("{model}", str(root / "port" / "best")) for f in flags]
+    common = ["--train-data", str(data / "train.avro"), "--task",
+              "LOGISTIC_REGRESSION", "--dtype", "float64",
+              "--coordinate", FACTORED_SPECS[0], "--coordinate", specs[0], *flags]
+    with pytest.raises(ValueError) as jerr:
+        jax_training.run(common + ["--output-dir", str(tmp_path / "j"),
+                                   "--devices", "1"])
+    with pytest.raises(ValueError) as terr:
+        game_training_driver.run(common + ["--output-dir", str(tmp_path / "t"),
+                                           "--device", "cpu"])
+    assert str(terr.value) == str(jerr.value)
+    assert f"{knob} not supported for factored random effects" in str(terr.value)
