@@ -141,6 +141,14 @@ result line:
 15. tuning: GP regularization tuning at BASELINE config 4's widths, killed
    after a trial and resumed bit for bit, then the training driver's
    ``--tuning gp`` with a factored random effect (``phase_tuning``).
+16. runtime_guards: the backend probe (run first, before any CUDA work), a
+   genuine CUDA OOM in fit A's largest random-effect bucket under a
+   per-process memory cap (one tier down, bit-equal to the solve at that
+   tier), an injected OOM under measured routing, the supervised GAME
+   driver restarting after a preemption (byte-equal model), the GLM
+   driver's out-of-core OOM re-chunking and device-loss recovery
+   (bit-equal), the memory watchdog, and no guard firing unplanted
+   (``phase_runtime_guards``).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
@@ -3842,6 +3850,416 @@ def phase_sweep_cache(torch, cs, sizes, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------- runtime guards
+
+GUARD_GLM_AFTER = 5         # the out-of-core faults fire a few hits in
+# The Newton budget of the real OOM: fit A's bucket (100,000 entities, S =
+# 16, P = 256) then plans its whole-bucket dual solve (a 1.6 GB dense design
+# in f32, 2.1 GB by newton_re's budget formula), and one tier down is dual
+# chunks of 16,384 entities. At the default 2,048 MB the plan is dual
+# chunks of 4,096, whose peak of live bytes was no higher than that of
+# chunks of 1,024 on an H100 80GB HBM3: no cap separates those two.
+GUARD_RE_BUDGET_MB = 8192
+
+
+class _JournalTap:
+    """A ``memory_guard`` journal that keeps every row. At a downshift (inside
+    the ladder's handler) it reads the failed attempt's peak bytes and the
+    memory watchdog."""
+
+    def __init__(self, torch, dev, guard):
+        self.torch, self.dev, self.guard = torch, dev, guard
+        self.rows = []
+
+    def record(self, event, **fields):
+        row = {"event": event, **fields}
+        if event == "oom_downshift" and self.dev.type == "cuda":
+            row["failed_peak_allocated"] = self.torch.cuda.max_memory_allocated(
+                self.dev)
+            row["memory_guard_sample"] = self.guard.sample(force=True)
+            row["memory_guard_check"] = self.guard.check()
+        self.rows.append(row)
+
+
+def _peak_reset_at(torch, dev, site: str, chunk, into: dict):
+    """A fault spec that raises nothing: where the ladder dispatches
+    ``chunk`` (its retry, after the failed attempt's handler has freed that
+    attempt's tensors) it notes the bytes in use and resets the peak
+    counter, so the peak after the run is the retry's own."""
+    from photon_tpu_torch.faults import FaultSpec
+
+    def probe(message):
+        into["retry_base_allocated"] = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    return FaultSpec(site=site, error_factory=probe, match={"chunk": str(chunk)},
+                     count=1)
+
+
+def _guard_counts() -> dict:
+    """Every guard's counter: OOM downshifts and restarts, by label."""
+    from photon_tpu_torch.obs.metrics import REGISTRY
+
+    out = {}
+    for name in ("oom_downshifts_total", "run_restarts_total"):
+        for labels, v in REGISTRY.counter(name).collect():
+            out[f"{name}{sorted(labels.items())}"] = v
+    return out
+
+
+def _measured(torch, dev, fn, before=None):
+    """``fn()`` from an emptied allocator cache with the peak counters reset:
+    (result, {seconds, and on the card the reserved and allocated bytes
+    before it and their peaks above that}); ``before(stats)`` runs just
+    before ``fn``."""
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    st = {"base_reserved": torch.cuda.memory_reserved(dev) if cuda else None,
+          "base_allocated": torch.cuda.memory_allocated(dev) if cuda else None}
+    if before is not None:
+        before(st)
+    out, st["seconds"] = _timed(torch, dev, fn)
+    if cuda:
+        st["peak_reserved_above"] = torch.cuda.max_memory_reserved(dev) - st[
+            "base_reserved"]
+        st["peak_allocated_above"] = torch.cuda.max_memory_allocated(dev) - st[
+            "base_allocated"]
+    return out, st
+
+
+def _glm_run(torch, dev, root, name, flags, plan=None) -> dict:
+    """The GLM driver's out-of-core run (``GLM_RUNS["out_of_core"]``'s flags
+    plus ``flags``), under a fault plan when given."""
+    from photon_tpu_torch.cli import glm_training_driver
+    from photon_tpu_torch.faults import FaultPlan, FaultSpec, active_plan
+
+    dest = os.path.join(root, name)
+    plan = FaultPlan(specs=[FaultSpec(**plan)] if plan else [])
+    with _env("PHOTON_VALUE_DTYPE", ""), active_plan(plan) as inj:
+        summary, wall = _timed(torch, dev, lambda: glm_training_driver.run(flags + [
+            "--output-dir", dest]))
+    with open(os.path.join(dest, "photon.log")) as f:
+        log = f.read()
+    return {"wall_s": wall, "fit_seconds": summary["fit_seconds"], "fired": inj.fired(),
+            "iterations": summary["sweep"][0]["iterations"],
+            "data_passes": summary["sweep"][0]["data_passes"],
+            "n_chunks": summary["n_chunks"], "dir": os.path.join(dest, "best"),
+            "log": log}
+
+
+def phase_runtime_guards(torch, cs, keep: dict, root: str, big: str, probe: dict,
+                         dev, chunk_rows: int = GLM_CHUNK_ROWS) -> dict:
+    """The runtime guards on the card (``runtime/``, ``supervisor.py``,
+    ``faults/``). (a) The backend probe ``main`` ran before any CUDA work.
+    (b) A genuine ``torch.cuda.OutOfMemoryError`` in fit A's largest
+    random-effect bucket, its plan the whole-bucket dual solve (under
+    ``GUARD_RE_BUDGET_MB``): the process capped by
+    ``set_per_process_memory_fraction`` between the peaks of its plan and of
+    one tier down (both measured first; the cap bisected until the plan
+    fails and the tier below completes); the ladder must
+    downshift exactly one tier and give the coefficients of the solve
+    started at that tier with the sticky plan set, bit for bit, at a lower
+    peak; the cap is lifted after. (c) An injected ``device_oom`` at
+    ``re.solve`` under measured routing demotes to that same sticky tier.
+    (d) The GAME training driver on the drivers' rows with
+    ``--checkpoint-dir``, ``--max-restarts 2`` and a preemption at
+    ``descent.step`` step 2: its model files byte-equal (without their Avro
+    sync markers) to phase ``game_training_driver``'s unsupervised run, one
+    classified restart in ``recovery.jsonl``. (e) The GLM driver out of core
+    on phase ``ingest``'s 2^19 rows (chunks of ``chunk_rows``): a
+    ``device_oom`` at ``optim.ooc_chunk`` completes at half the rows a chunk,
+    bit-equal to a run started there; a ``device_lost`` at
+    ``optim.ooc_iteration`` recovers in-run, bit-equal to phase
+    ``glm_driver``'s uninterrupted run. (f) ``MemoryGuard`` readings during
+    (b) and ``effective_sweep_budget`` of a request above the free bytes.
+    (g) Every run without a planted fault leaves every guard's counter as
+    it was, and the planted ones move them by exactly their faults. On a
+    CPU (the isolation test) (b) injects the OOM instead of capping."""
+    from photon_tpu_torch.cli import game_training_driver
+    from photon_tpu_torch.faults import FaultPlan, FaultSpec, active_plan
+    from photon_tpu_torch.functions.objective import intercept_reg_mask
+    from photon_tpu_torch.game import random_effect as re_mod
+    from photon_tpu_torch.game import solver_routing
+    from photon_tpu_torch.runtime import memory_guard as mg
+    from photon_tpu_torch.types import TaskType
+
+    cuda = dev.type == "cuda"
+    failures = []
+    out = {"probe": probe}
+    cs.reset_launch_counts()
+    counts0 = _guard_counts()
+
+    def unplanted(what, fn):
+        before = _guard_counts()
+        res = fn()
+        if _guard_counts() != before:
+            failures.append(f"{what}: a guard fired with no fault planted")
+        return res
+
+    # (b) a real OOM in fit A's largest bucket
+    est, (train, _), cfgs = keep["est"], keep["data"], keep["cfgs"]
+    ds = est._prepare_cached(train)["datasets"]["perUser"]
+    problem = cfgs[0]["perUser"].problem(TaskType.LOGISTIC_REGRESSION)
+    mask = intercept_reg_mask(ds.global_dim, None, device=dev)
+    offsets = train.features["global"].with_matvec_layout().matvec(
+        keep["results"][0].model["fixed"].model.coefficients.means)
+    b = max(range(len(ds.buckets)), key=lambda i: ds.buckets[i].n_entities)
+    bucket = ds.bucket(b)
+    local_mask, batches, _ = re_mod.bucket_inputs(ds, b, offsets, mask, None, bucket)
+    w0 = torch.zeros((bucket.n_entities, bucket.local_dim), dtype=bucket.val.dtype,
+                     device=dev)
+
+    def solve():
+        model, _, info = re_mod._solve_bucket(problem, ds, b, batches, w0, local_mask,
+                                              None, None, None, bucket)
+        return model.coefficients.means, (info["solver"], info["chunk"])
+
+    # Under GUARD_RE_BUDGET_MB the bucket's static plan is its whole-bucket
+    # dual solve; (c) sets measured routing itself.
+    saved_env = {k: os.environ.get(k) for k in ("PHOTON_RE_ROUTING",
+                                                "PHOTON_RE_NEWTON_BUDGET_MB")}
+    os.environ.update(PHOTON_RE_ROUTING="static",
+                      PHOTON_RE_NEWTON_BUDGET_MB=str(GUARD_RE_BUDGET_MB))
+
+    mg.reset_state()
+    (got, plan), hi = unplanted("re_solve_plan", lambda: _measured(torch, dev, solve))
+    del got
+    nxt = re_mod._oom_next_tier(*plan, bucket.n_entities)
+    sticky = {"chunk": nxt[1], "solver": nxt[0] if nxt[0] == "vmapped_lbfgs" else None}
+    mg.set_sticky_plan("re.solve", sticky)
+    (want, lo_plan), lo = unplanted("re_solve_next_tier",
+                                    lambda: _measured(torch, dev, solve))
+    mg.reset_state()
+    guard = mg.MemoryGuard(min_sample_interval_s=0.0)
+    oom = {"bucket": b, "entities": bucket.n_entities, "S": bucket.max_samples,
+           "P": bucket.local_dim, "plan": plan, "next_tier": nxt,
+           "plan_run": hi, "next_tier_run": lo, "watchdog_before": guard.check()}
+
+    def attempt(above=None):
+        """The solve under a cap of ``above`` bytes over the memory held
+        before it (on the card), or under an injected OOM (on a CPU):
+        (coefficients, plan, run stats, downshift rows, escalated error)."""
+        tap = _JournalTap(torch, dev, guard)
+        mg.reset_state()
+        mg.set_journal(tap)
+        retry, fields = {}, {}
+        got = got_plan = run = err = None
+        if above is None:
+            specs = [FaultSpec(site="re.solve", error="device_oom", count=1)]
+        else:
+            specs = [_peak_reset_at(torch, dev, "re.solve", nxt[1], retry)]
+            index = torch.cuda.current_device() if dev.index is None else dev.index
+            total = torch.cuda.mem_get_info(dev)[1]
+
+            def cap(st):
+                fields.update(cap_above_base=above, cap_bytes=st["base_reserved"] + above,
+                              device_total=total)
+                torch.cuda.set_per_process_memory_fraction(fields["cap_bytes"] / total,
+                                                           index)
+        try:
+            with active_plan(FaultPlan(specs=specs)):
+                (got, got_plan), run = _measured(torch, dev, solve,
+                                                 before=None if above is None else cap)
+        except Exception as e:  # noqa: BLE001 - a cap too low for every tier
+            if not mg.is_oom(e):
+                raise
+            err = f"{type(e).__name__}: {str(e)[:160]}"
+        finally:
+            mg.set_journal(None)
+            if above is not None:
+                torch.cuda.set_per_process_memory_fraction(1.0, index)
+        if run is not None:
+            run.update(fields)
+            if "retry_base_allocated" in retry:
+                run["retry_peak_allocated_above"] = (
+                    torch.cuda.max_memory_allocated(dev) - retry["retry_base_allocated"])
+        return got, got_plan, run, [r for r in tap.rows
+                                    if r["event"] == "oom_downshift"], err
+
+    if cuda:
+        # The cap: bisected between the next tier's peak of live bytes (a cap
+        # below it leaves that tier no room) and the plan's peak of reserved
+        # bytes (the plan ran within it), until the plan runs out of memory
+        # and the ladder's one step down completes. The allocator frees its
+        # cached blocks before it gives up, so where in that range the plan
+        # fails is the allocator's to say, not a formula's.
+        low, high = lo["peak_allocated_above"], hi["peak_reserved_above"]
+        trials = []
+        result = None
+        for _ in range(8):
+            if high - low < 2 << 20:
+                break
+            above = (low + high) // 2
+            got, got_plan, run, downs, err = attempt(above)
+            trials.append({"cap_above_base": above, "downshifts": len(downs),
+                           "plan": got_plan, "escalated": err})
+            if err is None and not downs:
+                high = above            # the plan fit: lower the cap
+            elif err is None and len(downs) == 1 and tuple(got_plan) == tuple(nxt):
+                result = got, got_plan, run, downs
+                break
+            else:
+                low = above             # more than one tier down: raise it
+        oom["cap_trials"] = trials
+        oom["re_solve_downshifts_in_trials"] = sum(t["downshifts"] for t in trials)
+        if result is None:
+            raise AssertionError(f"no cap between {low} and {high} bytes took the plan "
+                                 f"exactly one tier down: {trials}")
+        got, got_plan, run, downs = result
+    else:
+        got, got_plan, run, downs, _ = attempt()
+        oom["re_solve_downshifts_in_trials"] = len(downs)
+    oom.update(run=run, tiers=[r.get("before") for r in downs] + [
+        re_mod._plan_desc(*got_plan)], downshifts=len(downs),
+        error=downs[0]["error"] if downs else None,
+        classified_oom=bool(downs) and downs[0]["cause"] == "oom",
+        bit_equal_next_tier=bool(torch.equal(got, want)),
+        watchdog_after=guard.check())
+    if cuda and downs:
+        oom.update(failed_peak_allocated_above=downs[0]["failed_peak_allocated"]
+                   - run["base_allocated"],
+                   retry_peak_allocated_above=run["retry_peak_allocated_above"],
+                   watchdog_at_oom={"sample": downs[0]["memory_guard_sample"],
+                                    "check": downs[0]["memory_guard_check"]})
+        if not run["retry_peak_allocated_above"] < hi["peak_allocated_above"]:
+            failures.append("the retry's peak did not fall below the plan's")
+        if "OutOfMemoryError" not in downs[0]["error"]:
+            failures.append(f"not a torch OOM: {downs[0]['error']}")
+    if len(downs) != 1 or tuple(got_plan) != tuple(nxt) or lo_plan != got_plan:
+        failures.append(f"the ladder took {oom['tiers']}, not one tier to {nxt}")
+    if not oom["bit_equal_next_tier"]:
+        failures.append("the downshifted solve differs from the solve at its tier")
+    out["real_oom" if cuda else "injected_oom"] = oom
+    mg.reset_state()
+
+    # (c) measured routing: an injected device_oom demotes to the same tier
+    table = os.path.join(root, "guard_costs.json")
+    with _env("PHOTON_RE_ROUTING", "measured"), _env("PHOTON_RE_COST_TABLE", table):
+        solver_routing.reset_process_table()
+        plan_c = FaultPlan(specs=[FaultSpec(site="re.solve", error="device_oom",
+                                            count=1, match={"routing": "measured"})])
+        with active_plan(plan_c) as inj:
+            (got_c, plan_got_c), run_c = _measured(torch, dev, solve)
+        solver_routing.reset_process_table()
+    for k, v in saved_env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    out["measured_demotion"] = {"fired": inj.fired(), "plan": plan_got_c,
+                                "sticky": mg.sticky_plan("re.solve"),
+                                "seconds": run_c["seconds"],
+                                "bit_equal_next_tier": bool(torch.equal(got_c, want))}
+    if (inj.fired() != 1 or tuple(plan_got_c) != tuple(nxt)
+            or mg.sticky_plan("re.solve") != sticky or not torch.equal(got_c, want)):
+        failures.append(f"measured demotion: {out['measured_demotion']}")
+    mg.reset_state()
+    del got, got_c, want, w0, local_mask, batches
+
+    # (f) the sweep-cache clamp at a request above the card's free bytes
+    s = guard.sample(force=True)
+    if s is not None:
+        ask = int(2 * s["device_free"])
+        got_b = mg.effective_sweep_budget(ask)
+        out["sweep_budget"] = {"requested": ask, "effective": got_b,
+                               "bytes_limit": s["bytes_limit"]}
+        if got_b != int(s["bytes_limit"] * 0.5):
+            failures.append(f"sweep budget {got_b} is not half the limit")
+        mg.reset_state()
+
+    # (d) the supervised GAME driver against the unsupervised one
+    plan_path = os.path.join(root, "guard_preempt.json")
+    with open(plan_path, "w") as f:
+        json.dump({"seed": 0, "specs": [{"site": "descent.step", "error": "preemption",
+                                         "after": 2, "count": 1}]}, f)
+    specs = ["fixed:type=fixed,shard=global,reg=L2,reg_weights=1,max_iter=20",
+             "perUser:type=random,re_type=userId,shard=global,reg=L2,"
+             "reg_weights=1|10,max_iter=20"]
+    dest = os.path.join(root, "guard_supervised")
+    _, wall = _timed(torch, dev, lambda: game_training_driver.run([
+        "--train-data", os.path.join(root, "data.avro"),
+        "--validation-data", os.path.join(root, "valid.avro"),
+        "--evaluators", "AUC", "LOGISTIC_LOSS", "--output-dir", dest,
+        "--task", "LOGISTIC_REGRESSION", "--coordinate", specs[0],
+        "--coordinate", specs[1], "--sweeps", "2",
+        "--index-dir", os.path.join(root, "out", "index"), "--re-routing", "static",
+        "--device", dev.type, "--checkpoint-dir", os.path.join(root, "guard_ck"),
+        "--max-restarts", "2", "--restart-backoff", "0", "--fault-plan", plan_path]))
+    with open(os.path.join(dest, "recovery.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    failed = [r for r in rows if r["event"] == "attempt_failed"]
+    restarts = [r for r in rows if r["event"] == "restart"]
+    resumed = [r for r in rows if r["event"] == "first_step" and r["attempt"] == 1]
+    differ = _model_dirs_differ(os.path.join(dest, "best"),
+                                os.path.join(root, f"game_train_{dev.type}", "best"))
+    out["supervised_driver"] = {
+        "wall_s": wall, "events": [r["event"] for r in rows],
+        "restart_causes": [r["cause"] for r in restarts],
+        "failure_to_resume_s": (resumed[0]["t"] - failed[0]["t"]
+                                if resumed and failed else None),
+        "restart_to_first_step_s": (resumed[0]["restart_to_first_step_seconds"]
+                                    if resumed else None),
+        "model_files_differ": differ}
+    if [r["cause"] for r in restarts] != ["preemption"] or not resumed or differ:
+        failures.append(f"supervised driver: {out['supervised_driver']}")
+
+    # (e) out of core: an OOM halves the chunks, a device loss recovers in-run
+    common = ["--train-data", big, "--task", "LOGISTIC_REGRESSION", "--index-dir",
+              os.path.join(root, "out", "index"), "--device", dev.type, "--no-report",
+              "--reg-weights", "1", "--max-iterations", str(GLM_ITERATIONS),
+              "--variance", "NONE"]
+    half = max(1, chunk_rows // 2)
+    ooc = {
+        "oom": _glm_run(torch, dev, root, "guard_glm_oom",
+                        common + ["--row-chunk-rows", str(chunk_rows)],
+                        dict(site="optim.ooc_chunk", error="device_oom",
+                             after=GUARD_GLM_AFTER, count=1)),
+        "half": unplanted("glm_half_cut", lambda: _glm_run(
+            torch, dev, root, "guard_glm_half",
+            common + ["--row-chunk-rows", str(half)])),
+        "lost": _glm_run(torch, dev, root, "guard_glm_lost",
+                         common + ["--row-chunk-rows", str(chunk_rows)],
+                         dict(site="optim.ooc_iteration", error="device_lost",
+                              after=GUARD_GLM_AFTER, count=1)),
+    }
+    ooc["oom"]["downshift"] = f"chunk_rows={chunk_rows} -> chunk_rows={half}"
+    checks = {
+        "oom_downshifted": ooc["oom"]["downshift"] in ooc["oom"]["log"],
+        "oom_bit_equal_half_cut": not _model_dirs_differ(ooc["oom"]["dir"],
+                                                         ooc["half"]["dir"]),
+        "lost_recovered_in_run": "in-run recovery 1/" in ooc["lost"]["log"],
+        "lost_bit_equal_uninterrupted": not _model_dirs_differ(
+            ooc["lost"]["dir"], os.path.join(root, "glm_out_of_core", "best")),
+        "fired": [ooc["oom"]["fired"], ooc["lost"]["fired"]] == [1, 1],
+    }
+    for run in ooc.values():
+        del run["log"], run["dir"]
+    ooc["half_chunks"] = ooc["half"]["n_chunks"]
+    out["out_of_core"] = {**ooc, "checks": checks}
+    failures += [f"out of core: {k}" for k, ok in checks.items() if not ok]
+
+    # (g) the planted faults moved the counters by exactly their count
+    moved = {k: v - counts0.get(k, 0) for k, v in _guard_counts().items()
+             if v != counts0.get(k, 0)}
+    want_moved = {"oom_downshifts_total[('cause', 'oom'), ('site', 're.solve')]":
+                  oom["re_solve_downshifts_in_trials"] + 1,
+                  "oom_downshifts_total[('cause', 'oom'), ('site', 'optim.ooc_chunk')]": 1,
+                  "run_restarts_total[('cause', 'preemption')]": 1,
+                  "run_restarts_total[('cause', 'device_lost')]": 1}
+    out["guard_counters_moved"] = moved
+    if moved != want_moved:
+        failures.append(f"guard counters moved {moved}, not {want_moved}")
+    out["launches"] = cs.launch_counts()
+    if failures:
+        emit({"phase": "runtime_guards",
+              **{k: v for k, v in out.items() if k != "launches"}})
+        raise AssertionError("runtime guards: " + "; ".join(failures))
+    return out
+
+
 KERNEL_SYMBOLS = {"ell_panel_kernel": "ell_panel_matvec",
                   "ell_matvec_kernel": "ell_matvec",
                   "csc_tile_kernel": "csc_rmatvec", "csc_fixup_kernel": "csc_fixup"}
@@ -3898,11 +4316,18 @@ def main() -> int:
               "the port on the card and has no CPU mode", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    t_start = time.perf_counter()
+    _START[0] = t_start
+    # (runtime_guards, a) the backend probe, before any CUDA work here
+    from photon_tpu_torch.runtime.backend_guard import ensure_backend
+
+    probe = ensure_backend("strict")
+    probe["wall_s"] = time.perf_counter() - t_start
+    if probe["backend"] != "cuda" or not probe.get("device_name"):
+        raise AssertionError(f"the backend probe did not bring the card up: {probe}")
     from photon_tpu_torch.device import resolve_device
     from photon_tpu_torch.ops import cuda_sparse as cs
 
-    t_start = time.perf_counter()
-    _START[0] = t_start
     dev, cpu = resolve_device(), torch.device("cpu")
     card = card_line()
     build = cs.build_library()
@@ -3977,7 +4402,6 @@ def main() -> int:
     rt = phase_routing(torch, cs, fit_a, WORK)
     rt_launches = rt.pop("launches")
     emit({"phase": "routing", "launches": rt_launches, **rt})
-    del fit_a
 
     sc = phase_sweep_cache(torch, cs, GAME, dev)
     sc_launches = sc.pop("launches")
@@ -4039,6 +4463,16 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
 
+    rg = phase_runtime_guards(torch, cs, fit_a, WORK, ig["data"]["dir"], probe, dev)
+    del fit_a
+    rg_launches = rg.pop("launches")
+    emit({"phase": "runtime_guards", "launches": rg_launches, **rg})
+    # the supervised GAME driver's and the out-of-core solves' passes
+    if rg_launches["csc_rmatvec"] < 1 or rg_launches["ell_matvec"] + rg_launches[
+            "ell_panel_matvec"] < 1:
+        raise AssertionError("phase runtime_guards never launched a matvec kernel "
+                             "and csc_rmatvec")
+
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
     by_phase = {"transformer": tr_launches, "driver": dr_launches,
                 "training": tn_launches, "training_driver": td_launches,
@@ -4047,7 +4481,8 @@ def main() -> int:
                 "sweep_cache": sc_launches,
                 "game_training_vmapped": vm_launches, "ingest": ig_launches,
                 "glm_driver": gl_launches, "bf16_feed": bf_launches,
-                "factored": fc_launches, "tuning": tu_launches}
+                "factored": fc_launches, "tuning": tu_launches,
+                "runtime_guards": rg_launches}
     status = {"ell_panel_matvec": "ported; redesigned: column panels of w staged by TMA",
               "ell_matvec": "ported; redesigned: row tiles streamed by TMA",
               "csc_rmatvec": "ported; redesigned: merge-path segmented reduction",

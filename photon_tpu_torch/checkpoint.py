@@ -28,8 +28,11 @@ bit (``tests/test_torch_checkpoint.py``).
 * Loading puts every tensor that lived on the card back on the caller's
   device, in its dtype (CPU tensors stay on the CPU).
 
-The JAX module stamps a compile-store reference into the metadata and calls
-fault points; both belong to the runtime-guards slice and are not ported.
+Fault points: ``checkpoint.write`` in the writer thread before each file
+(an injected error surfaces on the next ``save`` or ``wait``, as a failed
+disk would) and ``checkpoint.load`` as each file is opened. The JAX module
+also stamps a compile-store reference into the metadata: the port compiles
+no programs to store.
 """
 from __future__ import annotations
 
@@ -47,6 +50,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from photon_tpu_torch.faults import fault_point
 
 logger = logging.getLogger("photon_tpu_torch.checkpoint")
 
@@ -234,6 +239,7 @@ class CheckpointManager:
             step, payload = item
             t0 = time.perf_counter()
             try:
+                fault_point("checkpoint.write", step=step)
                 tmp = os.path.join(self.directory, f"tmp-{step}-{self._tmp_tag}")
                 with open(tmp, "wb") as f:
                     # Stream the pickle through the CRC (placeholder patched
@@ -292,6 +298,7 @@ class CheckpointManager:
         (default the CPU). Another magic raises ``ForeignCheckpoint`` and a
         bad checksum or payload ``CheckpointCorrupt``, both before
         unpickling anything untrusted."""
+        fault_point("checkpoint.load", path=path)
         with open(path, "rb") as f:
             head = f.read(len(_MAGIC))
             if head != _MAGIC:

@@ -4,11 +4,11 @@ Port of ``photon_tpu/cli/feature_indexing_driver.py``: one scan of the data
 per feature shard assigns every ``(name, term)`` pair a dense column id, in
 first-seen order, and writes the partitioned mmap store of
 ``index/index_map.py`` (the same files the JAX driver writes), which the
-training and scoring drivers load with ``--index-dir``. Host work only.
-
-The JAX driver's ``--backend-policy``, ``--telemetry-dir`` and
-``--trace-out`` belong to the runtime-guards slice (M13) and are refused
-when set.
+training and scoring drivers load with ``--index-dir``. Host work only: the
+driver never touches the card, so ``--backend-policy`` (taken, as in the
+JAX driver) probes nothing and records the CPU. The JAX driver's
+``--telemetry-dir`` and ``--trace-out`` come with the observability slice
+and are refused when set.
 
     python -m photon_tpu_torch.cli.feature_indexing_driver \\
         --data data/train --output-dir index --feature-shard global:features
@@ -19,21 +19,24 @@ import argparse
 import os
 from typing import Optional, Sequence
 
-from photon_tpu_torch.cli.params import parse_feature_shard
+from photon_tpu_torch.cli.params import (
+    OBSERVABILITY_SLICE,
+    add_backend_policy_flag,
+    console_main,
+    enable_backend_guard,
+    parse_feature_shard,
+    refuse_unported,
+)
 from photon_tpu_torch.index.index_map import build_mmap_index
 from photon_tpu_torch.io.data_reader import build_index_from_avro
 from photon_tpu_torch.utils import PhotonLogger, Timed
 
-# (flag, is it set, the slice it comes with): refused when set.
+# (flag, is it set, why): refused when set, never ignored.
 _LATER_SLICES = (
-    ("--backend-policy", lambda a: a.backend_policy is not None,
-     "backend policies come with the runtime-guards slice (M13)"),
     ("--telemetry-dir", lambda a: a.telemetry_dir is not None,
-     "fleet telemetry comes with the observability part of the runtime-guards "
-     "slice (M13)"),
+     f"fleet telemetry {OBSERVABILITY_SLICE}"),
     ("--trace-out", lambda a: a.trace_out is not None,
-     "tracing comes with the observability part of the runtime-guards slice "
-     "(M13)"),
+     f"tracing {OBSERVABILITY_SLICE}"),
 )
 
 
@@ -49,7 +52,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="shard spec (repeatable); default 'global:features'")
     p.add_argument("--num-partitions", type=int, default=1,
                    help="hash partitions per store")
-    p.add_argument("--backend-policy", default=None)
+    add_backend_policy_flag(p)
     p.add_argument("--telemetry-dir", default=None)
     p.add_argument("--trace-out", default=None)
     return p
@@ -58,9 +61,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     p = build_arg_parser()
     args = p.parse_args(argv)
-    for flag, is_set, later in _LATER_SLICES:
-        if is_set(args):
-            p.error(f"{flag}: not in the port yet; {later}")
+    refuse_unported(p, args, _LATER_SLICES)
+    enable_backend_guard(args, device="cpu")    # host work only
     os.makedirs(args.output_dir, exist_ok=True)
     with PhotonLogger(args.output_dir) as logger:
         sizes = {}
@@ -78,7 +80,7 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
 
 
 def main() -> None:  # pragma: no cover - console entry
-    run()
+    console_main(run)
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -29,10 +29,19 @@ a Bayesian or random search over the coordinates' weights, one GAME fit a
 trial (``hyperparameter/tuner.py``), checkpointed a trial at a time under
 ``--checkpoint-dir``; ``--re-routing measured`` routes the random-effect
 solves by a measured cost table (``--re-cost-table``); ``--sweep-cache-mb``
-sizes the device cache of host-resident random-effect buckets. Flags of the JAX
-driver that belong to later slices of the port (restarts, meshes,
-profiling, the runtime guards) are refused with a message naming the
-slice.
+sizes the device cache of host-resident random-effect buckets.
+
+Runtime guards: ``--backend-policy`` probes the card first (a failed probe
+under ``strict``, the default, exits 2 with one classified line); then
+``--fault-plan`` installs a chaos plan for the run; ``--heartbeat-dir``
+keeps a liveness beacon (with the memory watchdog on its thread);
+``--max-restarts N`` runs each attempt under ``supervisor.RunSupervisor``
+(classified causes, ``<output-dir>/recovery.jsonl``, ``--restart-backoff``
+seconds before the first restart), each attempt resuming from
+``--checkpoint-dir``; ``--debug-nans`` checks every step's model and scores
+for finite values. Flags of the JAX driver that belong to later slices
+(meshes, profiling, tracing, telemetry) are refused with a message naming
+the slice; its three compile-cache flags are refused for good.
 
     python -m photon_tpu_torch.cli.game_training_driver \\
       --train-data data/train --output-dir out --task LOGISTIC_REGRESSION \\
@@ -44,6 +53,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import os
 import shutil
 from contextlib import contextmanager
@@ -52,11 +62,21 @@ from typing import Optional, Sequence
 import torch
 
 from photon_tpu_torch.cli.params import (
+    MULTI_GPU_SLICE,
+    NO_COMPILED_PROGRAMS,
+    OBSERVABILITY_SLICE,
+    add_backend_policy_flag,
+    add_fault_plan_flag,
     add_re_routing_flags,
     configs_from_specs,
+    console_main,
+    enable_backend_guard,
+    enable_fault_plan,
     enable_re_routing,
     parse_coordinates,
     parse_feature_shard,
+    refuse_unported,
+    stamp_failover,
 )
 from photon_tpu_torch.data.normalization import NormalizationType
 from photon_tpu_torch.data.statistics import compute_feature_statistics
@@ -65,6 +85,7 @@ from photon_tpu_torch.device import resolve_device
 from photon_tpu_torch.estimators.config import RandomEffectDataConfig
 from photon_tpu_torch.estimators.game_estimator import GameEstimator, select_best
 from photon_tpu_torch.evaluation import EvaluationSuite
+from photon_tpu_torch.game.descent import set_debug_nans
 from photon_tpu_torch.index.index_map import MmapIndexMap, build_mmap_index
 from photon_tpu_torch.io.data_reader import (
     AvroDataReader,
@@ -77,45 +98,34 @@ from photon_tpu_torch.io.model_io import (
     save_feature_summary,
     save_game_model,
 )
+from photon_tpu_torch.runtime import memory_guard
+from photon_tpu_torch.runtime.backend_guard import guard_snapshot
+from photon_tpu_torch.supervisor import Heartbeat, RestartPolicy, RunSupervisor
 from photon_tpu_torch.types import TaskType
 from photon_tpu_torch.utils import PhotonLogger, Timed, write_metrics_jsonl
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
-# Flags of the JAX driver that belong to later slices: (flag, is it set,
-# the slice it comes with). Each is refused when set, never ignored.
+# Flags of the JAX driver the port refuses: (flag, is it set, why). Each is
+# refused when set, never ignored.
 _LATER_SLICES = (
-    ("--max-restarts", lambda a: a.max_restarts > 0,
-     "supervised restarts come with the runtime-guards slice (M13); use 0"),
-    ("--restart-backoff", lambda a: a.restart_backoff is not None,
-     "supervised restarts come with the runtime-guards slice (M13)"),
-    ("--heartbeat-dir", lambda a: a.heartbeat_dir is not None,
-     "heartbeats come with the runtime-guards slice (M13)"),
     ("--devices", lambda a: a.devices != 1,
-     "multi-device training comes with the multi-GPU slice (M14); use 1"),
-    ("--mesh", lambda a: a.mesh is not None,
-     "meshes come with the multi-GPU slice (M14)"),
-    ("--profile-dir", lambda a: a.profile_dir is not None,
-     "profiling comes with the observability slice"),
-    ("--debug-nans", lambda a: a.debug_nans,
-     "NaN checks come with the runtime-guards slice (M13)"),
-    ("--trace-out", lambda a: a.trace_out is not None,
-     "tracing comes with the observability slice"),
-    ("--telemetry-dir", lambda a: a.telemetry_dir is not None,
-     "fleet telemetry comes with the observability slice"),
-    ("--backend-policy", lambda a: a.backend_policy is not None,
-     "backend policies come with the runtime-guards slice (M13)"),
+     f"multi-device training {MULTI_GPU_SLICE}; use 1"),
+    ("--mesh", lambda a: a.mesh is not None, f"meshes {MULTI_GPU_SLICE}"),
     ("--distributed-policy", lambda a: a.distributed_policy is not None,
-     "multi-host bring-up comes with the multi-GPU slice (M14)"),
-    ("--fault-plan", lambda a: a.fault_plan is not None,
-     "fault injection comes with the runtime-guards slice (M13)"),
+     f"multi-host bring-up {MULTI_GPU_SLICE}"),
+    ("--profile-dir", lambda a: a.profile_dir is not None,
+     f"profiling {OBSERVABILITY_SLICE}"),
+    ("--trace-out", lambda a: a.trace_out is not None,
+     f"tracing {OBSERVABILITY_SLICE}"),
+    ("--telemetry-dir", lambda a: a.telemetry_dir is not None,
+     f"fleet telemetry {OBSERVABILITY_SLICE}"),
     ("--compilation-cache-dir", lambda a: a.compilation_cache_dir is not None,
-     "the port compiles no programs to cache; its kernels build once per "
-     "source (runtime-guards slice, M13)"),
+     NO_COMPILED_PROGRAMS),
     ("--compile-store", lambda a: a.compile_store is not None,
-     "compile stores come with the runtime-guards slice (M13)"),
+     NO_COMPILED_PROGRAMS),
     ("--clear-caches-per-config", lambda a: a.clear_caches_per_config,
-     "executable-cache bounds come with the runtime-guards slice (M13)"),
+     NO_COMPILED_PROGRAMS),
 )
 
 
@@ -189,20 +199,35 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--tuning-range", action="append", default=None,
                    metavar="CID:MIN:MAX",
                    help="reg-weight search range for a coordinate (repeatable)")
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="restart the run up to N times on retryable failures "
+                        "(runtime, I/O, device errors, preemptions), each "
+                        "classified into <output-dir>/recovery.jsonl; pair "
+                        "with --checkpoint-dir so each attempt resumes past "
+                        "the completed coordinate steps")
+    p.add_argument("--restart-backoff", type=float, default=5.0,
+                   help="seconds before the first restart (decorrelated "
+                        "jitter after it; an OOM restarts at once)")
+    p.add_argument("--heartbeat-dir", default=None,
+                   help="write a liveness beacon here every 2 s (the memory "
+                        "watchdog runs on the same thread); the peer checks "
+                        "across processes come with the multi-GPU slice")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="check each coordinate step's model and scores for "
+                        "finite values before the step commits (one more "
+                        "device reduction a step) and raise FloatingPointError "
+                        "naming the sweep, coordinate and step; coarser than "
+                        "the JAX driver's per-operation check")
+    add_backend_policy_flag(p)
+    add_fault_plan_flag(p)
     add_re_routing_flags(p)
-    # The JAX driver's flags that later slices bring: refused when set.
-    p.add_argument("--max-restarts", type=int, default=0)
-    p.add_argument("--restart-backoff", type=float, default=None)
-    p.add_argument("--heartbeat-dir", default=None)
+    # The JAX driver's flags the port refuses (_LATER_SLICES).
     p.add_argument("--devices", type=int, default=1)
     p.add_argument("--mesh", default=None)
     p.add_argument("--profile-dir", default=None)
-    p.add_argument("--debug-nans", action="store_true")
     p.add_argument("--trace-out", default=None)
     p.add_argument("--telemetry-dir", default=None)
-    p.add_argument("--backend-policy", default=None)
     p.add_argument("--distributed-policy", default=None)
-    p.add_argument("--fault-plan", default=None)
     p.add_argument("--compilation-cache-dir", default=None)
     p.add_argument("--compile-store", default=None)
     p.add_argument("--clear-caches-per-config", action="store_true")
@@ -212,9 +237,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def _parse(argv: Optional[Sequence[str]]):
     p = build_arg_parser()
     args = p.parse_args(argv)
-    for flag, is_set, later in _LATER_SLICES:
-        if is_set(args):
-            p.error(f"{flag}: not in the port yet; {later}")
+    refuse_unported(p, args, _LATER_SLICES)
     if args.bf16_feed and args.dtype == "float64":
         raise ValueError(
             "--bf16-feed narrows the device feed below float32; it cannot "
@@ -271,13 +294,50 @@ def _load_or_build_indexes(args, shard_specs, logger):
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run training; returns the result summary (also written to disk)."""
+    """Run training; returns the result summary (also written to disk).
+    The backend guard goes first, then the fault plan; each attempt (one,
+    or up to ``--max-restarts`` + 1 under the supervisor) reads the data
+    and fits anew, resuming from ``--checkpoint-dir``."""
     args, specs = _parse(argv)
-    device = resolve_device(args.device)
-    os.makedirs(args.output_dir, exist_ok=True)
-    with PhotonLogger(args.output_dir) as logger:
-        enable_re_routing(args, args.output_dir)
-        return _run_inner(args, specs, TaskType[args.task], device, logger)
+    enable_backend_guard(args)
+    # Sticky downshifts and the restart degradation belong to one run.
+    memory_guard.reset_state()
+    task = TaskType[args.task]
+
+    def device() -> torch.device:
+        # The guard's backend, read every attempt: a supervised failover
+        # sends the next attempt to the CPU.
+        return resolve_device(
+            "cpu" if guard_snapshot()["backend"] == "cpu" else args.device)
+
+    device()
+    with enable_fault_plan(args.fault_plan):
+        os.makedirs(args.output_dir, exist_ok=True)
+        heartbeat = (Heartbeat(args.heartbeat_dir, interval_seconds=2.0).start()
+                     if args.heartbeat_dir else None)
+        prev_nans = set_debug_nans(args.debug_nans)
+
+        def attempt(i: int) -> dict:
+            if heartbeat is not None:
+                heartbeat.set_epoch(i)
+            with PhotonLogger(args.output_dir) as logger:
+                enable_re_routing(args, args.output_dir)
+                return _run_inner(args, specs, task, device(), logger)
+
+        try:
+            if args.max_restarts > 0:
+                return RunSupervisor(
+                    RestartPolicy(max_restarts=args.max_restarts,
+                                  backoff_seconds=args.restart_backoff),
+                    journal=os.path.join(args.output_dir, "recovery.jsonl"),
+                    logger=logging.getLogger("photon_tpu_torch.supervisor"),
+                    failover_policy=args.backend_policy,
+                ).run(attempt)
+            return attempt(0)
+        finally:
+            set_debug_nans(prev_nans)
+            if heartbeat is not None:
+                heartbeat.stop()
 
 
 def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dict:
@@ -472,7 +532,7 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
     }
     # enums are not JSON-serializable through asdict
     summary = json.loads(json.dumps(
-        summary, default=lambda o: getattr(o, "name", str(o))))
+        stamp_failover(summary), default=lambda o: getattr(o, "name", str(o))))
     with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     write_metrics_jsonl(
@@ -491,7 +551,7 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger) -> dic
 
 
 def main() -> None:  # pragma: no cover - console entry
-    run()
+    console_main(run)
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -23,9 +23,14 @@ out-of-core chunks (half the value bytes of every streamed pass) and, on
 ``cuda``, the in-core layouts (``SparseFeatures.with_accelerator_paths``).
 
 ``--device`` (default ``cuda``; ``cpu`` only when named) places the run.
-``--devices`` other than 1 (the multi-GPU slice, M14) and
-``--backend-policy``, ``--compilation-cache-dir``, ``--telemetry-dir`` and
-``--trace-out`` (the runtime-guards slice, M13) are refused when set.
+``--backend-policy`` probes the card first (``strict``, the default: a
+failed probe exits 2 with one classified line; ``failover``: the CPU, with
+``backend: cpu`` in the summary; ``cpu-only``: ``--device cpu``). An
+out-of-core solve recovers in-run from an OOM (half the rows a chunk) and
+from a device loss (``optim/out_of_core.py``). ``--devices`` other than 1
+(the multi-GPU slice, M14), ``--telemetry-dir`` and ``--trace-out`` (the
+observability slice) are refused when set, and ``--compilation-cache-dir``
+for good (the port compiles no XLA programs).
 
     python -m photon_tpu_torch.cli.glm_training_driver \\
       --train-data data/train --validation-data data/val \\
@@ -44,7 +49,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from photon_tpu_torch.cli.params import parse_feature_shard
+from photon_tpu_torch.cli.params import (
+    MULTI_GPU_SLICE,
+    NO_COMPILED_PROGRAMS,
+    OBSERVABILITY_SLICE,
+    add_backend_policy_flag,
+    console_main,
+    enable_backend_guard,
+    parse_feature_shard,
+    refuse_unported,
+    stamp_failover,
+)
 from photon_tpu_torch.data.normalization import NormalizationType, context_from_statistics
 from photon_tpu_torch.data.statistics import compute_feature_statistics
 from photon_tpu_torch.data.validators import (
@@ -72,29 +87,24 @@ from photon_tpu_torch.optim.regularization import (
     RegularizationContext,
     RegularizationType,
 )
+from photon_tpu_torch.runtime import memory_guard
 from photon_tpu_torch.types import TaskType
 from photon_tpu_torch.utils import PhotonLogger, Timed
 
 SHARD = "global"
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
-# Flags of the JAX driver that belong to later slices: (flag, is it set,
-# the slice it comes with). Each is refused when set, never ignored.
+# Flags of the JAX driver the port refuses: (flag, is it set, why). Each is
+# refused when set, never ignored.
 _LATER_SLICES = (
     ("--devices", lambda a: a.devices != 1,
-     "streaming over several devices comes with the multi-GPU slice (M14); "
-     "use 1"),
-    ("--backend-policy", lambda a: a.backend_policy is not None,
-     "backend policies come with the runtime-guards slice (M13)"),
-    ("--compilation-cache-dir", lambda a: a.compilation_cache_dir is not None,
-     "the port compiles no programs to cache; its kernels build once per "
-     "source (runtime-guards slice, M13)"),
+     f"streaming over several devices {MULTI_GPU_SLICE}; use 1"),
     ("--telemetry-dir", lambda a: a.telemetry_dir is not None,
-     "fleet telemetry comes with the observability part of the "
-     "runtime-guards slice (M13)"),
+     f"fleet telemetry {OBSERVABILITY_SLICE}"),
     ("--trace-out", lambda a: a.trace_out is not None,
-     "tracing comes with the observability part of the runtime-guards slice "
-     "(M13)"),
+     f"tracing {OBSERVABILITY_SLICE}"),
+    ("--compilation-cache-dir", lambda a: a.compilation_cache_dir is not None,
+     NO_COMPILED_PROGRAMS),
 )
 
 
@@ -152,9 +162,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "= auto (on cuda, out of core when the input files "
                         "times $PHOTON_AVRO_EXPANSION_FACTOR, default 4, "
                         "exceed $PHOTON_DEVICE_DATA_BUDGET_GB, default 10)")
-    # The JAX driver's flags that later slices bring: refused when set.
+    add_backend_policy_flag(p)
+    # The JAX driver's flags the port refuses (_LATER_SLICES).
     p.add_argument("--devices", type=int, default=1)
-    p.add_argument("--backend-policy", default=None)
     p.add_argument("--compilation-cache-dir", default=None)
     p.add_argument("--telemetry-dir", default=None)
     p.add_argument("--trace-out", default=None)
@@ -351,7 +361,7 @@ def _run_out_of_core(args, task, imap, shard_cfg, chunk_rows, device,
         "model_dir": os.path.join(args.output_dir, "best"),
     }
     with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+        json.dump(stamp_failover(summary), f, indent=2)
     return summary
 
 
@@ -386,10 +396,10 @@ def _auto_chunk_rows(args, device, logger) -> int:
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     p = build_arg_parser()
     args = p.parse_args(argv)
-    for flag, is_set, later in _LATER_SLICES:
-        if is_set(args):
-            p.error(f"{flag}: not in the port yet; {later}")
-    device = resolve_device(args.device)
+    refuse_unported(p, args, _LATER_SLICES)
+    guard = enable_backend_guard(args)
+    device = resolve_device("cpu" if guard["backend"] == "cpu" else args.device)
+    memory_guard.reset_state()      # downshifts are sticky for one run
     task = TaskType[args.task]
     os.makedirs(args.output_dir, exist_ok=True)
     with PhotonLogger(args.output_dir) as logger:
@@ -536,12 +546,12 @@ def _run_in_core(args, task, imap, shard_cfg, device, logger) -> dict:
         "fit_seconds": t_fit.seconds,
     }
     with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+        json.dump(stamp_failover(summary), f, indent=2)
     return summary
 
 
 def main() -> None:  # pragma: no cover - console entry
-    run()
+    console_main(run)
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -1,10 +1,14 @@
 """CLI parameter parsing for the GAME training driver.
 
 Port of the parts of ``photon_tpu/cli/params.py`` that the training
-driver needs: the coordinate mini-DSL (``parse_coordinate_spec``,
+drivers need: the coordinate mini-DSL (``parse_coordinate_spec``,
 ``parse_coordinates``), the sweep expansion (``configs_from_specs``),
-``parse_feature_shard`` and the random-effect routing flags
-(``add_re_routing_flags``, ``enable_re_routing``).
+``parse_feature_shard``, the random-effect routing flags
+(``add_re_routing_flags``, ``enable_re_routing``), the runtime guards'
+flags (``add_backend_policy_flag``, ``enable_backend_guard``,
+``console_main``, ``add_fault_plan_flag``, ``enable_fault_plan``) and the
+one table of the JAX drivers' flags that the port refuses
+(``refuse_unported``).
 
 Coordinate spec (one ``--coordinate`` flag per coordinate):
 
@@ -24,6 +28,7 @@ latent/projection alternations, default 8 and 2).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Sequence
 
@@ -243,3 +248,118 @@ def enable_re_routing(args, output_dir=None) -> None:
         logging.getLogger("photon_tpu_torch.cli").info(
             "RE solver routing: %s (cost table: %s%s)", args.re_routing,
             table, ", resuming" if os.path.exists(table) else "")
+
+
+# Why a flag of the JAX drivers is refused: the same words in every driver.
+OBSERVABILITY_SLICE = "comes with the observability slice"
+MULTI_GPU_SLICE = "comes with the multi-GPU slice (M14)"
+NO_COMPILED_PROGRAMS = (
+    "refused for good: the port compiles no XLA programs (its kernels build "
+    "once per source into photon_tpu_torch/_build/), so there is nothing to "
+    "cache, store or clear")
+
+
+def refuse_unported(parser, args, table) -> None:
+    """``parser.error`` (exit 2, before any work) for the first flag of
+    ``table`` that is set. ``table`` holds ``(flag, is_set(args), why)``:
+    ``why`` is either a later slice's words (``OBSERVABILITY_SLICE``,
+    ``MULTI_GPU_SLICE``, after the feature's name) or
+    ``NO_COMPILED_PROGRAMS``. A refused flag is never ignored."""
+    for flag, is_set, why in table:
+        if is_set(args):
+            if why == NO_COMPILED_PROGRAMS:
+                parser.error(f"{flag}: {why}")
+            parser.error(f"{flag}: not in the port yet; {why}")
+
+
+def add_backend_policy_flag(parser) -> None:
+    """``--backend-policy`` (default ``$PHOTON_BACKEND_POLICY`` or
+    ``strict``): what to do when the card fails its health probe
+    (``runtime/backend_guard``). The probe runs in a child process under
+    the ``PHOTON_BACKEND_INIT_TIMEOUT_S`` deadline (default 120 s)."""
+    import os
+
+    parser.add_argument(
+        "--backend-policy", choices=["strict", "failover", "cpu-only"],
+        default=os.environ.get("PHOTON_BACKEND_POLICY") or "strict",
+        help="on a failed CUDA health probe: 'strict' = one classified line "
+             "and exit 2 (never train on other hardware than asked); "
+             "'failover' = go on on the CPU, logged, with backend=cpu in the "
+             "run's summary; 'cpu-only' = --device cpu (default: "
+             "$PHOTON_BACKEND_POLICY or strict)")
+
+
+def enable_backend_guard(args, logger=None, device=None) -> dict:
+    """Enforce ``--backend-policy`` before the process touches the card;
+    returns the guard snapshot, whose ``backend`` (``cuda`` or ``cpu``) is
+    where the run goes. ``device`` defaults to ``args.device``; a run asked
+    onto the CPU probes nothing. A failed probe under ``strict`` raises
+    ``BackendUnusable`` (see :func:`console_main`)."""
+    import logging
+
+    from photon_tpu_torch.runtime.backend_guard import ensure_backend
+
+    return ensure_backend(
+        policy=getattr(args, "backend_policy", None) or "strict",
+        logger=logger or logging.getLogger("photon_tpu_torch.runtime"),
+        device=device or getattr(args, "device", None) or "cuda",
+    )
+
+
+def stamp_failover(summary: dict) -> dict:
+    """``summary`` with the guard snapshot under ``backend`` when the run
+    failed over to the CPU, so its numbers are never read as the card's."""
+    from photon_tpu_torch.runtime.backend_guard import guard_snapshot
+
+    snap = guard_snapshot()
+    if snap is not None and snap.get("failover"):
+        summary["backend"] = snap
+    return summary
+
+
+def console_main(run_fn) -> None:
+    """Console entry of the drivers: a failed health probe under
+    ``--backend-policy strict`` exits 2 with ONE classified line
+    (``fatal [init_unavailable]: ...``), not a traceback."""
+    import sys
+
+    from photon_tpu_torch.runtime.backend_guard import BackendUnusable
+
+    try:
+        run_fn()
+    except BackendUnusable as e:
+        print(f"fatal [{e.cause}]: {e.reason}", file=sys.stderr)
+        raise SystemExit(2) from None
+
+
+def add_fault_plan_flag(parser) -> None:
+    """``--fault-plan`` (default ``$PHOTON_FAULT_PLAN``): run the driver
+    under a seeded fault-injection plan, for chaos drills; never set in
+    production."""
+    import os
+
+    parser.add_argument(
+        "--fault-plan",
+        default=os.environ.get("PHOTON_FAULT_PLAN") or None,
+        help="JSON FaultPlan file (photon_tpu_torch.faults): inject seeded "
+             "faults (I/O errors, preemptions, device loss, OOM) at the "
+             "hook points to rehearse recovery (default: $PHOTON_FAULT_PLAN)")
+
+
+@contextlib.contextmanager
+def enable_fault_plan(path):
+    """``with enable_fault_plan(path) as injector:`` installs the plan file
+    for the run (``injector`` None without one) and restores the plan
+    active before on exit."""
+    if not path:
+        yield None
+        return
+    import logging
+
+    from photon_tpu_torch.faults import FaultPlan, active_plan
+
+    with active_plan(FaultPlan.from_file(path)) as injector:
+        logging.getLogger("photon_tpu_torch.faults").warning(
+            "FAULT INJECTION ACTIVE: plan %s (chaos drill, not production)",
+            path)
+        yield injector

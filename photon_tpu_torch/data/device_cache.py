@@ -15,20 +15,51 @@ dataset by the identity of the buckets' ``proj`` tensors, so the mirror of a
 dataset is the same object for the cache's lifetime (a spilled dataset's
 "mirror" is the dataset itself, equally stable).
 
+The budget is clamped by ``runtime/memory_guard.effective_sweep_budget``
+(half the card's live limit at most, halved again after an OOM restart).
+Every live cache is registered (weakly): a device-loss recovery drops every
+pin at once (:func:`release_all_caches`), and the memory watchdog's
+pressure valve sheds the oldest chunk pins (:func:`shed_pins`,
+:meth:`DeviceSweepCache.shed`).
+
 The JAX module reports residency through metrics gauges, which wait for the
 observability slice; here the cache counts ``hits``, ``misses``,
 ``uploaded_bytes``, ``resident_bytes`` and ``spilled_bytes`` as attributes.
-Its mesh placement (M14) and the memory watchdog's ``shed`` (M13) are not
-ported.
+Its mesh placement (M14) is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import threading
+import weakref
 from typing import Callable, Optional
 
-__all__ = ["DeviceSweepCache", "default_budget_bytes"]
+__all__ = ["DeviceSweepCache", "default_budget_bytes", "release_all_caches",
+           "shed_pins"]
+
+_LIVE_CACHES: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def release_all_caches() -> int:
+    """Release every live :class:`DeviceSweepCache`; returns how many."""
+    caches = list(_LIVE_CACHES)
+    for c in caches:
+        c.release()
+    return len(caches)
+
+
+def shed_pins(max_bytes: int) -> int:
+    """Spill up to ``max_bytes`` of pinned chunk entries across every live
+    cache, oldest pins first: the memory watchdog's pressure valve. Shed
+    entries are copied again on their next use, as over-budget ones are.
+    Returns the bytes freed."""
+    freed = 0
+    for c in list(_LIVE_CACHES):
+        if freed >= max_bytes:
+            break
+        freed += c.shed(max_bytes - freed)
+    return freed
 
 
 def default_budget_bytes() -> int:
@@ -44,8 +75,15 @@ class DeviceSweepCache:
     """Budgeted pin of host training data on the device across sweeps."""
 
     def __init__(self, budget_bytes: Optional[int] = None):
-        self.budget_bytes = (default_budget_bytes() if budget_bytes is None
-                             else max(0, int(budget_bytes)))
+        requested = (default_budget_bytes() if budget_bytes is None
+                     else max(0, int(budget_bytes)))
+        if requested:
+            from photon_tpu_torch.runtime.memory_guard import (
+                effective_sweep_budget,
+            )
+
+            requested = effective_sweep_budget(requested)
+        self.budget_bytes = requested
         # key -> (device value, nbytes, the host object the key's id names:
         # held so that a freed and reused id never aliases a stale entry)
         self._entries: dict = {}
@@ -57,6 +95,7 @@ class DeviceSweepCache:
         self.misses = 0
         self.uploaded_bytes = 0
         self._lock = threading.Lock()
+        _LIVE_CACHES.add(self)
 
     @property
     def enabled(self) -> bool:
@@ -117,6 +156,29 @@ class DeviceSweepCache:
             self._spilled_keys.clear()
             self.resident_bytes = 0
             self.spilled_bytes = 0
+
+    def shed(self, max_bytes: int) -> int:
+        """Spill up to ``max_bytes`` of pinned chunk entries, oldest first,
+        marking them spilled (they are copied on every later use instead of
+        pinned again: memory pressure proved they do not fit). Dataset
+        mirrors are exempt: a mirror must stay the same object for the
+        cache's lifetime. Returns the bytes freed."""
+        if max_bytes <= 0:
+            return 0
+        freed = 0
+        with self._lock:
+            for key in list(self._entries):
+                if freed >= max_bytes:
+                    break
+                if key in self._mirrors:
+                    continue
+                _built, nbytes, retain = self._entries.pop(key)
+                self.resident_bytes -= nbytes
+                freed += nbytes
+                if key not in self._spilled_keys:
+                    self._spilled_keys[key] = (retain, nbytes)
+                    self.spilled_bytes += nbytes
+        return freed
 
     def dataset_mirror(self, dataset):
         """The device-resident mirror of a host-resident

@@ -1,8 +1,8 @@
 """Coordinate descent: the GAME outer loop.
 
 Port of ``photon_tpu/game/descent.py`` (``GameModel``, ``ValidationData``,
-``CoordinateStepRecord`` and ``CoordinateDescent.run`` with checkpoints and
-resume; device-loss recovery comes with the runtime-guards slice): for each
+``CoordinateStepRecord`` and ``CoordinateDescent.run`` with checkpoints,
+resume and in-run device-loss recovery): for each
 sweep, for each coordinate in the update sequence, remove the coordinate's
 own score from the total, train against the residual as offset, and add the
 new score back; with validation data, evaluate after every coordinate step
@@ -11,6 +11,20 @@ row order, so the residuals are elementwise. With a ``checkpointer`` the
 whole state is saved after every step; ``resume`` restores such a snapshot
 and skips the steps it covers, so a killed and resumed run ends where the
 uninterrupted one does, bit for bit.
+
+Runtime guards: the fault points ``descent.step`` (top of a step: a
+preemption there ends the attempt) and ``descent.device`` (inside it). A
+step commits its new scores and model only after one element of the new
+scores reached the host, so a classified device loss inside a step leaves
+the state before it intact: the state is checkpointed (``phase:
+recovery``), the caches released and the CUDA context proved
+(``runtime/backend_guard.recover_from_device_loss``), and the step runs
+again, bit-identically (bounded by ``PHOTON_DEVICE_LOST_MAX_RECOVERIES``;
+past it, or when the context is poisoned, the error escalates). With
+:func:`set_debug_nans` on, the commit gate also checks the step's model and
+scores for finite values (one more device reduction a step) and raises
+``FloatingPointError`` naming the sweep, coordinate and step: coarser than
+JAX's ``jax_debug_nans``, which checks every operation.
 """
 from __future__ import annotations
 
@@ -22,11 +36,48 @@ from typing import Mapping, Optional, Sequence
 import torch
 
 from photon_tpu_torch.evaluation import EvaluationResults, EvaluationSuite
+from photon_tpu_torch.faults import fault_point
 from photon_tpu_torch.game.coordinates import Coordinate, DatumScoringModel
+from photon_tpu_torch.runtime import backend_guard as _bg
+from photon_tpu_torch.supervisor import note_first_step
 
 Tensor = torch.Tensor
 
 logger = logging.getLogger("photon_tpu_torch.game")
+
+_DEBUG_NANS = [False]
+
+
+def set_debug_nans(enabled: bool) -> bool:
+    """Turn the commit gate's finite-value check on or off for the process
+    (the drivers' ``--debug-nans``); returns the previous setting."""
+    prev = _DEBUG_NANS[0]
+    _DEBUG_NANS[0] = bool(enabled)
+    return prev
+
+
+def _tensors(obj) -> list:
+    """Every floating tensor of a model: through dataclass fields and the
+    lists of tensors or dataclasses among them (entity keys and slot maps
+    are not walked)."""
+    if isinstance(obj, torch.Tensor):
+        return [obj] if obj.is_floating_point() else []
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [t for f in dataclasses.fields(obj) for t in _tensors(getattr(obj, f.name))]
+    if (isinstance(obj, (list, tuple)) and obj
+            and (isinstance(obj[0], torch.Tensor) or dataclasses.is_dataclass(obj[0]))):
+        return [t for x in obj for t in _tensors(x)]
+    return []
+
+
+def _check_finite(model, new_score: Tensor, sweep: int, cid: str,
+                  step: int) -> None:
+    ts = [new_score] + _tensors(model)
+    ok = torch.stack([torch.isfinite(t).all().to(new_score.device) for t in ts])
+    if not bool(ok.all()):
+        raise FloatingPointError(
+            f"--debug-nans: non-finite values in the model or scores of "
+            f"sweep {sweep}, coordinate {cid!r}, step {step}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,17 +218,69 @@ class CoordinateDescent:
                 if resumed_pos is not None and (sweep, ci) <= resumed_pos:
                     step += 1
                     continue
-                t0 = time.perf_counter()
-                residual_offset = total - scores[cid]
-                model, result = coordinates[cid].train(
-                    residual_offset, models.get(cid))
-                new_score = coordinates[cid].score(model)
-                total = residual_offset + new_score
-                # One element to the host: the step's time covers completed
-                # device work, not the enqueue.
-                new_score[:1].cpu()
+                # Chaos hook: a preemption here ends the attempt between
+                # steps, after the previous step's checkpoint: the window
+                # resume must cover.
+                fault_point("descent.step", sweep=sweep, coordinate=cid, step=step)
+                recoveries = 0
+                while True:
+                    try:
+                        t0 = time.perf_counter()
+                        # Chaos hook: error="device_lost" drives the in-run
+                        # recovery below.
+                        fault_point("descent.device", sweep=sweep,
+                                    coordinate=cid, step=step)
+                        residual_offset = total - scores[cid]
+                        model, result = coordinates[cid].train(
+                            residual_offset, models.get(cid))
+                        new_score = coordinates[cid].score(model)
+                        new_total = residual_offset + new_score
+                        if _DEBUG_NANS[0]:
+                            _check_finite(model, new_score, sweep, cid, step)
+                        # One element to the host: the step's time covers
+                        # completed device work, and the step commits only
+                        # once it has.
+                        new_score[:1].cpu()
+                        break
+                    except Exception as e:  # noqa: BLE001 - classified below
+                        if (not _bg.is_device_lost(e)
+                                or recoveries >= _bg.max_inrun_recoveries()):
+                            raise
+                        logger.warning(
+                            "device lost in sweep %d coord %s (%s: %s); in-run "
+                            "recovery %d/%d, re-running the step", sweep, cid,
+                            type(e).__name__, e, recoveries + 1,
+                            _bg.max_inrun_recoveries())
+                    # Out of the handler: the failed step's tensors are freed.
+                    recoveries += 1
+                    if checkpointer is not None:
+                        # The state before the step is exact: save it first
+                        # (resume then re-runs this step).
+                        checkpointer.save(
+                            step,
+                            state={
+                                "models": models,
+                                "scores": scores,
+                                "total": total,
+                                "v_cache": v_cache,
+                                "best_metric": best_metric,
+                                "best_models": best_models,
+                                "tracker": tracker,
+                                **(extra_state or {}),
+                            },
+                            meta={"phase": "recovery", "sweep": sweep,
+                                  "coord_index": ci - 1,
+                                  **(checkpoint_meta or {})},
+                        )
+                        checkpointer.wait()
+                    _bg.recover_from_device_loss(
+                        f"descent sweep {sweep} coord {cid}", logger=logger)
+                total = new_total
                 scores[cid] = new_score
                 models[cid] = model
+                # Close the supervisor's restart -> first step clock (a no-op
+                # when none is armed).
+                note_first_step("descent.step")
                 dt = time.perf_counter() - t0
                 record = CoordinateStepRecord(sweep, cid, dt, result)
                 if validation is not None:

@@ -130,6 +130,22 @@ def u_max_for(d_pen: Tensor) -> int:
     return int((d_pen <= 0.0).sum(dim=1).max().item())
 
 
+def bucket_u_max(problem, local_mask: Tensor,
+                 local_prior: Optional[PriorDistribution],
+                 rows: int = 16384) -> int:
+    """``u_max_for`` of a whole bucket's ``penalty_terms``, over blocks of
+    ``rows`` entities: the bucket's [E, P] penalty pieces (four of them)
+    are never all on the device at once, only a block's. One fetch."""
+    worst = []
+    for lo in range(0, local_mask.shape[0], rows):
+        prior = (None if local_prior is None else PriorDistribution(
+            means=local_prior.means[lo:lo + rows],
+            precisions=local_prior.precisions[lo:lo + rows]))
+        d_pen = penalty_terms(problem, local_mask[lo:lo + rows], prior)[3]
+        worst.append((d_pen <= 0.0).sum(dim=1).max())
+    return int(torch.stack(worst).max().item())
+
+
 def _primal_need_bytes(e: int, s: int, p: int, esize: float) -> float:
     """Dominant dense buffers of an E-entity primal solve: X [E,S,P+1],
     H [E,P,P] and the probe batch's [L,E,S] margins, [L,E,S] losses and
@@ -614,12 +630,15 @@ def fit_bucket_in_chunks(fit_one, chunk: int, batches: LabeledBatch,
     closes over the solver and its fixed arguments. Every chunk has exactly
     ``chunk`` lanes; the padded tail carries weight-0 rows, mask 1 (so the
     ridge keeps its Hessians PD) and precision-0 priors, converges at the
-    zero model and is sliced away before the restack. Each chunk's loop
-    stops when its own slowest lane converges. ``with_lo`` passes each
-    chunk's first lane to ``fit_one`` as ``lo=``.
+    zero model and is sliced away. Each chunk's loop stops when its own
+    slowest lane converges. ``with_lo`` passes each chunk's first lane to
+    ``fit_one`` as ``lo=``. The bucket's [E, ...] outputs are allocated
+    once, after the first chunk, and each chunk is copied into its lanes,
+    so the restack never holds a second copy of them: the chunk's own
+    working set is what the tier's size moves (the OOM ladder's lever).
     """
     e = w0.shape[0]
-    outs = []
+    out = None
     for lo in range(0, e, chunk):
         hi = min(lo + chunk, e)
         prior = (
@@ -636,21 +655,25 @@ def fit_bucket_in_chunks(fit_one, chunk: int, batches: LabeledBatch,
             **({"lo": lo} if with_lo else {}),
         )
         n = hi - lo
-        outs.append(_map_fit(lambda a, n=n: a[:n], model, result))
-    if len(outs) == 1:
-        return outs[0]
-    models, results = zip(*outs)
-    m0, r0 = models[0], results[0]
+        if n == e:
+            return _map_fit(lambda a: a[:n], model, result)
+        if out is None:
+            out = _map_fit(
+                lambda a: a.new_empty((e,) + tuple(a.shape[1:])), model, result)
+        _copy_lanes(out, (model, result), lo, hi)
+        del model, result
+    return out
 
-    def cat(get):
-        return torch.cat([get(m, r) for m, r in zip(models, results)])
 
-    means = cat(lambda m, r: m.coefficients.means)
-    variances = (None if m0.coefficients.variances is None
-                 else cat(lambda m, r: m.coefficients.variances))
-    model = GeneralizedLinearModel(Coefficients(means=means, variances=variances),
-                                   m0.task)
-    result = OptimizerResult(**{
-        k.name: cat(lambda m, r, k=k: getattr(r, k.name))
-        for k in dataclasses.fields(r0)})
-    return model, result
+def _copy_lanes(dst, src, lo: int, hi: int) -> None:
+    """Copy lanes [0, hi - lo) of a chunk's fit into lanes [lo, hi) of the
+    bucket's outputs, every per-lane tensor."""
+    (dm, dr), (sm, sr) = dst, src
+    n = hi - lo
+    pairs = [(dm.coefficients.means, sm.coefficients.means)]
+    if dm.coefficients.variances is not None:
+        pairs.append((dm.coefficients.variances, sm.coefficients.variances))
+    pairs += [(getattr(dr, k.name), getattr(sr, k.name))
+              for k in dataclasses.fields(dr)]
+    for d, s in pairs:
+        d[lo:hi].copy_(s[:n])

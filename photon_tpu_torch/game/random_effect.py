@@ -15,8 +15,18 @@ with ``project_context``.
 
 Under ``PHOTON_RE_ROUTING=measured`` the plan comes from the measured cost
 table of ``game/solver_routing.py`` instead (its vmapped baseline runs in
-chunks over entity slices of the lane layout). The OOM ladder, meshes, the
-compile store and the obs counters are not ported.
+chunks over entity slices of the lane layout).
+
+The OOM ladder (``runtime/memory_guard``): a dispatch that fails with an
+``oom``-classified error (a real ``torch.cuda.OutOfMemoryError``, or an
+injected ``device_oom`` at the ``re.solve`` fault point) retries one blessed
+chunk tier down (``_oom_next_tier``), then on the vmapped lanes; bounded,
+journaled and sticky for the run (``_apply_sticky_plan`` clamps every later
+bucket's plan). A measured plan that runs out of memory is demoted to one
+tier below the static plan, sticky too. A downshifted solve sums chunks in
+another order than the tier above, so it equals a solve started at its own
+tier, bit for bit, not the tier above. Meshes (``multiple_of``, the
+entity-sharded placement, ``re.shard``) come with the multi-GPU slice.
 
 ``LAST_BUCKET_TIMINGS`` keeps one record per bucket of the most recent
 ``train_random_effects`` call (bucket, entities, S, P, solver, chunk and the
@@ -36,9 +46,11 @@ import torch
 from photon_tpu_torch.data.batch import LabeledBatch, LaneFeatures
 from photon_tpu_torch.data.normalization import project_context
 from photon_tpu_torch.data.random_effect import RandomEffectDataset
+from photon_tpu_torch.faults import fault_point
 from photon_tpu_torch.functions.prior import PriorDistribution
 from photon_tpu_torch.game import newton_re, solver_routing
 from photon_tpu_torch.optim.base import OptimizerResult
+from photon_tpu_torch.runtime import memory_guard as _mg
 from photon_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
@@ -237,8 +249,7 @@ def _u_max(problem, bucket, local_mask, local_prior, normalization) -> int:
     -1 when the dual precheck refuses the bucket."""
     if not newton_re.dual_precheck(problem, bucket, normalization):
         return -1
-    return newton_re.u_max_for(newton_re.penalty_terms(
-        problem, local_mask, local_prior)[3])
+    return newton_re.bucket_u_max(problem, local_mask, local_prior)
 
 
 def lane_batch(dataset: RandomEffectDataset, b: int, batches,
@@ -290,16 +301,86 @@ def bucket_inputs(dataset: RandomEffectDataset, b: int, offsets: Tensor,
     return local_mask, bucket.local_batches(offsets), local_norm
 
 
+def _plan_desc(solver: str, chunk) -> str:
+    return f"{solver}@{'full' if chunk is None else chunk}"
+
+
+def _oom_next_tier(solver: str, chunk, e: int, vmapped_chunkable: bool = True):
+    """The next-cheaper (solver, chunk) plan below ``(solver, chunk)`` for
+    an E-entity bucket, or None when the ladder is exhausted (``chunk``
+    None is the whole bucket). The same solver one blessed chunk tier down,
+    to the smallest tier; then the vmapped lanes (chunked when the bucket
+    outgrows the smallest size); then nothing. ``vmapped_chunkable=False``
+    (a normalization context, which the chunked lanes do not slice) keeps
+    the lanes to the whole bucket. (The JAX function's ``multiple_of``, a
+    mesh's entity axis, comes with the multi-GPU slice.)"""
+    ladder = list(newton_re.chunk_ladder())
+    eff = e if chunk is None else chunk
+    smaller = [c for c in ladder if c < eff]
+    if solver != "vmapped_lbfgs":
+        if smaller:
+            return solver, max(smaller)
+        if vmapped_chunkable and ladder and e > ladder[0]:
+            return "vmapped_lbfgs", ladder[0]
+        return "vmapped_lbfgs", None
+    if smaller and vmapped_chunkable:
+        return "vmapped_lbfgs", max(smaller)
+    return None
+
+
+def _apply_sticky_plan(plan, sticky, e: int, vmapped_chunkable: bool = True):
+    """Clamp a static plan to the run's sticky OOM downshift (the tiers that
+    proved too big are skipped instead of running out of memory on every
+    sweep)."""
+    if not sticky:
+        return plan
+    solver, chunk = plan
+    if sticky.get("solver"):
+        solver = sticky["solver"]
+    cap = sticky.get("chunk")
+    if cap and (e if chunk is None else chunk) > cap:
+        chunk = cap
+    if solver == "vmapped_lbfgs" and not vmapped_chunkable:
+        chunk = None
+    return solver, chunk
+
+
+def _downshift(err, solver: str, chunk, e: int, vmapped_chunkable: bool,
+               before: Optional[str] = None):
+    """The plan to retry after ``err`` at ``(solver, chunk)``, absorbed by
+    the ``re.solve`` downshifter and made sticky; None when ``err`` is no
+    OOM, the ladder is exhausted, or the bound is spent (journaled)."""
+    if not _mg.is_oom(err):
+        return None
+    nxt = _oom_next_tier(solver, chunk, e, vmapped_chunkable=vmapped_chunkable)
+    before = before or _plan_desc(solver, chunk)
+    if nxt is None:
+        _mg.journal_event("oom_exhausted", site="re.solve", cause="oom",
+                          plan=before, reason=f"no cheaper plan below {before}")
+        return None
+    if not _mg.downshifter("re.solve").absorb(err, before=before,
+                                              after=_plan_desc(*nxt)):
+        return None
+    _mg.set_sticky_plan("re.solve", {
+        "chunk": nxt[1],
+        "solver": nxt[0] if nxt[0] == "vmapped_lbfgs" else None,
+    })
+    return nxt
+
+
 def _solve_bucket(problem, dataset: RandomEffectDataset, b: int, batches,
                   w0, local_mask, local_prior, normalization=None,
                   local_norm=None, bucket=None):
     """Pick and run the solver of bucket ``b``: ``(model, result, info)``
     with ``info`` = {solver, chunk, u_max, routing, calibrated,
-    calibration_seconds}. Under ``PHOTON_RE_ROUTING=measured`` the cost
-    table of ``game/solver_routing.py`` picks the plan, else the static
-    gates do. The vmapped plan runs on the bucket's device, whatever it is:
-    never moved elsewhere."""
+    calibration_seconds}. Under ``PHOTON_RE_ROUTING=measured`` (and no
+    sticky downshift) the cost table of ``game/solver_routing.py`` picks the
+    plan, else the static gates do, clamped to the run's sticky plan; the
+    dispatch runs under the OOM ladder. The vmapped plan runs on the
+    bucket's device, whatever it is: never moved elsewhere."""
     bucket = dataset.buckets[b] if bucket is None else bucket
+    e = int(w0.shape[0])
+    vm_chunkable = local_norm is None
     u_max_cell: list = []
 
     def u_max() -> int:
@@ -323,31 +404,71 @@ def _solve_bucket(problem, dataset: RandomEffectDataset, b: int, batches,
 
     fits = {"newton_primal": fit_primal, "newton_dual": fit_dual,
             "vmapped_lbfgs": fit_vmapped}
-    if solver_routing.routing_mode() == "measured":
+
+    def dispatch(solver, chunk):
+        fit = fits[solver]
+        if chunk is None:
+            return fit(batches, w0, local_mask, local_prior)
+        return newton_re.fit_bucket_in_chunks(
+            fit, chunk, batches, w0, local_mask, local_prior, with_lo=True)
+
+    def run_ladder(solver, chunk):
+        while True:
+            try:
+                # Chaos hook: error="device_oom" drives this ladder on the CPU.
+                fault_point("re.solve", solver=solver,
+                            chunk=0 if chunk is None else chunk)
+                model, result = dispatch(solver, chunk)
+                return model, result, solver, chunk
+            except Exception as err:  # noqa: BLE001 - classified below
+                nxt = _downshift(err, solver, chunk, e, vm_chunkable)
+                if nxt is None:
+                    raise
+            # Retried outside the handler: the failed attempt's tensors,
+            # held by the traceback, are already freed.
+            solver, chunk = nxt
+
+    sticky = _mg.sticky_plan("re.solve")
+    measured_oom = None
+    if solver_routing.routing_mode() == "measured" and sticky is None:
         dev = bucket.val.device
 
         def sync():
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
-        model, result, info = solver_routing.solve_measured(
-            problem, bucket, batches, w0, local_mask, local_prior,
-            normalization, u_max(), fits.__getitem__, sync)
-        info["u_max"] = u_max()
-        return model, result, info
+        try:
+            # Chaos hook: a device_oom here drives the demotion below.
+            fault_point("re.solve", routing="measured")
+            model, result, info = solver_routing.solve_measured(
+                problem, bucket, batches, w0, local_mask, local_prior,
+                normalization, u_max(), fits.__getitem__, sync)
+            info["u_max"] = u_max()
+            return model, result, info
+        except Exception as err:  # noqa: BLE001 - classified below
+            if not _mg.is_oom(err):
+                raise
+            # Kept without its traceback, which holds the failed tensors.
+            measured_oom = err.with_traceback(None)
 
     solver, chunk, u = plan_bucket(problem, bucket, local_mask, local_prior,
                                    normalization)
-    if u >= 0:
+    if u >= 0 and not u_max_cell:
         u_max_cell.append(u)
-    info = {"solver": solver, "chunk": chunk, "u_max": u, "routing": "static",
-            "calibrated": False, "calibration_seconds": 0.0}
-    fit = fits[solver]
-    if chunk is None:
-        model, result = fit(batches, w0, local_mask, local_prior)
-    else:
-        model, result = newton_re.fit_bucket_in_chunks(
-            fit, chunk, batches, w0, local_mask, local_prior)
+    plan = _apply_sticky_plan((solver, chunk), sticky, e,
+                              vmapped_chunkable=vm_chunkable)
+    if measured_oom is not None:
+        # One tier below the static plan (the plan that runs next), sticky,
+        # so later buckets skip the measured winner that cannot fit.
+        nxt = _downshift(measured_oom, *plan, e, vm_chunkable,
+                         before=f"measured({_plan_desc(*plan)})")
+        if nxt is None:
+            raise measured_oom
+        plan = nxt
+    model, result, solver, chunk = run_ladder(*plan)
+    info = {"solver": solver, "chunk": chunk, "u_max": u_max_cell[0] if u_max_cell
+            else u, "routing": "static", "calibrated": False,
+            "calibration_seconds": 0.0}
     return model, result, info
 
 

@@ -16,9 +16,10 @@ as the per-record reader, bit for bit.
 Schemas the compiler cannot express (a non-record top level, feature bags
 that are not arrays of (name, term?, value) records) and a missing native
 library raise :class:`Unsupported`; ``AvroDataReader.read`` catches it and
-takes the per-record path, with the same results. Fault points and trace
-spans of the JAX module belong to the observability slice and are not
-ported.
+takes the per-record path, with the same results. The ``io.block_read``
+fault point fires per block inside the retried read (an injected ``OSError``
+is retried as a transient one; a preemption ends the read). The trace spans
+of the JAX module belong to the observability slice.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import Callable, Iterator, Mapping, Optional, Sequence
 import numpy as np
 
 from photon_tpu_torch import native
+from photon_tpu_torch.faults import fault_point
 from photon_tpu_torch.index.index_map import (
     INTERCEPT_NAME,
     INTERCEPT_TERM,
@@ -875,6 +877,7 @@ def iter_blocks_with_retry(
                     if skip:
                         skip -= 1
                         continue
+                    fault_point("io.block_read", path=path, block=yielded)
                     yield payload, count
                     yielded += 1
                 return

@@ -39,10 +39,24 @@ solve is bit-identical to an uninterrupted one (no score-rebuild pass). A
 file of another format (a JAX checkpoint) is never read: the solve starts
 fresh, with a warning.
 
+Recovery (``runtime/``): an ``oom``-classified failure of a solve (a real
+``torch.cuda.OutOfMemoryError``, or ``device_oom`` injected at the
+``optim.ooc_chunk`` fault point, hit once per streamed ELL chunk) halves
+``chunk_rows`` (``ChunkedGLMData.rechunk``), drops the old cut's sweep-cache
+pins and re-enters; bounded by ``PHOTON_OOM_MAX_DOWNSHIFTS``, journaled,
+counted in ``oom_downshifts_total{site="optim.ooc_chunk"}``. The re-cut
+solve starts its loop again (the checkpoint fingerprint covers the chunking)
+and equals, bit for bit, a solve started at the halved cut. A classified
+device loss (``device_lost`` at ``optim.ooc_iteration``, the top of every
+iteration) releases the caches, proves the CUDA context with a tiny op and
+re-enters, resuming from the solver's checkpoint, or re-running the
+deterministic loop without one: bit-identical either way; bounded by
+``PHOTON_DEVICE_LOST_MAX_RECOVERIES``. A poisoned context ends the solve
+instead (``DeviceContextLost``). Both leave the ``except`` block before
+they retry, so the failed attempt's tensors are freed first.
+
 Not ported: meshes (``_kernels_for_spmd``, ``_mesh_puts``: the multi-GPU
-slice, M14); the fault points, trace spans, in-run device-loss recovery and
-the OOM ladder's automatic re-chunking (the runtime-guards slice, M13).
-``rechunk`` itself is here.
+slice, M14) and the trace spans (the observability slice).
 """
 from __future__ import annotations
 
@@ -59,6 +73,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from photon_tpu_torch.faults import fault_point
 from photon_tpu_torch.ops.cuda_sparse import (
     CscLayout,
     as_value_dtype,
@@ -565,8 +580,14 @@ class OutOfCoreLBFGS:
 
         def stream_scores(wv: Tensor, with_offsets: bool = True) -> list:
             zero = torch.zeros_like(offsets[0])
-            return [_chunk_matvec(wv, ell, offsets[i] if with_offsets else zero, dim)
-                    for i, ell in enumerate(feeder.stream_pass(data.chunks, "ell"))]
+            out = []
+            for i, ell in enumerate(feeder.stream_pass(data.chunks, "ell")):
+                # Chaos hook: error="device_oom" per streamed chunk drives
+                # the halve-chunk_rows ladder of optimize().
+                fault_point("optim.ooc_chunk", chunk_rows=data.chunk_rows)
+                out.append(_chunk_matvec(
+                    wv, ell, offsets[i] if with_offsets else zero, dim))
+            return out
 
         def data_value(z_chunks) -> Tensor:
             return sum(_chunk_value(loss, z, labels[i], weights[i])
@@ -764,7 +785,60 @@ class OutOfCoreLBFGS:
         """Minimize from ``x0``. ``primed`` (``StreamPrimer.primed()``)
         carries the init pass computed while the data streamed in; a valid
         prime skips the two init passes bit-identically (``data_passes``
-        records the fused pass as 1)."""
+        records the fused pass as 1).
+
+        Under the recovery of the module docstring: an OOM re-cuts the data
+        at half the rows a chunk and re-enters; a device loss releases the
+        caches and re-enters from the checkpoint."""
+        from photon_tpu_torch.runtime import backend_guard as _bg
+        from photon_tpu_torch.runtime import memory_guard as _mg
+
+        recoveries = 0
+        while True:
+            try:
+                return self._optimize_impl(data, x0, primed=primed)
+            except Exception as e:  # noqa: BLE001 - classified below
+                if _mg.is_oom(e):
+                    new_rows = -(-data.chunk_rows // 2)
+                    if data.chunk_rows <= 1:
+                        _mg.journal_event(
+                            "oom_exhausted", site="optim.ooc_chunk",
+                            cause="oom", plan=f"chunk_rows={data.chunk_rows}",
+                            reason="chunk_rows already 1")
+                        raise
+                    if not _mg.downshifter("optim.ooc_chunk").absorb(
+                            e, before=f"chunk_rows={data.chunk_rows}",
+                            after=f"chunk_rows={new_rows}"):
+                        raise   # absorb journaled the spent budget
+                    action = "rechunk"
+                elif (_bg.is_device_lost(e)
+                        and recoveries < _bg.max_inrun_recoveries()):
+                    logger.warning(
+                        "device lost mid-solve (%s: %s); in-run recovery %d/%d%s",
+                        type(e).__name__, e, recoveries + 1,
+                        _bg.max_inrun_recoveries(),
+                        ", resuming from the checkpoint" if self.checkpoint_path
+                        else ", re-running the deterministic loop")
+                    action = "recover"
+                else:
+                    raise
+            # Out of the handler: the failed attempt's tensors are freed.
+            primed = None   # the prime's margins belong to the old attempt
+            if action == "rechunk":
+                if self.device_cache is not None:
+                    # The old cut's pins can never be hit again.
+                    for c in data.chunks:
+                        self.device_cache.discard(("ooc_ell", id(c.idx)))
+                        self.device_cache.discard(("ooc_csc", id(c.csc.rows)))
+                data = data.rechunk(2)
+            else:
+                recoveries += 1
+                _bg.recover_from_device_loss("out-of-core solve",
+                                             device_cache=self.device_cache,
+                                             logger=logger)
+
+    def _optimize_impl(self, data: ChunkedGLMData, x0: Tensor,
+                       primed: Optional[dict] = None) -> OptimizerResult:
         cfg = self.config
         dt, dev = data.dtype, data.device
         streams = self._streams(data)
@@ -807,6 +881,9 @@ class OutOfCoreLBFGS:
         reason = NOT_CONVERGED
         last_save = float("-inf")
         while True:
+            # Chaos hook: error="device_lost" here drives the in-run
+            # recovery of optimize() (checkpoint fast-forward).
+            fault_point("optim.ooc_iteration", it=it)
             # The convergence test comes before the iteration cap, as in the
             # in-core loop.
             tg = self._test_grad(reg, w, g)

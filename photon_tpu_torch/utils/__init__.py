@@ -1,4 +1,9 @@
 """Cross-cutting utilities (port of ``photon_tpu/utils``)."""
-from photon_tpu_torch.utils.logging import PhotonLogger, Timed, write_metrics_jsonl
+from photon_tpu_torch.utils.logging import (
+    LatencyHistogram,
+    PhotonLogger,
+    Timed,
+    write_metrics_jsonl,
+)
 
-__all__ = ["PhotonLogger", "Timed", "write_metrics_jsonl"]
+__all__ = ["LatencyHistogram", "PhotonLogger", "Timed", "write_metrics_jsonl"]

@@ -241,9 +241,8 @@ def test_out_of_core_driver_validates_chunks(tmp_path):
             "--no-report", "--row-chunk-rows", "8"] + CPU)
 
 
-REFUSED = {"--devices": ["2"], "--backend-policy": ["cpu-only"],
-           "--compilation-cache-dir": ["cc"], "--telemetry-dir": ["t"],
-           "--trace-out": ["t.json"]}
+REFUSED = {"--devices": ["2"], "--compilation-cache-dir": ["cc"],
+           "--telemetry-dir": ["t"], "--trace-out": ["t.json"]}
 
 
 @pytest.mark.parametrize("flag", list(REFUSED))
@@ -254,8 +253,46 @@ def test_later_slice_flags_are_refused(data, tmp_path, capsys, flag):
                                         flag, *REFUSED[flag]) + CPU)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert flag in err and "not in the port yet" in err and "slice" in err
+    if flag == "--compilation-cache-dir":   # refused for good
+        assert flag in err and "refused for good" in err and "compiles no XLA" in err
+    else:
+        assert flag in err and "not in the port yet" in err and "slice" in err
     assert not (tmp_path / "o").exists()
+
+
+@pytest.mark.parametrize("policy", ["strict", "failover", "cpu-only"])
+def test_backend_policy_is_taken(data, tmp_path, policy, monkeypatch):
+    """``--backend-policy`` in the GLM and feature-indexing drivers: with
+    ``--device cpu`` (and ``cpu-only`` without it) nothing is probed and the
+    model is the plain run's; without a GPU a ``cuda`` run under ``strict``
+    raises the classified error before any output, and under ``failover``
+    goes on on the CPU with the swap stamped in its summary."""
+    from photon_tpu_torch.runtime import backend_guard
+
+    monkeypatch.setattr(backend_guard, "_STATE", None)
+    monkeypatch.setattr(backend_guard, "_PROBED_OK", False)
+    common = _common(data, "--variance", "NONE", "--no-report")
+    plain = glm_training_driver.run(common + ["--output-dir", str(tmp_path / "a")] + CPU)
+    device = [] if policy == "cpu-only" else CPU
+    got = glm_training_driver.run(common + ["--output-dir", str(tmp_path / "b"),
+                                            "--backend-policy", policy] + device)
+    assert got["sweep"] == plain["sweep"] and "backend" not in got
+    assert backend_guard.guard_snapshot()["probe_attempts"] == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    on_card = common + ["--output-dir", str(tmp_path / "c"), "--backend-policy", policy]
+    if policy == "strict":
+        with pytest.raises(backend_guard.BackendUnusable, match="init_unavailable"):
+            glm_training_driver.run(on_card)
+        assert not (tmp_path / "c").exists()
+    elif policy == "failover":
+        got = glm_training_driver.run(on_card)
+        assert got["sweep"] == plain["sweep"]
+        assert got["backend"]["backend"] == "cpu"
+        assert got["backend"]["failover"]["cause"] == "init_unavailable"
+    idx = feature_indexing_driver.run(["--data", str(data / "train.avro"),
+                                       "--output-dir", str(tmp_path / "i"),
+                                       "--backend-policy", policy])
+    assert idx["features_per_shard"]["global"] > 0
 
 
 def test_every_jax_flag_is_taken_or_refused():

@@ -5,7 +5,9 @@
   ``chip_smoke.py`` (its data, model, bound and phase functions, the
   training, GAME training, checkpoint, routing, sweep-cache, vmapped GAME
   training, ingest, GLM driver, bf16-feed, factored and tuning phases
-  included, at a tiny size, with the CPU as both devices); afterwards neither ``jax`` nor any
+  included, and the runtime-guards phase with an injected OOM in place of
+  the card's capped one, at a tiny size, with the CPU as both devices);
+  afterwards neither ``jax`` nor any
   ``photon_tpu`` (nor ``ml_dtypes``) module is loaded.
 * No source line of the port or of ``chip_smoke.py`` imports them.
 * Without a GPU, ``resolve_device()`` and the port's scoring driver run
@@ -135,6 +137,15 @@ tu = chip_smoke.phase_tuning(
     cpu, root)
 assert tu["resumed_bit_identical"] and len(tu["trial_s"]) == 3, tu
 assert tu["driver"]["factored_latent_dim"] == 4, tu
+rg = chip_smoke.phase_runtime_guards(torch, cs, keep, root, ig["data"]["dir"],
+                                     {"backend": "cpu"}, cpu, chunk_rows=48)
+oom = rg["injected_oom"]
+assert oom["downshifts"] == 1 and oom["bit_equal_next_tier"], oom
+assert rg["measured_demotion"]["bit_equal_next_tier"], rg
+assert rg["supervised_driver"]["restart_causes"] == ["preemption"], rg
+assert not rg["supervised_driver"]["model_files_differ"], rg
+assert all(rg["out_of_core"]["checks"].values()), rg
+assert rg["out_of_core"]["half_chunks"] == 2 * gl["runs"]["out_of_core"]["n_chunks"], rg
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "photon_tpu", "ml_dtypes"))
 print("MODULES", len(names), "BAD", bad)

@@ -9,7 +9,8 @@ TRON L2, and linear OWL-QN L1. Saved means and variances agree to ``atol
 the other package's model, and those scores agree with the package's scores
 of its own model to the scoring test's float64 ``atol 1e-12``. Every flag
 of the JAX driver is either taken by the port's or refused with the slice
-that brings it (``--re-routing`` only with ``measured``). With
+that brings it (its compile-cache flags for good), and each runtime-guard
+flag trains the model a run without it trains. With
 ``--normalization STANDARDIZATION --feature-summary``, down-sampling and an
 L1 OWL-QN random effect, each driver's model scores alike under both
 scoring drivers and the two feature summaries agree. The driver's data
@@ -172,16 +173,19 @@ def test_normalized_drivers_cross_score_and_summaries_agree(data, tmp_path):
     np.testing.assert_allclose(jax_on_port, jax_own, rtol=0, atol=1e-12)
 
 
-# Each refused flag with a value that sets it.
+# Each refused flag with a value that sets it. The compile-cache flags are
+# refused for good (the port compiles no XLA programs); the rest name the
+# slice that brings them.
 REFUSED = {
-    "--max-restarts": ["1"],
-    "--restart-backoff": ["2"], "--heartbeat-dir": ["hb"], "--devices": ["2"], "--mesh": ["data=2"],
-    "--profile-dir": ["prof"], "--debug-nans": [], "--trace-out": ["t.json"],
-    "--telemetry-dir": ["tel"], "--backend-policy": ["strict"],
-    "--distributed-policy": ["strict"], "--fault-plan": ["plan.json"],
+    "--devices": ["2"], "--mesh": ["data=2"],
+    "--profile-dir": ["prof"], "--trace-out": ["t.json"],
+    "--telemetry-dir": ["tel"], "--distributed-policy": ["strict"],
     "--compilation-cache-dir": ["cc"], "--compile-store": ["cs"],
     "--clear-caches-per-config": [],
 }
+FOR_GOOD = {"--compilation-cache-dir", "--compile-store", "--clear-caches-per-config"}
+
+
 def _base_args(tmp_path, coordinate="fixed:type=fixed,shard=global"):
     return ["--train-data", str(tmp_path / "x.avro"), "--output-dir",
             str(tmp_path / "out"), "--task", "LOGISTIC_REGRESSION",
@@ -204,8 +208,57 @@ def test_later_slice_flags_are_refused(tmp_path, capsys, flag):
         game_training_driver.run(_base_args(tmp_path) + [flag, *REFUSED[flag]])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert flag in err and "not in the port yet" in err and "slice" in err
+    if flag in FOR_GOOD:
+        assert flag in err and "refused for good" in err and "compiles no XLA" in err
+    else:
+        assert flag in err and "not in the port yet" in err and "slice" in err
     assert not (tmp_path / "out").exists()
+
+
+# The runtime-guard flags of the JAX driver, each with a value that sets it,
+# and what the run shows for it (``tests/test_torch_chaos.py`` drives them
+# through faults).
+GUARD_FLAGS = {
+    "--max-restarts": ["1"],
+    "--restart-backoff": ["0.5", "--max-restarts", "1"],
+    "--heartbeat-dir": ["HB"],
+    "--debug-nans": [],
+    "--backend-policy": ["cpu-only"],
+    "--fault-plan": ["PLAN"],
+}
+
+
+@pytest.mark.parametrize("flag", list(GUARD_FLAGS))
+def test_runtime_guard_flags_are_taken(data, tmp_path, flag):
+    """Each flag the runtime-guards slice ports trains the same model as a
+    run without it (``--backend-policy cpu-only`` without ``--device cpu``:
+    the CPU, no probe; ``--fault-plan`` with a transient read error that
+    the ingest retries)."""
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps({"seed": 0, "specs": [
+        {"site": "io.block_read", "error": "os", "count": 1}]}))
+    values = [str(tmp_path / "hb") if v == "HB" else str(plan) if v == "PLAN" else v
+              for v in GUARD_FLAGS[flag]]
+    base = ["--train-data", str(data / "train.avro"), "--task", "LOGISTIC_REGRESSION",
+            "--coordinate", CONFIGS["logistic_lbfgs"][1], "--dtype", "float64"]
+    device = [] if flag == "--backend-policy" else ["--device", "cpu"]
+    got = game_training_driver.run(base + device + [
+        "--output-dir", str(tmp_path / "on"), flag, *values])
+    want = game_training_driver.run(base + ["--device", "cpu", "--output-dir",
+                                            str(tmp_path / "off")])
+    assert _saved(tmp_path / "on" / "best") == _saved(tmp_path / "off" / "best")
+    assert got["evaluation"] == want["evaluation"] and "backend" not in got
+    journal = tmp_path / "on" / "recovery.jsonl"
+    if "--max-restarts" in [flag, *values]:
+        rows = [json.loads(r) for r in journal.read_text().splitlines()]
+        assert [r["event"] for r in rows] == ["attempt_start", "first_step", "run_ok"]
+    else:
+        assert not journal.exists()
+    if flag == "--fault-plan":     # the injected read error was retried
+        assert "transient read error" in (tmp_path / "on" / "photon.log").read_text()
+    if flag == "--heartbeat-dir":
+        beat = json.loads((tmp_path / "hb" / "host-0.hb").read_text())
+        assert beat["process_id"] == 0 and beat["epoch"] == 0
 
 
 def test_training_driver_defaults_to_cuda_and_raises_without_gpu(tmp_path, monkeypatch):
