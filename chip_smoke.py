@@ -164,6 +164,8 @@ and are removed on success; nvcc's log stays beside the built library.
 """
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -200,6 +202,9 @@ _START = [None]
 def emit(obj: dict) -> None:
     if "phase" in obj and _START[0] is not None:
         obj = {**obj, "at_s": time.perf_counter() - _START[0]}
+        # the progress on the error stream too, whose end a stopped run shows
+        print(f"chip_smoke: phase {obj['phase']} done at {obj['at_s']:.1f}s",
+              file=sys.stderr, flush=True)
     print(json.dumps(obj), flush=True)
 
 
@@ -270,17 +275,35 @@ def model_spec(n_users, d_global, d_user, intercept: bool, seed=9, **_) -> dict:
     }
 
 
-def kernel_bound(name: str, n: int, k: int, dim: int, nnz: int, dtype: str) -> dict:
+SECTOR_BYTES = 32     # the least the card reads from memory at a time
+
+
+def sectors_touched(idx, limit: int, xb: int) -> int:
+    """Bytes of the distinct 32-byte sectors that the entries ``idx`` of a
+    vector of ``limit`` entries of ``xb`` bytes fall in (entries outside
+    [0, limit), the ghost column, need no read)."""
+    hit = idx[(idx >= 0) & (idx < limit)].long() // (SECTOR_BYTES // xb)
+    return int(hit.unique().numel()) * SECTOR_BYTES
+
+
+def kernel_bound(name: str, n: int, k: int, dim: int, nnz: int, dtype: str,
+                 idx) -> dict:
     """Least time the card could take: each input read once, each output
     written once, over 3.35 TB/s; operations over the peak for the type.
-    ``dtype`` is the values' type; bf16 values go with f32 vectors."""
+    ``dtype`` is the values' type; bf16 values go with f32 vectors. The
+    gathered vector counts only what this layout's data needs (``idx``,
+    the ``[n, k]`` ELL columns): a matvec reads the sectors of w that its
+    non-ghost columns touch, a transpose the sectors of v of the rows that
+    hold an entry."""
     vb = VALUE_BYTES[dtype]
     xb = 8 if dtype == "float64" else 4
     if name in ("ell_matvec", "ell_panel_matvec"):
-        nbytes = n * k * (4 + vb) + dim * xb + n * xb
+        nbytes = n * k * (4 + vb) + sectors_touched(idx, dim, xb) + n * xb
         ops = 2 * n * k
     else:
-        nbytes = (dim + 1) * 8 + nnz * (4 + vb) + n * xb + dim * xb
+        rows = ((idx >= 0) & (idx < dim)).any(1).nonzero().flatten()
+        nbytes = ((dim + 1) * 8 + nnz * (4 + vb) + sectors_touched(rows, n, xb)
+                  + dim * xb)
         ops = (3 if name == "csc_sq_rmatvec" else 2) * nnz
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -441,7 +464,7 @@ def check_case(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
                     library_max_abs_err=lib_err.item(),
                     ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
                     library_ms=time_ms(torch, library[name]),
-                    **kernel_bound(name, n, k, dim, csc.nnz, dtype))
+                    **kernel_bound(name, n, k, dim, csc.nnz, dtype, idx))
         out[dtype] = {"build_csc_s": csc_s, "nnz": csc.nnz,
                       "tiles": csc.tiles.shape[0] - 1,
                       "split_columns": csc.splits.shape[0],
@@ -1603,9 +1626,13 @@ GAME_FITS = (("fit_a", "global", (1.0, 10.0), "NONE"),
 # A's only its first configuration of two (cuts of depth, to keep the script
 # well inside its time: the references are host work), held against the
 # card's fit cut alike; both sweeps and both configurations are compared
-# across the devices in f64 (fit_a_f64 / fit_b_f64).
+# across the devices in f64 (fit_a_f64 / fit_b_f64). Their solvers stop at
+# GAME_REF_ITERATIONS iterations of GAME's 15 (a cut of depth for the
+# serving phase's time: the full-size cpu fits took 47.0 s and 20.8 s on the
+# H100 machine's host, their fixed-effect steps 12.7 s and 8.6 s of it).
 GAME_REF_SWEEPS = 1
 GAME_REF_CONFIGS = 1
+GAME_REF_ITERATIONS = 8
 
 
 def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
@@ -1618,8 +1645,9 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
     LOGISTIC_LOSS. Fit B: the same users, the random effect over the
     ``user`` shard (user block + intercept), SIMPLE variances on both
     coordinates. Each in f32 on ``dev`` twice (bit-equality asserted), and
-    cut to ``GAME_REF_SWEEPS`` sweeps and ``GAME_REF_CONFIGS``
-    configurations on ``dev`` and on ``ref_dev`` at the full size (the f32
+    cut to ``GAME_REF_SWEEPS`` sweeps, ``GAME_REF_CONFIGS``
+    configurations and ``GAME_REF_ITERATIONS`` iterations on ``dev`` and
+    on ``ref_dev`` at the full size (the f32
     bounds of
     ``compare_game_fits`` hold where the devices' fixed effects start
     alike: at 8,192 users the f32 fixed effect's first step already stops
@@ -1657,7 +1685,8 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
         # the card's fit cut to the reference's sweeps: the same estimator,
         # its prepared datasets reused
         card_est.n_sweeps = GAME_REF_SWEEPS
-        ref_cfgs = cfgs[:GAME_REF_CONFIGS]
+        ref_cfgs = game_configs(weights, min(it, GAME_REF_ITERATIONS),
+                                variance)[:GAME_REF_CONFIGS]
         cut = game_fit(torch, cs, card_est, *data[dev.type], ref_cfgs)
         card_est.n_sweeps = 2
         ref = game_fit(torch, cs, ref_est, *data[ref_dev.type], ref_cfgs)
@@ -1698,6 +1727,7 @@ def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
                       "repeat": None if second is None else second["fit_s"],
                       "cut_to_ref_sweeps": cut["fit_s"], "ref": ref["fit_s"]},
             "ref_sweeps": GAME_REF_SWEEPS, "ref_configs": len(ref_cfgs),
+            "ref_iterations": min(it, GAME_REF_ITERATIONS),
             "steps": first["steps"], "ref_steps": ref["steps"],
             "buckets": first["buckets"], "plans": plans,
             "best_config": first.get("best_config"),
@@ -1942,6 +1972,11 @@ VM_LANE_OBJ_RTOL_F32 = {"fit_d": 2.5e-3, "fit_e": 1e-3}
 # machine's host): what they serve, the objective at one point, holds after
 # any sweep; its f64 witness runs both.
 VM_SMALL_F32_SWEEPS = {"fit_c": 1}
+# Fit C's small f32 fits stop at 5 iterations of 15, both devices (a cut of
+# depth for the serving phase's time: its cpu fit took 22.5 s of 15
+# iterations on the H100 machine's host). What is held of them, the lanes'
+# objective at one point, holds at any iterate; the rest is reported.
+VM_SMALL_F32_ITERATIONS = {"fit_c": 5}
 # Sweeps of the f64 witnesses at GAME_F64_USERS users, both devices: one of
 # the fits' two, a cut of depth for the observability phase's time (fit
 # C's f64 cpu witness took 32.5 s of two sweeps on the H100 machine's
@@ -2160,7 +2195,7 @@ def matvec_at(torch, cs, idx_np, val_np, dim, seed, dev) -> dict:
             "panels_pay_off": cs.panels_pay_off(n, dim, n * k, 4),
             "ms": ms, "plain_ms": time_ms(torch, plain), "library_ms": library_ms,
             "library_ratio": ms / library_ms,
-            **kernel_bound("ell_matvec", n, k, dim, nnz, "float32")}
+            **kernel_bound("ell_matvec", n, k, dim, nnz, "float32", idx)}
 
 
 def lane_layout_kernels(torch, cs, flat, seed, with_panels: bool) -> dict:
@@ -2188,7 +2223,8 @@ def lane_layout_kernels(torch, cs, flat, seed, with_panels: bool) -> dict:
         ms, library_ms = time_pair(torch, kern, library[name])
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": time_ms(torch, plain),
                      "library_ms": library_ms, "library_ratio": ms / library_ms,
-                     **kernel_bound(name, n, k, dim, csc.nnz, "float32")}
+                     **kernel_bound(name, n, k, dim, csc.nnz, "float32",
+                                    flat.idx)}
     if panels is not None:
         out["ell_panel_matvec"].update(
             tile_rows=panels.tile_rows, row_tiles=panels.n_tiles, panels=panels.n_panels,
@@ -2258,7 +2294,7 @@ def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev,
     the gates', the random-effect step alone measured; then at
     ``small_users`` users on both devices, in f32 (the lanes' objective at
     one point, ``vm_point_gap``; fits D's and E's final lane objectives;
-    fit C's cut to ``VM_SMALL_F32_SWEEPS``) and in f64 (``compare_f64_fits``; fit C to ``VM_F64_RTOL_FIT_C``), each
+    fit C's cut to ``VM_SMALL_F32_SWEEPS`` and ``VM_SMALL_F32_ITERATIONS``) and in f64 (``compare_f64_fits``; fit C to ``VM_F64_RTOL_FIT_C``), each
     held to a bound set from readings. Returns the counted fits' launches
     under ``launches``."""
     it = sizes["iterations"]
@@ -2330,11 +2366,14 @@ def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev,
                 for d in (dev, ref_dev)}
         bundles = {d.type: game_bundle(torch, small, d, torch.float32)
                    for d in (dev, ref_dev)}
+        small_cfgs = vm_configs(fixed, random, variance, rate,
+                                min(it, VM_SMALL_F32_ITERATIONS.get(name, it)))
         f32 = {d.type: game_fit(torch, cs, ests[d.type], bundles[d.type],
-                                game_bundle(torch, vsmall, d, torch.float32), cfgs)
+                                game_bundle(torch, vsmall, d, torch.float32),
+                                small_cfgs)
                for d in (dev, ref_dev)}
         lane_err = _lane_objective_err(f32[dev.type], f32[ref_dev.type])
-        point = vm_point_gap(torch, ests, bundles, cfgs[0], f32[ref_dev.type],
+        point = vm_point_gap(torch, ests, bundles, small_cfgs[0], f32[ref_dev.type],
                              dev, ref_dev)
         metric_err = max((abs(v - sb["validation"][k])
                           for sa, sb in zip(f32[dev.type]["steps"], f32[ref_dev.type]["steps"])
@@ -2364,6 +2403,7 @@ def phase_game_training_vmapped(torch, cs, sizes, small_users, dev, ref_dev,
         res["small"] = {
             "users": small_users,
             "f32": {"sweeps": VM_SMALL_F32_SWEEPS.get(name, 2),
+                    "iterations": min(it, VM_SMALL_F32_ITERATIONS.get(name, it)),
                     "lane_objective_rel_err": lane_err,
                     "lane_objective_limit": VM_LANE_OBJ_RTOL_F32.get(name),
                     "at_one_point": point, "at_one_point_limit": VM_POINT_RTOL_F32,
@@ -2693,7 +2733,7 @@ def bf16_case(torch, cs, dev, idx_np, val_np, dim, seed, names) -> dict:
                      "ms": ms, "f32_kernel_ms": f32_ms, "over_f32": ms / f32_ms,
                      "plain_ms": time_ms(torch, pb), "library_ms": lib_ms,
                      "library_ratio": ms / lib_ms,
-                     **kernel_bound(name, n, k, dim, csc_up.nnz, "bfloat16")}
+                     **kernel_bound(name, n, k, dim, csc_up.nnz, "bfloat16", idx)}
         if name == "ell_matvec":
             plan = cs.ell_tile_plan(k, torch.bfloat16)
             out[name].update(tile_rows=plan.tile_rows, group=plan.group)
@@ -4511,6 +4551,543 @@ def phase_observability(torch, cs, dev, root: str, big: str, gd: dict,
         raise AssertionError("observability: " + "; ".join(failures))
     return out
 
+# ------------------------------------------------------------------ serving
+
+# The serving driver's knobs for the load runs (the JAX driver's defaults
+# but the cache): a quarter of the model's entities resident, so the LRU
+# evicts under load.
+SERVE = dict(max_batch=64, max_wait_ms=2.0, clients=16, passes=1,
+             frontline_workers=2, swap_passes=1, load_rows=2048,
+             plain_swap_max_passes=100)
+SERVE_RTOL = 1e-5        # scores against a reference: 1e-5·(1+|score|)
+
+
+def _serve_close(got, want, what: str) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.shape} scores against {want.shape}")
+    err = np.abs(got - want) / (1 + np.abs(want))
+    worst = float(err.max()) if err.size else 0.0
+    if not worst <= SERVE_RTOL:
+        raise AssertionError(f"{what}: scores differ by {worst} (relative, "
+                             f"1+|s|) > {SERVE_RTOL}")
+    return worst
+
+
+def _payloads(path: str) -> list:
+    """Every row of an Avro file as the JSON body a client sends."""
+    from photon_tpu_torch.io.avro import read_records
+
+    return [json.dumps({"uid": r["uid"], "offset": r["offset"],
+                        "features": r["features"], "entities": r["metadataMap"]})
+            for r in read_records(path)]
+
+
+# One load-generating process: ``threads`` client threads (global ids
+# first .. first+threads-1 of ``clients``), each with one kept-alive
+# connection opened before the clock starts, send rows i = id (mod clients) of the bodies file, one
+# request at a time, ``passes`` times, or until the stop file (an optional
+# last argument) exists. Writes its latencies, failures and each answer's
+# score text and model version (keyed "pass:row") as JSON.
+_LOAD_CLIENT = r"""
+import http.client, json, os, re, sys, threading, time
+path, out, host, port, first, threads, clients, passes = sys.argv[1:9]
+port, first, threads, clients, passes = map(int, (port, first, threads, clients, passes))
+stop = sys.argv[9] if len(sys.argv) > 9 else None
+bodies = open(path, "rb").read().split(b"\n")[:-1]
+lat, failures, scores, versions = [], [], {}, {}
+lock = threading.Lock()
+
+def client(t):
+    conn = http.client.HTTPConnection(host, port, timeout=60)
+    mine = []
+    try:
+        conn.connect()
+        ready.wait()
+        for p in range(passes):
+            for i in range(t, len(bodies), clients):
+                if stop is not None and os.path.exists(stop):
+                    return
+                t0 = time.perf_counter()
+                conn.request("POST", "/score", body=bodies[i],
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                mine.append(time.perf_counter() - t0)
+                if resp.status != 200:
+                    with lock:
+                        failures.append([resp.status, data[:200].decode()])
+                    continue
+                key = f"{p}:{i}"
+                scores[key] = re.search(rb'"score": ([^,}]+)', data).group(1).decode()
+                versions[key] = int(re.search(rb'"model_version": (\d+)', data).group(1))
+    except Exception as e:
+        with lock:
+            failures.append(["exception", repr(e)[:200]])
+    finally:
+        conn.close()
+        with lock:
+            lat.extend(mine)
+
+ready = threading.Event()
+ts = [threading.Thread(target=client, args=(t,)) for t in range(first, first + threads)]
+for th in ts:
+    th.start()
+time.sleep(0.2)  # every thread connected before the clock starts
+start = time.monotonic()
+ready.set()
+for th in ts:
+    th.join()
+json.dump({"start": start, "end": time.monotonic(), "lat": lat, "failures": failures,
+           "scores": scores, "versions": versions}, open(out, "w"))
+"""
+
+
+def _load(server_addr, bodies_path: str, n: int, clients: int, passes: int,
+          during=None, procs: int = 4, stop=None) -> dict:
+    """Closed-loop load from ``procs`` client processes (``clients``
+    threads in all, so the server's process runs no client code): each
+    row goes to one client thread and is sent ``passes`` times, or until
+    the file ``stop`` exists. ``during()`` runs here while they send. Returns the wall time, the latencies' p50 /
+    p99, the failures, and each row's score text and model version from the
+    first pass (``answers``: every pass's, keyed (pass, row))."""
+    per = clients // procs
+    outs = [os.path.join(os.path.dirname(bodies_path), f"load_{i}.json")
+            for i in range(procs)]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    ps = [subprocess.Popen([sys.executable, "-c", _LOAD_CLIENT, bodies_path, out,
+                            server_addr[0], str(server_addr[1]), str(i * per),
+                            str(per), str(clients), str(passes)]
+                           + ([stop] if stop else []), env=env)
+          for i, out in enumerate(outs)]
+    try:
+        extra = during() if during is not None else None
+        for p in ps:
+            if p.wait(timeout=300) != 0:
+                raise AssertionError(f"a load client exited {p.returncode}")
+    finally:
+        for p in ps:
+            if p.poll() is None:
+                p.kill()
+    docs = [json.load(open(o)) for o in outs]
+    lat = np.concatenate([d["lat"] for d in docs]) * 1e3
+    wall = max(d["end"] for d in docs) - min(d["start"] for d in docs)
+    answers = {tuple(map(int, key.split(":"))): (v, d["versions"][key])
+               for d in docs for key, v in d["scores"].items()}
+    scores = {i: v for (p, i), (v, _) in answers.items() if p == 0}
+    versions = {i: ver for (p, i), (_, ver) in answers.items() if p == 0}
+    failures = [f for d in docs for f in d["failures"]]
+    if len(scores) + len(failures) < n and not failures and stop is None:
+        raise AssertionError(f"{len(scores)} rows answered of {n}")
+    return {"requests": int(lat.size), "wall_s": wall,
+            "requests_per_s": lat.size / wall if wall else 0.0,
+            "p50_ms": float(np.percentile(lat, 50)) if lat.size else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat.size else None,
+            "failed": len(failures), "failures": failures[:5],
+            "clients": clients, "client_processes": procs,
+            "scores": scores, "versions": versions, "answers": answers,
+            "during": extra}
+
+
+def _await_requests(server, base: int, n: int, timeout_s: float = 120.0) -> None:
+    """Wait until the server has answered ``n`` requests since its count
+    was ``base``; raise after ``timeout_s`` (the clients failed or stalled)."""
+    deadline = time.monotonic() + timeout_s
+    while server.counters["requests"] - base < n:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{server.counters['requests'] - base} requests "
+                                 f"answered of {n} after {timeout_s} s")
+        time.sleep(0.001)
+
+
+def _waterfall(server) -> dict:
+    out = {}
+    for stage in ("admission", "queue_wait", "batch_assembly", "store_resolve",
+                  "kernel", "response"):
+        s = server._stage_hist.child(stage=stage).snapshot()
+        out[stage] = {k: s[k] for k in ("count", "mean_ms", "p50_ms", "p99_ms")}
+    return out
+
+
+def _cache_rates(before: dict, after: dict) -> dict:
+    hits = after["hits"] - before["hits"]
+    misses = after["misses"] - before["misses"]
+    return {"hits": hits, "misses": misses,
+            "evictions": after["evictions"] - before["evictions"],
+            "hit_rate": hits / (hits + misses) if hits + misses else None,
+            "capacity": after["capacity"], "width": after["width"]}
+
+
+def phase_serving(torch, cs, dev, ref_dev, root: str, knobs=None) -> dict:
+    """Online serving on phase ``game_training_driver``'s saved model
+    (``root/game_train_<dev>/best``), its index and the ``valid.avro`` rows,
+    at the drivers' full widths (see ``SERVE``):
+
+    (a) every validation row sent as a JSON request through ``RowScorer`` on
+        ``dev``, against the scoring driver's ``scores.avro`` on ``dev``
+        (``game_score_<dev>``), ``RowScorer`` on ``ref_dev`` and the batch
+        transform; ``transform_rows`` against ``transform``;
+    (b) the threaded server under closed-loop load (``clients`` threads of
+        single-row JSON requests, ``passes`` passes over the first
+        ``load_rows`` rows): requests
+        a second, p50 / p99, the stage waterfall, ``serve.kernel`` ms per
+        bucket, launches per batch, the cache hit rate, failed requests;
+    (d) the front line (``frontline_workers`` workers, shm rings) on the
+        same requests: the score text of every row equal to (b)'s;
+    (c) phase ``bf16_feed``'s model (``root/game_train_bf16/best``)
+        prepared as the warm standby, then swapped in mid-load: no failed
+        request, the standby's and the swap's seconds, every row's score
+        equal to the batch score of the model whose version answered it;
+        after (e), a plain swap back to the first model (``plain``: loaded
+        and warmed under the load), held alike;
+    (e) fault plans: a ``serving.kernel`` device loss recovered through the
+        kernel breaker, and an injected OOM that downshifts ``max_batch``
+        to a warmed bucket and still answers.
+
+    The batch references run before the launch counts are reset; the
+    counts cover the serving path (``transform_rows`` included) and come
+    back under ``launches``. Every check raises on failure."""
+    from photon_tpu_torch.estimators.config import (
+        FixedEffectDataConfig,
+        RandomEffectDataConfig,
+    )
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+    from photon_tpu_torch.faults import FaultPlan, FaultSpec, active_plan
+    from photon_tpu_torch.index.index_map import MmapIndexMap
+    from photon_tpu_torch.io.avro import read_records
+    from photon_tpu_torch.io.data_reader import AvroDataReader, FeatureShardConfig
+    from photon_tpu_torch.obs.metrics import REGISTRY
+    from photon_tpu_torch.runtime import memory_guard
+    from photon_tpu_torch.serving import (
+        MicroBatcher,
+        ModelRegistry,
+        RowScorer,
+        ScoringServer,
+        ServingConfig,
+    )
+    from photon_tpu_torch.serving.frontline import FrontLine, pick_port
+
+    k = dict(SERVE, **(knobs or {}))
+    # The swap's second model is phase bf16_feed's: the same rows read
+    # through bf16-rounded values (an own-config model costs the driver
+    # two more model saves, ~12 s each)
+    dirs = {"best": os.path.join(root, f"game_train_{dev.type}", "best"),
+            "next": os.path.join(root, "game_train_bf16", "best")}
+    index_root = os.path.join(root, "out", "index")
+    valid = os.path.join(root, "valid.avro")
+    t_phase = time.perf_counter()
+
+    # One registry on dev serves (a) and (b): a quarter of the entities
+    # resident, so the LRU evicts. Its model is the batch references' (the
+    # drivers' models load in seconds each, on the host).
+    imap = MmapIndexMap(os.path.join(index_root, "global"))
+    t0 = time.perf_counter()
+    bodies = _payloads(valid)
+    n = len(bodies)
+    # each load run sends the first load_rows rows (the rates settle well
+    # within them; (a) scores every row)
+    n_load = min(n, k["load_rows"])
+    bodies_path = os.path.join(root, "serving_bodies.jsonl")
+    with open(bodies_path, "w") as f:
+        f.write("".join(b + "\n" for b in bodies[:n_load]))
+    n_swap, swap_path = n_load, bodies_path
+    # every user has validation rows: the model's entities (checked below)
+    n_entities = len({json.loads(b)["entities"]["userId"] for b in bodies})
+    cache_n = max(k["max_batch"], n_entities // 4)
+    config = ServingConfig(max_batch=k["max_batch"], max_wait_ms=k["max_wait_ms"],
+                           cache_entities=cache_n, max_queue=4 * n)
+    registry = ModelRegistry(dirs["best"], config, index_dir=index_root, device=dev)
+    load_s = time.perf_counter() - t0
+    scorer = registry.current.scorer
+    configs = {"fixed": FixedEffectDataConfig("global"),
+               "perUser": RandomEffectDataConfig(re_type="userId",
+                                                 feature_shard="global")}
+    icpt = {"global": imap.intercept_index}
+
+    # batch references (not counted): transform on dev, the scoring driver
+    t0 = time.perf_counter()
+    bundle = AvroDataReader(
+        {"global": imap}, {"global": FeatureShardConfig(("features",), True)},
+        id_tag_columns=["userId"]).read([valid], require_labels=False,
+                                        device=dev, dtype=torch.float32)
+    best_t = GameTransformer(scorer.model, configs, intercept_indices=icpt)
+    batch_best = best_t.transform(bundle).cpu().numpy()
+    driver_scores = np.asarray([r["predictionScore"] for r in read_records(
+        os.path.join(root, f"game_score_{dev.type}", "scores.avro"))])
+    refs_s = time.perf_counter() - t0
+    if n != len(batch_best) or n != len(driver_scores):
+        raise AssertionError(f"{n} requests for {len(batch_best)} batch scores")
+
+    cs.reset_launch_counts()
+    # (a) parity
+    t0 = time.perf_counter()
+    rows_s = best_t.transform_rows(bundle).cpu().numpy()
+    transform_rows_s = time.perf_counter() - t0
+    if scorer._caches["perUser"].store.n_entities != n_entities:
+        raise AssertionError("the store's entities are not the model's")
+    t0 = time.perf_counter()
+    rows = [scorer.parse_request(json.loads(b)) for b in bodies]
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = scorer.score_rows(rows)
+    score_s = time.perf_counter() - t0
+    ref_scorer = RowScorer(scorer.model, scorer.data_configs, scorer.index_maps,
+                           scorer.shard_configs, config, ref_dev)
+    ref_served = ref_scorer.score_rows(rows)
+    del ref_scorer
+    parity = {
+        "rows": n, "entities": n_entities,
+        "vs_scoring_driver": _serve_close(served, driver_scores,
+                                          "RowScorer against the scoring driver"),
+        "vs_transform": _serve_close(served, batch_best,
+                                     "RowScorer against transform"),
+        "vs_ref_device": _serve_close(served, ref_served,
+                                      f"RowScorer on {dev} against {ref_dev}"),
+        "transform_rows_vs_transform": _serve_close(
+            rows_s, batch_best, "transform_rows against transform"),
+        "transform_rows_s": transform_rows_s, "registry_load_and_warm_s": load_s,
+        "parse_s": parse_s, "score_rows_s": score_s,
+        "score_rows_per_s": n / score_s, "references_s": refs_s,
+        "rtol": SERVE_RTOL, "score_std": float(np.std(served))}
+    del rows
+
+    # (b) the threaded server under closed-loop load
+    server = ScoringServer(registry, MicroBatcher(
+        max_batch=config.max_batch, max_wait_ms=config.max_wait_ms,
+        max_queue=config.max_queue), port=0, metrics_interval_s=3600)
+    server.start()
+    try:
+        scorer = registry.current.scorer
+        cache0 = dict(scorer._caches["perUser"].snapshot())
+        b0, h2d0 = dict(server.batcher.stats), scorer.h2d_copies
+        stage0 = scorer._caches["perUser"].h2d_copies
+        c0 = cs.launch_counts()
+        load = _load(server.address, bodies_path, n_load, k["clients"], k["passes"])
+        c1 = cs.launch_counts()
+        h2d = {"assembly": scorer.h2d_copies - h2d0,
+               "store_staging": scorer._caches["perUser"].h2d_copies - stage0}
+        stats = server.batcher.stats
+        batches = stats["batches"] - b0["batches"]
+        cache = _cache_rates(cache0, scorer._caches["perUser"].snapshot())
+        threaded_scores = load.pop("scores")
+        load.pop("versions"), load.pop("answers")
+        if load["failed"] or load["requests"] != k["passes"] * n_load:
+            raise AssertionError(f"threaded server: {load['failed']} failed of "
+                                 f"{load['requests']}: {load['failures']}")
+        _serve_close([float(threaded_scores[i]) for i in range(n_load)],
+                     served[:n_load], "threaded server against RowScorer")
+        per_batch = {name: (c1[name] - c0[name]) / batches for name in cs.ALL_KERNELS}
+        # one ell_matvec a batch on the card (the CPU runs its plain version)
+        if per_batch["ell_matvec"] != float(dev.type == "cuda") or any(
+                v for name, v in per_batch.items() if name != "ell_matvec"):
+            raise AssertionError(f"launches per batch {per_batch}")
+        kernel_ms = {}
+        ladder = [1 << i for i in range(k["max_batch"].bit_length())
+                  if 1 << i <= k["max_batch"]]
+        probe = [scorer.parse_request(json.loads(b)) for b in bodies[:k["max_batch"]]]
+        for b in ladder:
+            sink, reps = {}, 20
+            for _ in range(reps):
+                scorer.score_rows_flagged(probe[:b], stage_sink=sink)
+            kernel_ms[b] = {s: v / reps * 1e3 for s, v in sink.items()}
+        threaded = {**load, "batches": batches, "mean_batch_rows": (
+            stats["rows"] - b0["rows"]) / batches,
+            "launches_per_batch": per_batch["ell_matvec"],
+            "h2d_copies_per_batch": {k: v / batches for k, v in h2d.items()},
+            "cache": cache, "waterfall_ms": _waterfall(server),
+            "bucket_stage_ms": kernel_ms, "cache_entities": cache_n}
+        if not cache["evictions"]:
+            raise AssertionError(f"the LRU never evicted: {cache}")
+        # a batch's one copy (its rows and slots) and at most one of staged
+        # misses; the gathers copy nothing
+        if threaded["h2d_copies_per_batch"]["assembly"] != 1.0 or \
+                not threaded["h2d_copies_per_batch"]["store_staging"] <= 1.0:
+            raise AssertionError(f"host-to-device copies a batch: "
+                                 f"{threaded['h2d_copies_per_batch']}")
+
+        # (d) the front line on the same requests
+        env_before = os.environ.get("PYTHONPATH")
+        os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env_before) if p)
+        fl = FrontLine(server, workers=k["frontline_workers"], port=pick_port(),
+                       transport="shm", runtime_dir=os.path.join(root, "frontline"))
+        try:
+            t0 = time.perf_counter()
+            fl.start(ready_timeout_s=120.0)
+            start_s = time.perf_counter() - t0
+            fload = _load(fl.address, bodies_path, n_load, k["clients"], k["passes"])
+        finally:
+            fl.stop(timeout_s=30.0)
+            if env_before is None:
+                os.environ.pop("PYTHONPATH", None)
+            else:
+                os.environ["PYTHONPATH"] = env_before
+        fscores = fload.pop("scores")
+        fload.pop("versions"), fload.pop("answers")
+        if fload["failed"]:
+            raise AssertionError(f"front line: {fload['failed']} failed: "
+                                 f"{fload['failures']}")
+        differ = [i for i in range(n_load) if fscores.get(i) != threaded_scores[i]]
+        if differ:
+            raise AssertionError(f"front-line scores differ from the threaded "
+                                 f"server's on {len(differ)} rows, e.g. row "
+                                 f"{differ[0]}: {fscores.get(differ[0])} against "
+                                 f"{threaded_scores[differ[0]]}")
+        frontline = {**fload, "workers": k["frontline_workers"], "transport": "shm",
+                     "start_s": start_s, "scores_byte_equal_threaded": True}
+
+        # (c) hot swap mid-load to the next model; each row's score is held
+        # against the batch scores of the version that answered it
+        swap = {"from": os.path.relpath(dirs["best"], root),
+                "to": os.path.relpath(dirs["next"], root)}
+        # the next model is loaded and warmed as the standby first (off the
+        # load), so the swap under load is the registry's pointer move
+        t0 = time.perf_counter()
+        server.registry.prepare_standby(dirs["next"])
+        swap["standby_prepare_s"] = time.perf_counter() - t0
+
+        def during():
+            # swap once a quarter of the rows are answered
+            base = server.counters["requests"]
+            _await_requests(server, base, n_swap // 4)
+            t1 = time.perf_counter()
+            v = server.registry.swap(dirs["next"])
+            swap["swap_s"] = time.perf_counter() - t1
+            swap["version"] = v.version
+            swap["from_standby"] = not server.registry.standby_snapshot()["ready"]
+            swap["requests_before"] = server.counters["requests"] - base
+
+        sload = _load(server.address, swap_path, n_swap, k["clients"],
+                      k["swap_passes"], during=during)
+        sload.pop("scores"), sload.pop("versions")
+        swap_answers = sload.pop("answers")
+        swap_versions = {key: ver for key, (_, ver) in swap_answers.items()}
+        if sload["failed"]:
+            raise AssertionError(f"hot swap: {sload['failed']} failed requests: "
+                                 f"{sload['failures']}")
+        if not swap["from_standby"] or \
+                not 0 < swap["requests_before"] < n_swap * k["swap_passes"] or \
+                set(swap_versions.values()) != {swap["version"] - 1, swap["version"]}:
+            raise AssertionError(f"the swap did not land mid-load: {swap}, "
+                                 f"{collections.Counter(swap_versions.values())}")
+        hot_swap = {**swap, "load": sload,
+                    "rows_by_version": {str(v): c for v, c in collections.Counter(
+                        swap_versions.values()).items()},
+                    "swap_to_first_score_s": REGISTRY.gauge(
+                        "swap_to_first_score_seconds").value()}
+        next_model = server.registry.current.scorer.model
+
+        # (e) fault plans through the served path
+        scorer = server.registry.current.scorer
+        one_key = next(key for key, v in swap_versions.items() if v == swap["version"])
+        one = one_key[1]
+        with open(os.path.join(root, "serving_one.jsonl"), "w") as f:
+            f.write(bodies[one] + "\n")
+        recov0 = sum(v for _, v in REGISTRY.counter(
+            "serve_kernel_recoveries_total").collect())
+        lost = FaultPlan(seed=0, specs=[FaultSpec(site="serving.kernel",
+                                                  error="device_lost", count=1)])
+        t0 = time.perf_counter()
+        with active_plan(lost) as injector:
+            got = _load(server.address, os.path.join(root, "serving_one.jsonl"),
+                        1, 1, 1, procs=1)
+        lost_s = time.perf_counter() - t0
+        recov = sum(v for _, v in REGISTRY.counter(
+            "serve_kernel_recoveries_total").collect()) - recov0
+        if got["failed"] or got["scores"][0] != swap_answers[one_key][0] or \
+                len(injector.events) != 1 or recov != 1:
+            raise AssertionError(f"device loss not recovered: {got}, {recov}")
+        breaker = scorer.breaker_snapshot()["__kernel__"]
+        oom = FaultPlan(seed=0, specs=[FaultSpec(site="serving.kernel",
+                                                 error="device_oom", count=1)])
+        probe = [scorer.parse_request(json.loads(b)) for b in bodies[:k["max_batch"]]]
+        want_rows = scorer.score_rows(probe)
+        cap0 = scorer._max_batch_cap
+        with active_plan(oom):
+            got_rows = scorer.score_rows(probe)
+        if not np.array_equal(got_rows, want_rows) or \
+                scorer._max_batch_cap != cap0 // 2:
+            raise AssertionError(f"OOM downshift: cap {scorer._max_batch_cap}")
+        warmed = scorer._max_batch_cap in [1 << i for i in range(cap0.bit_length())]
+        faults = {"device_lost": {"recovered": True, "seconds": lost_s,
+                                  "kernel_breaker": breaker["state"],
+                                  "breaker_failures": breaker["failures"]},
+                  "oom": {"max_batch_before": cap0,
+                          "max_batch_after": scorer._max_batch_cap,
+                          "warmed_bucket": warmed, "answers_equal": True}}
+        memory_guard.reset_state()
+
+        # (c, plain) a swap back to the first model without a standby: the
+        # model loads and warms while the clients send, who stop once an
+        # eighth of the rows more were answered after it
+        plain = {"to": swap["from"]}
+        stop = os.path.join(root, "serving_stop")
+
+        def during_plain():
+            base = server.counters["requests"]
+            _await_requests(server, base, n_swap // 8)
+            plain["requests_before"] = server.counters["requests"] - base
+            t1 = time.perf_counter()
+            v = server.registry.swap(dirs["best"])
+            plain["swap_s"] = time.perf_counter() - t1
+            plain["version"] = v.version
+            at = server.counters["requests"]
+            plain["requests_during_swap"] = at - base - plain["requests_before"]
+            deadline = time.monotonic() + 120
+            while server.counters["requests"] - at < n_swap // 8 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.001)
+            open(stop, "w").close()
+
+        pload = _load(server.address, swap_path, n_swap, k["clients"],
+                      k["plain_swap_max_passes"], during=during_plain, stop=stop)
+        os.remove(stop)
+        pload.pop("scores"), pload.pop("versions")
+        plain_answers = pload.pop("answers")
+        plain_versions = {key: ver for key, (_, ver) in plain_answers.items()}
+        if pload["failed"]:
+            raise AssertionError(f"plain swap: {pload['failed']} failed requests: "
+                                 f"{pload['failures']}")
+        if set(plain_versions.values()) != {plain["version"] - 1, plain["version"]} \
+                or not plain["requests_during_swap"]:
+            raise AssertionError(f"the plain swap did not land under load: {plain}, "
+                                 f"{collections.Counter(plain_versions.values())}")
+        hot_swap["plain"] = {**plain, "load": pload, "rows_by_version": {
+            str(v): c for v, c in collections.Counter(plain_versions.values()).items()},
+            "swap_to_first_score_s": REGISTRY.gauge(
+                "swap_to_first_score_seconds").value()}
+    finally:
+        server.shutdown()
+    launches = cs.launch_counts()
+    # the swapped models' batch scores (not counted), against the rows each
+    # version answered
+    batch_next = GameTransformer(next_model, configs,
+                                 intercept_indices=icpt).transform(bundle).cpu().numpy()
+    for into, answers, versions, v_next in (
+            (hot_swap, swap_answers, swap_versions, swap["version"]),
+            (hot_swap["plain"], plain_answers, plain_versions, plain["version"] - 1)):
+        for v in sorted(set(versions.values())):
+            ref = batch_next if v == v_next else batch_best
+            keys = sorted(key for key, x in versions.items() if x == v)
+            into[f"version_{v}_vs_batch"] = _serve_close(
+                [float(answers[key][0]) for key in keys],
+                ref[[i for _, i in keys]],
+                f"scores of version {v} against its model's batch scores")
+    hot_swap["models_apart"] = float(np.max(np.abs(batch_next - batch_best)
+                                            / (1 + np.abs(batch_best))))
+    if not hot_swap["models_apart"] > 10 * SERVE_RTOL:
+        raise AssertionError("the swapped models score alike: the swap check "
+                             "cannot tell the versions apart")
+    out = {"parity": parity, "threaded": threaded, "frontline": frontline,
+           "hot_swap": hot_swap, "faults": faults, "knobs": k,
+           "phase_s": time.perf_counter() - t_phase, "launches": launches}
+    if dev.type == "cuda":
+        # ell_matvec at the full bucket the scorer gives it (not counted)
+        dim = len(imap)
+        idx = np.stack([r.shard_idx["global"] for r in probe])
+        val = np.stack([r.shard_val["global"] for r in probe])
+        out["serving_matvec"] = matvec_at(torch, cs, idx, val, dim, 13, dev)
+    return out
+
 
 KERNEL_SYMBOLS = {"ell_panel_kernel": "ell_panel_matvec",
                   "ell_matvec_kernel": "ell_matvec",
@@ -4570,23 +5147,26 @@ def main() -> int:
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
     _START[0] = t_start
-    # (runtime_guards, a) the backend probe, before any CUDA work here
+    from photon_tpu_torch import native
+    from photon_tpu_torch.ops import cuda_sparse as cs
     from photon_tpu_torch.runtime.backend_guard import ensure_backend
 
-    probe = ensure_backend("strict")
-    probe["wall_s"] = time.perf_counter() - t_start
+    # the kernels (nvcc) and the Avro decoder (g++) build beside the probe:
+    # compilers in child processes, no CUDA work in this one
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = pool.submit(cs.build_library), pool.submit(native.get_lib)
+        # (runtime_guards, a) the backend probe, before any CUDA work here
+        probe = ensure_backend("strict")
+        probe["wall_s"] = time.perf_counter() - t_start
+        build, decoder = builds[0].result(), builds[1].result()
     if probe["backend"] != "cuda" or not probe.get("device_name"):
         raise AssertionError(f"the backend probe did not bring the card up: {probe}")
+    if decoder is None:
+        raise AssertionError("the native Avro decoder did not build")
     from photon_tpu_torch.device import resolve_device
-    from photon_tpu_torch.ops import cuda_sparse as cs
 
     dev, cpu = resolve_device(), torch.device("cpu")
     card = card_line()
-    build = cs.build_library()
-    from photon_tpu_torch import native
-
-    if native.get_lib() is None:
-        raise AssertionError("the native Avro decoder did not build")
     os.makedirs(WORK, exist_ok=True)
     emit({"phase": "card", "nvidia_smi": card,
           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
@@ -4735,6 +5315,14 @@ def main() -> int:
             ob["glm_out_of_core"]["launches"]["csc_rmatvec"] < 1:
         raise AssertionError("phase observability never launched its kernels")
 
+    sv = phase_serving(torch, cs, dev, cpu, WORK)
+    sv_launches = sv.pop("launches")
+    emit({"phase": "serving", "launches": sv_launches, **sv})
+    # the scorer's fixed part, and no other kernel
+    if sv_launches["ell_matvec"] < 1 or any(
+            sv_launches[name] for name in cs.ALL_KERNELS if name != "ell_matvec"):
+        raise AssertionError(f"phase serving launched {sv_launches}")
+
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
     by_phase = {"transformer": tr_launches, "driver": dr_launches,
                 "training": tn_launches, "training_driver": td_launches,
@@ -4746,7 +5334,8 @@ def main() -> int:
                 "factored": fc_launches, "tuning": tu_launches,
                 "runtime_guards": rg_launches,
                 "observability": {k: ob_launches[k] + ob_other[k]
-                                  for k in cs.ALL_KERNELS}}
+                                  for k in cs.ALL_KERNELS},
+                "serving": sv_launches}
     status = {"ell_panel_matvec": "ported; redesigned: column panels of w staged by TMA",
               "ell_matvec": "ported; redesigned: row tiles streamed by TMA",
               "csc_rmatvec": "ported; redesigned: merge-path segmented reduction",
@@ -4779,6 +5368,7 @@ def main() -> int:
                     "bound_ms", "bound_by", "panels_pay_off", "max_abs_err",
                     "max_abs_err_f64", "tile_rows", "group")
             rows[-1]["driver_shape"] = {k: vm["driver_matvec"][k] for k in keys}
+            rows[-1]["serving_shape"] = {k: sv["serving_matvec"][k] for k in keys}
             rows[-1]["lane_shape"] = {k: vm["fit_c"]["lane_matvec"][k] for k in keys}
         else:
             # reported at the lanes' layouts, where the path does not route

@@ -34,23 +34,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
-from photon_tpu_torch.estimators.config import (
-    CoordinateDataConfig,
-    FactoredRandomEffectDataConfig,
-    FixedEffectDataConfig,
-    GLMOptimizationConfiguration,
-    RandomEffectDataConfig,
-    reg_weight_sweep,
-)
-from photon_tpu_torch.functions.problem import VarianceComputationType
-from photon_tpu_torch.optim import OptimizerType
-from photon_tpu_torch.optim.regularization import (
-    RegularizationContext,
-    RegularizationType,
-    elastic_net_context,
-)
+# The estimator and optimizer config types import torch. Only the coordinate
+# mini-DSL needs them, so they load inside its functions, as in the JAX
+# package's params.py: the serving front line's accelerator-free workers
+# (``serving/async_frontend.py``, a checked copy of the JAX module, which
+# imports ``cli.params``) use this module's trace and telemetry helpers and
+# must load neither torch nor jax.
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from photon_tpu_torch.estimators.config import (
+        CoordinateDataConfig,
+        GLMOptimizationConfiguration,
+    )
 
 _RANDOM_ONLY = ("re_type", "active_bound", "min_rows", "max_features",
                 "latent", "alternations", "max_bucket_entities",
@@ -68,6 +64,20 @@ class CoordinateSpec:
 
 
 def parse_coordinate_spec(spec: str) -> CoordinateSpec:
+    from photon_tpu_torch.estimators.config import (
+        FactoredRandomEffectDataConfig,
+        FixedEffectDataConfig,
+        GLMOptimizationConfiguration,
+        RandomEffectDataConfig,
+    )
+    from photon_tpu_torch.functions.problem import VarianceComputationType
+    from photon_tpu_torch.optim import OptimizerType
+    from photon_tpu_torch.optim.regularization import (
+        RegularizationContext,
+        RegularizationType,
+        elastic_net_context,
+    )
+
     cid, sep, body = spec.partition(":")
     cid = cid.strip()
     if not sep or not cid:
@@ -178,6 +188,8 @@ def parse_coordinates(specs: Sequence[str]) -> list[CoordinateSpec]:
 
 def configs_from_specs(specs: Sequence[CoordinateSpec]):
     """(data configs by cid, optimization-config sweep) from parsed specs."""
+    from photon_tpu_torch.estimators.config import reg_weight_sweep
+
     data_configs = {c.cid: c.data for c in specs}
     base = {c.cid: c.optimization.with_reg_weight(c.reg_weights[0]) for c in specs}
     sweep_axes = {

@@ -135,6 +135,12 @@ class RandomEffectDataset:
     # down-sampled copies (which keep idx / val).
     lane_layouts: dict = dataclasses.field(default_factory=dict, compare=False,
                                            repr=False)
+    # a trained model's structure -> where its coefficients land in this
+    # dataset's subspaces (``RandomEffectModel._project_stacks``): built at
+    # a model's first projection, shared by every model of that structure
+    # (each training step's), its keys' objects held by the entry.
+    projection_plans: dict = dataclasses.field(default_factory=dict,
+                                               compare=False, repr=False)
 
     @property
     def n_entities(self) -> int:
@@ -259,8 +265,8 @@ def build_random_effect_dataset(
 
     Vectorized over entities as the JAX builder is: per-entity subspaces
     come from uniques over (entity, column) pair keys, the local remap is
-    each entry's rank among those keys (an argsort inverse per chunk, then
-    one ordered ``searchsorted`` of the chunk's distinct keys), Pearson sums
+    each entry's rank among those keys (a sorted unique's inverse per chunk,
+    then one ordered search of the chunk's distinct keys), Pearson sums
     are global ``bincount``s, and bucket packing is flat fancy-index writes.
     The arrays equal the JAX builder's.
     """
@@ -321,8 +327,10 @@ def build_random_effect_dataset(
 
     # each real entry's rank in upairs (its column's slot): a chunk's
     # distinct pairs are sorted, so one ordered search places them all
+    sorted_pairs = torch.from_numpy(upairs)
     entry_pos = np.concatenate([
-        np.searchsorted(upairs, uniq_c).astype(np.int32)[inv_c]
+        torch.searchsorted(sorted_pairs, torch.from_numpy(uniq_c)).numpy()
+        .astype(np.int32)[inv_c]
         for uniq_c, inv_c, _ in chunks])
     entry_ok = np.concatenate([ok_c for _, _, ok_c in chunks])
     del chunks
@@ -533,16 +541,12 @@ def _unique_keys(values) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _sorted_unique_inverse(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-    """``_sorted_unique(a)`` and each element's index in it (int32), by one
-    argsort."""
-    order = np.argsort(a)
-    s = a[order]
-    keep = np.empty(len(s), bool)
-    keep[:1] = True
-    np.not_equal(s[1:], s[:-1], out=keep[1:])
-    inv = np.empty(len(a), np.int32)
-    inv[order] = np.cumsum(keep, dtype=np.int64) - 1
-    return s[keep], inv
+    """``_sorted_unique(a)`` and each element's index in it (int32), by
+    ``torch.unique``'s multi-threaded sort (a few times numpy's one-thread
+    argsort on the tens of millions of pair keys of a large coordinate)."""
+    u, inv = torch.unique(torch.from_numpy(np.ascontiguousarray(a)),
+                          sorted=True, return_inverse=True)
+    return u.numpy(), inv.numpy().astype(np.int32)
 
 
 def _next_pow2_vec(x: np.ndarray) -> np.ndarray:

@@ -1,17 +1,22 @@
 """GameTransformer: score a dataset with a trained GameModel.
 
-Port of ``photon_tpu/estimators/game_transformer.py`` (``transform``,
-``transform_and_evaluate`` and ``evaluate_scored_arrays``, without a mesh;
-``transform_rows`` and the shared ``additive_score_rows`` program come with
-the serving slice). Per
-coordinate, the data is scored and the scores summed additively; rows whose
-entity was unseen at training fall back to the zero model.
+Port of ``photon_tpu/estimators/game_transformer.py`` without a mesh:
+``transform``, ``transform_rows``, ``transform_and_evaluate``,
+``evaluate_scored_arrays`` and the row-level scoring program
+``additive_score_rows`` that ``transform_rows`` and the online scorer
+(``photon_tpu_torch/serving``) share. Per coordinate, the data is scored and
+the scores summed additively; rows whose entity was unseen at training fall
+back to the zero model.
 
 Fixed-effect scoring is one sparse matvec on the whole batch — on CUDA the
 ``ell_panel_matvec`` kernel over the attached panel layout (``ell_matvec``
 where the layout does not pay). Random-effect scoring projects the trained
 per-entity coefficients into the scoring dataset's bucket structure on the
 host, then scores each bucket with one batched gather-dot.
+
+``additive_score_rows`` scores padded rows instead: each fixed part is one
+``ell_matvec`` (the kernel on CUDA), each random-effect part a batched
+binary search of the row's columns in its entity's sorted subspace.
 """
 from __future__ import annotations
 
@@ -36,7 +41,61 @@ from photon_tpu_torch.game.descent import GameModel
 from photon_tpu_torch.game.random_effect import RandomEffectModel
 from photon_tpu_torch.io.data_reader import GameDataBundle
 
+from photon_tpu_torch.ops.cuda_sparse import ell_matvec
+
 Tensor = torch.Tensor
+
+SCORE_KERNEL_NAME = "additive_score_rows"
+_NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def additive_score_rows(offsets: Tensor, shard_idx, shard_val, fixed_ws,
+                        re_proj, re_coef, *, fixed_parts, re_parts) -> Tensor:
+    """The additive GAME score of B padded rows, the program shared by
+    ``GameTransformer.transform_rows`` and the online scorer, so batch and
+    online scores cannot drift. The arguments are the JAX program's.
+
+    ``offsets [B]``; ``shard_idx/shard_val``: shard → ELL row arrays
+    ``[B, K]`` (int32 columns, ghost column == the shard's dim, value 0).
+    ``fixed_ws``: coordinate → extended coefficient vector ``[D+1]`` (the
+    trailing zero is the ghost's). ``re_proj/re_coef``: coordinate → per-row
+    entity subspace ``[B, P]``, sorted global columns (ghost pad == dim) and
+    the entity's coefficients in those slots; an all-ghost row is the zero
+    model (the unseen-entity fallback). ``fixed_parts``/``re_parts`` are
+    ``((cid, shard), ...)`` tuples naming which arrays combine.
+
+    A fixed part is ``ell_matvec(idx, val, w, D)`` over the vector without
+    its ghost slot: the kernel on CUDA (it sums each row in float64 and
+    rounds once, where the JAX program sums in float32), its plain version
+    on CPU tensors. A random-effect part is plain torch: a batched
+    ``searchsorted`` of the row's columns into the entity's subspace, the
+    position clamped to ``P-1``, a hit mask, the products
+    ``where(hit, coef·val, 0)`` in the coefficients' dtype and their row
+    sum in float64, rounded once to that dtype.
+    """
+    total = offsets
+    for cid, shard in fixed_parts:
+        idx, val = shard_idx[shard], shard_val[shard]
+        w_ext = fixed_ws[cid]
+        dim = w_ext.shape[0] - 1
+        if val.dtype not in (w_ext.dtype, torch.bfloat16):
+            val = val.to(w_ext.dtype)
+        total = total + ell_matvec(idx, val, w_ext[:dim], dim)
+    for cid, shard in re_parts:
+        proj, coef = re_proj[cid], re_coef[cid]
+        if proj.shape[1] == 0:  # a model of width 0 adds nothing
+            continue
+        idx, val = shard_idx[shard], shard_val[shard]
+        pos = torch.searchsorted(proj, idx)
+        pos = pos.clamp_max_(proj.shape[1] - 1)
+        hit = torch.take_along_dim(proj, pos, dim=1) == idx
+        cv = torch.take_along_dim(coef, pos, dim=1)
+        prod = torch.where(hit, cv * val.to(cv.dtype), cv.new_zeros(()))
+        # Summed in float64 and rounded once (the kernel's rule): a row's
+        # score then does not depend on the batch it rode in, so the front
+        # line and the threaded server return the same bits.
+        total = total + prod.double().sum(dim=1).to(cv.dtype)
+    return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +149,61 @@ class GameTransformer:
             else:  # pragma: no cover - union is closed
                 raise TypeError(f"unknown data config {type(dcfg)}")
         return total
+
+    def transform_rows(self, data: GameDataBundle) -> Tensor:
+        """Row-level scoring through ``additive_score_rows``, the program the
+        online scorer runs: the parity anchor between batch and online
+        scores (held equal to ``transform``). Each row's entity
+        coefficients are joined on the host, row by row, in the model's own
+        coefficient dtype; large scans should prefer ``transform``'s
+        bucketed path."""
+        dev = data.device
+        fixed_parts, re_parts = [], []
+        fixed_ws, re_proj, re_coef = {}, {}, {}
+        n = data.n_rows
+        shard_idx = {s: f.idx for s, f in data.features.items()}
+        shard_val = {s: f.val for s, f in data.features.items()}
+        for cid in self.model.keys():
+            dcfg = self.coordinate_data_configs.get(cid)
+            if dcfg is None:
+                raise ValueError(
+                    f"model coordinate {cid!r} has no data config; "
+                    f"configs cover {sorted(self.coordinate_data_configs)}"
+                )
+            m = self.model[cid]
+            if isinstance(dcfg, FixedEffectDataConfig):
+                w = m.model.coefficients.means
+                fixed_ws[cid] = torch.cat([w, w.new_zeros(1)])
+                fixed_parts.append((cid, dcfg.feature_shard))
+            elif isinstance(dcfg, RandomEffectDataConfig):
+                keys = data.id_tags[dcfg.re_type]
+                dim = data.features[dcfg.feature_shard].dim
+                rows, width, by_key = [], 1, {}
+                for key in keys:
+                    hit = by_key.get(key)
+                    if hit is None:
+                        hit = m.coefficients_for(key)
+                        by_key[key] = hit
+                    rows.append(hit)
+                    width = max(width, len(hit[0]))
+                proj = np.full((n, width), dim, np.int32)
+                # The model's own precision: an f64 model scores through
+                # this path as through ``transform``.
+                cdt = (m.bucket_coefs[0].dtype if len(m.bucket_coefs)
+                       else torch.float32)
+                coef = np.zeros((n, width), _NUMPY_DTYPES[cdt])
+                for r, (gi, gv) in enumerate(rows):
+                    proj[r, : len(gi)] = gi
+                    coef[r, : len(gi)] = gv
+                re_proj[cid] = torch.from_numpy(proj).to(dev)
+                re_coef[cid] = torch.from_numpy(coef).to(dev)
+                re_parts.append((cid, dcfg.feature_shard))
+            else:  # pragma: no cover - union is closed
+                raise TypeError(f"unknown data config {type(dcfg)}")
+        offsets = torch.as_tensor(data.offsets, dtype=torch.float32).to(dev)
+        return additive_score_rows(
+            offsets, shard_idx, shard_val, fixed_ws, re_proj, re_coef,
+            fixed_parts=tuple(fixed_parts), re_parts=tuple(re_parts))
 
     def transform_and_evaluate(
         self, data: GameDataBundle, suite: EvaluationSuite

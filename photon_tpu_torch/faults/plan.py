@@ -35,10 +35,21 @@ site                        where / what a fired fault simulates
                             ``error="device_oom"`` drives the chunk-tier
                             downshift ladder instead of a restart)
 ``heartbeat.beat``          heartbeat file write (a stale beacon)
+``serving.store_lookup``    coefficient-store point lookup (latency spikes
+                            via ``delay_s``, errors via ``error``; the
+                            store breaker degrades to fixed-effect-only)
+``serving.batcher_batch``   micro-batcher worker, per assembled batch
+                            (unexpected worker death)
+``serving.kernel``          the online scorer, per served batch before the
+                            scoring program (``error="device_lost"`` drives
+                            the kernel breaker's in-run recovery,
+                            ``error="device_oom"`` the ``max_batch``
+                            downshift to a warmed bucket)
 ==========================  ================================================
 
-The JAX package's serving, online and prefetch sites come with the slices
-that port those modules.
+The JAX package's online-learning (``online.*``), prefetch (``io.prefetch``,
+``io.record_read``) and sharded random-effect (``re.shard``) sites come with
+the slices that port those modules.
 
 A plan is a list of :class:`FaultSpec`; each spec independently counts the
 hits at its site and decides — after an ``after`` warmup, at most ``count``

@@ -114,6 +114,12 @@ class RandomEffectModel:
             _host(s[b][lane])[valid] for s in stacks
         ]
 
+    def coefficients_for(self, entity_key) -> tuple[np.ndarray, np.ndarray]:
+        """(global_indices, values) sparse coefficient vector for one entity,
+        on the host (``transform_rows``' per-row join)."""
+        gi, (gv,) = self._sparse_for(entity_key, [self.bucket_coefs])
+        return gi, gv
+
     def export_for(
         self, entity_key
     ) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
@@ -126,6 +132,29 @@ class RandomEffectModel:
             entity_key, [self.bucket_coefs, self.bucket_variances]
         )
         return gi, gv, vv
+
+    def export_all(self):
+        """``(entity_key, indices, means, variances-or-None)`` of every key
+        of ``entity_keys`` in order, each as ``export_for`` gives it, from
+        one host copy of each bucket's stacks (``export_for`` copies an
+        entity's rows one by one)."""
+        proj = [_host(p) for p in self.bucket_proj]
+        stacks = [[_host(c) for c in self.bucket_coefs]]
+        if self.bucket_variances is not None:
+            stacks.append([_host(v) for v in self.bucket_variances])
+        empty = np.zeros(0, np.float32)
+        for key in self.entity_keys:
+            dense = self._key_to_dense.get(key)
+            if dense is None:
+                vals = [empty for _ in stacks]
+                gi = np.zeros(0, np.int64)
+            else:
+                b, lane = self.entity_to_slot[dense]
+                row = proj[b][lane]
+                valid = row < self.global_dim
+                gi = row[valid].astype(np.int64)
+                vals = [s[b][lane][valid] for s in stacks]
+            yield key, gi, vals[0], vals[1] if len(vals) > 1 else None
 
     def score_dataset(self, dataset: RandomEffectDataset) -> Tensor:
         """Scores for every row of the dataset this model was trained on
@@ -145,9 +174,34 @@ class RandomEffectModel:
         """Project per-entity [E, P] stacks (aligned with this model's
         buckets) into ``dataset``'s local subspaces, several value sets at
         once, on the dataset's device: a host-side remap (the model-RDD join
-        by REId of the reference), vectorized over the lanes of each pair of
-        (new bucket, trained bucket). Entities and columns absent from this
-        model get the per-source fill."""
+        by REId of the reference) through ``_projection_plan``. Entities and
+        columns absent from this model get the per-source fill."""
+        plan = self._projection_plan(dataset)
+        old_vals = [[_host(c).reshape(-1) for c in src] for src in sources]
+        out: list[list[Tensor]] = [[] for _ in sources]
+        for b, moves in zip(dataset.buckets, plan):
+            for s, (src, fill) in enumerate(zip(old_vals, fills)):
+                v = np.full(tuple(b.proj.shape), fill, src[0].dtype)
+                for bo, rows, at, flat in moves:
+                    v[rows, at] = src[bo][flat]
+                out[s].append(torch.from_numpy(v).to(dataset.device))
+        return out
+
+    def _projection_plan(self, dataset: RandomEffectDataset) -> list:
+        """Per bucket of ``dataset``: ``(trained bucket, rows, columns,
+        flat index)`` moves, the stack entry of this model that each
+        (entity, column) of the dataset's subspaces takes, vectorized over
+        the lanes of each pair of (new bucket, trained bucket). It depends
+        on the model's structure only (its projections and entity slots,
+        shared by every step of one training) and the dataset's, so
+        ``dataset`` keeps it, keyed by (and holding) the objects of both."""
+        held = (self.entity_keys, self.entity_to_slot, *self.bucket_proj,
+                dataset.entity_keys, *(b.proj for b in dataset.buckets),
+                *(b.entity_ids for b in dataset.buckets))
+        key = tuple(map(id, held))
+        hit = dataset.projection_plans.get(key)
+        if hit is not None:
+            return hit[1]
         g = self.global_dim
         slot_b, slot_l = self._slots
         key_to_dense = self._key_to_dense
@@ -155,15 +209,13 @@ class RandomEffectModel:
         to_old = np.fromiter((key_to_dense.get(k, -1) for k in dataset.entity_keys),
                              np.int64, len(dataset.entity_keys))
         old_proj = [_host(p).astype(np.int64) for p in self.bucket_proj]
-        old_vals = [[_host(c) for c in src] for src in sources]
-        out: list[list[Tensor]] = [[] for _ in sources]
+        plan = []
         for b in dataset.buckets:
             proj = _host(b.proj).astype(np.int64)
             eids = _host(b.entity_ids).astype(np.int64)
-            vals = [np.full(proj.shape, fill, src[0].dtype)
-                    for src, fill in zip(old_vals, fills)]
             old = np.where(eids >= 0, to_old[np.maximum(eids, 0)], -1)
             old_b = np.where(old >= 0, slot_b[np.maximum(old, 0)], -1)
+            moves = []
             for bo in np.unique(old_b[old_b >= 0]):
                 lanes = np.flatnonzero(old_b == bo)
                 lo = slot_l[old[lanes]]
@@ -177,11 +229,17 @@ class RandomEffectModel:
                 want = base + cols
                 pos = np.minimum(np.searchsorted(keys, want), keys.size - 1)
                 rows, at = np.nonzero((keys[pos] == want) & (cols < g))
-                for s, src in enumerate(old_vals):
-                    vals[s][lanes[rows], at] = src[bo][lo].ravel()[pos[rows, at]]
-            for s, v in enumerate(vals):
-                out[s].append(torch.from_numpy(v).to(dataset.device))
-        return out
+                width = old_proj[bo].shape[1]
+                j = pos[rows, at]
+                moves.append((int(bo), lanes[rows], at,
+                              lo[j // width] * width + j % width))
+            plan.append(moves)
+        # at most two structures a dataset (a fit's model, and one loaded
+        # or warm-started beside it)
+        while len(dataset.projection_plans) >= 2:
+            dataset.projection_plans.pop(next(iter(dataset.projection_plans)))
+        dataset.projection_plans[key] = (held, plan)
+        return plan
 
     def project_to(self, dataset: RandomEffectDataset) -> list[Tensor]:
         """Coefficient stacks re-projected into a *different* dataset's local

@@ -214,12 +214,13 @@ class MmapIndexMap(IndexMap):
 
     def get_feature(self, index: int) -> tuple[str, str]:
         if self._rev is None:
-            self._rev = (
+            # plain ndarray views, as in _partition
+            self._rev = tuple(a.view(np.ndarray) for a in (
                 np.load(os.path.join(self._dir, "reverse.off.npy"), mmap_mode="r"),
                 np.memmap(
                     os.path.join(self._dir, "reverse.keys.bin"), np.uint8, "r"
                 ),
-            )
+            ))
         off, blob = self._rev
         s, e = int(off[index]), int(off[index + 1])
         name, _, term = blob[s:e].tobytes().decode("utf-8").partition(DELIMITER)

@@ -121,6 +121,25 @@ def _write_long(out: BinaryIO, n: int) -> None:
             return
 
 
+def encode_long(n: int) -> bytes:
+    """The zigzag-varint bytes of ``n`` (what ``_write_long`` writes)."""
+    n = (n << 1) ^ (n >> 63)
+    if n < 0x80:
+        return _ONE_BYTE[n]
+    out = bytearray()
+    while n >= 0x80:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def encode_string(s: str) -> bytes:
+    """A ``string``'s bytes: its utf-8 length, then the utf-8."""
+    b = s.encode("utf-8")
+    return encode_long(len(b)) + b
+
+
 def _read_long(buf: memoryview, pos: int) -> tuple[int, int]:
     b = buf[pos]
     if b < 0x80:  # one byte: most lengths, counts and union branches
@@ -442,6 +461,14 @@ class ContainerWriter:
         if self._count >= self._block_records:
             self._flush_block()
 
+    def write_encoded(self, raw: bytes) -> None:
+        """Append one record already encoded under this writer's schema."""
+        self._block.write(raw)
+        self._count += 1
+        self.n_written += 1
+        if self._count >= self._block_records:
+            self._flush_block()
+
     def write_many(self, records: Iterable[Any]) -> int:
         for rec in records:
             self.write(rec)
@@ -505,8 +532,9 @@ def _stream_varint(f, first: bytes) -> int:
     return v
 
 
-def read_container(path: str) -> tuple[Schema, Iterator[Any]]:
-    """Read an Avro object container file → (writer schema, record iterator).
+def read_blocks(path: str) -> tuple[Schema, Iterator[tuple[int, bytes]]]:
+    """Read an Avro object container file → (writer schema, iterator of
+    ``(record count, payload)`` blocks, decompressed and sync-checked).
 
     The header is parsed eagerly under its own file handle (schema-only
     callers leak nothing); the returned iterator opens the file again when
@@ -536,9 +564,8 @@ def read_container(path: str) -> tuple[Schema, Iterator[Any]]:
         f.seek(4 + pos)
         sync = f.read(SYNC_SIZE)
         data_start = 4 + pos + SYNC_SIZE
-    dec = Decoder(schema)
 
-    def records() -> Iterator[Any]:
+    def blocks() -> Iterator[tuple[int, bytes]]:
         with open(path, "rb") as f:
             f.seek(data_start)
             while True:
@@ -560,13 +587,26 @@ def read_container(path: str) -> tuple[Schema, Iterator[Any]]:
                     )
                 if codec == "deflate":
                     payload = zlib.decompress(payload, wbits=-15)
-                mv = memoryview(payload)
-                pos = 0
-                for _ in range(count):
-                    rec, pos = dec.decode(mv, pos)
-                    yield rec
                 if f.read(SYNC_SIZE) != sync:
                     raise SchemaError(f"{path}: sync marker mismatch (corrupt block)")
+                yield count, payload
+
+    return schema, blocks()
+
+
+def read_container(path: str) -> tuple[Schema, Iterator[Any]]:
+    """Read an Avro object container file → (writer schema, record iterator);
+    the header and blocks as ``read_blocks`` reads them."""
+    schema, blocks = read_blocks(path)
+    dec = Decoder(schema)
+
+    def records() -> Iterator[Any]:
+        for count, payload in blocks:
+            mv = memoryview(payload)
+            pos = 0
+            for _ in range(count):
+                rec, pos = dec.decode(mv, pos)
+                yield rec
 
     return schema, records()
 

@@ -13,7 +13,10 @@ on-disk layout is the same, so either package reads what the other writes:
       summary .avro via save_feature_summary  FeatureSummarizationResultAvro
 
 Coefficients are stored as (name, term, value) lists resolved through the
-shard's IndexMap. A factored random effect is saved as the JAX package saves
+shard's IndexMap. Against a map that stores its keys in bulk (the mmap
+store), the records are encoded and decoded in bulk, each column's name and
+term once: the bytes are the schema-driven codec's, which reads every other
+file. A factored random effect is saved as the JAX package saves
 it: its EFFECTIVE per-entity model in the random-effect layout, plus
 ``projection.npy`` beside it and ``factored_latent_dim`` in the metadata;
 loading gives the effective model. Loading a random-effect coordinate packs the per-entity
@@ -23,8 +26,9 @@ shapes the JAX loader builds.
 from __future__ import annotations
 
 import json
-import math
 import os
+import struct
+import weakref
 from typing import Mapping, Optional
 
 import numpy as np
@@ -36,7 +40,15 @@ from photon_tpu_torch.game.descent import GameModel
 from photon_tpu_torch.game.factored_random_effect import FactoredRandomEffectModel
 from photon_tpu_torch.game.random_effect import RandomEffectModel
 from photon_tpu_torch.index.index_map import IndexMap, feature_key
-from photon_tpu_torch.io.avro import ContainerWriter, read_records, write_container
+from photon_tpu_torch.io.avro import (
+    ContainerWriter,
+    _read_long,
+    encode_long,
+    encode_string,
+    read_blocks,
+    read_records,
+    write_container,
+)
 from photon_tpu_torch.io.schemas import (
     BAYESIAN_LINEAR_MODEL_AVRO,
     FEATURE_SUMMARIZATION_RESULT_AVRO,
@@ -71,17 +83,6 @@ def default_index_root(model_dir: str) -> str:
             and os.path.basename(norm).isdigit()):
         parent = os.path.dirname(parent)
     return os.path.join(parent, "index")
-
-
-def _nt_list(imap: IndexMap, indices, values) -> list[dict]:
-    out = []
-    for i, v in zip(indices, values):
-        v = float(v)
-        if v == 0.0 or math.isnan(v):
-            continue
-        name, term = imap.get_feature(int(i))
-        out.append({"name": name, "term": term, "value": v})
-    return out
 
 
 def _key_lookup(imap: IndexMap):
@@ -119,6 +120,169 @@ def _from_nt_list(lookup, items) -> tuple[np.ndarray, np.ndarray]:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+_DOUBLE = struct.Struct("<d")
+
+
+class _NameTermWriter:
+    """``BayesianLinearModelAvro`` records as bytes, as the schema-driven
+    ``Encoder`` writes them from ``{"name", "term", "value"}`` items looked
+    up with ``get_feature``: a column's name and term are encoded once per
+    save, and an item of a coefficient array is those bytes and its value's
+    8 (zeros and NaNs skipped)."""
+
+    def __init__(self, imap: IndexMap):
+        self._imap = imap
+        self._bulk = _item_prefixes(imap)
+        self._head: dict = {}
+
+    def _prefix(self, i: int) -> bytes:
+        h = self._head.get(i)
+        if h is None:
+            name, term = self._imap.get_feature(i)
+            h = self._head[i] = encode_string(name) + (
+                b"\x00" if term is None else b"\x02" + encode_string(term))
+        return h
+
+    def array(self, indices, values) -> bytes:
+        pack = _DOUBLE.pack
+        values = np.asarray(values, np.float64)
+        keep = (values != 0.0) & ~np.isnan(values)
+        cols = np.asarray(indices)[keep].tolist()
+        if not cols:
+            return b"\x00"
+        head = self._bulk.__getitem__ if self._bulk is not None else self._prefix
+        items = [head(i) + pack(v) for i, v in zip(cols, values[keep].tolist())]
+        return encode_long(len(items)) + b"".join(items) + b"\x00"
+
+    def record(self, model_id: str, task: TaskType, means, variances) -> bytes:
+        """One record: ``means`` / ``variances`` are ``(indices, values)``,
+        ``variances`` None for a null."""
+        return b"".join((
+            encode_string(model_id),
+            b"\x02", encode_string(_MODEL_CLASS[task]),
+            b"\x02", encode_string(task.value),
+            self.array(*means),
+            b"\x00" if variances is None else b"\x02" + self.array(*variances)))
+
+
+# index map -> its items' prefixes (``_item_prefixes``) and their lookup
+# (``_prefix_lookup``), kept while the map lives: a registry loads model
+# after model, and a driver saves several, against one index
+_PREFIXES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_PREFIX_LOOKUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _item_prefixes(imap: IndexMap) -> Optional[list]:
+    """Per column, a ``NameTermValueAvro`` item's bytes before its value
+    (its name, and its term as a string), for the whole index where the map
+    stores its keys in bulk (``key_blob``); else None."""
+    hit = _PREFIXES.get(imap)
+    if hit is not None:
+        return hit
+    bulk = getattr(imap, "key_blob", None)
+    if bulk is None:
+        return None
+    blob, off = bulk()
+    raw = blob.tobytes()
+    out = []
+    for i in range(len(off) - 1):
+        name, _, term = raw[off[i]:off[i + 1]].partition(b"\x01")
+        out.append(encode_long(len(name)) + name + b"\x02"
+                   + encode_long(len(term)) + term)
+    _PREFIXES[imap] = out
+    return out
+
+
+def _prefix_lookup(imap: IndexMap):
+    """``.get`` of a dict from an item's prefix (``_item_prefixes``) to its
+    column, where the map stores its keys in bulk; else None."""
+    hit = _PREFIX_LOOKUPS.get(imap)
+    if hit is None:
+        prefixes = _item_prefixes(imap)
+        if prefixes is None:
+            return None
+        hit = _PREFIX_LOOKUPS[imap] = {p: i for i, p in enumerate(prefixes)}.get
+    return hit
+
+
+def _read_nt_array(buf: bytes, pos: int, find) -> tuple:
+    """One ``NameTermValueAvro`` array at ``pos`` → ``(indices int64,
+    values float64, items, pos)``: each item's name and term bytes looked up
+    whole through ``find`` (``_prefix_lookup``; a null term as the empty
+    string, absent keys dropped as ``_from_nt_list`` drops them; ``items``
+    counts them all), the values read at once."""
+    idx, at, items = [], [], 0
+    while True:
+        count, pos = _read_long(buf, pos)
+        if count == 0:
+            break
+        if count < 0:  # block with byte size
+            _, pos = _read_long(buf, pos)
+            count = -count
+        items += count
+        for _ in range(count):
+            start = pos
+            b = buf[pos]
+            if b < 0x80:  # a one-byte length: (zigzag) twice the length
+                pos += 1 + (b >> 1)
+            else:
+                n, pos = _read_long(buf, pos)
+                pos += n
+            branch = buf[pos]
+            if branch == 2:  # the string branch
+                b = buf[pos + 1]
+                if b < 0x80:
+                    pos += 2 + (b >> 1)
+                else:
+                    n, pos = _read_long(buf, pos + 1)
+                    pos += n
+                key = buf[start:pos]
+            elif branch == 0:  # null: the empty term
+                key = buf[start:pos] + b"\x02\x00"
+                pos += 1
+            else:
+                raise ValueError(f"bad union branch {branch} in a model record")
+            i = find(key, -1)
+            if i >= 0:
+                idx.append(i)
+                at.append(pos)
+            pos += 8
+    at = np.asarray(at, np.int64)
+    raw = np.frombuffer(buf, np.uint8)
+    values = raw[at[:, None] + np.arange(8)].copy().view("<f8").reshape(-1)
+    return (np.asarray(idx, np.int64), values.astype(np.float64), items, pos)
+
+
+def _read_model_parts(path: str, find):
+    """``(modelId, means, variances-or-None)`` of every record of one model
+    container, each coefficient list as ``(indices, values, items)``; None
+    when the file's writer schema is not the one ``save_game_model`` writes
+    (a reference-written file is read record by record instead)."""
+    schema, blocks = read_blocks(path)
+    if schema != BAYESIAN_LINEAR_MODEL_AVRO:
+        return None
+    out = []
+    for count, buf in blocks:
+        pos = 0
+        for _ in range(count):
+            n, pos = _read_long(buf, pos)
+            model_id = buf[pos:pos + n].decode("utf-8")
+            pos += n
+            for _field in ("modelClass", "lossFunction"):
+                branch, pos = _read_long(buf, pos)
+                if branch == 1:
+                    n, pos = _read_long(buf, pos)
+                    pos += n
+            *means, pos = _read_nt_array(buf, pos, find)
+            branch, pos = _read_long(buf, pos)
+            variances = None
+            if branch == 1:
+                *variances, pos = _read_nt_array(buf, pos, find)
+            out.append((model_id, tuple(means),
+                        None if variances is None else tuple(variances)))
+    return out
 
 
 def save_game_model(
@@ -162,22 +326,15 @@ def save_game_model(
             os.makedirs(cdir, exist_ok=True)
             coefs = _host(m.model.coefficients.means)
             nz = np.nonzero(coefs)[0]
-            rec = {
-                "modelId": cid,
-                "modelClass": _MODEL_CLASS[m.model.task],
-                "lossFunction": m.model.task.value,
-                "means": _nt_list(imap, nz, coefs[nz]),
-                "variances": None,
-            }
+            variances = None
             if m.model.coefficients.variances is not None:
                 var = _host(m.model.coefficients.variances)
                 vnz = np.nonzero(var)[0]
-                rec["variances"] = _nt_list(imap, vnz, var[vnz])
-            write_container(
-                os.path.join(cdir, "coefficients.avro"),
-                BAYESIAN_LINEAR_MODEL_AVRO,
-                [rec],
-            )
+                variances = (vnz, var[vnz])
+            with ContainerWriter(os.path.join(cdir, "coefficients.avro"),
+                                 BAYESIAN_LINEAR_MODEL_AVRO) as w:
+                w.write_encoded(_NameTermWriter(imap).record(
+                    cid, m.model.task, (nz, coefs[nz]), variances))
             meta["coordinates"][cid] = {
                 "type": "fixed",
                 "feature_shard": shard,
@@ -189,24 +346,13 @@ def save_game_model(
             cdir = os.path.join(model_dir, "random-effect", cid)
             os.makedirs(cdir, exist_ok=True)
 
-            def entity_records(m=m, imap=imap):
-                for key in m.entity_keys:
-                    gi, gv, vv = m.export_for(key)
-                    yield {
-                        "modelId": str(key),
-                        "modelClass": _MODEL_CLASS[m.task],
-                        "lossFunction": m.task.value,
-                        "means": _nt_list(imap, gi, gv),
-                        "variances": (
-                            _nt_list(imap, gi, vv) if vv is not None else None
-                        ),
-                    }
-
-            write_container(
-                os.path.join(cdir, "part-00000.avro"),
-                BAYESIAN_LINEAR_MODEL_AVRO,
-                entity_records(),
-            )
+            enc = _NameTermWriter(imap)
+            with ContainerWriter(os.path.join(cdir, "part-00000.avro"),
+                                 BAYESIAN_LINEAR_MODEL_AVRO) as w:
+                for key, gi, gv, vv in m.export_all():
+                    w.write_encoded(enc.record(
+                        str(key), m.task, (gi, gv),
+                        None if vv is None else (gi, vv)))
             meta["coordinates"][cid] = {
                 "type": "random",
                 "feature_shard": shard,
@@ -244,22 +390,20 @@ def load_game_model(
     for cid, info in meta["coordinates"].items():
         shard = info["feature_shard"]
         imap = index_maps[shard]
-        if shard not in lookups:
-            lookups[shard] = _key_lookup(imap)
-        lookup = lookups[shard]
+        cache = lookups.setdefault(shard, {})
         task = TaskType(info["task"])
         if info["type"] == "fixed":
-            recs = read_records(
-                os.path.join(model_dir, "fixed-effect", cid, "coefficients.avro")
-            )
+            recs = _model_records(
+                os.path.join(model_dir, "fixed-effect", cid, "coefficients.avro"),
+                imap, cache)
             if len(recs) != 1:
                 raise ValueError(f"{cid}: expected 1 model record, got {len(recs)}")
-            gi, gv = _from_nt_list(lookup, recs[0]["means"])
+            _, (gi, gv, _), var_nt = recs[0]
             w = np.zeros(len(imap), np.float64)
             w[gi] = gv
             variances = None
-            if recs[0].get("variances"):
-                vi, vv = _from_nt_list(lookup, recs[0]["variances"])
+            if var_nt is not None and var_nt[2]:
+                vi, vv, _ = var_nt
                 variances = np.zeros(len(imap), np.float64)
                 variances[vi] = vv
                 variances = put(variances)
@@ -276,16 +420,12 @@ def load_game_model(
             )
             entity_keys, sparse, sparse_var = [], [], []
             for part in parts:
-                for rec in read_records(part):
-                    entity_keys.append(rec["modelId"])
-                    sparse.append(_from_nt_list(lookup, rec["means"]))
-                    # null = variances not computed; [] = entity with no
-                    # active features (still "has variances" as a coordinate)
-                    sparse_var.append(
-                        _from_nt_list(lookup, rec["variances"])
-                        if rec.get("variances") is not None
-                        else None
-                    )
+                # null = variances not computed; [] = entity with no
+                # active features (still "has variances" as a coordinate)
+                for key, means, var_nt in _model_records(part, imap, cache):
+                    entity_keys.append(key)
+                    sparse.append(means[:2])
+                    sparse_var.append(None if var_nt is None else var_nt[:2])
             if any(v is None for v in sparse_var):
                 sparse_var = None
             models[cid] = _synthetic_random_effect_model(
@@ -295,6 +435,30 @@ def load_game_model(
         else:
             raise ValueError(f"{cid}: unknown coordinate type {info['type']}")
     return GameModel(models), meta
+
+
+def _model_records(path: str, imap: IndexMap, cache: dict) -> list:
+    """``(modelId, means, variances-or-None)`` of a model container's
+    records, coefficient lists as ``(indices, values, items)``: decoded in
+    bulk (``_read_model_parts``) where the file has ``save_game_model``'s
+    schema and the map stores its keys in bulk, else record by record.
+    ``cache`` keeps the map's lookups across the files of one load."""
+    if "find" not in cache:
+        cache["find"] = _prefix_lookup(imap)
+    parts = (_read_model_parts(path, cache["find"])
+             if cache["find"] is not None else None)
+    if parts is not None:
+        return parts
+    if "lookup" not in cache:
+        cache["lookup"] = _key_lookup(imap)
+    lookup = cache["lookup"]
+
+    def nt(items):
+        return (*_from_nt_list(lookup, items), len(items))
+
+    return [(rec["modelId"], nt(rec["means"]),
+             nt(rec["variances"]) if rec.get("variances") is not None else None)
+            for rec in read_records(path)]
 
 
 def _synthetic_random_effect_model(

@@ -69,6 +69,11 @@ _PRESSURE_SPILLS = REGISTRY.counter(
     "memory_pressure_spills_total",
     "proactive sweep-cache spills triggered by the device-memory watchdog",
 )
+_PRESSURE_SHEDS = REGISTRY.counter(
+    "memory_pressure_sheds_total",
+    "serving requests shed because the device-memory watermark crossed "
+    "critical",
+)
 _MEM_IN_USE = REGISTRY.gauge(
     "device_memory_bytes_in_use",
     "bytes the caching allocator holds on the card",
@@ -272,7 +277,7 @@ class MemoryGuard:
     Thresholds (fractions of ``bytes_limit``): ``high_water``
     (``PHOTON_MEM_HIGH_WATER``, default 0.85), above which :meth:`check`
     sheds sweep-cache pins; ``critical`` (``PHOTON_MEM_CRITICAL``, default
-    0.95), the serving slice's shedding line.
+    0.95), above which serving admission sheds (503 + Retry-After).
     """
 
     def __init__(
@@ -324,6 +329,15 @@ class MemoryGuard:
         """Watermark at or above high water."""
         w = self.watermark()
         return w is not None and w >= self.high_water
+
+    def should_shed(self) -> bool:
+        """Watermark at or above critical (the serving admission gate);
+        counts the shed decision."""
+        w = self.watermark()
+        if w is None or w < self.critical:
+            return False
+        _PRESSURE_SHEDS.inc()
+        return True
 
     def check(self) -> dict:
         """One watchdog pass: a fresh sample and, above high water, sweep

@@ -283,3 +283,95 @@ def test_port_scores_writer_takes_tensors(tmp_path):
     assert [r["predictionScore"] for r in recs] == [0.5, -1.25]
     assert port_model_io.default_index_root("/x/out/models/3") == "/x/out/index"
     assert port_model_io.default_index_root("/x/out/best") == "/x/out/index"
+
+
+def _unicode_index(tmp_path):
+    """``_index``'s keys plus a column whose name and term are not ASCII,
+    as an mmap store under ``tmp_path / "index"``; returns the keys."""
+    keys, d_global, n_users, d_user = _index(tmp_path)
+    keys = keys + [jax_index_map.feature_key("ünï", "cödé")]
+    jax_index_map.build_mmap_index(jax_index_map.DefaultIndexMap(keys),
+                                   str(tmp_path / "index"))
+    return keys, d_global, n_users, d_user
+
+
+def _maps(kind, keys, idx_dir):
+    if kind == "mmap":
+        return {name: {"global": PACKAGES[name][1].MmapIndexMap(idx_dir)}
+                for name in PACKAGES}
+    return {name: {"global": PACKAGES[name][1].DefaultIndexMap(keys)}
+            for name in PACKAGES}
+
+
+@pytest.mark.parametrize("kind", ["mmap", "dict"])
+@pytest.mark.parametrize("with_var", [False, True], ids=["means", "variances"])
+def test_port_model_files_equal_jax_byte_for_byte(tmp_path, monkeypatch, with_var, kind):
+    """The port writes a model's records as bytes it encodes itself; given
+    the same sync marker, its files equal the JAX package's byte for byte
+    (zero coefficients skipped, a non-ASCII name and term)."""
+    keys, d_global, n_users, d_user = _unicode_index(tmp_path)
+    maps = _maps(kind, keys, str(tmp_path / "index"))
+    src = _jax_model(len(keys), d_global, n_users, d_user, with_var)
+    seed = _save_jax(src, tmp_path / "seed", maps["jax"])
+    port_src, _ = port_model_io.load_game_model(seed, maps["port"],
+                                                dtype=torch.float64, device=CPU)
+    monkeypatch.setattr(os, "urandom", lambda n: bytes(range(n)))
+    _save_jax(src, tmp_path / "jax", maps["jax"])
+    port_model_io.save_game_model(str(tmp_path / "port"), port_src, maps["port"],
+                                  {"fixed": "global", "perUser": "global"})
+    files = [os.path.join(d, f)[len(str(tmp_path / "jax")) + 1:]
+             for d, _, fs in os.walk(tmp_path / "jax") for f in fs]
+    assert sorted(files) == sorted(
+        os.path.join(d, f)[len(str(tmp_path / "port")) + 1:]
+        for d, _, fs in os.walk(tmp_path / "port") for f in fs)
+    assert any(f.endswith(".avro") for f in files)
+    for f in files:
+        assert (tmp_path / "jax" / f).read_bytes() == (tmp_path / "port" / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("with_var", [False, True], ids=["means", "variances"])
+def test_port_model_load_paths_agree(tmp_path, with_var):
+    """The port decodes its own model files in bulk through an mmap index's
+    key bytes; a map without bulk keys, and a file whose writer schema is
+    another (read record by record), load the same arrays. A coefficient
+    that is NaN is not written, and a key the index lacks is dropped."""
+    keys, d_global, n_users, d_user = _unicode_index(tmp_path)
+    maps = _maps("mmap", keys, str(tmp_path / "index"))
+    src = _jax_model(len(keys), d_global, n_users, d_user, with_var)
+    model, _ = port_model_io.load_game_model(
+        _save_jax(src, tmp_path / "seed", maps["jax"]), maps["port"],
+        dtype=torch.float64, device=CPU)
+    model["fixed"].model.coefficients.means[3] = float("nan")
+    mdir = str(tmp_path / "model")
+    port_model_io.save_game_model(mdir, model, maps["port"],
+                                  {"fixed": "global", "perUser": "global"})
+    fast, _ = _load("port", mdir, maps["port"], "f64")
+    assert not torch.isnan(fast["fixed"].model.coefficients.means).any()
+    assert fast["fixed"].model.coefficients.means[3] == 0.0
+    fallback, _ = _load("port", mdir, {"global": port_index_map.DefaultIndexMap(keys)},
+                        "f64")
+    _assert_same_model(fast, fallback)
+
+    # another writer schema (a "doc" attribute): read record by record
+    from photon_tpu_torch.io.schemas import BAYESIAN_LINEAR_MODEL_AVRO
+
+    other = dict(BAYESIAN_LINEAR_MODEL_AVRO, doc="written elsewhere")
+    for sub in ("fixed-effect/fixed/coefficients.avro",
+                "random-effect/perUser/part-00000.avro"):
+        path = os.path.join(mdir, sub)
+        recs = port_avro.read_records(path)
+        port_avro.write_container(path, other, recs)
+    foreign, _ = _load("port", mdir, maps["port"], "f64")
+    _assert_same_model(fast, foreign)
+
+    # a smaller index: the dropped column's keys are skipped on both paths
+    small = str(tmp_path / "small")
+    port_index_map.build_mmap_index(port_index_map.DefaultIndexMap(keys[:-4]), small)
+    port_model_io.save_game_model(mdir, model, maps["port"],
+                                  {"fixed": "global", "perUser": "global"})
+    cut_fast, _ = _load("port", mdir, {"global": port_index_map.MmapIndexMap(small)},
+                        "f64")
+    cut_slow, _ = _load("port", mdir, {"global": port_index_map.DefaultIndexMap(keys[:-4])},
+                        "f64")
+    _assert_same_model(cut_fast, cut_slow)
+    assert cut_fast["fixed"].model.coefficients.means.shape[0] == len(keys) - 4

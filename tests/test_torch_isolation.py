@@ -6,13 +6,13 @@
   training, GAME training, checkpoint, routing, sweep-cache, vmapped GAME
   training, ingest, GLM driver, bf16-feed, factored and tuning phases
   included, the runtime-guards phase with an injected OOM in place of
-  the card's capped one, and the observability phase, at a tiny size, with
-  the CPU as both devices);
+  the card's capped one, the observability phase and the serving phase, at
+  a tiny size, with the CPU as both devices);
   afterwards neither ``jax`` nor any
   ``photon_tpu`` (nor ``ml_dtypes``) module is loaded.
 * No source line of the port or of ``chip_smoke.py`` imports them.
-* Without a GPU, ``resolve_device()`` and the port's scoring driver run
-  without ``--device cpu`` raise instead of running on the CPU (the GPU is
+* Without a GPU, ``resolve_device()`` and the port's scoring and serving
+  drivers run without ``--device cpu`` raise instead of running on the CPU (the GPU is
   hidden here by patching ``torch.cuda.is_available``, so this holds on any
   machine), and a tensor on another device type is refused. The fleet
   view's ``obs_driver`` needs no device and touches none.
@@ -34,7 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|photon_tpu|ml_dtypes)(\.|\s|$)")
 
 _CHILD = r"""
-import importlib, os, pkgutil, sys
+import importlib, json, os, pkgutil, sys
 sys.path.insert(0, sys.argv[1])
 import photon_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(photon_tpu_torch.__path__, "photon_tpu_torch.")]
@@ -44,8 +44,16 @@ import chip_smoke, torch
 cpu = torch.device("cpu")
 tiny = dict(n_users=32, rows_per_user=6, d_global=48, d_user=4, k_global=5,
             k_user=2, driver_rows_per_user=2)
-b = chip_smoke.kernel_bound("ell_matvec", 1 << 19, 32, 327680, 1 << 24, "float32")
+every = torch.arange(327680).view(-1, 32)   # a layout touching every column
+b = chip_smoke.kernel_bound("ell_matvec", 1 << 19, 32, 327680, 1 << 24, "float32", every)
 assert b["bound_by"] == "bytes" and 0.03 < b["bound_ms"] < 0.05, b
+# a gather counts the sectors of w that its non-ghost columns touch: two
+# columns in one sector and one in another, the ghost column none
+few = torch.tensor([[0, 7, 327680], [9, 327680, 327680]], dtype=torch.int32)
+g = chip_smoke.kernel_bound("ell_matvec", 2, 3, 327680, 3, "float32", few)
+assert g["bytes"] == 2 * 3 * 8 + 2 * 32 + 2 * 4, g
+t = chip_smoke.kernel_bound("csc_rmatvec", 2, 3, 327680, 3, "float32", few)
+assert t["bytes"] == 327681 * 8 + 3 * 8 + 32 + 327680 * 4, t
 tr = chip_smoke.phase_transformer(torch, tiny, cpu, cpu)
 assert tr["rows"] == 32 * 6 and tr["max_abs_err_vs_ref"] == 0.0, tr
 parts = chip_smoke.transform_breakdown(torch, tiny, cpu)
@@ -157,6 +165,18 @@ assert game["profile"]["missing"] == {} and game["profile"]["fit_busy_share"] ==
 assert ob["scoring"]["scores_byte_equal"] and not ob["glm_out_of_core"]["model_files_differ"], ob
 assert ob["glm_out_of_core"]["chunk_spans"]["optim.ooc_grad_chunk"] > 0, ob
 assert ob["report"]["rc"] == 0 and ob["report"]["names_shard"], ob
+sv = chip_smoke.phase_serving(torch, cs, cpu, cpu, root,
+                             knobs=dict(max_batch=8, clients=4, swap_passes=20))
+assert sv["parity"]["rows"] == 32 and sv["threaded"]["failed"] == 0, sv
+assert sv["frontline"]["scores_byte_equal_threaded"], sv
+assert sv["hot_swap"]["version"] == 2 and sv["hot_swap"]["load"]["failed"] == 0, sv
+assert sv["hot_swap"]["from_standby"], sv
+plain = sv["hot_swap"]["plain"]
+assert plain["version"] == 3 and plain["load"]["failed"] == 0, plain
+assert set(plain["rows_by_version"]) == {"2", "3"}, plain
+assert sv["faults"]["oom"]["max_batch_after"] == 4, sv
+assert sv["threaded"]["cache"]["evictions"] > 0, sv
+assert json.loads(json.dumps(sv))["knobs"]["swap_passes"] == 20  # emit()-able
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "photon_tpu", "ml_dtypes"))
 print("MODULES", len(names), "BAD", bad)
@@ -220,6 +240,22 @@ def test_scoring_driver_defaults_to_cuda_and_raises_without_gpu(no_gpu, tmp_path
         with pytest.raises(RuntimeError, match="no CUDA device"):
             game_scoring_driver.run(args + extra)
     assert not (tmp_path / "out").exists()
+
+
+def test_serving_driver_defaults_to_cuda_and_raises_without_gpu(no_gpu, tmp_path):
+    from photon_tpu_torch.cli import serving_driver
+
+    args = ["--model-dir", str(tmp_path / "m"), "--port", "0",
+            "--output-dir", str(tmp_path / "out")]
+    assert serving_driver.build_arg_parser().parse_args(args).device == "cuda"
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serving_driver.run(args + extra, serve_forever=False)
+    from photon_tpu_torch.serving import ModelRegistry
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelRegistry(str(tmp_path / "m"))
+    assert not torch.cuda.is_initialized()
 
 
 def test_wrappers_refuse_other_device_types():

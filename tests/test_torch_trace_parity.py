@@ -295,3 +295,67 @@ def test_slo_config_is_judged_by_the_heartbeat(runs, tmp_path, monkeypatch, capl
         game_training_driver.run(_tiny_game(d, tmp_path / "no_hb") + CPU)
     assert any("PHOTON_SLO_CONFIG" in r.getMessage() and "--heartbeat-dir" in r.getMessage()
                for r in caplog.records)
+
+
+def _traced_serving(pkg, model_dirs, val, path):
+    """One run of requests through ``pkg``'s scoring server under a trace
+    collector: the registry's build and warmup, one request at a time (one
+    row a batch), a patch, a standby, a swap and a request after it."""
+    import http.client
+    import importlib
+
+    from photon_tpu_torch.io.avro import read_records
+
+    serving = importlib.import_module(f"{pkg}.serving")
+    trace = importlib.import_module(f"{pkg}.obs.trace")
+    config = serving.ServingConfig(max_batch=4, cache_entities=8, max_row_nnz=32)
+    kw = {"device": "cpu"} if pkg == "photon_tpu_torch" else {}
+    trace.start_tracing()
+    try:
+        registry = serving.ModelRegistry(model_dirs[0], config, **kw)
+        server = serving.ScoringServer(
+            registry, serving.MicroBatcher(max_batch=4, max_wait_ms=1.0), port=0)
+        server.start()
+        recs = read_records(val)
+
+        def post(route, body):
+            conn = http.client.HTTPConnection(*server.address, timeout=30)
+            conn.request("POST", route, body=json.dumps(body).encode())
+            resp = conn.getresponse()
+            assert resp.status == 200, resp.read()
+            resp.read()
+            conn.close()
+
+        for r in recs[:6]:
+            post("/score", {"features": r["features"], "entities": r["metadataMap"]})
+        key = recs[0]["metadataMap"]["userId"]
+        post("/admin/patch", {"seq": 1, "patches": {"perUser": {key: {
+            "cols": [0], "vals": [0.5]}}}})
+        post("/admin/standby", {"model_dir": model_dirs[1]})
+        post("/admin/swap", {"model_dir": model_dirs[1]})
+        post("/score", {"features": recs[0]["features"],
+                        "entities": recs[0]["metadataMap"]})
+        server.shutdown()
+    finally:
+        trace.stop_tracing(str(path))
+
+
+def test_serving_span_census_is_jax_servers(tmp_path):
+    """The ``serve.*`` spans and the serving instants of one run of
+    requests, with JAX's argument keys: the census equals the JAX server's
+    (the JAX server's XLA compiles emit no span or instant here)."""
+    from test_torch_serving import train_models
+
+    trained = train_models(tmp_path)
+    for pkg in ("photon_tpu", "photon_tpu_torch"):
+        _traced_serving(pkg, trained.jax, trained.val, tmp_path / f"{pkg}.json")
+    want = census(tmp_path / "photon_tpu.json")
+    got = census(tmp_path / "photon_tpu_torch.json")
+    assert got == want
+    assert census(tmp_path / "photon_tpu_torch.json", "i") == \
+        census(tmp_path / "photon_tpu.json", "i")
+    names = {k[0] for k in want}
+    assert {"serve.request", "serve.admission", "serve.queue_wait", "serve.batch",
+            "serve.batch_assembly", "serve.store_resolve", "serve.kernel",
+            "serve.patch"} <= names
+    assert sum(n for k, n in want.items() if k[0] == "serve.kernel") > 7
