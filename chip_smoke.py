@@ -156,6 +156,20 @@ result line:
    driver and the out-of-core GLM driver traced (byte-equal outputs), and
    the fleet report over the telemetry directory
    (``phase_observability``).
+18. serving: online serving on phase 7's card model (``RowScorer``
+   against the batch scores, the threaded server and the front line under
+   load, a hot swap from a warm standby and a plain one, fault plans
+   through the served path; ``phase_serving``).
+19. online: online learning, replication and control on phase 7's card
+   model at the drivers' widths: ``online_training_driver`` replays the
+   drivers' rows and a heavy stream whose buckets take the vmapped lanes
+   (which launch ``ell_matvec`` and ``csc_rmatvec``) on cuda and cpu (tiers
+   against the gates, Newton entities within 1e-3, lane objectives within
+   5e-3, an f64 witness within 1e-9); two replicas tail the card run's
+   delta log behind the router driver (each seq applied once, scores
+   against a CPU RowScorer with the same deltas); the control driver
+   promotes a clean canary wave and rolls back a poisoned one; an injected
+   device loss and OOM in a refresh (``phase_online``).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
@@ -167,10 +181,14 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import http.client
+import itertools
 import json
+import logging
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -610,22 +628,20 @@ def write_game_avro(sizes, path: str, rows_per_user: int, seed: int,
     from photon_tpu_torch.io.avro import ContainerWriter
     from photon_tpu_torch.io.schemas import TRAINING_EXAMPLE_AVRO
 
-    idx, val, dim, users, keys = game_arrays(
-        col0=1, seed=seed, **dict(sizes, rows_per_user=rows_per_user))
+    idx, val, keys, labels, offsets = game_rows(sizes, rows_per_user, seed,
+                                                label_seed)
     if bf16:
         import torch
 
         val = torch.from_numpy(val).to(torch.bfloat16).float().numpy()
     name_term = [n.split("\x01") for n in feature_names(sizes)]
-    assert len(name_term) == dim
-    rng = np.random.default_rng(label_seed)
     with ContainerWriter(path, TRAINING_EXAMPLE_AVRO) as w:
-        for r in range(len(users)):
+        for r in range(len(keys)):
             w.write({
                 "uid": f"{uid_prefix}{r}",
-                "label": float(rng.random() < 0.5),
+                "label": labels[r],
                 "weight": None,
-                "offset": float(rng.normal()) * 0.1,
+                "offset": offsets[r],
                 "features": [
                     {"name": name_term[c][0], "term": name_term[c][1],
                      "value": float(x)}
@@ -633,7 +649,21 @@ def write_game_avro(sizes, path: str, rows_per_user: int, seed: int,
                 ],
                 "metadataMap": {"userId": keys[r]},
             })
-    return len(users)
+    return len(keys)
+
+
+def game_rows(sizes, rows_per_user: int, seed: int, label_seed: int):
+    """The rows ``write_game_avro`` writes: ``(idx, val, keys, labels,
+    offsets)``, laid out by ``game_arrays`` (intercept in column 0, not
+    among the entries) with coin-flip labels and small offsets."""
+    idx, val, _, users, keys = game_arrays(
+        col0=1, seed=seed, **dict(sizes, rows_per_user=rows_per_user))
+    rng = np.random.default_rng(label_seed)
+    labels, offsets = [], []
+    for _ in range(len(users)):
+        labels.append(float(rng.random() < 0.5))
+        offsets.append(float(rng.normal()) * 0.1)
+    return idx, val, keys, labels, offsets
 
 
 def write_driver_inputs(torch, sizes, root: str) -> dict:
@@ -5089,6 +5119,1031 @@ def phase_serving(torch, cs, dev, ref_dev, root: str, knobs=None) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ online
+
+# Phase online's knobs at the drivers' full widths (FULL). Users in order:
+# heavy_users users get heavy_rows new rows each (more than DUAL_MAX_T) in a
+# window of heavy_window, drawn from their own columns and heavy_extra_cols
+# more, so their buckets (local dim over NEWTON_MAX_P) take the vmapped
+# lanes; the next repl_users users get repl_rows new rows each from their
+# own columns (patches that fit the serving cache's row width), the stream
+# whose delta log the replicas tail; router_rows single-row requests go
+# through the router (every replicated user, then the next users,
+# unpatched); the control drill's clean wave refreshes the next wave_users
+# users from wave_rows of their rows each; probe_user is the canary's
+# probe; the fault drills replay the first fault_events events of the main
+# stream (data.avro's rows, 8 a user, all 4,096 users).
+ONLINE = dict(window=64, heavy_users=128, heavy_rows=100, heavy_extra_cols=700,
+              heavy_window=128, repl_users=128, repl_rows=4, router_rows=256,
+              clients=16, wave_users=64, wave_rows=2, fault_events=4096,
+              probe_user=1000, ctl_timeout_s=120.0)
+ONLINE_SCORE_RTOL = 1e-6      # router scores against a CPU RowScorer: ·(1+|s|)
+# The control drill's policy: the short tick, soak and drift bound of the
+# JAX package's canary tests (tests/test_control.py::_canary_setup), with
+# 25 settle ticks (>= 0.25 s) where those tests' stub replicas take 2: a
+# replica's tailer polls its log every 50 ms, so 2 ticks of 10 ms would
+# roll back a clean wave as stalled before the canary could apply it.
+CONTROL_CANARY = dict(tick_s=0.01, soak_ticks=2, drift_threshold=0.25,
+                      settle_ticks=25)
+
+
+def user_rows(sizes, main_rows, users, rows_per_user: int, seed: int,
+              extra_cols: int = 0):
+    """``rows_per_user`` new rows for each user of ``users`` (ids), as
+    ``game_rows`` gives them, whose entries are drawn from the columns of
+    the user's own ``main_rows`` (the user's subspace in the model) and
+    ``extra_cols`` more global columns of the user's."""
+    idx, _, keys, _, _ = main_rows
+    first_user = 1 + sizes["d_global"]
+    pools = collections.defaultdict(list)
+    for r, key in enumerate(keys):
+        pools[key].append(idx[r])
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.asarray(users), rows_per_user)
+    rng.shuffle(rows)
+    kg, ku = sizes["k_global"], sizes["k_user"]
+    split = {}
+    for u in users:
+        cols = np.unique(np.concatenate(pools[f"u{u}"]))
+        g = cols[cols < first_user]
+        if extra_cols:
+            more = 1 + rng.choice(sizes["d_global"], min(extra_cols, sizes["d_global"]),
+                                  replace=False)
+            g = np.union1d(g, more)
+        split[u] = (g, cols[cols >= first_user])
+    out_idx = np.empty((len(rows), kg + ku), np.int32)
+    for r, u in enumerate(rows):
+        g, us = split[u]
+        out_idx[r, :kg] = rng.choice(g, kg, replace=len(g) < kg)
+        out_idx[r, kg:] = rng.choice(us, ku, replace=len(us) < ku)
+    val = np.concatenate([rng.normal(size=(len(rows), kg)) / np.sqrt(kg),
+                          rng.normal(size=(len(rows), ku)) / 2.0],
+                         axis=1).astype(np.float32)
+    labels = [float(x) for x in rng.random(len(rows)) < 0.5]
+    offsets = [float(x) * 0.1 for x in rng.normal(size=len(rows))]
+    return out_idx, val, np.array([f"u{u}" for u in rows], object), labels, offsets
+
+
+def online_events(name_term, idx, val, keys, labels, offsets, path: str) -> int:
+    """Rows as a new event log at ``path`` (entities, the default feature
+    bag, label, offset; ``name_term``: each column's feature name and
+    term): one JSON line an event as the port's ``EventWriter`` writes it,
+    seq from 0, stamped with the write's time. Returns the count."""
+    frag = {}
+    ts = time.time()
+    lines = []
+    for r in range(len(keys)):
+        feats = []
+        for c, x in zip(idx[r].tolist(), val[r].tolist()):
+            f = frag.get(c)
+            if f is None:
+                f = frag[c] = '{"name": %s, "term": %s, "value": ' % (
+                    json.dumps(name_term[c][0]), json.dumps(name_term[c][1]))
+            feats.append(f + repr(x) + "}")
+        lines.append(
+            '{"seq": %d, "ts": %r, "entities": {"userId": %s}, "features": '
+            '{"features": [%s]}, "label": %r, "offset": %r, "weight": 1.0}\n'
+            % (r, ts, json.dumps(str(keys[r])), ", ".join(feats),
+               float(labels[r]), float(offsets[r])))
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return len(lines)
+
+
+@contextlib.contextmanager
+def recorded_bucket_solves(reg_weight: float):
+    """Record every bucket solve of the online trainer (its chunked
+    dispatch, ``newton_re.fit_bucket_in_chunks``): padded rows S, local dim
+    P, the dual gate's count of unpenalized columns, and each lane's final
+    objective, iterations and reason (fetched after the run)."""
+    from photon_tpu_torch.game import newton_re
+
+    real = newton_re.fit_bucket_in_chunks
+    out: list = []
+
+    def recording(fit_one, chunk, batches, w0, mask, prior, with_lo=False):
+        model, result = real(fit_one, chunk, batches, w0, mask, prior,
+                             with_lo=with_lo)
+        d_pen = reg_weight * mask + (0.0 if prior is None else prior.precisions)
+        out.append({"s": int(batches.features.idx.shape[1]),
+                    "p": int(batches.features.dim), "d_pen": d_pen,
+                    "result": result})
+        return model, result
+
+    newton_re.fit_bucket_in_chunks = recording
+    try:
+        yield out
+    finally:
+        newton_re.fit_bucket_in_chunks = real
+        for rec in out:
+            r = rec.pop("result")
+            rec["u_max"] = newton_re.u_max_for(rec.pop("d_pen"))
+            rec["value"] = r.value.detach().cpu().double().numpy()
+            rec["iterations"] = r.iterations.cpu().numpy()
+            rec["reason"] = r.converged_reason.cpu().numpy()
+
+
+def gate_tier(s: int, p: int, u_max: int) -> str:
+    """The tier the online trainer's gates give a bucket of padded rows S,
+    local dim P and ``u_max`` unpenalized columns."""
+    from photon_tpu_torch.game.newton_re import DUAL_MAX_T, NEWTON_MAX_P
+
+    if p <= NEWTON_MAX_P:
+        return "newton_primal"
+    if s < p and s <= DUAL_MAX_T and s + u_max <= DUAL_MAX_T:
+        return "newton_dual"
+    return "vmapped_lbfgs"
+
+
+def online_trace(path: str) -> dict:
+    """The online spans of a driver's trace: each bucket's tier in solve
+    order, and each refresh's seconds split into its solves, its publish
+    and the rest (the micro-batch's dataset build, warm starts, merges)."""
+    events = [e for e in _trace_doc(path)["traceEvents"] if e.get("ph") == "X"]
+    solves = [e for e in events if e["name"] == "online.solve"]
+    publishes = [e for e in events if e["name"] == "online.publish"]
+    refreshes = []
+    for r in (e for e in events if e["name"] == "online.refresh"):
+        lo, hi = r["ts"], r["ts"] + r["dur"]
+
+        def inside(e):
+            return lo <= e["ts"] and e["ts"] + e["dur"] <= hi
+
+        solve_s = sum(e["dur"] for e in solves if inside(e)) / 1e6
+        publish_s = sum(e["dur"] for e in publishes if inside(e)) / 1e6
+        refreshes.append({"entities": r["args"]["entities"],
+                          "seconds": r["dur"] / 1e6, "solve_s": solve_s,
+                          "publish_s": publish_s,
+                          "build_and_host_s": r["dur"] / 1e6 - solve_s - publish_s})
+    return {"tiers": [e["args"]["solver"] for e in solves],
+            "buckets": [[e["args"]["entities"], e["args"]["local_dim"]]
+                        for e in solves], "refreshes": refreshes}
+
+
+def _final_patches(log_path: str) -> dict:
+    """Each entity's last published patch in a delta log: key -> (cols,
+    vals)."""
+    from photon_tpu_torch.replication import iter_log
+
+    out = {}
+    for rec in iter_log(log_path):
+        if rec.delta is not None:
+            for key, p in rec.delta.patches["perUser"].items():
+                out[key] = (p.cols, p.vals.astype(np.float64))
+    return out
+
+
+def _patch_rel_errs(a: dict, b: dict) -> dict:
+    """Per entity, max |a - b| over the entity's largest |b| (the same
+    columns asserted)."""
+    if set(a) != set(b):
+        raise AssertionError(f"the devices patched different entities: "
+                             f"{len(set(a) ^ set(b))} apart")
+    errs = {}
+    for key, (cb, vb) in b.items():
+        ca, va = a[key]
+        if not np.array_equal(ca, cb):
+            raise AssertionError(f"entity {key}: patched columns differ")
+        errs[key] = float(np.abs(va - vb).max() / max(np.abs(vb).max(), 1e-30))
+    return errs
+
+
+def _online_drive(cs, dev, out: str, best: str, index_root: str, events: str,
+                  reg_weight: float, extra=()) -> dict:
+    """The port's online driver on one event log (``--device dev``) from
+    the model ``best``, writing to ``out`` and publishing into its own
+    delta log there, traced; returns its summary, wall seconds, trace
+    breakdown, bucket records and the kernels it launched."""
+    from photon_tpu_torch.cli import online_training_driver
+
+    c0 = cs.launch_counts()
+    t0 = time.perf_counter()
+    with recorded_bucket_solves(reg_weight) as buckets:
+        summary = online_training_driver.run([
+            "--model-dir", best, "--index-dir", index_root,
+            "--events", events, "--device", dev.type, "--output-dir", out,
+            "--delta-log", os.path.join(out, "delta-log.jsonl"),
+            "--cadence-s", "0", "--reg-weight", str(reg_weight),
+            # events decode inline: a prefetch thread gains nothing under
+            # one interpreter lock, and its queue-wait span an event would
+            # fill the trace
+            "--prefetch-depth", "0",
+            "--trace-out", os.path.join(out, "trace.json"), *extra])
+    wall = time.perf_counter() - t0
+    c1 = cs.launch_counts()
+    launches = {n: c1[n] - c0[n] for n in cs.ALL_KERNELS}
+    return {"summary": summary, "wall_s": wall, "out": out,
+            "trace": online_trace(os.path.join(out, "trace.json")),
+            "buckets": buckets, "launches": launches,
+            "log": os.path.join(out, "delta-log.jsonl")}
+
+
+def _check_tiers(runs: dict, stream: str) -> list:
+    """Every bucket's tier equals on both devices and equals the gates'
+    choice for its (S, P, u_max); returns the tiers."""
+    tiers = None
+    for d, run in runs.items():
+        got = run["trace"]["tiers"]
+        want = [gate_tier(b["s"], b["p"], b["u_max"]) for b in run["buckets"]]
+        if got != want:
+            raise AssertionError(f"{stream} on {d}: tiers {got} against the "
+                                 f"gates' {want}")
+        if tiers is not None and got != tiers:
+            raise AssertionError(f"{stream}: the devices took different tiers")
+        tiers = got
+    return tiers
+
+
+def _wait_for(pred, timeout_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"timed out after {timeout_s} s waiting for {what}")
+        time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def _spawn_driver(module: str, args: list, out: str, env_extra=None):
+    """A port driver in its own process (the repository on its path, and
+    ``env_extra``), writing to ``out``; returns the process and a function
+    that reads its log."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p), **(env_extra or {}))
+    os.makedirs(out, exist_ok=True)
+    err = open(os.path.join(out, "stderr.txt"), "w")
+    proc = subprocess.Popen([sys.executable, "-m", module, *args,
+                             "--output-dir", out], cwd=REPO, env=env,
+                            stdout=subprocess.DEVNULL, stderr=err)
+    err.close()
+
+    def log() -> str:
+        p = os.path.join(out, "photon.log")
+        return open(p).read() if os.path.exists(p) else ""
+
+    return proc, log
+
+
+def _stop_driver(proc, out: str, send: bool = True) -> None:
+    """SIGTERM (the drivers' graceful stop; ``send=False``: already sent),
+    then wait; a driver that ignores it is killed and the run fails."""
+    if proc.poll() is None:
+        if send:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=10)
+            raise AssertionError(f"{out}: the driver ignored SIGTERM")
+
+
+class _Replica:
+    """A serving replica: the port's serving driver in its own process on
+    ``dev``, tailing ``log_path`` (``--delta-log``, ``--replica-id``),
+    writing to ``root/<name>`` (its ``recovery.jsonl`` journal)."""
+
+    def __init__(self, name: str, log_path: str, root: str, best: str,
+                 index_root: str, dev, cache_entities: int):
+        self.name, self.out = name, os.path.join(root, name)
+        self.t0 = time.perf_counter()
+        self.proc, self.log = _spawn_driver(
+            "photon_tpu_torch.cli.serving_driver",
+            ["--model-dir", best, "--index-dir", index_root, "--port", "0",
+             "--device", dev.type, "--delta-log", log_path, "--replica-id", name,
+             "--max-batch", "64", "--cache-entities", str(cache_entities),
+             "--metrics-interval", "3600"], self.out,
+            # the card passed this script's backend probe at its start
+            env_extra={"PHOTON_BACKEND_PROBE": "0"})
+        self.addr = None
+        self.start_s = None
+
+    def up(self, timeout_s: float = 240.0):
+        def logged():
+            if self.proc.poll() is not None:
+                raise AssertionError(f"replica {self.name} exited "
+                                     f"{self.proc.returncode}")
+            return re.search(r"on http://([0-9.]+):(\d+)", self.log())
+
+        if self.addr is None:
+            _wait_for(logged, timeout_s, f"replica {self.name}")
+            m = logged()
+            self.addr = (m.group(1), int(m.group(2)))
+            self.start_s = time.perf_counter() - self.t0
+        return self.addr
+
+    @property
+    def url(self) -> str:
+        return "http://%s:%d" % self.up()
+
+    def health(self) -> dict:
+        conn = http.client.HTTPConnection(*self.up(), timeout=60)
+        try:
+            conn.request("GET", "/healthz")
+            return json.loads(conn.getresponse().read())
+        finally:
+            conn.close()
+
+    def watermark(self) -> int:
+        return self.health()["replication"]["seq_watermark"]
+
+    def stages(self) -> dict:
+        """The driver's stage seconds from its log (model load and warmup,
+        the backend probe's wait)."""
+        out = {}
+        for m in re.finditer(r"(load \+ warm model|backend probe)\S*: done in "
+                             r"([0-9.]+)s", self.log()):
+            out[m.group(1)] = float(m.group(2))
+        return out
+
+    def journal(self, event: str) -> list:
+        with open(os.path.join(self.out, "recovery.jsonl")) as f:
+            return [r for r in map(json.loads, filter(str.strip, f))
+                    if r["event"] == event]
+
+    def stop(self, send: bool = True) -> None:
+        _stop_driver(self.proc, self.out, send)
+
+
+def _score_texts(addr, bodies: list) -> list:
+    """Each body's ``/score`` answer's score text, one kept-alive
+    connection."""
+    conn = http.client.HTTPConnection(*addr, timeout=60)
+    out = []
+    try:
+        for b in bodies:
+            conn.request("POST", "/score", body=b,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 200:
+                raise AssertionError(f"/score on {addr}: {resp.status} {data[:200]}")
+            out.append(re.search(rb'"score": ([^,}]+)', data).group(1).decode())
+    finally:
+        conn.close()
+    return out
+
+
+def _jsonable(obj):
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+def _online_base(best: str, index_root: str):
+    """The online driver's base (model on the CPU, data configs, index
+    maps, shard configs), through its own loader."""
+    import logging
+    import types
+
+    from photon_tpu_torch.cli import online_training_driver
+
+    return online_training_driver._load_base(
+        types.SimpleNamespace(model_dir=best, index_dir=index_root),
+        logging.getLogger("chip_smoke"))
+
+
+def online_witness(dev, work: str, k: dict, reg: float, base) -> dict:
+    """The f64 witness of the heavy refresh on ``dev``, through the trainer:
+    bucket records and each heavy user's posterior means."""
+    from photon_tpu_torch.online import OnlineTrainer, OnlineTrainerConfig
+
+    tr = OnlineTrainer.from_game_model(
+        *base, OnlineTrainerConfig(window=k["heavy_window"], max_event_nnz=64,
+                                   cadence_s=0.0, reg_weight=reg, dtype="float64"),
+        device=dev)
+    with recorded_bucket_solves(reg) as buckets:
+        t0 = time.perf_counter()
+        tr.run(_iter_online(os.path.join(work, "heavy.jsonl")))
+        seconds = time.perf_counter() - t0
+    state = tr.state["perUser"]
+    return _jsonable({"seconds": seconds, "buckets": buckets, "posteriors": {
+        key: state.posterior_for(key)[:2]
+        for key in (f"u{u}" for u in range(k["heavy_users"]))}})
+
+
+def online_fault_drills(dev, work: str, k: dict, reg: float, base) -> dict:
+    """(d): the first ``fault_events`` events of the main stream through
+    the trainer on ``dev``, refreshed clean, under an injected
+    ``online.refresh`` device loss and under an injected OOM; both faulted
+    refreshes must publish the clean one's delta bit for bit, the OOM at a
+    halved ``refresh_batch``. Also the trainer's ingest rate."""
+    from photon_tpu_torch.faults import FaultPlan, FaultSpec, active_plan
+    from photon_tpu_torch.online import OnlineTrainer, OnlineTrainerConfig
+    from photon_tpu_torch.runtime import memory_guard
+
+    events = list(itertools.islice(
+        _iter_online(os.path.join(work, "main.jsonl")), k["fault_events"]))
+
+    def drill(plan=None):
+        pub = _Recorder()
+        tr = OnlineTrainer.from_game_model(
+            *base, OnlineTrainerConfig(window=k["window"], max_event_nnz=64,
+                                       cadence_s=0.0, refresh_batch=8192,
+                                       reg_weight=reg), publisher=pub, device=dev)
+        t0 = time.perf_counter()
+        for ev in events:
+            tr.ingest(ev)
+        ingest_s = time.perf_counter() - t0
+        with contextlib.ExitStack() as stack:
+            inj = stack.enter_context(active_plan(plan)) if plan else None
+            tr.refresh()
+        return tr, pub, inj, ingest_s
+
+    memory_guard.reset_state()
+    try:
+        clean, clean_pub, _, ingest_s = drill()
+        lost, lost_pub, inj, _ = drill(FaultPlan(seed=5, specs=[FaultSpec(
+            site="online.refresh", error="device_lost", count=1)]))
+        oom, oom_pub, oinj, _ = drill(FaultPlan(seed=5, specs=[FaultSpec(
+            site="online.refresh", error="device_oom", count=1)]))
+    finally:
+        memory_guard.reset_state()
+    if len(inj.events) != 1 or lost.totals["device_loss_recoveries"] != 1 or \
+            not _same_deltas(clean_pub.deltas, lost_pub.deltas):
+        raise AssertionError("the device loss did not re-publish the same delta")
+    if len(oinj.events) != 1 or oom.config.refresh_batch != 4096 or \
+            not _same_deltas(clean_pub.deltas, oom_pub.deltas):
+        raise AssertionError(f"the OOM did not halve refresh_batch "
+                             f"({oom.config.refresh_batch}) with the same delta")
+    return {"events": len(events), "entities": clean.totals["entities_refreshed"],
+            "ingest_events_per_s": len(events) / ingest_s,
+            "device_lost": {"recoveries": 1, "bit_identical_delta": True},
+            "oom": {"refresh_batch_before": 8192,
+                    "refresh_batch_after": oom.config.refresh_batch,
+                    "bit_identical_delta": True}}
+
+
+def online_child(cs, dev, work: str, best: str, index_root: str, reg: float,
+                 k: dict, role: str, go_file=None) -> dict:
+    """Phase online's work in a child process beside the parent's main card
+    run. Role ``ref`` (the CPU): the main and heavy streams through the
+    driver, then the f64 witness. Role ``dev`` (the card): the f64 witness
+    and the heavy stream; then, once ``go_file`` exists (the replicas have
+    scored their pre-delta rows and the control driver is up), the
+    replicated stream into the log the replicas tail, a CPU RowScorer's
+    scores of ``work/patched_bodies.jsonl`` holding the same deltas, and
+    the clean wave into the canary log, written to
+    ``work/card_child.stage.json`` for the parent to go on with; then the
+    fault drills. Returns JSON-able runs and the kernels this process
+    launched."""
+    import torch
+
+    from photon_tpu_torch.cli import online_training_driver
+    from photon_tpu_torch.replication import iter_log
+    from photon_tpu_torch.serving import RowScorer, ServingConfig
+
+    cs.reset_launch_counts()
+    base = _online_base(best, index_root)
+    out = {"runs": {}}
+
+    def drive(stream, window):
+        out["runs"][stream] = _jsonable(_online_drive(
+            cs, dev, os.path.join(work, f"{stream}_{role}"), best, index_root,
+            os.path.join(work, f"{stream}.jsonl"), reg, ["--window", str(window)]))
+
+    if role == "ref":
+        drive("main", k["window"])
+        drive("heavy", k["heavy_window"])
+        out["f64"] = online_witness(dev, work, k, reg, base)
+        return out
+    out["f64"] = online_witness(dev, work, k, reg, base)
+    drive("heavy", k["heavy_window"])
+    _wait_for(lambda: os.path.exists(go_file), 600.0,
+              "the replicas' pre-delta scores and the control driver")
+    drive("replicated", k["window"])
+    # (b)'s reference: a RowScorer on the CPU holding the log's deltas
+    ref = RowScorer(*base, ServingConfig(max_batch=64), torch.device("cpu"))
+    for rec in iter_log(os.path.join(work, "replicated_dev", "delta-log.jsonl")):
+        if rec.delta is not None:
+            for cid, patches in rec.delta.raw_patches().items():
+                ref.validate_delta(cid, patches)
+                ref.apply_delta(cid, patches)
+    with open(os.path.join(work, "patched_bodies.jsonl")) as f:
+        rows = [ref.parse_request(json.loads(x)) for x in f if x.strip()]
+    stage = {"replicated": out["runs"]["replicated"],
+             "patched_scores": np.asarray(ref.score_rows(rows), np.float64).tolist(),
+             "probe": [a.tolist() for a in base[0]["perUser"].coefficients_for(
+                 f"u{k['probe_user']}")]}
+    del ref
+    t0 = time.perf_counter()
+    ctl = os.path.join(work, "control")
+    stage["wave"] = online_training_driver.run([
+        "--model-dir", best, "--index-dir", index_root,
+        "--events", os.path.join(ctl, "wave.jsonl"), "--device", dev.type,
+        "--canary-log", os.path.join(ctl, "delta-log.canary.jsonl"),
+        "--cadence-s", "0", "--prefetch-depth", "0",
+        "--output-dir", os.path.join(ctl, "wave")])
+    stage["wave_published_at"] = time.time()
+    stage["wave_s"] = time.perf_counter() - t0
+    path = os.path.join(work, "card_child.stage.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(stage, f)
+    os.replace(path + ".tmp", path)
+    out["faults"] = online_fault_drills(dev, work, k, reg, base)
+    out["launches"] = cs.launch_counts()
+    return out
+
+
+# A child process of phase online: argv = repository, JSON keyword
+# arguments of online_child (``dev`` a device name), result path.
+_ONLINE_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke, torch
+from photon_tpu_torch.ops import cuda_sparse as cs
+kw = json.loads(sys.argv[2])
+kw["dev"] = torch.device(kw["dev"])
+out = chip_smoke.online_child(cs, **kw)
+with open(sys.argv[3], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def _spawn_child(kw: dict, work: str, name: str):
+    out = os.path.join(work, f"{name}.json")
+    err = open(os.path.join(work, f"{name}.err"), "w")
+    proc = subprocess.Popen([sys.executable, "-c", _ONLINE_CHILD, REPO,
+                             json.dumps(kw), out], cwd=REPO,
+                            stdout=subprocess.DEVNULL, stderr=err)
+    err.close()
+    return proc, out
+
+
+def _child_result(proc, out: str, work: str, name: str, timeout_s: float) -> dict:
+    if proc.wait(timeout=timeout_s) != 0:
+        with open(os.path.join(work, f"{name}.err")) as f:
+            raise AssertionError(f"the {name} child exited {proc.returncode}: "
+                                 + f.read()[-3000:])
+    with open(out) as f:
+        return json.load(f)
+
+
+class _Control:
+    """(c)'s control driver over the reference ``ref_c`` and the canary
+    ``canary_c``, with ``CONTROL_CANARY``'s policy and one probe row."""
+
+    def __init__(self, ref_c, can_c, best, ctl_dir, main_log, canary_log,
+                 probe_body, procs):
+        from photon_tpu_torch.control import CanaryPolicy, ControlPolicy
+
+        with open(os.path.join(ctl_dir, "probe.json"), "w") as f:
+            json.dump([json.loads(probe_body)], f)
+        with open(os.path.join(ctl_dir, "policy.json"), "w") as f:
+            f.write(ControlPolicy(
+                tick_s=CONTROL_CANARY["tick_s"], rules=(), autoscale=None,
+                canary=CanaryPolicy(**{x: CONTROL_CANARY[x] for x in (
+                    "soak_ticks", "drift_threshold", "settle_ticks")})).to_json())
+        self.out = os.path.join(ctl_dir, "out")
+        self.main_log = main_log
+        self.proc, _ = _spawn_driver(
+            "photon_tpu_torch.cli.control_driver",
+            ["--replica", ref_c.url, "--canary", can_c.url, "--delta-log", main_log,
+             "--canary-log", canary_log, "--model-dir", best,
+             "--probe", os.path.join(ctl_dir, "probe.json"),
+             "--policy", os.path.join(ctl_dir, "policy.json"),
+             "--lever-timeout", "120"], self.out)
+        procs.append((self.proc, self.out))
+        _wait_for(lambda: self.alive() or (self.ledger("controller_started")
+                                           and os.path.exists(main_log)), 60.0,
+                  "the control driver")
+
+    def ledger(self, event=None) -> list:
+        path = os.path.join(self.out, "control-ledger.jsonl")
+        if not os.path.exists(path):
+            return []
+        with open(path) as f:
+            rows = [json.loads(x) for x in f if x.strip()]
+        return [r for r in rows if event is None or r["event"] == event]
+
+    def alive(self) -> None:
+        if self.proc.poll() is not None:
+            raise AssertionError(f"the control driver exited {self.proc.returncode}")
+
+
+def phase_online(torch, cs, sizes, dev, ref_dev, root: str, knobs=None) -> dict:
+    """Online learning, replication and control on phase
+    ``game_training_driver``'s card model (``root/game_train_<dev>/best``),
+    its index and the drivers' full widths (see ``ONLINE``). The work runs
+    in processes side by side: the main stream on ``dev`` here; the f64
+    witness, the fault drills, the heavy, replicated and wave streams on
+    ``dev`` in a child; every ``ref_dev`` run in another child; four
+    serving replicas, the router driver and the control driver in their
+    own:
+
+    (a) the main stream (``data.avro``'s rows as events) and the heavy
+        stream through the port's ``online_training_driver`` on ``dev`` and
+        on ``ref_dev``: every bucket's tier equals on both and equals the
+        gates' choice; Newton-solved entities within 1e-3 of each entity's
+        largest coefficient; the vmapped lanes' final objectives within
+        5e-3; an f64 witness of the heavy refresh within 1e-9 of the
+        largest coefficient where the lanes took the same decisions
+        (``compare_f64_fits``' rule);
+    (b) two replicas (the port's serving driver with ``--delta-log`` on
+        ``dev``) tail the card trainer's replicated-stream delta log live:
+        both watermarks reach the head, each log seq is journaled applied
+        once per replica, and through the port's router driver every
+        patched user's score equals a ``ref_dev`` RowScorer holding the
+        same deltas (1e-6·(1+|s|)) and unpatched users keep their
+        pre-delta score text;
+    (c) two more replicas, a reference on the main log and a canary on the
+        canary log, under the port's control driver (``CONTROL_CANARY``):
+        the card trainer's clean wave (``--canary-log``) is promoted and
+        reaches the reference; a poisoned wave (the probed user's
+        coefficients moved by 99) is rolled back from the ledger's own rows
+        and never reaches it;
+    (d) fault drills on ``dev`` (``online_fault_drills``).
+
+    Reports events a second ingested, entities a second refreshed on each
+    device, each refresh's seconds split into its solves, publish and the
+    rest, freshness p50 / p95, log-append-to-applied lag per replica and
+    router requests a second. The heavy card run's launches come back
+    under ``launches_heavy``, the card child's under ``launches_child``
+    (the caller counts this process's)."""
+    import threading
+
+    from photon_tpu_torch.online.delta import EntityPatch, ModelDelta
+    from photon_tpu_torch.replication import DeltaLogWriter, iter_log, log_next_seq
+
+    k = dict(ONLINE, **(knobs or {}))
+    t_phase = time.perf_counter()
+    reg = 1.0
+    index_root = os.path.join(root, "out", "index")
+    best = os.path.join(root, f"game_train_{dev.type}", "best")
+    work = os.path.join(root, "online")
+    ctl_dir = os.path.join(work, "control")
+    os.makedirs(ctl_dir, exist_ok=True)
+    repl_log = os.path.join(work, "replicated_dev", "delta-log.jsonl")
+    go_file = os.path.join(work, "go")
+    main_log = os.path.join(ctl_dir, "delta-log.jsonl")
+    canary_log = os.path.join(ctl_dir, "delta-log.canary.jsonl")
+    # the canary log's base marker (what the trainer's publisher writes into
+    # a new log): the controller adjudicates only the waves that follow
+    with DeltaLogWriter(canary_log) as w:
+        w.append_snapshot(best, note="base")
+    cache_n = max(64, sizes["n_users"] // 4)
+    # (b)'s two replicas tail the replicated stream's log, (c)'s reference
+    # the main log, its canary the canary log
+    replicas = {name: _Replica(name, log, work, best, index_root, dev, cache_n)
+                for name, log in (("replica_a", repl_log), ("replica_b", repl_log),
+                                  ("ref_c", main_log), ("canary_c", canary_log))}
+    procs, helper_err, pre = [], [], {}
+    h, r_n = k["heavy_users"], k["repl_users"]
+    repl_users = list(range(h, h + r_n))
+    plain_users = list(range(h + r_n, h + k["router_rows"]))
+    lo = h + k["router_rows"]
+    wave_users = [f"u{u}" for u in range(lo, lo + k["wave_users"])]
+    probe_key = f"u{k['probe_user']}"
+    try:
+        # the card child's streams first, then the main stream (each child
+        # starts once its files are written)
+        t0 = time.perf_counter()
+        name_term = [n.split("\x01") for n in feature_names(sizes)]
+        main_rows = game_rows(sizes, sizes["driver_rows_per_user"], 3, 8)
+        first = {}
+        for r, key in enumerate(main_rows[2]):
+            first.setdefault(key, r)
+
+        def body(rows, r):
+            idx, val, keys, _, offs = rows
+            return json.dumps({
+                "uid": f"{keys[r]}-{r}", "offset": offs[r],
+                "entities": {"userId": keys[r]},
+                "features": [{"name": name_term[c][0], "term": name_term[c][1],
+                              "value": float(x)} for c, x in zip(idx[r], val[r])]})
+
+        patched = [body(main_rows, first[f"u{u}"]) for u in repl_users]
+        unpatched = [body(main_rows, first[f"u{u}"]) for u in plain_users]
+        wave_bodies = [body(main_rows, first[key]) for key in wave_users]
+        probe_body = body(main_rows, first[probe_key])
+        with open(os.path.join(work, "patched_bodies.jsonl"), "w") as f:
+            f.write("".join(b + "\n" for b in patched))
+        heavy = user_rows(sizes, main_rows, range(h), k["heavy_rows"], 21,
+                          k["heavy_extra_cols"])
+        n_heavy = online_events(name_term, *heavy, os.path.join(work, "heavy.jsonl"))
+        repl = user_rows(sizes, main_rows, repl_users, k["repl_rows"], 22)
+        online_events(name_term, *repl, os.path.join(work, "replicated.jsonl"))
+        wave = user_rows(sizes, main_rows, [int(u[1:]) for u in wave_users],
+                         k["wave_rows"], 23)
+        online_events(name_term, *wave, os.path.join(ctl_dir, "wave.jsonl"))
+        common = dict(work=work, best=best, index_root=index_root, reg=reg, k=k)
+        children = {"card_child": _spawn_child(dict(
+            common, dev=dev.type, role="dev", go_file=go_file), work, "card_child")}
+        procs.append((children["card_child"][0], "card_child"))
+        n_main = online_events(name_term, *main_rows, os.path.join(work, "main.jsonl"))
+        children["reference"] = _spawn_child(dict(common, dev=ref_dev.type,
+                                                  role="ref"), work, "reference")
+        procs.append((children["reference"][0], "reference"))
+        write_s = time.perf_counter() - t0
+        holder = {}
+
+        def prepare():
+            # beside the main card run: (b)'s pre-delta scores, (c)'s
+            # pre-wave scores and control driver; then the card child may
+            # publish
+            try:
+                for n in ("replica_a", "replica_b"):
+                    pre[n] = _score_texts(replicas[n].up(), unpatched)
+                pre["wave"] = _score_texts(replicas["ref_c"].up(),
+                                           wave_bodies + [probe_body])
+                replicas["canary_c"].up()
+                holder["control"] = _Control(
+                    replicas["ref_c"], replicas["canary_c"], best, ctl_dir,
+                    main_log, canary_log, probe_body, procs)
+                open(go_file, "w").close()
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                helper_err.append(e)
+
+        helper = threading.Thread(target=prepare, daemon=True)
+        helper.start()
+
+        # (a) the main stream on dev, here
+        runs = {"main": {"dev": _jsonable(_online_drive(
+            cs, dev, os.path.join(work, "main_dev"), best, index_root,
+            os.path.join(work, "main.jsonl"), reg, ["--window", str(k["window"])]))},
+            "heavy": {}}
+        # the main stream's coefficients, cuda against cpu, once the
+        # reference child's main run is done
+        ref_proc = children["reference"][0]
+
+        def ref_main_done():
+            if ref_proc.poll() not in (None, 0):
+                raise AssertionError(f"the reference child exited {ref_proc.returncode}")
+            return os.path.exists(os.path.join(work, "main_ref", "online-summary.json"))
+
+        _wait_for(ref_main_done, 900.0, "the reference main run")
+        main_errs = _patch_rel_errs(_final_patches(os.path.join(work, "main_dev",
+                                                                "delta-log.jsonl")),
+                                    _final_patches(os.path.join(work, "main_ref",
+                                                                "delta-log.jsonl")))
+        helper.join(timeout=600)
+        if helper_err or helper.is_alive():
+            raise AssertionError(f"the replicas or the control driver failed: "
+                                 f"{helper_err}")
+        card_proc = children["card_child"][0]
+        stage_path = os.path.join(work, "card_child.stage.json")
+
+        def staged():
+            if card_proc.poll() not in (None, 0):
+                raise AssertionError(
+                    f"the card child exited {card_proc.returncode}: " + open(
+                        os.path.join(work, "card_child.err")).read()[-3000:])
+            return os.path.exists(stage_path)
+
+        _wait_for(staged, 900.0, "the card child's replicated stream and wave")
+        with open(stage_path) as f:
+            stage = json.load(f)
+
+        # (b) replication
+        head = log_next_seq(repl_log)
+        for n in ("replica_a", "replica_b"):
+            _wait_for(lambda n=n: replicas[n].watermark() == head - 1, 60.0,
+                      f"{n} to reach the log head {head - 1}")
+        records = list(iter_log(repl_log))
+        delta_seqs = [r.seq for r in records if r.delta is not None]
+        appended = {r.seq: r.ts for r in records}
+        lag, exactly_once = {}, {}
+        for n in ("replica_a", "replica_b"):
+            applied = replicas[n].journal("replica_delta_applied")
+            exactly_once[n] = sorted(r["seq"] for r in applied) == delta_seqs
+            if not exactly_once[n] or len(replicas[n].journal("replica_joined")) != 1:
+                raise AssertionError(f"{n} journaled {applied} for {delta_seqs}")
+            lag[n] = {str(r["seq"]): r["t"] - appended[r["seq"]] for r in applied}
+        want = np.asarray(stage["patched_scores"], np.float64)
+        bodies = patched + unpatched
+        bodies_path = os.path.join(work, "router_bodies.jsonl")
+        with open(bodies_path, "w") as f:
+            f.write("".join(b + "\n" for b in bodies))
+        router_out = os.path.join(work, "router")
+        t0 = time.perf_counter()
+        router_proc, router_log = _spawn_driver(
+            "photon_tpu_torch.cli.router_driver",
+            ["--replica", replicas["replica_a"].url, "--replica",
+             replicas["replica_b"].url, "--port", "0", "--health-interval", "0.5"],
+            router_out)
+        procs.append((router_proc, router_out))
+
+        def router_up():
+            if router_proc.poll() is not None:
+                raise AssertionError(f"the router driver exited {router_proc.returncode}")
+            return re.search(r"router on http://([0-9.]+):(\d+)", router_log())
+
+        _wait_for(router_up, 60.0, "the router driver")
+        router_start_s = time.perf_counter() - t0
+        m = router_up()
+        rload = _load((m.group(1), int(m.group(2))), bodies_path, len(bodies),
+                      k["clients"], 1)
+        answers = rload.pop("scores")
+        rload.pop("versions"), rload.pop("answers")
+        if rload["failed"]:
+            raise AssertionError(f"router: {rload['failed']} failed: {rload['failures']}")
+        got = [answers[i] for i in range(len(bodies))]
+        patched_err = _serve_close_at(np.asarray(got[:len(patched)], np.float64), want,
+                                      ONLINE_SCORE_RTOL, "patched users through the router")
+        moved = [sum(a != b for a, b in zip(got[len(patched):], pre[n]))
+                 for n in ("replica_a", "replica_b")]
+        if any(moved):
+            raise AssertionError(f"unpatched users' scores moved: {moved}")
+        _stop_driver(router_proc, router_out)
+        replication = {
+            "log_records": len(records), "delta_seqs": delta_seqs,
+            "entities": stage["replicated"]["summary"]["entities_refreshed"],
+            "exactly_once": exactly_once, "append_to_applied_lag_s": lag,
+            "router_start_s": router_start_s,
+            "router": {x: v for x, v in rload.items() if x != "during"},
+            "patched_users": len(patched), "unpatched_users": len(unpatched),
+            "patched_vs_ref_scorer": patched_err, "unpatched_bit_equal": True}
+
+        # (c) control: the clean wave (published by the card child)
+        ctl, ref_c, can_c = holder["control"], replicas["ref_c"], replicas["canary_c"]
+        _wait_for(lambda: ctl.alive() or ctl.ledger("canary_promote"),
+                  k["ctl_timeout_s"], "the clean wave's promotion")
+        promote_s = ctl.ledger("canary_promote")[0]["t"] - stage["wave_published_at"]
+        promoted = ctl.ledger("canary_promote")
+        if len(promoted) != 1 or promoted[0]["main_seqs"] != [1]:
+            raise AssertionError(f"promotions {promoted}")
+        _wait_for(lambda: ref_c.watermark() >= 1, 60.0, "the promoted wave")
+        on_ref = _score_texts(ref_c.up(), wave_bodies + [probe_body])
+        on_can = _score_texts(can_c.up(), wave_bodies + [probe_body])
+        if on_ref != on_can or on_ref[:-1] == pre["wave"][:-1] or \
+                on_ref[-1] != pre["wave"][-1]:
+            raise AssertionError(f"the promoted wave did not reach the reference "
+                                 f"replica: {on_ref} {on_can} {pre['wave']}")
+        # the poisoned wave: the probed user's coefficients moved by 99
+        gi, gv = stage["probe"]
+        with DeltaLogWriter(canary_log) as w:
+            w.append(ModelDelta(seq=10 ** 6, patches={"perUser": {
+                probe_key: EntityPatch(key=probe_key, cols=np.asarray(gi, np.int32),
+                                       vals=np.asarray(gv, np.float32) + np.float32(99))}},
+                event_horizon=-1))
+        t0 = time.perf_counter()
+        _wait_for(lambda: ctl.alive() or ctl.ledger("canary_resync"),
+                  k["ctl_timeout_s"], "the poisoned wave's rollback")
+        rollback_s = time.perf_counter() - t0
+        rb, resync = ctl.ledger("canary_rollback"), ctl.ledger("canary_resync")
+        if len(rb) != 1 or rb[0]["reason"] != "score_drift" or \
+                not resync[0]["ok"] or resync[0]["deltas"] != 1:
+            raise AssertionError(f"rollback rows {rb}, resync rows {resync}")
+        after_ref = _score_texts(ref_c.up(), wave_bodies + [probe_body])
+        after_can = _score_texts(can_c.up(), wave_bodies + [probe_body])
+        if log_next_seq(main_log) != 2 or ref_c.watermark() != 1 or after_ref != on_ref:
+            raise AssertionError("the poisoned wave reached the main log or the "
+                                 "reference replica")
+        if after_can != on_ref or can_c.health()["model_version"] != 2:
+            raise AssertionError(f"the canary was not rolled back and resynced: "
+                                 f"{after_can} against {on_ref}")
+        control = {"policy": CONTROL_CANARY,
+                   "wave_entities": stage["wave"]["entities_refreshed"],
+                   "wave_driver_s": stage["wave_s"],
+                   "promoted_main_seqs": promoted[0]["main_seqs"],
+                   "publish_to_promote_s": promote_s, "rollback_s": rollback_s,
+                   "rollback_reason": rb[0]["reason"],
+                   "resynced_deltas": resync[0]["deltas"],
+                   "probe_drifts": [p["drift"] for p in ctl.ledger("canary_probe")],
+                   "canary_version_after": 2, "main_log_head": log_next_seq(main_log)}
+        _stop_driver(ctl.proc, ctl.out)
+        for rep in replicas.values():
+            rep.proc.send_signal(signal.SIGTERM)
+        for rep in replicas.values():
+            rep.stop(send=False)
+
+        # the children's runs, done beside
+        card = _child_result(*children["card_child"], work, "card_child", 900)
+        ref = _child_result(*children["reference"], work, "reference", 900)
+        runs["heavy"]["dev"] = card["runs"]["heavy"]
+        for stream in runs:
+            runs[stream]["ref"] = ref["runs"][stream]
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+        for rep in replicas.values():
+            if rep.proc.poll() is None:
+                rep.proc.kill()
+                rep.proc.wait(timeout=10)
+
+    tiers = {s: _check_tiers(runs[s], s) for s in runs}
+    if "vmapped_lbfgs" in tiers["main"]:
+        raise AssertionError(f"main stream tiers {tiers['main']}")
+    worst_main = max(main_errs.values())
+    if not worst_main <= COEF_BAR_F32:
+        raise AssertionError(f"main stream: Newton entities {worst_main} apart "
+                             f"> {COEF_BAR_F32}")
+    lane_err = 0.0
+    for t, ba, bb in zip(tiers["heavy"], runs["heavy"]["dev"]["buckets"],
+                         runs["heavy"]["ref"]["buckets"]):
+        fa, fb = np.asarray(ba["value"]), np.asarray(bb["value"])
+        if t == "vmapped_lbfgs":
+            lane_err = max(lane_err, float(
+                (np.abs(fa - fb) / np.maximum(np.abs(fb), 1.0)).max()))
+    if not lane_err <= LANE_OBJ_RTOL_F32:
+        raise AssertionError(f"heavy stream: lanes' final objectives {lane_err} "
+                             f"apart > {LANE_OBJ_RTOL_F32}")
+    heavy_errs = _patch_rel_errs(_final_patches(runs["heavy"]["dev"]["log"]),
+                                 _final_patches(runs["heavy"]["ref"]["log"]))
+    witness = _f64_witness(card["f64"], ref["f64"],
+                           [f"u{u}" for u in range(k["heavy_users"])])
+
+    def rates(run):
+        s, tr = run["summary"], run["trace"]
+        solve = sum(r["seconds"] for r in tr["refreshes"])
+        return {"events": s["events"], "entities_refreshed": s["entities_refreshed"],
+                "deltas": s["deltas"], "wall_s": run["wall_s"], "refresh_s": solve,
+                "entities_per_s": s["entities_refreshed"] / solve if solve else None,
+                "refreshes": tr["refreshes"], "buckets": tr["buckets"],
+                "freshness_p50_s": s["freshness_p50_s"],
+                "freshness_p95_s": s["freshness_p95_s"]}
+
+    runs["replicated"] = {"dev": stage["replicated"]}
+    return {
+        "main_events": n_main, "heavy_events": n_heavy, "write_events_s": write_s,
+        "devices": {"dev": str(dev), "ref": str(ref_dev)}, "tiers": tiers,
+        "ingest_events_per_s": card["faults"].pop("ingest_events_per_s"),
+        "runs": {s: {role: rates(r) for role, r in runs[s].items()} for s in runs},
+        "main_newton_coef_rel_err": {"max": worst_main, "limit": COEF_BAR_F32},
+        "heavy_lane_objective_rel_err": {"max": lane_err, "limit": LANE_OBJ_RTOL_F32},
+        "heavy_coef_rel_err": {"max": max(heavy_errs.values()),
+                               "median": float(np.median(list(heavy_errs.values())))},
+        "f64_witness": witness,
+        "replication": dict(replication, replica_start_s={
+            n: r.start_s for n, r in replicas.items()}, replica_stages={
+            n: r.stages() for n, r in replicas.items()}), "control": control,
+        "faults": card["faults"], "phase_s": time.perf_counter() - t_phase,
+        "launches_heavy": runs["heavy"]["dev"]["launches"],
+        "launches_child": card["launches"]}
+
+
+class _Recorder:
+    """A publisher that keeps every delta."""
+
+    def __init__(self):
+        self.deltas = []
+
+    def publish(self, delta):
+        self.deltas.append(delta)
+        return {"recorded": len(self.deltas)}
+
+
+def _same_deltas(a: list, b: list) -> bool:
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x.event_horizon != y.event_horizon or \
+                set(x.patches["perUser"]) != set(y.patches["perUser"]):
+            return False
+        for key, p in x.patches["perUser"].items():
+            q = y.patches["perUser"][key]
+            if not (np.array_equal(p.cols, q.cols) and np.array_equal(p.vals, q.vals)):
+                return False
+    return True
+
+
+def _iter_online(path: str):
+    from photon_tpu_torch.online import iter_events
+
+    return iter_events(path)
+
+
+def _serve_close_at(got, want, rtol: float, what: str) -> float:
+    err = np.abs(np.asarray(got) - np.asarray(want)) / (1 + np.abs(want))
+    worst = float(err.max()) if err.size else 0.0
+    if not worst <= rtol:
+        raise AssertionError(f"{what}: scores differ by {worst} > {rtol}")
+    return worst
+
+
+def _f64_witness(run: dict, ref: dict, keys: list) -> dict:
+    """The f64 heavy refresh (``online_runs``' ``f64``), one device against
+    the other: each entity's posterior means within ``GAME_COEF_RTOL_F64``
+    of its largest where every lane took the same iterations and reason on
+    both, else within ``GAME_COEF_RTOL_F64_SPLIT`` (``compare_f64_fits``'
+    rule)."""
+    apart = 0
+    for ba, bb in zip(run["buckets"], ref["buckets"]):
+        apart += int(np.sum((np.asarray(ba["iterations"]) != np.asarray(bb["iterations"]))
+                            | (np.asarray(ba["reason"]) != np.asarray(bb["reason"]))))
+    lim = GAME_COEF_RTOL_F64 if not apart else GAME_COEF_RTOL_F64_SPLIT
+    worst = 0.0
+    for key in keys:
+        (ca, ma), (cb, mb) = run["posteriors"][key], ref["posteriors"][key]
+        if ca != cb:
+            raise AssertionError(f"f64 witness: entity {key}'s columns differ")
+        ma, mb = np.asarray(ma), np.asarray(mb)
+        worst = max(worst, float(np.abs(ma - mb).max() / max(np.abs(mb).max(), 1e-30)))
+    if not worst <= lim:
+        raise AssertionError(f"f64 witness: coefficients {worst} apart > {lim} "
+                             f"({apart} lanes on other paths)")
+    return {"coef_rel_err": worst, "lanes_apart": apart, "limit": lim,
+            "entities": len(keys), "seconds": [run["seconds"], ref["seconds"]],
+            "tiers": [gate_tier(b["s"], b["p"], b["u_max"]) for b in run["buckets"]]}
+
+
 KERNEL_SYMBOLS = {"ell_panel_kernel": "ell_panel_matvec",
                   "ell_matvec_kernel": "ell_matvec",
                   "csc_tile_kernel": "csc_rmatvec", "csc_fixup_kernel": "csc_fixup"}
@@ -5323,6 +6378,21 @@ def main() -> int:
             sv_launches[name] for name in cs.ALL_KERNELS if name != "ell_matvec"):
         raise AssertionError(f"phase serving launched {sv_launches}")
 
+    cs.reset_launch_counts()
+    on = phase_online(torch, cs, FULL, dev, cpu, WORK)
+    on_launches = cs.launch_counts()
+    on_heavy = on.pop("launches_heavy")
+    # the card child's launches (its heavy refresh, witness and drills)
+    on_child = on.pop("launches_child")
+    on_launches = {name: on_launches[name] + on_child[name] for name in on_launches}
+    emit({"phase": "online", "card": card, "launches": on_launches,
+          "launches_heavy": on_heavy, **on})
+    # the vmapped refresh's data passes, and the replicas' scoring
+    if on_heavy["ell_matvec"] < 1 or on_heavy["csc_rmatvec"] < 1 or \
+            set(on["tiers"]["heavy"]) != {"vmapped_lbfgs"}:
+        raise AssertionError(f"phase online: heavy tiers {on['tiers']['heavy']}, "
+                             f"launches {on_heavy}")
+
     sources = "photon_tpu_torch/csrc/ell_sparse.cu"
     by_phase = {"transformer": tr_launches, "driver": dr_launches,
                 "training": tn_launches, "training_driver": td_launches,
@@ -5335,7 +6405,7 @@ def main() -> int:
                 "runtime_guards": rg_launches,
                 "observability": {k: ob_launches[k] + ob_other[k]
                                   for k in cs.ALL_KERNELS},
-                "serving": sv_launches}
+                "serving": sv_launches, "online": on_launches}
     status = {"ell_panel_matvec": "ported; redesigned: column panels of w staged by TMA",
               "ell_matvec": "ported; redesigned: row tiles streamed by TMA",
               "csc_rmatvec": "ported; redesigned: merge-path segmented reduction",

@@ -360,23 +360,38 @@ def add_fault_plan_flag(parser) -> None:
              "hook points to rehearse recovery (default: $PHOTON_FAULT_PLAN)")
 
 
-@contextlib.contextmanager
-def enable_fault_plan(path):
-    """``with enable_fault_plan(path) as injector:`` installs the plan file
-    for the run (``injector`` None without one) and restores the plan
-    active before on exit."""
-    if not path:
-        yield None
-        return
-    import logging
+class enable_fault_plan:
+    """Install the plan file ``path`` (no-op if falsy). As a context
+    manager (``with enable_fault_plan(path) as injector:``, ``injector``
+    None without a plan) the plan is the run's only: the plan active
+    before comes back on exit. Called bare, as the router and control
+    drivers (copies of the JAX drivers) call it, the plan stays installed
+    for the process, as the JAX package's ``enable_fault_plan`` leaves
+    it."""
 
-    from photon_tpu_torch.faults import FaultPlan, active_plan
+    def __init__(self, path):
+        self.injector = None
+        self._scope = None
+        if not path:
+            return
+        import logging
 
-    with active_plan(FaultPlan.from_file(path)) as injector:
+        from photon_tpu_torch.faults import FaultPlan, active_plan
+
+        self._scope = active_plan(FaultPlan.from_file(path))
+        self.injector = self._scope.__enter__()
         logging.getLogger("photon_tpu_torch.faults").warning(
             "FAULT INJECTION ACTIVE: plan %s (chaos drill, not production)",
             path)
-        yield injector
+
+    def __enter__(self):
+        return self.injector
+
+    def __exit__(self, *exc) -> bool:
+        if self._scope is not None:
+            self._scope.__exit__(None, None, None)
+            self._scope = None
+        return False
 
 
 def add_trace_flag(parser) -> None:

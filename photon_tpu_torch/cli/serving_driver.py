@@ -17,12 +17,17 @@ model directory without dropping in-flight requests. ``--workers N`` runs
 the multi-process front line: N accelerator-free worker processes share
 ``--port`` and feed this process, the one that owns the card.
 
+``--delta-log`` makes the process a serving REPLICA: a
+``ReplicaTailer`` (``photon_tpu_torch.replication``) converges to the log
+head before the first health check, then tails the log while serving,
+applying every record exactly once through the registry (its watermark
+and lag ride ``/healthz``); ``--replica-id``, ``--cursor-dir`` and
+``--catchup-lag`` configure it.
+
 Runs on the card by default (``--device cuda``, which fails when no GPU is
-visible); ``--device cpu`` scores with the kernels' plain versions. The JAX
-driver's replica flags (``--delta-log``, ``--replica-id``,
-``--cursor-dir``, ``--catchup-lag``) belong to the replication slice and
-are refused; ``--compilation-cache-dir`` and ``--compile-store`` are
-refused for good (the port compiles no XLA programs).
+visible); ``--device cpu`` scores with the kernels' plain versions.
+``--compilation-cache-dir`` and ``--compile-store`` are refused for good
+(the port compiles no XLA programs).
 """
 from __future__ import annotations
 
@@ -53,19 +58,9 @@ from photon_tpu_torch.serving import (
 )
 from photon_tpu_torch.utils import PhotonLogger, Timed
 
-REPLICATION_SLICE = "comes with the replication slice (M15b)"
-
 # Flags of the JAX driver the port refuses: (flag, is it set, why). Each is
 # refused when set, never ignored.
 _REFUSED = (
-    ("--delta-log", lambda a: a.delta_log is not None,
-     f"serving replicas {REPLICATION_SLICE}"),
-    ("--replica-id", lambda a: a.replica_id is not None,
-     f"serving replicas {REPLICATION_SLICE}"),
-    ("--cursor-dir", lambda a: a.cursor_dir is not None,
-     f"serving replicas {REPLICATION_SLICE}"),
-    ("--catchup-lag", lambda a: a.catchup_lag != 0,
-     f"replica catch-up {REPLICATION_SLICE}"),
     ("--compilation-cache-dir", lambda a: a.compilation_cache_dir is not None,
      NO_COMPILED_PROGRAMS),
     ("--compile-store", lambda a: a.compile_store is not None,
@@ -113,6 +108,27 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="seconds the breaker stays open before a probe")
     p.add_argument("--output-dir", default=None,
                    help="photon.log + serving-metrics.jsonl land here")
+    # Replica mode: tail the durable delta log instead of waiting for
+    # point-to-point /admin/patch pushes.
+    p.add_argument("--delta-log", default=None,
+                   help="durable delta log (JSONL) to tail as a serving "
+                        "REPLICA: every logged delta applies exactly once "
+                        "through the registry, the seq watermark + lag "
+                        "ride /healthz, and a kill/rejoin resumes from "
+                        "the per-replica cursor")
+    p.add_argument("--replica-id", default=None,
+                   help="stable replica identity for the cursor file, "
+                        "journal rows, and metrics labels (default: "
+                        "r<pid>, NOT restart-stable; set it explicitly "
+                        "for rejoin-and-converge)")
+    p.add_argument("--cursor-dir", default=None,
+                   help="directory for the per-replica cursor (default: "
+                        "--output-dir, else the delta log's directory)")
+    p.add_argument("--catchup-lag", type=int, default=0,
+                   help="replay backlog beyond which a rejoining replica "
+                        "jumps to the log's latest full-snapshot marker "
+                        "via prepare_standby/swap instead of replaying "
+                        "(0 disables snapshot catch-up)")
     p.add_argument("--workers", type=int, default=0,
                    help="front-end worker processes; 0 = classic "
                         "single-process threaded server")
@@ -138,10 +154,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add_telemetry_flag(p)
     add_trace_flag(p)
     # The JAX driver's flags the port refuses (_REFUSED).
-    p.add_argument("--delta-log", default=None)
-    p.add_argument("--replica-id", default=None)
-    p.add_argument("--cursor-dir", default=None)
-    p.add_argument("--catchup-lag", type=int, default=0)
     p.add_argument("--compilation-cache-dir", default=None)
     p.add_argument("--compile-store", default=None)
     return p
@@ -160,7 +172,10 @@ def build_server(args) -> tuple[ScoringServer, PhotonLogger]:
     start (strict) or the run goes to the CPU, stamped (failover)."""
     guard = enable_backend_guard(args)
     device = "cpu" if guard["backend"] == "cpu" else args.device
-    telemetry_dir = enable_telemetry(args, role="serving")
+    # A delta-log tailer makes this process a REPLICA in the fleet
+    # topology: the role rides every trace anchor and telemetry shard name.
+    role = "replica" if args.delta_log else "serving"
+    telemetry_dir = enable_telemetry(args, role=role)
     enable_trace(args.trace_out)
     plogger = PhotonLogger(args.output_dir)
     logger = plogger.logger
@@ -190,7 +205,7 @@ def build_server(args) -> tuple[ScoringServer, PhotonLogger]:
                                     "serving-metrics.jsonl")
     elif telemetry_dir:
         metrics_path = os.path.join(
-            telemetry_dir, f"metrics.serving.{os.getpid()}.jsonl")
+            telemetry_dir, f"metrics.{role}.{os.getpid()}.jsonl")
     else:
         metrics_path = None
     server = ScoringServer(
@@ -208,7 +223,9 @@ def build_server(args) -> tuple[ScoringServer, PhotonLogger]:
         # Live fleet view: the flush loop re-exports this shard on the
         # metrics cadence (the path finish_telemetry finalizes at exit).
         server.telemetry_shard_path = os.path.join(
-            telemetry_dir, f"registry.serving.{os.getpid()}.json")
+            telemetry_dir, f"registry.{role}.{os.getpid()}.json")
+    if args.delta_log:
+        _attach_tailer(args, registry, server, logger)
     v = registry.current
     logger.info(
         "serving model version %d (%s) on http://%s:%d  "
@@ -218,6 +235,45 @@ def build_server(args) -> tuple[ScoringServer, PhotonLogger]:
         config.max_wait_ms, config.cache_entities,
     )
     return server, plogger
+
+
+def _attach_tailer(args, registry, server, logger) -> None:
+    """Make the server a replica of ``--delta-log``: converge to the log
+    head BEFORE the first health check can read a watermark (a rejoining
+    replica that advertised itself while still replaying its backlog would
+    soak up traffic at stale coefficients), attach the tailer to
+    ``/healthz`` and journal ``replica_joined``. The follow thread starts
+    with serving."""
+    from photon_tpu_torch.replication import ReplicaTailer
+    from photon_tpu_torch.supervisor import RecoveryJournal
+
+    journal = (
+        RecoveryJournal(os.path.join(args.output_dir, "recovery.jsonl"))
+        if args.output_dir else None
+    )
+    tailer = ReplicaTailer(
+        registry,
+        args.delta_log,
+        replica_id=args.replica_id,
+        cursor_dir=args.cursor_dir or args.output_dir or None,
+        catchup_lag=args.catchup_lag,
+        journal=journal,
+        logger=logger,
+        metrics=server.metrics,
+    )
+    applied = tailer.run_once()
+    server.attach_replication(tailer)
+    snap = tailer.snapshot()
+    if journal is not None:
+        journal.record("replica_joined", replica=tailer.replica_id,
+                       seq_watermark=snap["seq_watermark"],
+                       applied_at_join=applied)
+    logger.info(
+        "replica %s joined: delta log %s, watermark %d "
+        "(%d record(s) applied at boot, %d catch-up jump(s))",
+        tailer.replica_id, args.delta_log, snap["seq_watermark"],
+        applied, snap["catchups"],
+    )
 
 
 def run(
@@ -299,6 +355,8 @@ def _run(args, serve_forever: bool) -> dict:
         "coordinates": sorted(v.coordinates),
         "device": str(server.registry.device),
     }
+    if server.replication is not None:
+        summary["replica_id"] = server.replication.replica_id
     fl = None
     if frontline_port is not None:
         fl = _build_frontline(args, server, frontline_port)
@@ -329,6 +387,8 @@ def _run(args, serve_forever: bool) -> dict:
     except ValueError:
         pass
     try:
+        if server.replication is not None:
+            server.replication.start()  # follow the log while serving
         if fl is not None:
             fl.start()
             server.logger.info(
@@ -341,6 +401,10 @@ def _run(args, serve_forever: bool) -> dict:
     except KeyboardInterrupt:
         pass
     finally:
+        # Stop mutating the registry before the drain: a delta landing
+        # mid-teardown has no one left to serve it.
+        if server.replication is not None:
+            server.replication.stop()
         # Workers first: they hold the public port and must stop taking
         # traffic before the batcher they feed goes away.
         if fl is not None:

@@ -156,6 +156,9 @@ def build_mmap_index(
         json.dump({"size": len(kb), "num_partitions": num_partitions}, f)
 
 
+_KEYS_MAX = 1 << 21        # maps this small hold every key once preloaded
+
+
 class MmapIndexMap(IndexMap):
     """Memory-mapped partitioned index — loads lazily, shares page cache
     across processes (the PalDB property the reference relied on)."""
@@ -168,6 +171,10 @@ class MmapIndexMap(IndexMap):
         self._nparts = int(meta["num_partitions"])
         self._parts: dict[int, tuple] = {}
         self._rev: Optional[tuple] = None
+        # (name, term) -> column of every key, built by ``preload`` for a
+        # map of at most _KEYS_MAX keys: the online trainer and the serving
+        # parser resolve features one at a time
+        self._keys: Optional[dict] = None
 
     @property
     def store_dir(self) -> str:
@@ -196,9 +203,24 @@ class MmapIndexMap(IndexMap):
     def preload(self) -> None:
         """Open every partition now (serve-path warmup): point lookups on a
         hot request path must not pay the lazy mmap open + first-touch page
-        faults of a cold partition."""
+        faults of a cold partition. A map of at most ``_KEYS_MAX`` keys also
+        reads every key into one dict, so each later lookup is a dict hit."""
         for p in range(self._nparts):
             self._partition(p)
+        if self._keys is None and self._size <= _KEYS_MAX:
+            blob, off = self.key_blob()
+            raw, bounds = blob.tobytes(), off.tolist()
+            keys = {}
+            for i in range(self._size):
+                name, _, term = raw[bounds[i]:bounds[i + 1]].decode(
+                    "utf-8").partition(DELIMITER)
+                keys[(name, term)] = i
+            self._keys = keys
+
+    def get_index(self, name: str, term: Optional[str] = None) -> int:
+        if self._keys is not None:
+            return self._keys.get((name, term or ""), -1)
+        return self.index_of(feature_key(name, term))
 
     def index_of(self, key: str) -> int:
         kb = key.encode("utf-8")

@@ -128,6 +128,28 @@ def test_mmap_index_stores_interchangeable(tmp_path, writer, reader):
     assert imap.get_index("absent", "x") == -1
 
 
+def test_mmap_index_preloaded_lookups(tmp_path, monkeypatch):
+    """A preloaded small map answers point lookups from one dict of every
+    key, hits and misses alike, as the store does; a map over the bound
+    keeps looking up the store."""
+    keys = _keys()
+    port_index_map.build_mmap_index(port_index_map.DefaultIndexMap(keys),
+                                    str(tmp_path), num_partitions=3)
+    imap = port_index_map.MmapIndexMap(str(tmp_path))
+    imap.preload()                       # every key in one dict: 52 <= 2^21
+    assert len(imap._keys) == len(keys)
+    for i, k in enumerate(keys + ["absent\x01x"]):
+        name, _, term = k.partition("\x01")
+        want = i if i < len(keys) else -1
+        assert imap.get_index(name, term) == imap.index_of(k) == want
+    assert imap.get_index("g", None) == imap.index_of("g\x01") == len(keys) - 1
+    assert imap.intercept_index == 0
+    monkeypatch.setattr(port_index_map, "_KEYS_MAX", 10)
+    big = port_index_map.MmapIndexMap(str(tmp_path))
+    big.preload()                        # over the bound: point lookups only
+    assert big._keys is None and big.get_index("f7", "t3") == 8
+
+
 def test_mmap_index_stores_byte_identical(tmp_path):
     keys = _keys()
     for name, mod in (("jax", jax_index_map), ("port", port_index_map)):

@@ -6,13 +6,14 @@
   training, GAME training, checkpoint, routing, sweep-cache, vmapped GAME
   training, ingest, GLM driver, bf16-feed, factored and tuning phases
   included, the runtime-guards phase with an injected OOM in place of
-  the card's capped one, the observability phase and the serving phase, at
+  the card's capped one, the observability phase, the serving phase and the online phase, at
   a tiny size, with the CPU as both devices);
   afterwards neither ``jax`` nor any
   ``photon_tpu`` (nor ``ml_dtypes``) module is loaded.
 * No source line of the port or of ``chip_smoke.py`` imports them.
-* Without a GPU, ``resolve_device()`` and the port's scoring and serving
-  drivers run without ``--device cpu`` raise instead of running on the CPU (the GPU is
+* Without a GPU, ``resolve_device()`` and the port's scoring, serving and
+  online training drivers run without ``--device cpu`` raise instead of
+  running on the CPU (the GPU is
   hidden here by patching ``torch.cuda.is_available``, so this holds on any
   machine), and a tensor on another device type is refused. The fleet
   view's ``obs_driver`` needs no device and touches none.
@@ -177,6 +178,17 @@ assert set(plain["rows_by_version"]) == {"2", "3"}, plain
 assert sv["faults"]["oom"]["max_batch_after"] == 4, sv
 assert sv["threaded"]["cache"]["evictions"] > 0, sv
 assert json.loads(json.dumps(sv))["knobs"]["swap_passes"] == 20  # emit()-able
+on = chip_smoke.phase_online(torch, cs, tiny, cpu, cpu, root, knobs=dict(
+    heavy_users=8, heavy_rows=90, repl_users=8, router_rows=16, clients=4,
+    wave_users=4, fault_events=40, probe_user=30, ctl_timeout_s=60.0))
+assert on["control"]["rollback_reason"] == "score_drift", on["control"]
+assert on["control"]["promoted_main_seqs"] == [1], on["control"]
+assert all(on["replication"]["exactly_once"].values()), on["replication"]
+assert on["replication"]["router"]["failed"] == 0, on["replication"]
+assert on["f64_witness"]["coef_rel_err"] <= 1e-9, on["f64_witness"]
+assert on["faults"]["oom"]["refresh_batch_after"] == 4096, on["faults"]
+assert json.loads(json.dumps(on))["tiers"] == {"main": ["newton_primal"],
+                                                 "heavy": ["newton_primal"]}, on
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "photon_tpu", "ml_dtypes"))
 print("MODULES", len(names), "BAD", bad)
@@ -255,6 +267,19 @@ def test_serving_driver_defaults_to_cuda_and_raises_without_gpu(no_gpu, tmp_path
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelRegistry(str(tmp_path / "m"))
+    assert not torch.cuda.is_initialized()
+
+
+def test_online_driver_defaults_to_cuda_and_raises_without_gpu(no_gpu, tmp_path):
+    from photon_tpu_torch.cli import online_training_driver
+
+    args = ["--model-dir", str(tmp_path / "m"), "--events", str(tmp_path / "e"),
+            "--output-dir", str(tmp_path / "out")]
+    assert online_training_driver.build_arg_parser().parse_args(args).device == "cuda"
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            online_training_driver.run(args + extra)
+    assert not (tmp_path / "out").exists()
     assert not torch.cuda.is_initialized()
 
 

@@ -1,10 +1,13 @@
 """The port's serving driver (``photon_tpu_torch/cli/serving_driver.py``)
 against the JAX driver's flags, on the CPU.
 
-* Every flag of the JAX driver is either taken or refused by name: the
-  replica flags name the replication slice, ``--compilation-cache-dir`` and
-  ``--compile-store`` are refused for good; each refusal exits 2 before any
-  work.
+* Every flag of the JAX driver is either taken or refused by name:
+  ``--compilation-cache-dir`` and ``--compile-store`` are refused for good;
+  each refusal exits 2 before any work.
+* The replica flags (``--delta-log``, ``--replica-id``, ``--cursor-dir``,
+  ``--catchup-lag``) are taken: the tailer converges to the log head
+  before serving, attaches to the server, journals ``replica_joined`` and
+  names its replica in the summary.
 * The taken flags build, warm and tear down (``run(serve_forever=False)``)
   and leave their artefacts; ``--workers`` assembles the front line.
 * Run as a process, the driver serves a request and drains on SIGTERM,
@@ -19,6 +22,7 @@ import sys
 import time
 import urllib.request
 
+import numpy as np
 import pytest
 
 from photon_tpu.cli import serving_driver as jax_serving_driver
@@ -29,10 +33,6 @@ from test_torch_jax_decoder import jax_decoder  # noqa: F401
 from test_torch_serving import payload, train_models
 
 REFUSED = {
-    "--delta-log": (["--delta-log", "d.jsonl"], "replication slice"),
-    "--replica-id": (["--replica-id", "r1"], "replication slice"),
-    "--cursor-dir": (["--cursor-dir", "c"], "replication slice"),
-    "--catchup-lag": (["--catchup-lag", "5"], "replication slice"),
     "--compilation-cache-dir": (["--compilation-cache-dir", "cc"], "refused for good"),
     "--compile-store": (["--compile-store", "cs"], "refused for good"),
 }
@@ -113,6 +113,48 @@ def test_jax_flags_are_taken(trained, tmp_path, flag):
     if flag in ("--workers", "--autotune"):
         assert summary["frontline"]["workers"] == 1
         assert summary["frontline"]["autotune"] == (flag == "--autotune")
+
+
+@pytest.mark.parametrize("flag", ["--delta-log", "--replica-id", "--cursor-dir",
+                                  "--catchup-lag"])
+def test_replica_flags_are_taken(trained, tmp_path, flag):
+    """Each replica flag is taken and the tailer attaches: it applies the
+    log before serving (a catch-up jump to the newer snapshot under
+    ``--catchup-lag``), journals ``replica_joined`` and names the replica."""
+    from photon_tpu_torch.online.delta import EntityPatch, ModelDelta
+    from photon_tpu_torch.replication import DeltaLogWriter, ReplicaCursor
+
+    log = str(tmp_path / "delta-log.jsonl")
+    with DeltaLogWriter(log) as w:
+        w.append_snapshot(trained.jax[0], note="base")
+        for seq in (1, 2):
+            w.append(ModelDelta(seq=seq, patches={"perUser": {"user1": EntityPatch(
+                key="user1", cols=np.array([0], np.int32),
+                vals=np.array([0.5 * seq], np.float32))}}, event_horizon=seq))
+        if flag == "--catchup-lag":
+            w.append_snapshot(trained.jax[1], note="retrain")
+    out = tmp_path / "out"
+    extra = {"--delta-log": [],
+             "--replica-id": ["--replica-id", "r7"],
+             "--cursor-dir": ["--cursor-dir", str(tmp_path / "cur")],
+             "--catchup-lag": ["--catchup-lag", "1"]}[flag]
+    summary = serving_driver.run([
+        "--model-dir", trained.jax[0], "--port", "0", "--device", "cpu",
+        "--delta-log", log, "--output-dir", str(out), *extra],
+        serve_forever=False)
+    replica = summary["replica_id"]
+    assert replica == ("r7" if flag == "--replica-id" else f"r{os.getpid()}")
+    rows = [json.loads(x) for x in open(out / "recovery.jsonl")]
+    joined = [r for r in rows if r["event"] == "replica_joined"]
+    if flag == "--catchup-lag":
+        assert joined[0]["applied_at_join"] == 0 and joined[0]["seq_watermark"] == 3
+        assert any(r["event"] == "replica_catchup_done" for r in rows)
+    else:
+        assert joined == [dict(joined[0], replica=replica, seq_watermark=2,
+                               applied_at_join=2)]
+    cursor_dir = tmp_path / "cur" if flag == "--cursor-dir" else out
+    assert ReplicaCursor(str(cursor_dir), replica).load() == 4 - (
+        flag != "--catchup-lag")
 
 
 def test_driver_process_serves_and_drains_on_sigterm(trained, tmp_path):

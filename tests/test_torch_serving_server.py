@@ -134,7 +134,21 @@ def script(trained):
     return steps
 
 
+def _reset_recovery_gauges():
+    """Both packages' process-global recovery gauges back to unstamped: a
+    swap scored by an earlier test in the same process stamps its own
+    package's ``swap_to_first_score_seconds``, which ``/healthz`` reports."""
+    from photon_tpu.obs.metrics import REGISTRY as JAX_REGISTRY
+    from photon_tpu_torch.obs.metrics import REGISTRY as PORT_REGISTRY
+
+    for registry in (JAX_REGISTRY, PORT_REGISTRY):
+        for name in ("swap_to_first_score_seconds",
+                     "restart_to_first_step_seconds"):
+            registry.gauge(name).reset()
+
+
 def test_http_routes_match_jax_server(trained):
+    _reset_recovery_gauges()
     jax_registry = JaxRegistry(trained.jax[0], JaxServingConfig(**CONFIG))
     jax_server = JaxServer(jax_registry, JaxBatcher(max_batch=8, max_wait_ms=1.0),
                            port=0)
