@@ -170,6 +170,19 @@ result line:
    against a CPU RowScorer with the same deltas); the control driver
    promotes a clean canary wave and rolls back a poisoned one; an injected
    device loss and OOM in a refresh (``phase_online``).
+20. mesh (run after tuning, before runtime_guards, on fit A's estimator):
+   a 4-shard data mesh on the one card (``make_mesh({"data": 4},
+   devices=[cuda] * 4)``): fit A's data through ``GameEstimator.fit``
+   (data-parallel fixed effect, entity-sharded random effect, SIMPLE
+   variances) against the unsharded card fit by phase game_training's f32
+   checks; ``run_out_of_core(mesh=)`` over phase ingest's 2^19 rows and the
+   transformer's fixed effect over the 2^19-row scoring layout against
+   unsharded; f64 witnesses (fit A at 8,192 users and the out-of-core
+   solve, 4 shards against 1 within 1e-12); two processes on the card over
+   gloo with 2 shards each (within 1e-12 of the 4-shard fit, bit-equal to
+   each other) and one NCCL rank (``phase_mesh``). Each kernel's launches
+   on the mesh path are the kernels line's ``mesh``; speed across cards is
+   not measured (one card).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
@@ -1662,7 +1675,7 @@ GAME_FITS = (("fit_a", "global", (1.0, 10.0), "NONE"),
 # H100 machine's host, their fixed-effect steps 12.7 s and 8.6 s of it).
 GAME_REF_SWEEPS = 1
 GAME_REF_CONFIGS = 1
-GAME_REF_ITERATIONS = 8
+GAME_REF_ITERATIONS = 4
 
 
 def phase_game_training(torch, cs, sizes, f64_users, dev, ref_dev,
@@ -6149,6 +6162,387 @@ KERNEL_SYMBOLS = {"ell_panel_kernel": "ell_panel_matvec",
                   "csc_tile_kernel": "csc_rmatvec", "csc_fixup_kernel": "csc_fixup"}
 
 
+# --------------------------------------------------------------------- mesh
+
+MESH_SHARDS = 4
+MESH_F64_RTOL = 1e-12        # a mesh fit against the unsharded one, f64
+MESH_CHILD_TIMEOUT_S = 240.0
+MESH_NCCL_TIMEOUT_S = 120.0
+# The mesh path's kernels: a matvec form (panels or row tiles, per shard),
+# the transpose and, with the fit's SIMPLE variances, the squared transpose.
+MESH_KERNELS = ("csc_rmatvec", "csc_sq_rmatvec")
+
+# A child of phase mesh: argv = repository, JSON keyword arguments of
+# mesh_child, result path.
+_MESH_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+out = chip_smoke.mesh_child(**json.loads(sys.argv[2]))
+with open(sys.argv[3], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def _mesh_spawn(kw: dict, work: str, name: str):
+    out = os.path.join(work, f"{name}.json")
+    err = open(os.path.join(work, f"{name}.err"), "w")
+    env = dict(os.environ, PHOTON_DISTRIBUTED_INIT_TIMEOUT_S="120")
+    proc = subprocess.Popen([sys.executable, "-c", _MESH_CHILD, REPO,
+                             json.dumps(kw), out], cwd=REPO, env=env,
+                            stdout=subprocess.DEVNULL, stderr=err)
+    err.close()
+    return proc, out
+
+
+def _f64_witness_fit(torch, cs, dev, sizes, users: int, mesh=None,
+                     data_axis="data"):
+    """Fit A's configuration at ``users`` users in f64 under the
+    ``GAME_F64_BUDGET_MB`` Newton budget (the chunked dual plan of the full
+    size), SIMPLE variances, optionally over ``mesh``."""
+    arrays = game_arrays_bench(seed=2, **dict(sizes, n_users=users))
+    est = game_estimator("global", 2, ())
+    est.mesh, est.data_axis = mesh, data_axis
+    with _env("PHOTON_RE_NEWTON_BUDGET_MB", str(GAME_F64_BUDGET_MB)):
+        return game_fit(torch, cs, est, game_bundle(torch, arrays, dev, torch.float64),
+                        None, game_configs((1.0,), sizes["iterations"], "SIMPLE"))
+
+
+def mesh_child(role: str, dev: str, work: str, sizes=None, users: int = 0,
+               rank: int = 0, world: int = 1, port: int = 0) -> dict:
+    """A process of phase mesh. ``gloo``: rank ``rank`` of ``world`` on
+    the card over gloo, its ``MESH_SHARDS // world`` shards the inner axis
+    of a ``("dcn", "data")`` mesh, fitting the f64 witness (its coefficients
+    saved for the parent). ``nccl``: one NCCL rank, whose fold gathers a
+    vector through NCCL."""
+    import torch
+    import torch.distributed as dist
+
+    from photon_tpu_torch.ops import cuda_sparse as cs
+    from photon_tpu_torch.parallel import distributed as pd
+    from photon_tpu_torch.parallel import mesh as pm
+
+    device = torch.device(dev)
+    t0 = time.perf_counter()
+    formed = pd.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                       backend=role)
+    out = {"role": role, "rank": rank, "formed": formed,
+           "init_s": time.perf_counter() - t0,
+           "world": pd.process_count(), "backend": dist.get_backend()}
+    try:
+        if role == "nccl":
+            v = torch.arange(5, dtype=torch.float64, device=device)
+            got = pm._fold_processes(v)
+            out["fold_equal"] = bool(torch.equal(got, v))
+            return out
+        local = MESH_SHARDS // world
+        mesh = pd.multihost_mesh({"data": local}, devices=[device] * local)
+        out["mesh"] = {k: int(v) for k, v in mesh.shape.items()}
+        cs.reset_launch_counts()
+        run = _f64_witness_fit(torch, cs, device, sizes, users, mesh,
+                               ("dcn", "data"))
+        out["launches"] = cs.launch_counts()
+        out["fit_s"] = run["fit_s"]
+        tensors = [t.detach().cpu().numpy() for t in _game_tensors(run["results"][0])]
+        path = os.path.join(work, f"gloo_rank{rank}.npz")
+        np.savez(path, *tensors)
+        out["tensors"] = path
+        return out
+    finally:
+        pd.shutdown_distributed()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(torch, cs, keep: dict, dev, root: str, big: str, sizes=GAME,
+               f64_users: int = GAME_F64_USERS, full=FULL,
+               chunk_rows: int = GLM_CHUNK_ROWS) -> dict:
+    """The static mesh on the one card: ``make_mesh({"data": 4},
+    devices=[dev] * 4)``, four shards of every fixed-effect batch,
+    random-effect bucket and out-of-core chunk on the same card.
+
+    Driven through the entry points, launches counted (``launches``): fit
+    A's data and estimator (phase game_training's, its datasets reused)
+    through ``GameEstimator.fit`` with SIMPLE variances, cut like phase
+    game_training's references (``GAME_REF_SWEEPS`` sweeps,
+    ``GAME_REF_CONFIGS`` configurations, ``GAME_REF_ITERATIONS``
+    iterations), held against the unsharded card fit by
+    ``compare_game_fits`` (phase game_training's f32 checks); the
+    out-of-core L-BFGS over phase ingest's 2^19 rows at f32 (``run_out_of
+    _core(mesh=)``, chunks of ``GLM_CHUNK_ROWS`` rows) against the
+    unsharded stream; the transformer's fixed effect over the 2^19-row
+    scoring layout against the unsharded scores. Witnesses: fit A in f64 at
+    ``f64_users`` users, 4 shards against 1 within ``MESH_F64_RTOL``; the
+    out-of-core solve in f64, likewise; two processes on the card over gloo,
+    2 shards each, the same f64 fit, each within ``MESH_F64_RTOL`` of the
+    4-shard fit and bit-equal to each other; one NCCL rank's fold. Timed:
+    the fixed effect's ms an iteration and the random-effect step's seconds
+    at 4 shards against 1, the host seconds of the folds and the mesh
+    solves' placements. One card: speed across cards is not measured."""
+    import copy
+    import dataclasses
+
+    from photon_tpu_torch.game import random_effect as re_mod
+    from photon_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh({"data": MESH_SHARDS}, devices=[dev] * MESH_SHARDS)
+    work = os.path.join(root, "mesh")
+    os.makedirs(work, exist_ok=True)
+    failures: list = []
+    out: dict = {"mesh": repr(mesh), "shards": MESH_SHARDS,
+                 "across_cards": "not measured (one card)"}
+    # the processes first: they build their data and fit beside this one
+    port = _free_port()
+    procs = {f"gloo{r}": _mesh_spawn(dict(role="gloo", dev=str(dev), work=work,
+                                          sizes=sizes, users=f64_users, rank=r,
+                                          world=2, port=port), work, f"gloo{r}")
+             for r in range(2)}
+    if dev.type == "cuda":      # NCCL runs between cards only
+        procs["nccl"] = _mesh_spawn(dict(role="nccl", dev=str(dev), work=work,
+                                         port=_free_port()), work, "nccl")
+    try:
+        # (a) fit A, the main path
+        cfgs = game_configs((1.0, 10.0), sizes["iterations"], "SIMPLE")[:GAME_REF_CONFIGS]
+        for c in cfgs:
+            for k in c:
+                c[k] = dataclasses.replace(c[k], max_iterations=GAME_REF_ITERATIONS)
+        one_est = copy.copy(keep["est"])
+        one_est.n_sweeps = GAME_REF_SWEEPS
+        four_est = copy.copy(one_est)
+        four_est.mesh = mesh
+        one = game_fit(torch, cs, one_est, *keep["data"], cfgs)
+        # the first mesh fit cuts the fixed effect's rows into shards and
+        # builds each shard's layouts (once per batch); the second is timed
+        first = game_fit(torch, cs, four_est, *keep["data"], cfgs)
+        pm.reset_fold_stats()
+        re_mod.MESH_STATS.update(placements=0, seconds=0.0)
+        cs.reset_launch_counts()
+        four = game_fit(torch, cs, four_est, *keep["data"], cfgs)
+        fit_launches = cs.launch_counts()
+        if not all(torch.equal(a, b) for a, b in zip(
+                _game_tensors(first["results"][0]), _game_tensors(four["results"][0]))):
+            failures.append("fit A: two mesh fits differ")
+        cmp = compare_game_fits(torch, four, one, sizes["d_global"])
+        failures += [f"fit A: {f}" for f in cmp.pop("failures")]
+
+        def step(run, cid):
+            return [s for s in run["steps"] if s["coordinate"] == cid]
+
+        fe = {k: [s["seconds"] * 1e3 / max(1, s["iterations"])
+                  for s in step(r, "fixed")] for k, r in (("1", one), ("4", four))}
+        out["fit_a"] = {
+            "rows": keep["data"][0].n_rows, "configs": len(cfgs),
+            "sweeps": GAME_REF_SWEEPS, "iterations": GAME_REF_ITERATIONS,
+            "fit_s": {"1": one["fit_s"], "4": four["fit_s"],
+                      "4_first_with_shard_cut": first["fit_s"]},
+            "fixed_ms_an_iteration": fe,
+            "fixed_iterations": {k: [s["iterations"] for s in step(r, "fixed")]
+                                 for k, r in (("1", one), ("4", four))},
+            "re_step_s": {k: [s["seconds"] for s in step(r, "perUser")]
+                          for k, r in (("1", one), ("4", four))},
+            "plans": {"1": [(b["solver"], b["chunk"]) for b in one["buckets"]],
+                      "4": [(b["solver"], b["chunk"], b["shards"])
+                            for b in four["buckets"]]},
+            "fold": dict(pm.FOLD_STATS),
+            "re_placement": dict(re_mod.MESH_STATS),
+            "vs_unsharded": cmp, "launches": fit_launches}
+        del one, first, four, one_est, four_est
+
+        # (b) out of core over the ingest phase's 2^19 rows
+        ooc = _mesh_ooc(torch, cs, dev, root, big, mesh, chunk_rows)
+        failures += ooc.pop("failures")
+        out["out_of_core"] = ooc
+
+        # (c) scoring: the transformer's fixed effect over the 2^19-row layout
+        sc = _mesh_scoring(torch, cs, dev, mesh, full)
+        failures += sc.pop("failures")
+        out["scoring"] = sc
+        launches = {k: fit_launches[k] + ooc["launches"][k] + sc["launches"][k]
+                    for k in cs.ALL_KERNELS}
+        out["launches"] = launches
+        missing = [k for k in MESH_KERNELS if launches[k] < 1]
+        if launches["ell_matvec"] + launches["ell_panel_matvec"] < 1:
+            missing.append("a matvec kernel")
+        if missing and dev.type == "cuda":    # the CPU runs the plain versions
+            failures.append(f"the mesh path never launched {missing}")
+
+        # (d) the f64 witness, 4 shards against 1 on the card
+        w1 = _f64_witness_fit(torch, cs, dev, sizes, f64_users)
+        w4 = _f64_witness_fit(torch, cs, dev, sizes, f64_users, mesh)
+        rel = _stack_rel_err(torch, _game_tensors(w4["results"][0]),
+                             _game_tensors(w1["results"][0]))
+        out["f64_witness"] = {
+            "users": f64_users, "coef_rel_err_4_vs_1": rel,
+            "fit_s": {"1": w1["fit_s"], "4": w4["fit_s"]},
+            "plans": {"1": [(b["solver"], b["chunk"]) for b in w1["buckets"]],
+                      "4": [(b["solver"], b["chunk"]) for b in w4["buckets"]]}}
+        if not rel <= MESH_F64_RTOL:
+            failures.append(f"f64 witness: 4 shards {rel} from 1 > {MESH_F64_RTOL}")
+
+        # (e) two gloo processes x 2 shards, and one NCCL rank
+        kids = {name: _child_result(p, o, work, name, MESH_CHILD_TIMEOUT_S
+                                    if name != "nccl" else MESH_NCCL_TIMEOUT_S)
+                for name, (p, o) in procs.items()}
+        procs = {}
+        ref = [t.detach().cpu() for t in _game_tensors(w4["results"][0])]
+        ranks = []
+        for r in range(2):
+            k = kids[f"gloo{r}"]
+            with np.load(k.pop("tensors")) as z:
+                ranks.append([torch.from_numpy(z[f"arr_{i}"]) for i in range(len(z.files))])
+            k["coef_rel_err_vs_4_shards"] = _stack_rel_err(torch, ranks[-1], ref)
+            if not k["coef_rel_err_vs_4_shards"] <= MESH_F64_RTOL:
+                failures.append(f"gloo rank {r}: {k['coef_rel_err_vs_4_shards']} "
+                                f"from the 4-shard fit > {MESH_F64_RTOL}")
+            if not (k["formed"] and k["world"] == 2 and k["backend"] == "gloo"):
+                failures.append(f"gloo rank {r} did not join a 2-process group: {k}")
+        ranks_equal = all(torch.equal(a, b) for a, b in zip(*ranks))
+        if not ranks_equal:
+            failures.append("the gloo ranks' coefficients differ")
+        nccl = kids.get("nccl", "not run (no card)")
+        if dev.type == "cuda" and not (nccl["formed"] and nccl["backend"] == "nccl"
+                                       and nccl["fold_equal"]):
+            failures.append(f"the NCCL rank: {nccl}")
+        out["processes"] = {"gloo": [kids["gloo0"], kids["gloo1"]],
+                            "ranks_bit_equal": ranks_equal, "nccl": nccl}
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failures:
+        emit({"phase": "mesh", **{k: v for k, v in out.items() if k != "launches"}})
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_ooc(torch, cs, dev, root: str, big: str, mesh, chunk_rows: int) -> dict:
+    """Out of core over ``big`` (phase ingest's 2^19 rows, the GLM driver
+    phase's index) in chunks of ``chunk_rows`` rows: the f32 solve (5
+    iterations at tolerance 0) over the mesh against the unsharded stream,
+    launches counted, and the f64 witness (``GLM_F64_ITERATIONS``) 4
+    shards against 1."""
+    from photon_tpu_torch.functions.problem import GLMOptimizationProblem
+    from photon_tpu_torch.index.index_map import MmapIndexMap
+    from photon_tpu_torch.io.data_reader import FeatureShardConfig
+    from photon_tpu_torch.io.streaming import StreamingAvroReader
+    from photon_tpu_torch.optim import OptimizerConfig, OptimizerType
+    from photon_tpu_torch.optim.out_of_core import ChunkedGLMData, run_out_of_core
+    from photon_tpu_torch.optim.regularization import (
+        RegularizationContext,
+        RegularizationType,
+    )
+    from photon_tpu_torch.types import TaskType
+
+    maps = {"global": MmapIndexMap(os.path.join(root, "out", "index", "global"))}
+    cfgs = {"global": FeatureShardConfig(("features",), True)}
+
+    def chunked(dtype):
+        sr = StreamingAvroReader(maps, cfgs, chunk_rows=chunk_rows,
+                                 capture_uids=False)
+        return ChunkedGLMData.from_stream(sr.iter_chunks(big), "global",
+                                          len(maps["global"]),
+                                          chunk_rows=chunk_rows, device=dev,
+                                          dtype=dtype)
+
+    def problem(iters, tol):
+        return GLMOptimizationProblem(
+            task=TaskType.LOGISTIC_REGRESSION, optimizer_type=OptimizerType.LBFGS,
+            optimizer_config=OptimizerConfig(max_iterations=iters, tolerance=tol),
+            regularization=RegularizationContext(RegularizationType.L2),
+            reg_weight=1.0)
+
+    out: dict = {"rows": None, "chunk_rows": chunk_rows, "failures": []}
+    data = chunked(torch.float32)
+    out["rows"], out["chunks"] = data.n_rows, data.n_chunks
+    t0 = time.perf_counter()
+    data.sharded(mesh)
+    out["shard_cut_s"] = time.perf_counter() - t0
+    runs = {}
+    for name, m in (("1", None), ("4", mesh)):
+        if name == "4":
+            cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, res = run_out_of_core(problem(5, 0.0), data, mesh=m)
+        _sync(torch, dev)
+        runs[name] = {"fit_s": time.perf_counter() - t0, "iterations": res.iterations,
+                      "value": res.value, "passes": res.data_passes,
+                      "x": model.coefficients.means}
+    out["launches"] = cs.launch_counts()
+    a, b = runs["4"], runs["1"]
+    out["f32"] = {
+        "fit_s": {k: v["fit_s"] for k, v in runs.items()},
+        "ms_a_pass": {k: v["fit_s"] * 1e3 / v["passes"] for k, v in runs.items()},
+        "iterations": {k: v["iterations"] for k, v in runs.items()},
+        "value_rel_err": abs(a["value"] - b["value"]) / abs(b["value"]),
+        "coef_rel_err": float((a["x"] - b["x"]).abs().max() / b["x"].abs().max())}
+    if a["iterations"] != b["iterations"] or not out["f32"]["value_rel_err"] <= 1e-5:
+        out["failures"].append(f"out of core f32: {out['f32']}")
+    del data, runs
+    d64 = chunked(torch.float64)
+    x = {}
+    for name, m in (("1", None), ("4", mesh)):
+        model, res = run_out_of_core(problem(GLM_F64_ITERATIONS, 1e-7), d64, mesh=m)
+        x[name] = (model.coefficients.means, res.iterations)
+    rel = float((x["4"][0] - x["1"][0]).abs().max() / x["1"][0].abs().max())
+    out["f64_witness"] = {"coef_rel_err_4_vs_1": rel,
+                          "iterations": {k: v[1] for k, v in x.items()}}
+    if not rel <= MESH_F64_RTOL or x["4"][1] != x["1"][1]:
+        out["failures"].append(f"out of core f64: {out['f64_witness']}")
+    return out
+
+
+def _mesh_scoring(torch, cs, dev, mesh, full) -> dict:
+    """``GameTransformer.transform`` of the fixed effect over the 2^19-row
+    scoring layout (``full``: FULL's), over the mesh against unsharded: the same
+    scores within the transformer phase's f32 tolerance (bit-equal where
+    the shards take the same matvec form as the whole batch)."""
+    from photon_tpu_torch.estimators.config import FixedEffectDataConfig
+    from photon_tpu_torch.estimators.game_transformer import GameTransformer
+    from photon_tpu_torch.game.descent import GameModel
+    from photon_tpu_torch.io.convert import game_model_from_numpy
+
+    spec = model_spec(intercept=False, **full)
+    whole = game_model_from_numpy(spec, dev, torch.float32)
+    model = GameModel({"fixed": whole["fixed"]})
+    cfgs = {"fixed": FixedEffectDataConfig("global")}
+    bundle = _bundle(torch, full, dev, torch.float32)
+    scores, seconds, launches = {}, {}, None
+    for name, m in (("1", None), ("4", mesh)):
+        tr = GameTransformer(model, cfgs, mesh=m)
+        tr.transform(bundle)                       # layouts built, warm
+        if name == "4":
+            cs.reset_launch_counts()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        s = tr.transform(bundle)
+        _sync(torch, dev)
+        seconds[name] = time.perf_counter() - t0
+        if name == "4":
+            launches = cs.launch_counts()
+        scores[name] = s.cpu()
+    got, ref = scores["4"], scores["1"]
+    out = {"rows": int(got.shape[0]), "transform_s": seconds,
+           "bit_equal": bool(torch.equal(got, ref)), "launches": launches,
+           "failures": []}
+    try:
+        out["max_abs_err"] = _close(torch, got, ref, "float32")
+    except AssertionError as e:
+        out["failures"].append(f"mesh scoring: {e}")
+    return out
+
+
 def ptxas_usage(log: str) -> dict:
     """Registers, shared memory (static bytes) and spills of each compiled
     kernel, from nvcc's ``-Xptxas -v`` log, keyed ``name<type>`` (the
@@ -6350,6 +6744,10 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on their path: {missing}")
 
+    ms = phase_mesh(torch, cs, fit_a, dev, WORK, ig["data"]["dir"])
+    ms_launches = ms.pop("launches")
+    emit({"phase": "mesh", "card": card, "launches": ms_launches, **ms})
+
     rg = phase_runtime_guards(torch, cs, fit_a, WORK, ig["data"]["dir"], probe, dev)
     del fit_a
     rg_launches = rg.pop("launches")
@@ -6402,7 +6800,7 @@ def main() -> int:
                 "game_training_vmapped": vm_launches, "ingest": ig_launches,
                 "glm_driver": gl_launches, "bf16_feed": bf_launches,
                 "factored": fc_launches, "tuning": tu_launches,
-                "runtime_guards": rg_launches,
+                "mesh": ms_launches, "runtime_guards": rg_launches,
                 "observability": {k: ob_launches[k] + ob_other[k]
                                   for k in cs.ALL_KERNELS},
                 "serving": sv_launches, "online": on_launches}
@@ -6420,6 +6818,7 @@ def main() -> int:
             "replaces": REPLACES, "via": TPU_ENTRY[name], "status": status[name],
             "launches": sum(c[name] for c in by_phase.values()),
             "launches_by_phase": {k: c[name] for k, c in by_phase.items()},
+            "mesh": ms_launches[name],
             "launches_counted": "f32 and f64 entry points (bf16: the _bf16 rows)",
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
@@ -6455,6 +6854,7 @@ def main() -> int:
                       "kernel on the upcast values)",
             "launches": sum(c[bname] for c in by_phase.values()),
             "launches_by_phase": {k: c[bname] for k, c in by_phase.items()},
+            "mesh": ms_launches[bname],
             "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
             "library_ms": g["library_ms"], "library_call": bk["game"]["library_call"],

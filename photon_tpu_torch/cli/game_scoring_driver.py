@@ -21,9 +21,10 @@ pads it), scores each chunk and appends its scores; the whole-dataset path
 (0) reads through the same decoder. ``--backend-policy`` probes the card
 first, as in the training drivers; ``--trace-out`` and ``--telemetry-dir``
 (role ``scoring``) write the run's trace and registry shard, also for a
-failed run, as the JAX driver does. ``--devices`` other than 1 belongs to
-the multi-GPU slice and is refused; ``--compilation-cache-dir`` is refused
-for good (the port compiles no XLA programs).
+failed run, as the JAX driver does. ``--devices N`` (0 = every visible
+card) shards the fixed-effect scoring matvec's rows over N cards, as the
+JAX driver does; ``--compilation-cache-dir`` is refused for good (the port
+compiles no XLA programs).
 
     python -m photon_tpu_torch.cli.game_scoring_driver --data DATA.avro \\
         --model-dir OUT/best --output-dir SCORES [--device cuda]
@@ -49,6 +50,7 @@ from photon_tpu_torch.cli.params import (
     enable_trace,
     finish_telemetry,
     finish_trace,
+    mesh_from_flags,
     refuse_unported,
     stamp_failover,
 )
@@ -104,7 +106,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where scoring runs (default cuda; no fallback)")
     p.add_argument("--devices", type=int, default=1,
-                   help="only 1: multi-device scoring is a later slice")
+                   help="shard the fixed-effect scoring matvec's rows over "
+                        "this many devices (0 = all visible); 1 = no mesh")
     p.add_argument("--chunk-rows", type=int, default=0,
                    help="stream and score this many rows at a time (0: the "
                         "whole dataset at once)")
@@ -121,10 +124,11 @@ def _parse(argv: Optional[Sequence[str]]) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.chunk_rows < 0:
         p.error("--chunk-rows must be >= 0")
-    if args.devices != 1:
-        p.error("--devices: multi-device scoring is not in the port yet "
-                "(it comes with the multi-GPU slice); use 1")
     refuse_unported(p, args, _REFUSED)
+    try:
+        mesh_from_flags(args.devices, None, args.device)
+    except ValueError as e:
+        p.error(str(e))
     return args
 
 
@@ -199,12 +203,16 @@ def _run(args, guard: dict) -> dict:
             ),
             id_tag_columns=sorted(id_tags),
         )
+        mesh = mesh_from_flags(args.devices, None, device)
+        if mesh is not None:
+            logger.info("scoring mesh: %s", mesh)
         transformer = GameTransformer(
             model,
             data_configs,
             intercept_indices={
                 s: im.intercept_index for s, im in index_maps.items()
             },
+            mesh=mesh,
         )
         scores_path = os.path.join(args.output_dir, "scores.avro")
         if args.chunk_rows > 0:

@@ -50,9 +50,20 @@ the metrics-registry shard there under the fleet names
 ``--profile-dir`` records ``torch.profiler`` (CPU, and on ``cuda`` the
 device's kernels) over the same span of the run as the JAX driver's
 ``jax.profiler``, marks the fit with a ``fit`` range, and names the file
-in ``training-summary.json``. Flags of the JAX driver that belong to the
-multi-GPU slice (meshes) are refused with a message naming it; its three
-compile-cache flags are refused for good.
+in ``training-summary.json``. The JAX driver's three compile-cache flags
+are refused for good.
+
+Meshes, as in the JAX driver: ``--devices N`` (default 0 = every visible
+card; 1 = no mesh) trains fixed effects data-parallel and random effects
+entity-sharded over the first N distinct cards (``cli/params
+.mesh_from_flags``); ``--mesh data=N[,dcn=M]`` names the axes (a ``model``
+axis is refused: it comes with the elastic slice). ``--distributed-policy``
+decides what a failed ``torch.distributed`` bring-up does (torchrun's
+environment; a no-op in one process): ``strict`` prints ``fatal
+[<cause>]`` and exits 2, ``degrade`` journals ``distributed_init_failed``
+and trains single-host. In a process group the mesh's ``dcn`` axis is the
+group, every process reads the same data, and rank 0 alone writes the
+model files, metrics and summary.
 
     python -m photon_tpu_torch.cli.game_training_driver \\
       --train-data data/train --output-dir out --task LOGISTIC_REGRESSION \\
@@ -73,9 +84,10 @@ from typing import Optional, Sequence
 import torch
 
 from photon_tpu_torch.cli.params import (
-    MULTI_GPU_SLICE,
+    ELASTIC_SLICE,
     NO_COMPILED_PROGRAMS,
     add_backend_policy_flag,
+    add_distributed_flags,
     add_fault_plan_flag,
     add_profile_flag,
     add_re_routing_flags,
@@ -90,6 +102,7 @@ from photon_tpu_torch.cli.params import (
     enable_trace,
     finish_telemetry,
     finish_trace,
+    mesh_from_flags,
     parse_coordinates,
     parse_feature_shard,
     profile_range,
@@ -128,11 +141,9 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # Flags of the JAX driver the port refuses: (flag, is it set, why). Each is
 # refused when set, never ignored.
 _LATER_SLICES = (
-    ("--devices", lambda a: a.devices != 1,
-     f"multi-device training {MULTI_GPU_SLICE}; use 1"),
-    ("--mesh", lambda a: a.mesh is not None, f"meshes {MULTI_GPU_SLICE}"),
-    ("--distributed-policy", lambda a: a.distributed_policy is not None,
-     f"multi-host bring-up {MULTI_GPU_SLICE}"),
+    ("--mesh", lambda a: a.mesh is not None and "model" in {
+        item.partition("=")[0].strip() for item in a.mesh.split(",")},
+     f"the 'model' axis (feature-sharded fixed effects) {ELASTIC_SLICE}"),
     ("--compilation-cache-dir", lambda a: a.compilation_cache_dir is not None,
      NO_COMPILED_PROGRAMS),
     ("--compile-store", lambda a: a.compile_store is not None,
@@ -225,7 +236,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="write a liveness beacon here every 2 s (the memory "
                         "watchdog and the SLO rules of $PHOTON_SLO_CONFIG "
                         "run on the same thread); the peer checks across "
-                        "processes come with the multi-GPU slice")
+                        "processes come with the elastic slice (slice 16)")
     p.add_argument("--debug-nans", action="store_true",
                    help="check each coordinate step's model and scores for "
                         "finite values before the step commits (one more "
@@ -238,10 +249,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add_profile_flag(p)
     add_telemetry_flag(p)
     add_trace_flag(p)
+    p.add_argument("--devices", type=int, default=0,
+                   help="data-parallel mesh size; 0 = all visible devices, "
+                        "1 = no mesh")
+    p.add_argument("--mesh", default=None, metavar="data=4,dcn=2",
+                   help="explicit mesh axes (overrides --devices); a 'model' "
+                        "axis comes with the elastic slice")
+    add_distributed_flags(p)
     # The JAX driver's flags the port refuses (_LATER_SLICES).
-    p.add_argument("--devices", type=int, default=1)
-    p.add_argument("--mesh", default=None)
-    p.add_argument("--distributed-policy", default=None)
     p.add_argument("--compilation-cache-dir", default=None)
     p.add_argument("--compile-store", default=None)
     p.add_argument("--clear-caches-per-config", action="store_true")
@@ -252,6 +267,11 @@ def _parse(argv: Optional[Sequence[str]]):
     p = build_arg_parser()
     args = p.parse_args(argv)
     refuse_unported(p, args, _LATER_SLICES)
+    try:
+        # Checked before any work: an impossible mesh exits 2 here.
+        mesh_from_flags(args.devices, args.mesh, args.device)
+    except ValueError as e:
+        p.error(str(e))
     if args.bf16_feed and args.dtype == "float64":
         raise ValueError(
             "--bf16-feed narrows the device feed below float32; it cannot "
@@ -332,6 +352,18 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     enable_telemetry(args, role="training")
     enable_trace(args.trace_out)
     try:
+        # Join the process group first (a no-op in one process); a failed
+        # bring-up is classified and journaled, and --distributed-policy
+        # decides between exit 2 and going on single-host.
+        from photon_tpu_torch.parallel.distributed import initialize_distributed
+        from photon_tpu_torch.supervisor import RecoveryJournal
+
+        os.makedirs(args.output_dir, exist_ok=True)
+        initialize_distributed(
+            policy=args.distributed_policy,
+            backend="gloo" if args.device == "cpu" else None,
+            journal=RecoveryJournal(os.path.join(args.output_dir,
+                                                 "recovery.jsonl")))
         with enable_fault_plan(args.fault_plan), \
                 profiling(args.profile_dir, device()) as prof:
             os.makedirs(args.output_dir, exist_ok=True)
@@ -387,6 +419,46 @@ def _start_heartbeat(args) -> Optional[Heartbeat]:
                                    min_interval_s=60.0)
     return Heartbeat(args.heartbeat_dir, interval_seconds=2.0,
                      slo_watchdog=slo_watchdog).start()
+
+
+def _save_models(args, results, best, index_maps, shard_by_coordinate,
+                 shard_cfgs) -> dict:
+    """Write the selected model (and every model under ``--output-mode
+    ALL``) and the index stores; returns the model directories."""
+    saved = {}
+    if args.output_mode == "ALL":
+        for i, r in enumerate(results):
+            mdir = os.path.join(args.output_dir, "models", str(i))
+            save_game_model(mdir, r.model, index_maps, shard_by_coordinate,
+                            shard_cfgs)
+            saved[str(i)] = mdir
+    bdir = os.path.join(args.output_dir, "best")
+    save_game_model(bdir, best.model, index_maps, shard_by_coordinate,
+                    shard_cfgs)
+    saved["best"] = bdir
+    for shard, im in index_maps.items():
+        idir = os.path.join(args.output_dir, "index", shard)
+        if isinstance(im, MmapIndexMap):
+            # Copy a loaded store so the output directory is a
+            # self-contained scoring input.
+            if not os.path.exists(idir):
+                shutil.copytree(im.store_dir, idir)
+        else:
+            build_mmap_index(im, idir)
+    return saved
+
+
+def _mesh_for(args, device: torch.device):
+    """``(mesh or None, data axis)`` of the run: ``--devices`` / ``--mesh``
+    over this process's visible devices, and in a process group the
+    ``("dcn", "data")`` mesh whose outer axis is the group."""
+    from photon_tpu_torch.parallel.distributed import multihost_mesh, process_count
+
+    mesh = mesh_from_flags(args.devices, args.mesh, device)
+    if process_count() <= 1:
+        return mesh, "data"
+    local = mesh.local_devices if mesh is not None else [device]
+    return multihost_mesh({"data": len(local)}, devices=local), ("dcn", "data")
 
 
 def _run_inner(args, specs, task: TaskType, device: torch.device, logger,
@@ -475,6 +547,9 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger,
             initial_model, _ = load_game_model(
                 args.model_input_dir, index_maps, dtype=dtype, device=device)
 
+    mesh, data_axis = _mesh_for(args, device)
+    if mesh is not None:
+        logger.info("mesh: %s over %s", mesh, data_axis)
     estimator = GameEstimator(
         task=task,
         coordinate_data_configs=data_configs,
@@ -484,6 +559,8 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger,
         normalization=NormalizationType[args.normalization],
         intercept_indices={s: im.intercept_index for s, im in index_maps.items()},
         sweep_cache_mb=args.sweep_cache_mb,
+        mesh=mesh,
+        data_axis=data_axis,
     )
     if args.tuning:
         if not (args.evaluators and validation is not None):
@@ -534,26 +611,15 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger,
 
     shard_by_coordinate = {cid: c.feature_shard for cid, c in data_configs.items()}
     saved = {}
-    with Timed("save models", logger):
-        if args.output_mode == "ALL":
-            for i, r in enumerate(results):
-                mdir = os.path.join(args.output_dir, "models", str(i))
-                save_game_model(mdir, r.model, index_maps, shard_by_coordinate,
-                                shard_cfgs)
-                saved[str(i)] = mdir
-        bdir = os.path.join(args.output_dir, "best")
-        save_game_model(bdir, best.model, index_maps, shard_by_coordinate,
-                        shard_cfgs)
-        saved["best"] = bdir
-        for shard, im in index_maps.items():
-            idir = os.path.join(args.output_dir, "index", shard)
-            if isinstance(im, MmapIndexMap):
-                # Copy a loaded store so the output directory is a
-                # self-contained scoring input.
-                if not os.path.exists(idir):
-                    shutil.copytree(im.store_dir, idir)
-            else:
-                build_mmap_index(im, idir)
+    from photon_tpu_torch.parallel.distributed import process_index
+
+    # In a process group every rank holds the same model; rank 0 alone
+    # writes the model files, the summary and the metrics.
+    primary = process_index() == 0
+    if primary:
+        with Timed("save models", logger):
+            saved = _save_models(args, results, best, index_maps,
+                                 shard_by_coordinate, shard_cfgs)
 
     for i, r in enumerate(results):
         for rec in r.tracker:
@@ -587,18 +653,20 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger,
     # enums are not JSON-serializable through asdict
     summary = json.loads(json.dumps(
         stamp_failover(summary), default=lambda o: getattr(o, "name", str(o))))
-    with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-    write_metrics_jsonl(
-        os.path.join(args.output_dir, "metrics.jsonl"),
-        (
-            {"config": i, "sweep": rec.sweep, "coordinate": rec.coordinate_id,
-             "seconds": rec.seconds,
-             **(rec.validation.values if rec.validation else {})}
-            for i, r in enumerate(results)
-            for rec in r.tracker
-        ),
-    )
+    if primary:
+        with open(os.path.join(args.output_dir, "training-summary.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=2)
+        write_metrics_jsonl(
+            os.path.join(args.output_dir, "metrics.jsonl"),
+            (
+                {"config": i, "sweep": rec.sweep, "coordinate": rec.coordinate_id,
+                 "seconds": rec.seconds,
+                 **(rec.validation.values if rec.validation else {})}
+                for i, r in enumerate(results)
+                for rec in r.tracker
+            ),
+        )
     logger.info("done; best config %d, evaluation %s", best_i,
                 summary["evaluation"])
     return summary

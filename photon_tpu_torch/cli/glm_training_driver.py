@@ -30,8 +30,10 @@ out-of-core solve recovers in-run from an OOM (half the rows a chunk) and
 from a device loss (``optim/out_of_core.py``). ``--trace-out`` and
 ``--telemetry-dir`` (role ``glm-training``) write the run's trace and
 registry shard as the JAX driver does, also for a failed run.
-``--devices`` other than 1 (the multi-GPU slice, M14) is refused when set,
-and ``--compilation-cache-dir`` for good (the port compiles no XLA
+``--devices N`` (0 = every visible card) streams the out-of-core chunks
+row-sharded over N cards, as the JAX driver does (N must divide the chunk
+rows; the in-core route ignores it, as JAX's does);
+``--compilation-cache-dir`` is refused for good (the port compiles no XLA
 programs).
 
     python -m photon_tpu_torch.cli.glm_training_driver \\
@@ -52,7 +54,6 @@ import numpy as np
 import torch
 
 from photon_tpu_torch.cli.params import (
-    MULTI_GPU_SLICE,
     NO_COMPILED_PROGRAMS,
     add_backend_policy_flag,
     add_telemetry_flag,
@@ -63,6 +64,7 @@ from photon_tpu_torch.cli.params import (
     enable_trace,
     finish_telemetry,
     finish_trace,
+    mesh_from_flags,
     parse_feature_shard,
     refuse_unported,
     stamp_failover,
@@ -104,8 +106,6 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # Flags of the JAX driver the port refuses: (flag, is it set, why). Each is
 # refused when set, never ignored.
 _LATER_SLICES = (
-    ("--devices", lambda a: a.devices != 1,
-     f"streaming over several devices {MULTI_GPU_SLICE}; use 1"),
     ("--compilation-cache-dir", lambda a: a.compilation_cache_dir is not None,
      NO_COMPILED_PROGRAMS),
 )
@@ -168,8 +168,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     add_backend_policy_flag(p)
     add_telemetry_flag(p)
     add_trace_flag(p)
+    p.add_argument("--devices", type=int, default=1,
+                   help="out-of-core route only: stream row chunks sharded "
+                        "over this many devices (0 = all visible, 1 = single "
+                        "device; the device count must divide "
+                        "--row-chunk-rows)")
     # The JAX driver's flags the port refuses (_LATER_SLICES).
-    p.add_argument("--devices", type=int, default=1)
     p.add_argument("--compilation-cache-dir", default=None)
     return p
 
@@ -267,6 +271,17 @@ def _run_out_of_core(args, task, imap, shard_cfg, chunk_rows, device,
         raise ValueError(
             f"out-of-core training supports {flag}={want} only (got {got}); "
             "pass --row-chunk-rows 0 to force in-core")
+    # Chunks stream row-sharded over a data mesh (--devices); the device
+    # count must divide the chunk rows, checked before any decoding.
+    mesh = mesh_from_flags(args.devices, None, device)
+    if mesh is not None:
+        if chunk_rows % mesh.devices.size != 0:
+            raise ValueError(
+                f"--row-chunk-rows {chunk_rows} must be divisible by the "
+                f"{mesh.devices.size}-device data mesh (--devices) for "
+                "row-sharded streaming")
+        logger.info("out-of-core streaming over %d-device data mesh",
+                    mesh.devices.size)
     columns = _columns(args)
     sreader = StreamingAvroReader({SHARD: imap}, {SHARD: shard_cfg}, columns, (),
                                   chunk_rows=chunk_rows, capture_uids=False)
@@ -320,7 +335,8 @@ def _run_out_of_core(args, task, imap, shard_cfg, chunk_rows, device,
                 _problem(args, task, lam), data,
                 progress=lambda it, f, gn, p, lam=lam: logger.info(
                     "λ=%g iter %d: f=%.6g |g|=%.3g passes=%d", lam, it, f, gn, p),
-                checkpoint_path=os.path.join(ck_dir, f"lam_{lam:g}.ckpt"))
+                checkpoint_path=os.path.join(ck_dir, f"lam_{lam:g}.ckpt"),
+                mesh=mesh)
             if val_batch is not None:
                 scores = model.compute_score(val_batch.features, val_batch.offsets)
                 ev = suite.evaluate(scores, val_batch.labels, val_batch.weights)
@@ -354,7 +370,8 @@ def _run_out_of_core(args, task, imap, shard_cfg, chunk_rows, device,
         "value_dtype": str(data.value_dtype).removeprefix("torch."),
         "streamed_gb_per_pass": round(gb_ell, 3),
         "streamed_gb_per_gradient_pass": round(gb_csc, 3),
-        "h2d_bytes": data.h2d_bytes,
+        "h2d_bytes": data.h2d_bytes + sum(
+            view.h2d_bytes for _, view in data.mesh_views.values()),
         "read_seconds": t_read.seconds,
         "fit_seconds": t_fit.seconds,
         "selected_reg_weight": best_lam,
@@ -400,6 +417,10 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
     p = build_arg_parser()
     args = p.parse_args(argv)
     refuse_unported(p, args, _LATER_SLICES)
+    try:
+        mesh_from_flags(args.devices, None, args.device)
+    except ValueError as e:
+        p.error(str(e))
     guard = enable_backend_guard(args)
     enable_telemetry(args, role="glm-training")
     enable_trace(args.trace_out)

@@ -10,9 +10,9 @@ flags (``add_backend_policy_flag``, ``enable_backend_guard``,
 observability flags (``add_trace_flag``, ``enable_trace``,
 ``finish_trace``, ``add_telemetry_flag``, ``enable_telemetry``,
 ``finish_telemetry``, ``add_profile_flag``, ``profiling``,
-``profile_range``) and the one
-table of the JAX drivers' flags that the port refuses
-(``refuse_unported``).
+``profile_range``), the meshes' flags (``mesh_from_flags`` over
+``visible_devices``, ``add_distributed_flags``) and the one table of the
+JAX drivers' flags that the port refuses (``refuse_unported``).
 
 Coordinate spec (one ``--coordinate`` flag per coordinate):
 
@@ -266,8 +266,81 @@ def enable_re_routing(args, output_dir=None) -> None:
             table, ", resuming" if os.path.exists(table) else "")
 
 
+def visible_devices(device="cuda") -> list:
+    """The distinct devices a driver's mesh may take for ``device``: every
+    visible card for ``cuda``, the one CPU for ``cpu``. The drivers read
+    the visible devices through this function alone (a test may patch it
+    to give several CPU devices)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
+def mesh_from_flags(n_devices: int, mesh_spec=None, device="cuda"):
+    """Shared --devices/--mesh handling for the drivers: 0 = all visible
+    devices, 1 = no mesh (None), N = a ``data`` mesh over the first N
+    distinct visible devices; ``mesh_spec`` ("data=4" or "data=2,dcn=2")
+    builds an explicit mesh. Negative counts and over-subscription fail
+    loud, with the JAX package's messages; a ``model`` axis is refused (it
+    comes with the elastic slice)."""
+    from photon_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+
+    devices = visible_devices(device)
+    avail = len(devices)
+    if mesh_spec:
+        axes = {}
+        for item in mesh_spec.split(","):
+            name, sep, size = item.partition("=")
+            if not sep:
+                raise ValueError(f"--mesh items must be axis=size, got {item!r}")
+            axes[name.strip()] = int(size)
+        if DATA_AXIS not in axes:
+            raise ValueError(
+                f"--mesh must include the '{DATA_AXIS}' axis (got {sorted(axes)})"
+            )
+        if "model" in axes:
+            raise NotImplementedError(
+                f"--mesh: the 'model' axis (feature-sharded fixed effects) "
+                f"{ELASTIC_SLICE}")
+        total = 1
+        for s in axes.values():
+            total *= s
+        if total > avail:
+            raise ValueError(f"--mesh needs {total} devices, have {avail}")
+        return make_mesh(axes, devices=devices[:total])
+    if n_devices < 0:
+        raise ValueError(f"--devices must be >= 0, got {n_devices}")
+    n = avail if n_devices == 0 else n_devices
+    if n <= 1:      # no mesh, whatever is visible (a run on no card fails later)
+        return None
+    if n > avail:
+        raise ValueError(f"--devices {n} > {avail} visible devices")
+    return make_mesh({DATA_AXIS: n}, devices=devices[:n])
+
+
+def add_distributed_flags(parser) -> None:
+    """Shared --distributed-policy flag (default: $PHOTON_DISTRIBUTED_POLICY
+    or 'strict'): what to do when the multi-process bring-up
+    (``torch.distributed.init_process_group``) fails. Either way the
+    failure is classified, counted and journaled
+    (``distributed_init_failed``); the policy only decides whether the
+    process dies or goes on single-host."""
+    import os
+
+    parser.add_argument(
+        "--distributed-policy", choices=["strict", "degrade"],
+        default=os.environ.get("PHOTON_DISTRIBUTED_POLICY") or "strict",
+        help="on a failed multi-process bring-up: 'strict' = classified error "
+             "+ exit 2 (a silent 1/N-sized mesh must never masquerade as the "
+             "fleet); 'degrade' = journal the failure and continue "
+             "single-host (default: $PHOTON_DISTRIBUTED_POLICY or strict)")
+
+
 # Why a flag of the JAX drivers is refused: the same words in every driver.
-MULTI_GPU_SLICE = "comes with the multi-GPU slice (M14)"
+ELASTIC_SLICE = "comes with the elastic multi-GPU slice (slice 16)"
 NO_COMPILED_PROGRAMS = (
     "refused for good: the port compiles no XLA programs (its kernels build "
     "once per source into photon_tpu_torch/_build/), so there is nothing to "
@@ -277,7 +350,7 @@ NO_COMPILED_PROGRAMS = (
 def refuse_unported(parser, args, table) -> None:
     """``parser.error`` (exit 2, before any work) for the first flag of
     ``table`` that is set. ``table`` holds ``(flag, is_set(args), why)``:
-    ``why`` is either a later slice's words (``MULTI_GPU_SLICE``, after the
+    ``why`` is either a later slice's words (``ELASTIC_SLICE``, after the
     feature's name) or ``NO_COMPILED_PROGRAMS``. A refused flag is never ignored."""
     for flag, is_set, why in table:
         if is_set(args):

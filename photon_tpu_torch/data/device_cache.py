@@ -29,7 +29,14 @@ counters (summed over every live cache; descent's ``cache.sweep_residency``
 instant reads them), and every upload on a miss is an
 ``ingest.device_put`` span. Each cache also counts its own ``hits``,
 ``misses``, ``uploaded_bytes``, ``resident_bytes`` and ``spilled_bytes``.
-Its mesh placement (M14) is not ported.
+
+Under a mesh (``DeviceSweepCache(mesh=...)``) the budget is per device and
+the cache's total is that times the entity axis's shards (shrunk by the
+run's sticky shard loss: ``effective_devices``). A mirror's buckets are
+padded to the mesh multiple with the solve's inert lanes and pinned
+entity-sharded: each shard's contiguous block of lanes on its device
+(``RandomEffectDataset.shard_pins``), the padded host buckets kept for the
+structure; ``bucket(b)`` puts a bucket's pieces together, device to device.
 """
 from __future__ import annotations
 
@@ -91,7 +98,8 @@ def shed_pins(max_bytes: int) -> int:
 
 
 def default_budget_bytes() -> int:
-    """``PHOTON_SWEEP_CACHE_MB`` (default 2048 MB; 0 disables caching)."""
+    """``PHOTON_SWEEP_CACHE_MB`` (default 2048 MB; 0 disables caching):
+    per device, multiplied by a mesh's entity shards."""
     try:
         mb = float(os.environ.get("PHOTON_SWEEP_CACHE_MB", "2048"))
     except ValueError:
@@ -102,7 +110,8 @@ def default_budget_bytes() -> int:
 class DeviceSweepCache:
     """Budgeted pin of host training data on the device across sweeps."""
 
-    def __init__(self, budget_bytes: Optional[int] = None):
+    def __init__(self, budget_bytes: Optional[int] = None, mesh=None,
+                 entity_axis="data"):
         requested = (default_budget_bytes() if budget_bytes is None
                      else max(0, int(budget_bytes)))
         if requested:
@@ -111,7 +120,16 @@ class DeviceSweepCache:
             )
 
             requested = effective_sweep_budget(requested)
-        self.budget_bytes = requested
+        # Per device; ``budget_bytes`` (the cache's total) is a property so
+        # that a sticky shard loss shrinks it.
+        self._per_device_budget = requested
+        self.mesh = mesh
+        self.entity_axis = entity_axis
+        self.n_devices = 1
+        if mesh is not None:
+            from photon_tpu_torch.parallel.mesh import shard_devices
+
+            self.n_devices = len(shard_devices(mesh, entity_axis))
         # key -> (device value, nbytes, the host object the key's id names:
         # held so that a freed and reused id never aliases a stale entry)
         self._entries: dict = {}
@@ -124,6 +142,22 @@ class DeviceSweepCache:
         self.uploaded_bytes = 0
         self._lock = threading.Lock()
         _LIVE_CACHES.add(self)
+
+    def effective_devices(self) -> int:
+        """The shards the pins spread over now: the mesh's entity axis,
+        shrunk by the run's sticky shard loss (``re.shard``)."""
+        if self.n_devices <= 1:
+            return self.n_devices
+        from photon_tpu_torch.runtime import memory_guard as _mg
+
+        m = int((_mg.sticky_plan("re.shard") or {}).get("shards") or 0)
+        return m if 0 < m < self.n_devices else self.n_devices
+
+    @property
+    def budget_bytes(self) -> int:
+        """The cache's total: the per-device budget times the shards the
+        pins spread over."""
+        return self._per_device_budget * max(1, self.effective_devices())
 
     @property
     def enabled(self) -> bool:
@@ -261,10 +295,13 @@ class DeviceSweepCache:
         with trace_span("ingest.device_put", cat="ingest",
                         bytes=int(nbytes), cached=True,
                         what=f"re_dataset:{dataset.re_type}"):
-            mirror = dataclasses.replace(
-                dataset,
-                buckets=tuple(b.to(dataset.device) for b in dataset.buckets),
-                host_resident=False, lane_layouts={})
+            if self.mesh is not None:
+                mirror = self._mesh_mirror(dataset)
+            else:
+                mirror = dataclasses.replace(
+                    dataset,
+                    buckets=tuple(b.to(dataset.device) for b in dataset.buckets),
+                    host_resident=False, lane_layouts={})
         with self._lock:
             if key not in self._mirrors:
                 self._mirrors[key] = mirror
@@ -272,3 +309,28 @@ class DeviceSweepCache:
                 self._resident(int(nbytes), 1)
                 self.uploaded_bytes += int(nbytes)
             return self._mirrors[key]
+
+    def _mesh_mirror(self, dataset):
+        """``dataset`` with each bucket padded to the mesh multiple and
+        pinned as its shards' pieces, one contiguous block of lanes on each
+        shard's device. The mesh is the run's effective one (after a
+        shard loss the rebuild lands on the survivors)."""
+        from photon_tpu_torch.game.random_effect import (
+            _effective_mesh,
+            _entity_devices,
+            _lanes,
+            _pad_bucket,
+        )
+
+        mesh, axis = _effective_mesh(self.mesh, self.entity_axis)
+        devices = _entity_devices(mesh, axis)
+        n = len(devices)
+        padded = tuple(_pad_bucket(b, n, dataset.n_rows, dataset.global_dim)
+                       for b in dataset.buckets)
+        pins = []
+        for b in padded:
+            per = b.n_entities // n
+            pins.append(tuple(_lanes(b, i * per, (i + 1) * per, d)
+                              for i, d in enumerate(devices)))
+        return dataclasses.replace(dataset, buckets=padded, host_resident=True,
+                                   shard_pins=tuple(pins), lane_layouts={})

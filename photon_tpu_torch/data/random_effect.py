@@ -141,15 +141,27 @@ class RandomEffectDataset:
     # (each training step's), its keys' objects held by the entry.
     projection_plans: dict = dataclasses.field(default_factory=dict,
                                                compare=False, repr=False)
+    # A mesh-attached sweep cache's mirror (data/device_cache.py): per
+    # bucket, its entity-sharded pieces pinned on the shards' devices
+    # (``buckets`` then holds the padded host buckets, for structure).
+    shard_pins: Optional[tuple] = dataclasses.field(default=None, compare=False,
+                                                     repr=False)
 
     @property
     def n_entities(self) -> int:
         return len(self.entity_keys)
 
     def bucket(self, b: int) -> EntityBucket:
-        """Bucket ``b`` on the dataset's device: the bucket itself, or for a
-        host-resident dataset a fresh upload (counted in ``UPLOADS``)."""
+        """Bucket ``b`` on the dataset's device: the bucket itself, for a
+        host-resident dataset a fresh upload (counted in ``UPLOADS``), for
+        a mesh mirror its pinned pieces put together (device to device)."""
         bucket = self.buckets[b]
+        if self.shard_pins is not None:
+            pieces = self.shard_pins[b]
+            return EntityBucket(**{
+                f.name: torch.cat([getattr(p, f.name).to(self.device)
+                                   for p in pieces])
+                for f in dataclasses.fields(EntityBucket)})
         if not self.host_resident:
             return bucket
         UPLOADS["buckets"] += 1

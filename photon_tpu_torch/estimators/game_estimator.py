@@ -1,7 +1,7 @@
 """GameEstimator: GAME fit over a configuration sweep, and the dataset
 preparation it shares with the transformer.
 
-Port of ``photon_tpu/estimators/game_estimator.py`` on one device:
+Port of ``photon_tpu/estimators/game_estimator.py``:
 per-coordinate datasets (fixed-effect batches with their accelerator
 layouts, bucketed random-effect datasets) are built once and shared by every
 configuration of the sweep; each configuration runs coordinate descent,
@@ -20,6 +20,13 @@ Host-resident random-effect datasets are pinned on the device by one
 random effect (``FactoredRandomEffectDataConfig``) trains on a plain random
 effect's dataset; it refuses incremental training, down-sampling,
 variances and normalization, as in the JAX package.
+
+With a ``mesh`` (``parallel/mesh.py``) fixed effects train data-parallel
+over its ``data_axis`` (the batch cut into row shards once, each with its
+own layouts) and random effects entity-sharded over it, the sweep cache
+pinning per device; a factored random effect trains on one device, as in
+the JAX package. A mesh with a ``model`` axis (feature-sharded fixed
+effects) is refused: it comes with the elastic slice.
 """
 from __future__ import annotations
 
@@ -148,11 +155,20 @@ class GameEstimator:
     intercept_indices: Optional[Mapping[str, int]] = None
     # Device sweep cache budget in MB for host-resident random-effect data
     # (data/device_cache.py); None = PHOTON_SWEEP_CACHE_MB (default 2048),
-    # 0 disables.
+    # 0 disables. Per device under a mesh.
     sweep_cache_mb: Optional[float] = None
     seed: int = 0
+    # A device mesh (parallel/mesh.py): fixed effects data-parallel and
+    # random effects entity-sharded over ``data_axis``.
+    mesh: Optional[object] = None
+    data_axis: object = "data"
 
     def __post_init__(self):
+        if self.mesh is not None and "model" in self.mesh.axis_names:
+            raise NotImplementedError(
+                "a mesh with a 'model' axis (feature-sharded fixed effects, "
+                "parallel/model_parallel.py) comes with the elastic slice "
+                "(slice 16)")
         if self.update_sequence is None:
             self.update_sequence = tuple(self.coordinate_data_configs)
         for cid in self.update_sequence:
@@ -341,7 +357,8 @@ class GameEstimator:
         from photon_tpu_torch.data.device_cache import DeviceSweepCache
 
         cache = DeviceSweepCache(None if self.sweep_cache_mb is None
-                                 else int(self.sweep_cache_mb * 1e6))
+                                 else int(self.sweep_cache_mb * 1e6),
+                                 mesh=self.mesh, entity_axis=self.data_axis)
         return {"batches": batches, "norm": norm, "datasets": datasets,
                 "prior_proj": {}, "accel_cache": accel_cache,
                 "device_cache": cache}
@@ -396,10 +413,15 @@ class GameEstimator:
                 if sampler is not None:
                     batch = sampler.down_sample(key, batch)
                 coordinates[cid] = FixedEffectCoordinate(
-                    batch=batch.with_accelerator_paths(accel_cache),
+                    # Under a mesh the shards build their own layouts; the
+                    # whole batch only scores (ell_matvec needs none).
+                    batch=(batch.with_accelerator_paths(accel_cache)
+                           if self.mesh is None else batch),
                     problem=problem,
                     feature_shard=dcfg.feature_shard,
                     normalization=norm,
+                    mesh=self.mesh,
+                    data_axis=self.data_axis,
                 )
             elif isinstance(dcfg, FactoredRandomEffectDataConfig):
                 # Options the factored solve does not take fail loudly
@@ -456,6 +478,8 @@ class GameEstimator:
                     # and streams per sweep.
                     device_cache=(prep["device_cache"] if sampler is None
                                   else None),
+                    mesh=self.mesh,
+                    entity_axis=self.data_axis,
                 )
         return coordinates
 

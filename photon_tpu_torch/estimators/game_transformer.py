@@ -1,7 +1,6 @@
 """GameTransformer: score a dataset with a trained GameModel.
 
-Port of ``photon_tpu/estimators/game_transformer.py`` without a mesh:
-``transform``, ``transform_rows``, ``transform_and_evaluate``,
+Port of ``photon_tpu/estimators/game_transformer.py``: ``transform``, ``transform_rows``, ``transform_and_evaluate``,
 ``evaluate_scored_arrays`` and the row-level scoring program
 ``additive_score_rows`` that ``transform_rows`` and the online scorer
 (``photon_tpu_torch/serving``) share. Per coordinate, the data is scored and
@@ -13,6 +12,11 @@ Fixed-effect scoring is one sparse matvec on the whole batch — on CUDA the
 where the layout does not pay). Random-effect scoring projects the trained
 per-entity coefficients into the scoring dataset's bucket structure on the
 host, then scores each bucket with one batched gather-dot.
+
+With a ``mesh``, fixed-effect scoring shards the features alone (the row
+columns are never read) over ``data_axis``: a matvec a shard on its device
+(each shard's own matvec layout), the rows gathered in order and the
+padding dropped.
 
 ``additive_score_rows`` scores padded rows instead: each fixed part is one
 ``ell_matvec`` (the kernel on CUDA), each random-effect part a batched
@@ -106,6 +110,8 @@ class GameTransformer:
     model: GameModel
     coordinate_data_configs: Mapping[str, CoordinateDataConfig]
     intercept_indices: Optional[Mapping[str, int]] = None
+    mesh: Optional[object] = None
+    data_axis: object = "data"
 
     def _intercept_for(self, shard: str) -> Optional[int]:
         if self.intercept_indices is None:
@@ -113,6 +119,13 @@ class GameTransformer:
         return self.intercept_indices.get(shard)
 
     def _score_fixed(self, m: FixedEffectModel, batch) -> Tensor:
+        if self.mesh is not None:
+            from photon_tpu_torch.parallel.mesh import pad_and_shard_batch
+
+            feats = pad_and_shard_batch(batch.features, self.mesh,
+                                        self.data_axis, layouts="matvec")
+            return feats.matvec(m.model.coefficients.means).to(
+                batch.features.device)
         # Scoring runs one matvec, so only its layout attaches: on CUDA the
         # panel layout of ell_panel_matvec (see SparseFeatures). The
         # transposes' CSC layout is for training.

@@ -225,20 +225,26 @@ class GLMOptimizationProblem:
         return model, result
 
     def _variances(self, obj: GLMObjective, w: Tensor, batch: LabeledBatch,
-                   norm=None) -> Optional[Tensor]:
+                   norm=None, curvature=None) -> Optional[Tensor]:
         """NONE, SIMPLE (1 / diag H) or FULL (diag H⁻¹) at ``w`` (``[D]``,
         or ``[E, P]`` over lanes). Under normalization the trained L2 term
         λ‖w'‖² is λ/f² per original-space coefficient, and that effective
-        penalty enters the curvature."""
+        penalty enters the curvature. ``curvature`` = ``(hessian_diagonal,
+        hvp_at)`` of the objective without its L2 term (default: ``obj``'s
+        over ``batch``; the sharded objective passes its folded ones)."""
         if self.variance_type == VarianceComputationType.NONE:
             return None
-        data_obj = dataclasses.replace(obj, l2_weight=0.0)
+        if curvature is None:
+            data_obj = dataclasses.replace(obj, l2_weight=0.0)
+            curvature = (lambda x: data_obj.hessian_diagonal(x, batch),
+                         data_obj.bind_hvp_at(batch))
+        hess_diag, hvp_at = curvature
         lam = obj._l2_vec(w)
         if norm is not None and norm.factors is not None:
             f, _ = norm._effective()
             lam = lam / (f * f)
         if self.variance_type == VarianceComputationType.SIMPLE:
-            diag = data_obj.hessian_diagonal(w, batch) + lam
+            diag = hess_diag(w) + lam
             return 1.0 / torch.clamp(diag, min=1e-12)
         # FULL: H column by column through H·v products, then invert. Only
         # for moderate D: refuse a Hessian that could not fit.
@@ -253,7 +259,7 @@ class GLMOptimizationProblem:
                 "VarianceComputationType.SIMPLE for wide models"
             )
         eye = torch.eye(d, dtype=w.dtype, device=w.device)
-        hv = data_obj.bind_hvp_at(batch)(w)
+        hv = hvp_at(w)
         # h[..., i, :] = H·e_i (every lane at once over lanes)
         h = torch.stack([hv(eye[i].expand_as(w).contiguous()) for i in range(d)],
                         dim=-2)

@@ -2,8 +2,12 @@
 
 Port of ``photon_tpu/game/coordinates.py``: ``FixedEffectModel``, the
 trainable ``FixedEffectCoordinate``, ``RandomEffectCoordinate`` (with the
-device sweep cache's hook) and ``FactoredRandomEffectCoordinate``, on one
-device (no mesh, no feature-sharded model axis). A coordinate owns its
+device sweep cache's hook) and ``FactoredRandomEffectCoordinate``. With a
+``mesh`` the fixed effect trains data-parallel (``parallel/data_parallel``:
+its batch cut into row shards once, the offsets re-cut each step) and the
+random effect entity-sharded; the factored random effect trains on one
+device, as in the JAX package. The feature-sharded model axis comes with
+the elastic slice. A coordinate owns its
 training data, its problem and its shard's normalization context (None
 without one) and exposes ``train(offsets, init) -> (model, result)`` and
 ``score(model) -> [N]``; offsets are per-row tensors in the global sample
@@ -57,6 +61,8 @@ class FixedEffectCoordinate:
     problem: GLMOptimizationProblem
     feature_shard: str = "global"
     normalization: Optional[NormalizationContext] = None
+    mesh: Optional[object] = None
+    data_axis: object = "data"
 
     def train(
         self, offsets: Tensor, init: Optional[FixedEffectModel] = None
@@ -70,8 +76,19 @@ class FixedEffectCoordinate:
         with trace_span("optim.fixed_solve", cat="optim",
                         shard=self.feature_shard, rows=batch.n_rows,
                         dim=batch.dim) as sp:
-            model, result = self.problem.fit(batch, w0,
-                                             normalization=self.normalization)
+            if self.mesh is not None:
+                from photon_tpu_torch.parallel.data_parallel import (
+                    fit_data_parallel,
+                )
+                from photon_tpu_torch.parallel.mesh import cached_row_shards
+
+                shards = cached_row_shards(self.batch, self.mesh, self.data_axis)
+                model, result = fit_data_parallel(
+                    self.problem, shards.with_offsets(batch.offsets), w0,
+                    self.mesh, self.data_axis, normalization=self.normalization)
+            else:
+                model, result = self.problem.fit(
+                    batch, w0, normalization=self.normalization)
             if tracing_active():
                 # A single solve's iterations and reason are host scalars
                 # already: the span adds no fetch.
@@ -100,6 +117,8 @@ class RandomEffectCoordinate:
     # score) stop uploading it bucket by bucket. Its mirror is the same
     # object every sweep, so _same_structure keeps holding.
     device_cache: Optional[object] = None
+    mesh: Optional[object] = None
+    entity_axis: object = "data"
 
     def _data(self) -> RandomEffectDataset:
         """The dataset every train and score reads: the cache's device
@@ -136,6 +155,8 @@ class RandomEffectCoordinate:
             init_coefs=self._init_coefs(init),
             normalization=self.normalization,
             priors=self.priors,
+            mesh=self.mesh,
+            entity_axis=self.entity_axis,
         )
 
     def score(self, model: RandomEffectModel) -> Tensor:

@@ -166,9 +166,11 @@ def _bucket_shape(bucket) -> tuple[int, int, int, float]:
     return int(e), int(s), int(bucket.local_dim), float(bucket.val.element_size())
 
 
-def newton_eligible(problem, bucket, normalization) -> bool:
+def newton_eligible(problem, bucket, normalization, shards: int = 1) -> bool:
     """True when this bucket's solve may take the PRIMAL dense-Newton path
-    on the whole bucket at once."""
+    on the whole bucket at once. ``shards`` (the entity axis of a mesh)
+    prices the per-device slice, E/shards lanes: a mesh widens what Newton
+    admits."""
     if os.environ.get("PHOTON_RE_NEWTON", "") == "dual":
         return False  # test/debug override: route to the dual path
     if not _smooth_ok(problem, normalization):
@@ -176,19 +178,24 @@ def newton_eligible(problem, bucket, normalization) -> bool:
     e, s, p, esize = _bucket_shape(bucket)
     if p > NEWTON_MAX_P:
         return False
-    return _primal_need_bytes(e, s, p, esize) <= _budget_bytes()
+    e_dev = -(-e // max(1, shards))
+    return _primal_need_bytes(e_dev, s, p, esize) <= _budget_bytes()
 
 
-def _largest_fitting_chunk(need_at: Callable[[int], float], e: int):
+def _largest_fitting_chunk(need_at: Callable[[int], float], e: int,
+                           multiple_of: int = 1):
     """Best blessed chunk size for an E-entity bucket, or None when even the
     smallest ladder size busts the budget: the largest budget-fitting size
     whose padded lanes ``ceil(E/C)*C`` stay within 12.5% of E; if none
-    qualifies, the size with the fewest padded lanes."""
+    qualifies, the size with the fewest padded lanes. ``multiple_of`` (the
+    entity axis of a mesh) keeps only sizes that shard evenly."""
     budget = _budget_bytes()
     fitting = []
     for c in chunk_ladder():
         if need_at(c) > budget:
             break  # ladder is sorted: larger sizes only need more
+        if c % multiple_of:
+            continue
         fitting.append(c)
         if c >= e:
             break  # larger sizes only add padding
@@ -200,8 +207,11 @@ def _largest_fitting_chunk(need_at: Callable[[int], float], e: int):
     return min(fitting, key=lambda c: (-(-e // c) * c, -c))
 
 
-def newton_chunk_size(problem, bucket, normalization, max_p: int = NEWTON_MAX_P):
-    """Blessed chunk size for an entity-sub-batched PRIMAL solve, or None."""
+def newton_chunk_size(problem, bucket, normalization, max_p: int = NEWTON_MAX_P,
+                      shards: int = 1):
+    """Blessed chunk size for an entity-sub-batched PRIMAL solve, or None.
+    ``shards`` > 1 prices each chunk's per-device slice and keeps the
+    mesh-divisible sizes."""
     if os.environ.get("PHOTON_RE_NEWTON", "") == "dual":
         return None
     if not _smooth_ok(problem, normalization):
@@ -209,7 +219,9 @@ def newton_chunk_size(problem, bucket, normalization, max_p: int = NEWTON_MAX_P)
     e, s, p, esize = _bucket_shape(bucket)
     if p > max_p:
         return None
-    return _largest_fitting_chunk(lambda c: _primal_need_bytes(c, s, p, esize), e)
+    sh = max(1, shards)
+    return _largest_fitting_chunk(
+        lambda c: _primal_need_bytes(-(-c // sh), s, p, esize), e, multiple_of=sh)
 
 
 def dual_precheck(problem, bucket, normalization) -> bool:
@@ -225,26 +237,32 @@ def dual_precheck(problem, bucket, normalization) -> bool:
     return s < p and s <= DUAL_MAX_T
 
 
-def dual_eligible(problem, bucket, normalization, u_max: int) -> bool:
+def dual_eligible(problem, bucket, normalization, u_max: int,
+                  shards: int = 1) -> bool:
     """True when this bucket may take the span-reduced Newton path on the
-    whole bucket at once."""
+    whole bucket at once; ``shards`` prices the per-device slice."""
     if not dual_precheck(problem, bucket, normalization):
         return False
     e, s, p, esize = _bucket_shape(bucket)
     if s + u_max > DUAL_MAX_T:
         return False
-    return _dual_need_bytes(e, s, p, u_max, esize) <= _budget_bytes()
+    e_dev = -(-e // max(1, shards))
+    return _dual_need_bytes(e_dev, s, p, u_max, esize) <= _budget_bytes()
 
 
-def dual_chunk_size(problem, bucket, normalization, u_max: int):
-    """Blessed chunk size for an entity-sub-batched DUAL solve, or None."""
+def dual_chunk_size(problem, bucket, normalization, u_max: int,
+                    shards: int = 1):
+    """Blessed chunk size for an entity-sub-batched DUAL solve, or None
+    (``shards`` as in ``newton_chunk_size``)."""
     if not dual_precheck(problem, bucket, normalization):
         return None
     e, s, p, esize = _bucket_shape(bucket)
     if s + u_max > DUAL_MAX_T:
         return None
+    sh = max(1, shards)
     return _largest_fitting_chunk(
-        lambda c: _dual_need_bytes(c, s, p, u_max, esize), e)
+        lambda c: _dual_need_bytes(-(-c // sh), s, p, u_max, esize), e,
+        multiple_of=sh)
 
 
 def _dense_design(batches: LabeledBatch, dtype: torch.dtype):

@@ -68,13 +68,16 @@ def _device_tag(device) -> str:
     return device.type
 
 
-def shape_class(bucket) -> str:
+def shape_class(bucket, shards: int = 1) -> str:
     """Cost-table key of a bucket: backend and card, then rows per entity
-    S, ELL width K, local dim P and dtype."""
+    S, ELL width K, local dim P and dtype. ``shards`` (the entity axis of a
+    mesh) adds a ``@devN`` suffix: a cost measured over N shards is never
+    read by a run over another count."""
     _, s, k = bucket.idx.shape
     dtype = str(bucket.val.dtype).removeprefix("torch.")
-    return (f"torch/{_device_tag(bucket.val.device)}/"
-            f"s{s}k{k}p{bucket.local_dim}:{dtype}")
+    key = (f"torch/{_device_tag(bucket.val.device)}/"
+           f"s{s}k{k}p{bucket.local_dim}:{dtype}")
+    return key if shards <= 1 else f"{key}@dev{shards}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,27 +221,33 @@ def merge_host_tables(paths, out_path: str) -> SolverCostTable:
     return merged
 
 
-def candidates_for(problem, bucket, normalization, u_max: int) -> list:
+def candidates_for(problem, bucket, normalization, u_max: int,
+                   shards: int = 1) -> list:
     """Feasible chunked candidates for this bucket, Newton variants first.
 
     The primal candidate is admitted up to ``NEWTON_CHUNK_MAX_P``, wider
     than the static gate: the race decides there. The vmapped baseline is
     raced whenever a Newton variant is. ``u_max`` < 0 means the dual
-    precheck refused the bucket.
+    precheck refused the bucket. ``shards`` > 1 keeps mesh-divisible chunks
+    and prices each one's per-device slice.
     """
     out = []
     c = newton_re.newton_chunk_size(problem, bucket, normalization,
-                                    max_p=newton_re.NEWTON_CHUNK_MAX_P)
+                                    max_p=newton_re.NEWTON_CHUNK_MAX_P,
+                                    shards=shards)
     if c:
         out.append(Candidate("newton_primal", c))
-    c = (newton_re.dual_chunk_size(problem, bucket, normalization, u_max)
+    c = (newton_re.dual_chunk_size(problem, bucket, normalization, u_max,
+                                   shards=shards)
          if u_max >= 0 else None)
     if c:
         out.append(Candidate("newton_dual", c))
     if out:
+        cap = VMAPPED_CHUNK_CAP
+        if shards > 1:
+            cap = max(shards, cap - cap % shards)
         out.append(Candidate(
-            "vmapped_lbfgs",
-            min(max(cand.chunk for cand in out), VMAPPED_CHUNK_CAP)))
+            "vmapped_lbfgs", min(max(cand.chunk for cand in out), cap)))
     return out
 
 
@@ -269,19 +278,23 @@ def solve_measured(
     fit_for: Callable[[str], Callable],
     sync: Callable[[], None],
     table: Optional[SolverCostTable] = None,
+    shards: int = 1,
 ):
     """Route one bucket through the measured cost table.
 
     ``fit_for(solver) -> fit_one(batches, w0, mask, prior, lo=0)`` gives
     each solver's closure (``lo`` is the chunk's first lane, for the
-    vmapped lanes' layout); ``sync()`` waits for the device.
+    vmapped lanes' layout); ``sync()`` waits for the device. Under a mesh
+    the closures run each chunk entity-sharded over ``shards`` devices,
+    so a probe times the sharded dispatch the solve uses, and its cost
+    lands under the ``@devN`` key.
 
     Returns ``(model, result, info)``, ``info`` =
     ``{solver, chunk, routing, calibration_seconds, calibrated}``.
     """
     table = table if table is not None else process_table()
-    key = shape_class(bucket)
-    cands = candidates_for(problem, bucket, normalization, u_max)
+    key = shape_class(bucket, shards)
+    cands = candidates_for(problem, bucket, normalization, u_max, shards)
     info = {"routing": "measured", "calibration_seconds": 0.0,
             "calibrated": False}
 

@@ -57,8 +57,17 @@ they retry, so the failed attempt's tensors are freed first.
 
 Trace: the JAX module's spans (``optim.stream_init_pass``,
 ``optim.ooc_scores_chunk``, ``optim.ooc_probe``, ``optim.ooc_grad_chunk``
-and the feed's ``ingest.device_put``), each closed on dispatch. Not ported:
-meshes (``_kernels_for_spmd``, ``_mesh_puts``: the multi-GPU slice, M14).
+and the feed's ``ingest.device_put``), each closed on dispatch.
+
+Under a mesh (``run_out_of_core(mesh=...)``, the JAX module's
+``_kernels_for_spmd`` and ``_mesh_puts``) each host chunk is cut into one
+row block a shard of ``data_axis`` (``ChunkedGLMData.sharded``: each block
+its own ELL and CSC, built once on the host), a pass copies every block to
+its shard's device and runs the kernels there, and each chunk's partial
+value and gradient are folded in shard order (``parallel/mesh.fold``)
+before the chunks are summed: the per-chunk ``psum`` of the JAX solver.
+The margins stay on their shards; ``chunk_rows`` must divide over the
+shards, as in JAX.
 """
 from __future__ import annotations
 
@@ -171,6 +180,16 @@ class ChunkedGLMData:
     dtype: torch.dtype = torch.float32
     # host -> device bytes the passes over this dataset have copied
     h2d_bytes: int = 0
+    # A mesh's view (``sharded``): each chunk's device, the consecutive
+    # chunks that make one chunk of ``source`` (its shards' blocks), and
+    # the mesh and axis it was cut for. None / 1 without a mesh.
+    devices: Optional[list] = None
+    group: int = 1
+    source: Optional["ChunkedGLMData"] = None
+    mesh: Optional[object] = None
+    data_axis: object = "data"
+    # (mesh id, axis) -> (mesh, its view): views cut once per dataset
+    mesh_views: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def from_arrays(
@@ -312,10 +331,60 @@ class ChunkedGLMData:
             raise ValueError("no rows streamed")
         return out
 
+    def chunk_device(self, i: int) -> torch.device:
+        return self.device if self.devices is None else self.devices[i]
+
+    def sharded(self, mesh, data_axis="data") -> "ChunkedGLMData":
+        """This dataset cut for ``mesh``: every chunk split into one
+        contiguous row block a shard of ``data_axis`` (this process's
+        shards, where the axis spans processes), each block a chunk of its
+        own (ELL and CSC built on the host) whose rows live on its shard's
+        device. Cut once per (mesh, axis)."""
+        from photon_tpu_torch.parallel.mesh import (
+            axes_size,
+            shard_devices,
+            spans_processes,
+        )
+
+        key = (id(mesh), data_axis)
+        hit = self.mesh_views.get(key)
+        if hit is not None and hit[0] is mesh:
+            return hit[1]
+        total = axes_size(mesh, data_axis)
+        if self.chunk_rows % total:
+            raise ValueError(
+                f"chunk_rows={self.chunk_rows} must divide evenly over "
+                f"mesh axis {data_axis!r} ({total} devices) for row-sharded "
+                "streaming")
+        devs = shard_devices(mesh, data_axis)
+        r = self.chunk_rows // total
+        first = mesh.rank * len(devs) if spans_processes(mesh, data_axis) else 0
+        out = ChunkedGLMData(chunks=[], labels=[], offsets=[], weights=[],
+                             dim=self.dim, n_rows=self.n_rows, chunk_rows=r,
+                             device=devs[0], dtype=self.dtype, devices=[],
+                             group=len(devs), source=self, mesh=mesh,
+                             data_axis=data_axis)
+        for i, c in enumerate(self.chunks):
+            for s, dev in enumerate(devs):
+                lo, hi = (first + s) * r, (first + s + 1) * r
+                out.chunks.append(_make_chunk(
+                    c.idx[lo:hi].numpy(), c.val[lo:hi].contiguous(), self.dim,
+                    dev.type == "cuda"))
+                for src, dst in ((self.labels, out.labels),
+                                 (self.offsets, out.offsets),
+                                 (self.weights, out.weights)):
+                    dst.append(src[i][lo:hi].to(dev).contiguous())
+                out.devices.append(dev)
+        self.mesh_views[key] = (mesh, out)
+        return out
+
     def rechunk(self, factor: int = 2) -> "ChunkedGLMData":
         """The same dataset cut at ``ceil(chunk_rows / factor)`` rows a
         chunk, the padding rows weight 0 as before (each piece builds its
-        CSC anew). Raises ValueError when no smaller cut exists."""
+        CSC anew). Raises ValueError when no smaller cut exists. A mesh's
+        view re-cuts its source and shards that again."""
+        if self.source is not None:
+            return self.source.rechunk(factor).sharded(self.mesh, self.data_axis)
         if factor < 2:
             raise ValueError(f"rechunk factor must be >= 2, got {factor}")
         new_rows = -(-self.chunk_rows // factor)
@@ -360,10 +429,10 @@ class ChunkedGLMData:
         raise ValueError(f"layout must be 'ell' or 'csc', got {layout!r}")
 
     def labels_np(self) -> np.ndarray:
-        return torch.cat(self.labels).cpu().numpy()[: self.n_rows]
+        return torch.cat([t.cpu() for t in self.labels]).numpy()[: self.n_rows]
 
     def weights_np(self) -> np.ndarray:
-        return torch.cat(self.weights).cpu().numpy()[: self.n_rows]
+        return torch.cat([t.cpu() for t in self.weights]).numpy()[: self.n_rows]
 
 
 # ----------------------------------------------------------------- feeding
@@ -385,47 +454,57 @@ class _Feeder:
         self.cache = cache
         self.counter = counter          # an object with an ``h2d_bytes`` count
         self.traced = traced
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.streams: dict = {}
         self.bytes = 0
 
-    def _copy(self, tensors: tuple) -> tuple:
-        with torch.cuda.stream(self.stream):
-            out = tuple(t.to(self.device, non_blocking=True) for t in tensors)
+    def _stream(self, device: torch.device):
+        """The copy stream of ``device`` (None on the CPU)."""
+        if device.type != "cuda":
+            return None
+        if device not in self.streams:
+            self.streams[device] = torch.cuda.Stream(device)
+        return self.streams[device]
+
+    def _copy(self, tensors: tuple, device: torch.device) -> tuple:
+        with torch.cuda.stream(self._stream(device)):
+            out = tuple(t.to(device, non_blocking=True) for t in tensors)
         n = _nbytes(*tensors)
         self.bytes += n
         if self.counter is not None:
             self.counter.h2d_bytes += n
         return out
 
-    def _put(self, c: HostChunk, layout: str):
+    def _put(self, c: HostChunk, layout: str, device: torch.device):
         if layout == "ell":
             key, host = ("ooc_ell", id(c.idx)), (c.idx, c.val)
         else:
             s = c.csc
             key, host = ("ooc_csc", id(s.rows)), (s.colptr, s.rows, s.vals, s.tiles,
                                                   s.splits)
-        if self.stream is not None and self.cache is not None and self.cache.enabled:
+        if (device.type == "cuda" and self.cache is not None
+                and self.cache.enabled):
             # A cached entry is complete on the device: waiting on the copy
             # stream once more is harmless.
             got = self.cache.get_or_put(key, _nbytes(*host),
-                                        lambda: self._copy(host), retain=host[0])
+                                        lambda: self._copy(host, device),
+                                        retain=host[0])
             return got, True
         if not self.traced:
-            return self._put_uncached(host)
+            return self._put_uncached(host, device)
         with trace_span("ingest.device_put", cat="ingest",
                         bytes=_nbytes(*host), cached=False):
-            return self._put_uncached(host)
+            return self._put_uncached(host, device)
 
-    def _put_uncached(self, host: tuple):
-        if self.stream is None:
+    def _put_uncached(self, host: tuple, device: torch.device):
+        if device.type != "cuda":
             return host, False
-        return self._copy(host), True
+        return self._copy(host, device), True
 
-    def _ready(self, item, c: HostChunk, layout: str):
+    def _ready(self, item, c: HostChunk, layout: str, device: torch.device):
         tensors, copied = item
         if copied:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_stream(self.stream)
+            cur = torch.cuda.current_stream(device)
+            cur.wait_stream(self._stream(device))
             for t in tensors:
                 t.record_stream(cur)
         if layout == "ell":
@@ -435,19 +514,22 @@ class _Feeder:
                                    tiles=tiles, splits=splits)
 
     def one(self, c: HostChunk, layout: str):
-        return self._ready(self._put(c, layout), c, layout)
+        return self._ready(self._put(c, layout, self.device), c, layout,
+                           self.device)
 
-    def stream_pass(self, chunks, layout: str):
-        """Each chunk's ``layout`` on the device, in order, chunk i+1's
-        copies issued before chunk i is handed over."""
+    def stream_pass(self, chunks, layout: str, devices=None):
+        """Each chunk's ``layout`` on its device (``devices[i]``, default
+        the feeder's), in order, chunk i+1's copies issued before chunk i
+        is handed over."""
         pending = None
-        for c in chunks:
-            item = (self._put(c, layout), c)
+        for i, c in enumerate(chunks):
+            dev = self.device if devices is None else devices[i]
+            item = (self._put(c, layout, dev), c, dev)
             if pending is not None:
-                yield self._ready(pending[0], pending[1], layout)
+                yield self._ready(pending[0], pending[1], layout, pending[2])
             pending = item
         if pending is not None:
-            yield self._ready(pending[0], pending[1], layout)
+            yield self._ready(pending[0], pending[1], layout, pending[2])
 
 
 # ----------------------------------------------------------- chunk kernels
@@ -587,6 +669,10 @@ class OutOfCoreLBFGS:
     checkpoint_path: Optional[str] = None
     checkpoint_min_interval_s: float = 60.0
     device_cache: Optional[object] = None
+    # A device mesh: the chunks stream row-sharded over ``data_axis``
+    # (``ChunkedGLMData.sharded``), results on its first shard's device.
+    mesh: Optional[object] = None
+    data_axis: object = "data"
 
     # -- shared scaffolding ------------------------------------------------
 
@@ -597,43 +683,77 @@ class OutOfCoreLBFGS:
         labels, offsets, weights = data.labels, data.offsets, data.weights
         feeder = _Feeder(data.device, self.device_cache, counter=data,
                          traced=True)
+        devices = data.devices
+        group = data.group
+        if group > 1:
+            from photon_tpu_torch.parallel.mesh import fold, replicate
+
+            def combine(parts):
+                """A chunk's shard partials, folded in shard order: the
+                JAX solver's per-chunk psum."""
+                return fold(parts, data.mesh, data.data_axis, data.device)
+        else:
+            def combine(parts):
+                return parts[0]
+
+        def groups(parts):
+            return [combine(parts[i:i + group])
+                    for i in range(0, len(parts), group)]
+
+        def on_devices(v: Tensor) -> list:
+            if devices is None:
+                return [v] * data.n_chunks
+            return replicate(v, devices)
 
         # Per-chunk compute spans (cat "optim") cover only the kernels: the
         # feed is pulled from the generator before the span opens. Spans
         # close on dispatch, as in the JAX package.
         def stream_scores(wv: Tensor, with_offsets: bool = True) -> list:
-            zero = torch.zeros_like(offsets[0])
+            ws = on_devices(wv)
+            zeros: dict = {}
             out = []
-            for i, ell in enumerate(feeder.stream_pass(data.chunks, "ell")):
+            for i, ell in enumerate(feeder.stream_pass(data.chunks, "ell",
+                                                       devices)):
                 # Chaos hook: error="device_oom" per streamed chunk drives
                 # the halve-chunk_rows ladder of optimize().
                 fault_point("optim.ooc_chunk", chunk_rows=data.chunk_rows)
                 with trace_span("optim.ooc_scores_chunk", cat="optim",
                                 chunk=i):
-                    out.append(_chunk_matvec(
-                        wv, ell, offsets[i] if with_offsets else zero, dim))
+                    off = offsets[i]
+                    if not with_offsets:
+                        if off.device not in zeros:
+                            zeros[off.device] = torch.zeros_like(off)
+                        off = zeros[off.device]
+                    out.append(_chunk_matvec(ws[i], ell, off, dim))
             return out
 
         def data_value(z_chunks) -> Tensor:
             with trace_span("optim.ooc_probe", cat="optim",
                             chunks=len(z_chunks)):
-                return sum(_chunk_value(loss, z, labels[i], weights[i])
-                           for i, z in enumerate(z_chunks))
+                return sum(groups([_chunk_value(loss, z, labels[i], weights[i])
+                                   for i, z in enumerate(z_chunks)]))
 
         def data_value_at_t(z_chunks, zd_chunks, t: float) -> Tensor:
             with trace_span("optim.ooc_probe", cat="optim",
                             chunks=len(z_chunks)):
-                return sum(_chunk_value(loss, z + t * zd, labels[i], weights[i])
-                           for i, (z, zd) in enumerate(zip(z_chunks, zd_chunks)))
+                return sum(groups([
+                    _chunk_value(loss, z + t * zd, labels[i], weights[i])
+                    for i, (z, zd) in enumerate(zip(z_chunks, zd_chunks))]))
 
         def stream_grad(z_chunks):
             f = torch.zeros((), dtype=data.dtype, device=data.device)
             g = torch.zeros(dim, dtype=data.dtype, device=data.device)
-            for i, csc in enumerate(feeder.stream_pass(data.chunks, "csc")):
+            fs, gs = [], []
+            for i, csc in enumerate(feeder.stream_pass(data.chunks, "csc",
+                                                       devices)):
                 with trace_span("optim.ooc_grad_chunk", cat="optim", chunk=i):
                     fc, gc = _chunk_grad(loss, z_chunks[i], labels[i],
                                          weights[i], csc)
-                    f, g = f + fc, g + gc
+                    fs.append(fc)
+                    gs.append(gc)
+                    if len(fs) == group:
+                        f, g = f + combine(fs), g + combine(gs)
+                        fs, gs = [], []
             return f, g
 
         return stream_scores, data_value, data_value_at_t, stream_grad
@@ -696,11 +816,12 @@ class OutOfCoreLBFGS:
 
     @staticmethod
     def _restore(state: dict, data: ChunkedGLMData) -> dict:
-        def t(a):
-            return torch.from_numpy(np.array(a)).to(data.device)
+        def t(a, dev=data.device):
+            return torch.from_numpy(np.array(a)).to(dev)
 
         def tl(k):
-            return [t(state[f"{k}_{i}"]) for i in range(int(state[f"{k}_n"]))]
+            return [t(state[f"{k}_{i}"], data.chunk_device(i))
+                    for i in range(int(state[f"{k}_n"]))]
 
         return dict(
             w=t(state["w"]), g=t(state["g"]), z=tl("z"),
@@ -825,6 +946,8 @@ class OutOfCoreLBFGS:
         from photon_tpu_torch.runtime import memory_guard as _mg
 
         recoveries = 0
+        if self.mesh is not None:
+            data = data.sharded(self.mesh, self.data_axis)
         while True:
             try:
                 return self._optimize_impl(data, x0, primed=primed)
@@ -1035,21 +1158,19 @@ def scores_out_of_core(data: ChunkedGLMData, w) -> np.ndarray:
 
 def run_out_of_core(problem, data: ChunkedGLMData, w0=None, reg_mask=None,
                     progress=None, checkpoint_path=None, device_cache=None,
-                    primed=None, mesh=None, checkpoint_min_interval_s: float = 60.0):
+                    primed=None, mesh=None, checkpoint_min_interval_s: float = 60.0,
+                    data_axis="data"):
     """``GLMOptimizationProblem.run`` for the out-of-core path: the same
     task → loss map, regularization and mask, and ``(model, result)``
     return. LBFGS takes smooth L2; OWLQN any L1 component (L1 / elastic
     net), as in-core: an L1 component under L-BFGS raises, and TRON (which
-    needs Hessian passes) is refused. Variances are not computed."""
+    needs Hessian passes) is refused. Variances are not computed. ``mesh``
+    streams the chunks row-sharded over its ``data_axis``."""
     from photon_tpu_torch.models.coefficients import Coefficients
     from photon_tpu_torch.models.glm import GeneralizedLinearModel
     from photon_tpu_torch.ops.losses import loss_for_task
     from photon_tpu_torch.optim import OptimizerType
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "out-of-core streaming over a device mesh comes with the "
-            "multi-GPU slice (M14)")
     l1 = problem.regularization.l1_weight(float(problem.reg_weight))
     common = dict(
         loss=loss_for_task(problem.task),
@@ -1060,6 +1181,8 @@ def run_out_of_core(problem, data: ChunkedGLMData, w0=None, reg_mask=None,
         checkpoint_path=checkpoint_path,
         checkpoint_min_interval_s=checkpoint_min_interval_s,
         device_cache=device_cache,
+        mesh=mesh,
+        data_axis=data_axis,
     )
     if problem.optimizer_type == OptimizerType.OWLQN:
         solver = OutOfCoreOWLQN(l1_weight=l1, **common)
@@ -1076,6 +1199,10 @@ def run_out_of_core(problem, data: ChunkedGLMData, w0=None, reg_mask=None,
         solver = OutOfCoreLBFGS(**common)
     if w0 is None:
         w0 = torch.zeros(data.dim, dtype=data.dtype, device=data.device)
+    if mesh is not None:
+        from photon_tpu_torch.parallel.mesh import shard_devices
+
+        w0 = w0.to(shard_devices(mesh, data_axis)[0])
     result = solver.optimize(data, w0, primed=primed)
     model = GeneralizedLinearModel(Coefficients(means=result.x, variances=None),
                                    problem.task)

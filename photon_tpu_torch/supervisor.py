@@ -22,9 +22,9 @@ checkpoint-restart (``checkpoint.py`` resumes bit-identically) plus:
 * :class:`Heartbeat`: a liveness beacon file, rewritten every interval by a
   daemon thread, which also runs the map-count and device-memory
   watchdogs. Peer checks across processes, the attempt-epoch barrier and
-  the live peer watchdog come with the multi-GPU slice (M14); with one
-  process they check only this process's own beacon, as the JAX package
-  does at ``process_count() == 1``.
+  the live peer watchdog (``peer_epochs`` / ``PeerWatchdog``) come with the
+  elastic slice (slice 16); until then they check only this process's own
+  beacon, as the JAX package does at ``process_count() == 1``.
 * :class:`MapCountWatchdog`: warns as the process's memory-map count nears
   ``vm.max_map_count``.
 """
@@ -627,8 +627,8 @@ class Heartbeat:
     guard, None disables it) and, when given, ``slo_watchdog``
     (``obs.analysis.slo.SloWatchdog``: SLO rules judged on the beat
     cadence, rate-limited by the watchdog's own ``min_interval_s``, from
-    the thread that survives a wedged main thread). ``process_id`` is 0
-    for the single process of this slice."""
+    the thread that survives a wedged main thread). ``process_id`` is the
+    beacon's process (0 without a process group)."""
 
     def __init__(self, directory: str, process_id: int = 0,
                  interval_seconds: float = 10.0, slo_watchdog=None,

@@ -241,7 +241,8 @@ def test_out_of_core_driver_validates_chunks(tmp_path):
             "--no-report", "--row-chunk-rows", "8"] + CPU)
 
 
-REFUSED = {"--devices": ["2"], "--compilation-cache-dir": ["cc"]}
+# ``--devices`` is taken (tests/test_torch_mesh_ooc.py).
+REFUSED = {"--compilation-cache-dir": ["cc"]}
 
 
 @pytest.mark.parametrize("flag", list(REFUSED))

@@ -6,7 +6,8 @@
   training, GAME training, checkpoint, routing, sweep-cache, vmapped GAME
   training, ingest, GLM driver, bf16-feed, factored and tuning phases
   included, the runtime-guards phase with an injected OOM in place of
-  the card's capped one, the observability phase, the serving phase and the online phase, at
+  the card's capped one, the observability phase, the serving phase, the online phase and
+  the mesh phase (its gloo processes on the CPU; no NCCL rank), at
   a tiny size, with the CPU as both devices);
   afterwards neither ``jax`` nor any
   ``photon_tpu`` (nor ``ml_dtypes``) module is loaded.
@@ -189,6 +190,17 @@ assert on["f64_witness"]["coef_rel_err"] <= 1e-9, on["f64_witness"]
 assert on["faults"]["oom"]["refresh_batch_after"] == 4096, on["faults"]
 assert json.loads(json.dumps(on))["tiers"] == {"main": ["newton_primal"],
                                                  "heavy": ["newton_primal"]}, on
+# the mesh phase last: it leaves the earlier phases as they ran before it
+ms = chip_smoke.phase_mesh(
+    torch, cs, keep, cpu, root, ig["data"]["dir"],
+    sizes=dict(n_users=40, rows_per_user=6, d_global=48, d_user=4, iterations=4),
+    f64_users=12, full=tiny, chunk_rows=48)
+assert ms["f64_witness"]["coef_rel_err_4_vs_1"] <= 1e-12, ms
+assert ms["out_of_core"]["f64_witness"]["coef_rel_err_4_vs_1"] <= 1e-12, ms
+assert ms["processes"]["ranks_bit_equal"] and ms["scoring"]["bit_equal"], ms
+assert all(g["coef_rel_err_vs_4_shards"] <= 1e-12 for g in ms["processes"]["gloo"]), ms
+assert {p[2] for p in ms["fit_a"]["plans"]["4"]} == {4}, ms["fit_a"]
+assert json.loads(json.dumps(ms))["shards"] == 4       # emit()-able
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "photon_tpu", "ml_dtypes"))
 print("MODULES", len(names), "BAD", bad)

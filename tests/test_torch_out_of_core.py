@@ -220,9 +220,12 @@ def test_out_of_core_refuses(case):
     elif case == "l1_lbfgs":
         with pytest.raises(NotImplementedError, match="L1 component"):
             run_out_of_core(_problem(context=elastic_net_context(0.5)), data)
-    else:
-        with pytest.raises(NotImplementedError, match="M14"):
-            run_out_of_core(_problem(), data, mesh=object())
+    else:   # chunk rows that do not divide over the mesh, as in JAX
+        from photon_tpu_torch.parallel.mesh import make_mesh
+
+        with pytest.raises(ValueError, match="must divide evenly"):
+            run_out_of_core(_problem(), data,
+                            mesh=make_mesh({"data": 3}, devices=[CPU] * 3))
 
 
 class _Chunk:

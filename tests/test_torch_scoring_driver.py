@@ -149,7 +149,7 @@ def test_port_driver_evaluators_match_jax(trained, tmp_path, dtype):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--devices", "2"], "multi-GPU"),
+    (["--devices", "2"], "--devices 2 > 1 visible devices"),
     (["--compilation-cache-dir", "cc"], "refused for good"),
 ], ids=["devices", "compilation_cache_dir"])
 def test_port_driver_refuses_later_slices(tmp_path, capsys, flags, slice_name):

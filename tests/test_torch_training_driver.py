@@ -175,9 +175,11 @@ def test_normalized_drivers_cross_score_and_summaries_agree(data, tmp_path):
 
 # Each refused flag with a value that sets it. The compile-cache flags are
 # refused for good (the port compiles no XLA programs); the rest name the
-# slice that brings them.
+# slice that brings them (a mesh's ``model`` axis: the elastic slice).
+# ``--devices``, ``--mesh data=...`` and ``--distributed-policy`` are taken
+# (tests/test_torch_distributed.py).
 REFUSED = {
-    "--devices": ["2"], "--mesh": ["data=2"], "--distributed-policy": ["strict"],
+    "--mesh": ["data=2,model=2"],
     "--compilation-cache-dir": ["cc"], "--compile-store": ["cs"],
     "--clear-caches-per-config": [],
 }
