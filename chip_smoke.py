@@ -183,6 +183,22 @@ result line:
    each other) and one NCCL rank (``phase_mesh``). Each kernel's launches
    on the mesh path are the kernels line's ``mesh``; speed across cards is
    not measured (one card).
+21. model_axis (after mesh): the ``model`` axis on the one card
+   (``make_mesh({"data": 2, "model": 2}, devices=[cuda] * 4)``): phase
+   training's 2^19 x 2^18 logistic L-BFGS with SIMPLE variances, 10
+   iterations in f32 through ``GameEstimator.fit(model_axis="model")``,
+   bit-equal on repeat and against the unsharded card fit by phase
+   training's f32 bar; f64 witnesses at 2^17 x 2^15 (L-BFGS, and TRON with
+   SIMPLE variances) within 1e-12 of the unsharded card fits, equal
+   iterations; ms an iteration sharded and unsharded
+   (``phase_model_axis``). The kernels line's ``model``.
+22. elastic: the drill of ``scripts/multihost_smoke_torch.py`` with 3
+   workers on the card over 8 parts of 65,536 rows (dim 32, 4,096
+   entities, f64): uninterrupted, then host 2 SIGKILLed after commit 1 and
+   restarted; the shrink and regrow journaled, no new shape after warmup,
+   within 1e-12 of the uninterrupted run; step, kill-to-shrink and
+   rejoin-to-grow seconds (``phase_elastic``). The kernels line's
+   ``elastic`` is the workers' launches.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Model weights and data are random, made
@@ -508,6 +524,65 @@ def check_case(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
     return out
 
 
+def check_bounded(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
+    """The four kernels on one layout, in f32 and f64, each against its
+    plain version within the error bound of a reordered sum. Both sum the
+    same n products in float64 (n the terms of the output, plus 2 for the
+    products' roundings) and round once to the values' type: each f64 sum
+    lies within γ_n = n·u / (1 − n·u) of Σ|terms| of the exact one (u =
+    2^-53), and the rounding moves each result by at most u_T of itself
+    (u_T = 2^-24 for f32, none for f64), so the two differ by at most
+    2·γ_n·Σ|terms| + u_T·(|kernel| + |plain|), elementwise. The bound
+    scales with the terms, where a fixed tolerance cannot hold long
+    columns whose sums cancel; a kernel that drops, repeats or misplaces
+    an entry is off by that entry, far outside it. Each kernel runs twice,
+    bit-equal."""
+    rng = np.random.default_rng(seed)
+    w_np, v_np = rng.normal(size=dim), rng.normal(size=idx_np.shape[0])
+    idx = torch.from_numpy(idx_np).to(dev)
+    flat = idx.flatten().long()
+    col_terms = int(torch.bincount(flat, minlength=dim + 1)[:dim].max())
+    out = {"col_terms": col_terms, "row_terms": int(idx_np.shape[1])}
+    for dtype, tdt, u_out in (("float32", torch.float32, 2.0 ** -24),
+                              ("float64", torch.float64, 0.0)):
+        val = torch.from_numpy(val_np).to(dev, tdt)
+        w = torch.from_numpy(w_np).to(dev, tdt)
+        v = torch.from_numpy(v_np).to(dev, tdt)
+        calls = kernel_calls(cs, idx, val, w, v, cs.build_csc(idx, val, dim),
+                             cs.build_panels(idx, val, dim), dim)
+        a, aw, av = val.double().abs(), w.double().abs(), v.double().abs()
+        aw = torch.cat([aw, aw.new_zeros(1)])          # the ghost column
+
+        def cols(terms):
+            return torch.zeros(dim + 1, dtype=torch.float64, device=dev).index_add_(
+                0, flat, terms.flatten())[:dim]
+
+        mass = {"ell_panel_matvec": (aw[idx.long()] * a).sum(1),
+                "csc_rmatvec": cols(a * av[:, None]),
+                "csc_sq_rmatvec": cols(a * a * av[:, None])}
+        mass["ell_matvec"] = mass["ell_panel_matvec"]
+        res = {}
+        for name, (kern, plain) in calls.items():
+            n = (out["row_terms"] if name.startswith("ell") else col_terms) + 2
+            gamma = n * 2.0 ** -53 / (1 - n * 2.0 ** -53)
+            got = kern()
+            again = kern()
+            _sync(torch, dev)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two runs differ ({dtype})")
+            got, ref = got.double(), plain().double()
+            err = (got - ref).abs()
+            bound = 2 * gamma * mass[name] + u_out * (got.abs() + ref.abs())
+            ratio = float((err / bound.clamp(min=1e-300)).max())
+            if not bool((err <= bound).all()):
+                raise AssertionError(f"{name} disagrees with its plain version "
+                                     f"({dtype}): {ratio} of the bound")
+            res[name] = {"max_abs_err": float(err.max()), "of_bound": ratio,
+                         "bit_equal_repeat": True}
+        out[dtype] = res
+    return out
+
+
 def long_column_arrays(idx_np, dim, tile_items):
     """A column of every row (column 7) plus three new columns whose
     lengths sit exactly at the transpose kernel's tile size and one off it
@@ -829,13 +904,15 @@ def opt_config(optimizer: str, reg: str, iterations: int, variance="NONE"):
         reg_weight=1.0, variance_type=VarianceComputationType[variance])
 
 
-def fit(torch, bundle, task: str, ocfg) -> dict:
-    """One ``GameEstimator.fit`` of a fixed effect on the bundle's device."""
+def fit(torch, bundle, task: str, ocfg, mesh=None) -> dict:
+    """One ``GameEstimator.fit`` of a fixed effect on the bundle's device
+    (with ``mesh``: feature-sharded over its ``model`` axis)."""
     from photon_tpu_torch.estimators.config import FixedEffectDataConfig
     from photon_tpu_torch.estimators.game_estimator import GameEstimator
     from photon_tpu_torch.types import TaskType
 
-    est = GameEstimator(TaskType[task], {"fixed": FixedEffectDataConfig("global")})
+    est = GameEstimator(TaskType[task], {"fixed": FixedEffectDataConfig("global")},
+                        mesh=mesh, model_axis=None if mesh is None else "model")
     t0 = time.perf_counter()
     (res,) = est.fit(bundle, None, [{"fixed": ocfg}])
     if bundle.device.type == "cuda":
@@ -1672,7 +1749,10 @@ GAME_FITS = (("fit_a", "global", (1.0, 10.0), "NONE"),
 # across the devices in f64 (fit_a_f64 / fit_b_f64). Their solvers stop at
 # GAME_REF_ITERATIONS iterations of GAME's 15 (a cut of depth for the
 # serving phase's time: the full-size cpu fits took 47.0 s and 20.8 s on the
-# H100 machine's host, their fixed-effect steps 12.7 s and 8.6 s of it).
+# H100 machine's host, their fixed-effect steps 12.7 s and 8.6 s of it). Not
+# fewer: at 2 iterations fit A's f32 per-user gap between the devices falls
+# from ~1e-3 to ~3e-7, and phase mesh's fit would no longer show the f32
+# per-user amplification that ROADMAP's Queue 3 records.
 GAME_REF_SWEEPS = 1
 GAME_REF_CONFIGS = 1
 GAME_REF_ITERATIONS = 4
@@ -4637,6 +4717,9 @@ import http.client, json, os, re, sys, threading, time
 path, out, host, port, first, threads, clients, passes = sys.argv[1:9]
 port, first, threads, clients, passes = map(int, (port, first, threads, clients, passes))
 stop = sys.argv[9] if len(sys.argv) > 9 else None
+# an answer of this model version (or newer) ends the load: its client
+# writes the stop file, which every client reads before each request
+until_version = int(sys.argv[10]) if len(sys.argv) > 10 else None
 bodies = open(path, "rb").read().split(b"\n")[:-1]
 lat, failures, scores, versions = [], [], {}, {}
 lock = threading.Lock()
@@ -4664,6 +4747,8 @@ def client(t):
                 key = f"{p}:{i}"
                 scores[key] = re.search(rb'"score": ([^,}]+)', data).group(1).decode()
                 versions[key] = int(re.search(rb'"model_version": (\d+)', data).group(1))
+                if until_version is not None and versions[key] >= until_version:
+                    open(stop, "a").close()
     except Exception as e:
         with lock:
             failures.append(["exception", repr(e)[:200]])
@@ -4687,11 +4772,13 @@ json.dump({"start": start, "end": time.monotonic(), "lat": lat, "failures": fail
 
 
 def _load(server_addr, bodies_path: str, n: int, clients: int, passes: int,
-          during=None, procs: int = 4, stop=None) -> dict:
+          during=None, procs: int = 4, stop=None, until_version=None) -> dict:
     """Closed-loop load from ``procs`` client processes (``clients``
     threads in all, so the server's process runs no client code): each
     row goes to one client thread and is sent ``passes`` times, or until
-    the file ``stop`` exists. ``during()`` runs here while they send. Returns the wall time, the latencies' p50 /
+    the file ``stop`` exists (a client writes it when an answer of model
+    version ``until_version`` or newer comes back). ``during()`` runs here
+    while they send. Returns the wall time, the latencies' p50 /
     p99, the failures, and each row's score text and model version from the
     first pass (``answers``: every pass's, keyed (pass, row))."""
     per = clients // procs
@@ -4701,7 +4788,8 @@ def _load(server_addr, bodies_path: str, n: int, clients: int, passes: int,
     ps = [subprocess.Popen([sys.executable, "-c", _LOAD_CLIENT, bodies_path, out,
                             server_addr[0], str(server_addr[1]), str(i * per),
                             str(per), str(clients), str(passes)]
-                           + ([stop] if stop else []), env=env)
+                           + ([stop] if stop else [])
+                           + ([str(until_version)] if until_version else []), env=env)
           for i, out in enumerate(outs)]
     try:
         extra = during() if during is not None else None
@@ -5060,29 +5148,36 @@ def phase_serving(torch, cs, dev, ref_dev, root: str, knobs=None) -> dict:
         memory_guard.reset_state()
 
         # (c, plain) a swap back to the first model without a standby: the
-        # model loads and warms while the clients send, who stop once an
-        # eighth of the rows more were answered after it
+        # model loads and warms while the clients send. The swap starts
+        # with requests in flight, and the clients send until an answer of
+        # the new version has come back (a client then writes the stop
+        # file), under the 120 s deadline.
         plain = {"to": swap["from"]}
         stop = os.path.join(root, "serving_stop")
+        plain_version = server.registry.current.version + 1
 
         def during_plain():
             base = server.counters["requests"]
             _await_requests(server, base, n_swap // 8)
             plain["requests_before"] = server.counters["requests"] - base
+            deadline = time.monotonic() + 120
+            while server._inflight == 0 and time.monotonic() < deadline:
+                time.sleep(0.0002)
+            plain["in_flight_at_swap"] = server._inflight
             t1 = time.perf_counter()
             v = server.registry.swap(dirs["best"])
             plain["swap_s"] = time.perf_counter() - t1
             plain["version"] = v.version
             at = server.counters["requests"]
             plain["requests_during_swap"] = at - base - plain["requests_before"]
-            deadline = time.monotonic() + 120
-            while server.counters["requests"] - at < n_swap // 8 and \
-                    time.monotonic() < deadline:
+            while not os.path.exists(stop) and time.monotonic() < deadline:
                 time.sleep(0.001)
-            open(stop, "w").close()
+            plain["new_version_answered"] = os.path.exists(stop)
+            open(stop, "a").close()
 
         pload = _load(server.address, swap_path, n_swap, k["clients"],
-                      k["plain_swap_max_passes"], during=during_plain, stop=stop)
+                      k["plain_swap_max_passes"], during=during_plain, stop=stop,
+                      until_version=plain_version)
         os.remove(stop)
         pload.pop("scores"), pload.pop("versions")
         plain_answers = pload.pop("answers")
@@ -5091,7 +5186,7 @@ def phase_serving(torch, cs, dev, ref_dev, root: str, knobs=None) -> dict:
             raise AssertionError(f"plain swap: {pload['failed']} failed requests: "
                                  f"{pload['failures']}")
         if set(plain_versions.values()) != {plain["version"] - 1, plain["version"]} \
-                or not plain["requests_during_swap"]:
+                or not plain["in_flight_at_swap"] or plain["version"] != plain_version:
             raise AssertionError(f"the plain swap did not land under load: {plain}, "
                                  f"{collections.Counter(plain_versions.values())}")
         hot_swap["plain"] = {**plain, "load": pload, "rows_by_version": {
@@ -6330,6 +6425,29 @@ def phase_mesh(torch, cs, keep: dict, dev, root: str, big: str, sizes=GAME,
             failures.append("fit A: two mesh fits differ")
         cmp = compare_game_fits(torch, four, one, sizes["d_global"])
         failures += [f"fit A: {f}" for f in cmp.pop("failures")]
+        # the unsharded fit pinned to the mesh's plan: a Newton budget of
+        # the shards' together prices the whole bucket as the mesh prices
+        # one shard's block, so the gap to the mesh is the shards' alone
+        from photon_tpu_torch.game import newton_re
+
+        budget = float(os.environ.get("PHOTON_RE_NEWTON_BUDGET_MB",
+                                      newton_re._DEFAULT_BUDGET_MB)) * MESH_SHARDS
+        with _env("PHOTON_RE_NEWTON_BUDGET_MB", str(budget)):
+            pinned = game_fit(torch, cs, one_est, *keep["data"], cfgs)
+        cmp_pinned = compare_game_fits(torch, four, pinned, sizes["d_global"])
+        failures += [f"fit A pinned: {f}" for f in cmp_pinned.pop("failures")]
+        plan_of = [(b["solver"], b["chunk"]) for b in four["buckets"]]
+        pinned_plan = [(b["solver"], b["chunk"]) for b in pinned["buckets"]]
+        if pinned_plan != plan_of:
+            failures.append(f"fit A pinned: plan {pinned_plan} is not the "
+                            f"mesh's {plan_of}")
+        gaps = {"unsharded_plan": cmp["coef_rel_err"],
+                "pinned_to_mesh_plan": cmp_pinned["coef_rel_err"],
+                "bar": COEF_BAR_F32, "pinned_budget_mb": budget,
+                "pinned_plan": pinned_plan,
+                "pinned_within_bar": max(cmp_pinned["coef_rel_err"].values())
+                <= COEF_BAR_F32}
+        del pinned
 
         def step(run, cid):
             return [s for s in run["steps"] if s["coordinate"] == cid]
@@ -6351,7 +6469,8 @@ def phase_mesh(torch, cs, keep: dict, dev, root: str, big: str, sizes=GAME,
                             for b in four["buckets"]]},
             "fold": dict(pm.FOLD_STATS),
             "re_placement": dict(re_mod.MESH_STATS),
-            "vs_unsharded": cmp, "launches": fit_launches}
+            "vs_unsharded": cmp, "vs_unsharded_pinned": cmp_pinned,
+            "f32_gaps": gaps, "launches": fit_launches}
         del one, first, four, one_est, four_est
 
         # (b) out of core over the ingest phase's 2^19 rows
@@ -6419,6 +6538,169 @@ def phase_mesh(torch, cs, keep: dict, dev, root: str, big: str, sizes=GAME,
     if failures:
         emit({"phase": "mesh", **{k: v for k, v in out.items() if k != "launches"}})
         raise AssertionError("; ".join(failures))
+    return out
+
+
+# ------------------------------------------------------------- model axis
+
+MODEL_MESH = {"data": 2, "model": 2}
+MODEL_ITERATIONS = 10
+# The f64 witnesses stop at the configurations' default tolerance: at
+# tolerance 0 a solve runs on past convergence, where its decisions (a line
+# search's, a trust region's) turn on rounding, and two summation orders
+# part by 1e-9 to 1e-7 (on the CPU, 2^13 x 2^11: L-BFGS sharded against
+# unsharded; TRON, the port's unsharded fit against the JAX package's own).
+WITNESS_TOLERANCE = 1e-7
+
+
+def phase_model_axis(torch, cs, dev, sizes=TRAIN, small=SMALL,
+                     iterations: int = MODEL_ITERATIONS) -> dict:
+    """The ``model`` axis on the one card: ``make_mesh({"data": 2,
+    "model": 2}, devices=[dev] * 4)``, each fixed effect's columns in two
+    blocks, each block's ELL cut of each row half on its shard.
+
+    Driven through ``GameEstimator.fit`` (``model_axis="model"``), launches
+    counted (``launches``): phase training's logistic L-BFGS with SIMPLE
+    variances at ``sizes`` in f32, at most ``iterations`` iterations at
+    tolerance 0 (the f32 fits stop sooner, with FUNCTION_VALUES_CONVERGED,
+    where the f32 objective stops changing), twice (bit-equal), held against the unsharded card fit by phase
+    training's f32 bar (final objective within ``OBJ_RTOL_F32``; the
+    coefficients' and variances' gaps reported). Witnesses at ``small``
+    in f64 against the unsharded card fits at ``WITNESS_TOLERANCE``, within
+    ``MESH_F64_RTOL`` of the largest coefficient with equal iterations:
+    logistic L-BFGS, and TRON-Poisson with SIMPLE variances (its variances
+    too). Timed: ms an
+    iteration sharded against unsharded (each sharded fit cuts the shards'
+    ELL blocks and builds their layouts once). One card: speed across
+    cards is not measured."""
+    import dataclasses
+
+    from photon_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(MODEL_MESH, devices=[dev] * 4)
+    out: dict = {"mesh": repr(mesh), "shape": {k: sizes[k] for k in ("n_rows", "dim", "k")},
+                 "iterations": iterations, "across_cards": "not measured (one card)"}
+    idx, val, labels = bench_data(**sizes)
+    b32 = train_bundle(torch, idx, val, labels, sizes["dim"], dev, torch.float32)
+    cfg = opt_config("LBFGS", "L2", iterations, "SIMPLE")
+    one = fit(torch, b32, "LOGISTIC_REGRESSION", cfg)
+    cs.reset_launch_counts()
+    two = fit(torch, b32, "LOGISTIC_REGRESSION", cfg, mesh=mesh)
+    launches = cs.launch_counts()
+    again = fit(torch, b32, "LOGISTIC_REGRESSION", cfg, mesh=mesh)
+    if not (torch.equal(two["means"], again["means"])
+            and torch.equal(two["variances"], again["variances"])):
+        raise AssertionError("model axis: two f32 fits on the same data differ")
+    for run in (one, two):
+        v = run["variances"]
+        if not (torch.isfinite(run["means"]).all() and torch.isfinite(v).all()
+                and (v > 0).all()):
+            raise AssertionError("model axis: non-finite coefficients or variances")
+    obj_rel = _rel_close(two["value"], one["value"], OBJ_RTOL_F32,
+                         "model axis f32 final objective")
+    # an iteration's ms without what a fit does once (the sharded fit's
+    # column cut and layouts, the unsharded one's first passes): the
+    # difference from a 1-iteration fit, over the iterations after it
+    cfg1 = opt_config("LBFGS", "L2", 1, "SIMPLE")
+    first = {"sharded": fit(torch, b32, "LOGISTIC_REGRESSION", cfg1, mesh=mesh),
+             "unsharded": fit(torch, b32, "LOGISTIC_REGRESSION", cfg1)}
+    marginal = {k: (r["step_s"] - first[k]["step_s"]) * 1e3
+                / max(1, r["iterations"] - 1)
+                for k, r in (("sharded", again), ("unsharded", one))}
+    del b32
+    out["logistic_lbfgs_f32"] = {
+        "sharded": _public(two), "repeat": _public(again), "unsharded": _public(one),
+        "bit_equal_repeat": True, "objective_rel_err": obj_rel,
+        "coef_rel_err": _coef_rel_err(torch, two["means"], one["means"]),
+        "variance_rel_err": _coef_rel_err(torch, two["variances"], one["variances"]),
+        "ms_per_iteration": {"sharded": two["ms_per_iteration"],
+                             "sharded_repeat": again["ms_per_iteration"],
+                             "unsharded": one["ms_per_iteration"]},
+        "ms_per_iteration_after_the_first": marginal,
+        "first_iteration_s": {k: r["step_s"] for k, r in first.items()}}
+    del one, two, again
+
+    sidx, sval, slabels = bench_data(**small)
+    _, _, _, y_poi = small_data(**small)
+    witness = {}
+    for name, y, opt, task, variance in (
+            ("logistic_lbfgs_f64", slabels, "LBFGS", "LOGISTIC_REGRESSION", "NONE"),
+            ("tron_poisson_simple_f64", y_poi, "TRON", "POISSON_REGRESSION", "SIMPLE")):
+        b64 = train_bundle(torch, sidx, sval, y, small["dim"], dev, torch.float64)
+        c = dataclasses.replace(opt_config(opt, "L2", small["iterations"], variance),
+                                tolerance=WITNESS_TOLERANCE)
+        runs = {"1": fit(torch, b64, task, c), "4": fit(torch, b64, task, c, mesh=mesh)}
+        rel = _coef_rel_err(torch, runs["4"]["means"], runs["1"]["means"])
+        w = {"runs": {k: _public(r) for k, r in runs.items()}, "coef_rel_err": rel}
+        if variance == "SIMPLE":
+            w["variance_rel_err"] = _coef_rel_err(torch, runs["4"]["variances"],
+                                                  runs["1"]["variances"])
+            rel = max(rel, w["variance_rel_err"])
+        if not rel <= MESH_F64_RTOL or runs["4"]["iterations"] != runs["1"]["iterations"]:
+            raise AssertionError(f"model axis {name}: {rel} > {MESH_F64_RTOL} or "
+                                 f"iterations {runs['4']['iterations']} != "
+                                 f"{runs['1']['iterations']}")
+        witness[name] = w
+    out["f64_witness"] = {"shape": {k: small[k] for k in ("n_rows", "dim", "k")},
+                          "bar": MESH_F64_RTOL, **witness}
+    out["launches"] = launches
+    if dev.type == "cuda":
+        missing = [k for k in ("csc_rmatvec", "csc_sq_rmatvec") if launches[k] < 1]
+        if launches["ell_matvec"] + launches["ell_panel_matvec"] < 1:
+            missing.append("a matvec kernel")
+        if missing:
+            raise AssertionError(f"the model axis never launched {missing}")
+    return out
+
+
+# ---------------------------------------------------------------- elastic
+
+# make_synthetic_parts: 8 parts of 65,536 rows (2^19), dense ELL of the
+# scoring layout's width, 4,096 entities, f64; 4 sweeps (8 coordinate
+# steps: boundaries for the kill and the rejoin), 12 L-BFGS iterations.
+ELASTIC = dict(n_parts=8, rows_per_part=65536, dim=32, n_entities=4096,
+               sweeps=4, max_iterations=12)
+
+
+def phase_elastic(torch, cs, dev, root: str, sizes=ELASTIC) -> dict:
+    """The elastic drill of ``scripts/multihost_smoke_torch.py`` with its
+    workers (``python -m photon_tpu_torch.parallel.elastic --device
+    <dev>``) on the card: 3 uninterrupted, then host 2 SIGKILLed after
+    ``commit-1`` and restarted. Asserted by the drill: the shrink and the
+    regrow journaled, no new shape after warmup, ``w`` and ``re_scores``
+    within 1e-12 of the uninterrupted run, the fleet report's Mesh
+    section, and the card against a reference: a one-host CPU worker runs
+    the first sweep beside leg 1, whose ``commit-1`` must be within the
+    drill's ``WITNESS_RTOL`` of it. On the card, each kernel is also held
+    against its plain version on the first part's layout, each column a
+    sum over every row of the part (``check_bounded``: f32 and f64).
+    Reported: every worker's step seconds, the kill-to-shrink and the
+    rejoin-to-grow seconds, the witness's gaps, and the workers' kernel
+    launches (``launches``)."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import multihost_smoke_torch as drill
+
+    work = os.path.join(root, "elastic")
+    t0 = time.perf_counter()
+    out = drill.run_drill(work, device=str(dev), witness="cpu", log=lambda m: print(
+        f"chip_smoke: elastic {m.strip()}", file=sys.stderr), **sizes)
+    out["phase_s"] = time.perf_counter() - t0
+    out["sizes"] = dict(sizes)
+    if dev.type == "cuda":
+        missing = [k for k in ("csc_rmatvec",) if out["launches"][k] < 1]
+        if out["launches"]["ell_matvec"] + out["launches"]["ell_panel_matvec"] < 1:
+            missing.append("a matvec kernel")
+        if missing:
+            raise AssertionError(f"the elastic workers never launched {missing}")
+        with np.load(os.path.join(work, "data", "p000.npz")) as z:
+            idx_np, val_np = z["idx"], z["val"]
+        t0 = time.perf_counter()
+        out["kernel_check"] = {"part": "p000", "rows": int(idx_np.shape[0]),
+                               "dim": sizes["dim"],
+                               **check_bounded(torch, cs, dev, idx_np, val_np,
+                                               sizes["dim"], seed=16)}
+        out["kernel_check"]["s"] = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -6747,6 +7029,12 @@ def main() -> int:
     ms = phase_mesh(torch, cs, fit_a, dev, WORK, ig["data"]["dir"])
     ms_launches = ms.pop("launches")
     emit({"phase": "mesh", "card": card, "launches": ms_launches, **ms})
+    md = phase_model_axis(torch, cs, dev)
+    md_launches = md.pop("launches")
+    emit({"phase": "model_axis", "card": card, "launches": md_launches, **md})
+    el = phase_elastic(torch, cs, dev, WORK)
+    el_launches = el.pop("launches")
+    emit({"phase": "elastic", "card": card, "launches": el_launches, **el})
 
     rg = phase_runtime_guards(torch, cs, fit_a, WORK, ig["data"]["dir"], probe, dev)
     del fit_a
@@ -6800,7 +7088,8 @@ def main() -> int:
                 "game_training_vmapped": vm_launches, "ingest": ig_launches,
                 "glm_driver": gl_launches, "bf16_feed": bf_launches,
                 "factored": fc_launches, "tuning": tu_launches,
-                "mesh": ms_launches, "runtime_guards": rg_launches,
+                "mesh": ms_launches, "model_axis": md_launches,
+                "elastic": el_launches, "runtime_guards": rg_launches,
                 "observability": {k: ob_launches[k] + ob_other[k]
                                   for k in cs.ALL_KERNELS},
                 "serving": sv_launches, "online": on_launches}
@@ -6818,7 +7107,8 @@ def main() -> int:
             "replaces": REPLACES, "via": TPU_ENTRY[name], "status": status[name],
             "launches": sum(c[name] for c in by_phase.values()),
             "launches_by_phase": {k: c[name] for k, c in by_phase.items()},
-            "mesh": ms_launches[name],
+            "mesh": ms_launches[name], "model": md_launches[name],
+            "elastic": el_launches[name],
             "launches_counted": "f32 and f64 entry points (bf16: the _bf16 rows)",
             "max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
             "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
@@ -6854,7 +7144,8 @@ def main() -> int:
                       "kernel on the upcast values)",
             "launches": sum(c[bname] for c in by_phase.values()),
             "launches_by_phase": {k: c[bname] for k, c in by_phase.items()},
-            "mesh": ms_launches[bname],
+            "mesh": ms_launches[bname], "model": md_launches[bname],
+            "elastic": el_launches[bname],
             "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
             "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
             "library_ms": g["library_ms"], "library_call": bk["game"]["library_call"],

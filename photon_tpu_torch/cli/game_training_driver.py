@@ -56,8 +56,9 @@ are refused for good.
 Meshes, as in the JAX driver: ``--devices N`` (default 0 = every visible
 card; 1 = no mesh) trains fixed effects data-parallel and random effects
 entity-sharded over the first N distinct cards (``cli/params
-.mesh_from_flags``); ``--mesh data=N[,dcn=M]`` names the axes (a ``model``
-axis is refused: it comes with the elastic slice). ``--distributed-policy``
+.mesh_from_flags``); ``--mesh data=N[,dcn=M][,model=K]`` names the axes
+(a ``model`` axis trains every fixed effect feature-sharded,
+``parallel/model_parallel.py``). ``--distributed-policy``
 decides what a failed ``torch.distributed`` bring-up does (torchrun's
 environment; a no-op in one process): ``strict`` prints ``fatal
 [<cause>]`` and exits 2, ``degrade`` journals ``distributed_init_failed``
@@ -78,13 +79,13 @@ import json
 import logging
 import os
 import shutil
+import time
 from contextlib import contextmanager
 from typing import Optional, Sequence
 
 import torch
 
 from photon_tpu_torch.cli.params import (
-    ELASTIC_SLICE,
     NO_COMPILED_PROGRAMS,
     add_backend_policy_flag,
     add_distributed_flags,
@@ -141,9 +142,6 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # Flags of the JAX driver the port refuses: (flag, is it set, why). Each is
 # refused when set, never ignored.
 _LATER_SLICES = (
-    ("--mesh", lambda a: a.mesh is not None and "model" in {
-        item.partition("=")[0].strip() for item in a.mesh.split(",")},
-     f"the 'model' axis (feature-sharded fixed effects) {ELASTIC_SLICE}"),
     ("--compilation-cache-dir", lambda a: a.compilation_cache_dir is not None,
      NO_COMPILED_PROGRAMS),
     ("--compile-store", lambda a: a.compile_store is not None,
@@ -235,8 +233,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--heartbeat-dir", default=None,
                    help="write a liveness beacon here every 2 s (the memory "
                         "watchdog and the SLO rules of $PHOTON_SLO_CONFIG "
-                        "run on the same thread); the peer checks across "
-                        "processes come with the elastic slice (slice 16)")
+                        "run on the same thread); in a process group a retry "
+                        "first checks its peers' beacons and waits for every "
+                        "peer to reach the same attempt, and a watchdog ends "
+                        "an attempt whose peer died (exit 43)")
     p.add_argument("--debug-nans", action="store_true",
                    help="check each coordinate step's model and scores for "
                         "finite values before the step commits (one more "
@@ -254,7 +254,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "1 = no mesh")
     p.add_argument("--mesh", default=None, metavar="data=4,dcn=2",
                    help="explicit mesh axes (overrides --devices); a 'model' "
-                        "axis comes with the elastic slice")
+                        "axis shards every fixed effect's coefficients over it")
     add_distributed_flags(p)
     # The JAX driver's flags the port refuses (_LATER_SLICES).
     p.add_argument("--compilation-cache-dir", default=None)
@@ -371,12 +371,15 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
             prev_nans = set_debug_nans(args.debug_nans)
 
             def attempt(i: int) -> dict:
-                if heartbeat is not None:
-                    heartbeat.set_epoch(i)
-                with PhotonLogger(args.output_dir) as logger:
-                    enable_re_routing(args, args.output_dir)
-                    return _run_inner(args, specs, task, device(), logger,
-                                      prof.path)
+                watchdog = _enter_attempt(args, heartbeat, i)
+                try:
+                    with PhotonLogger(args.output_dir) as logger:
+                        enable_re_routing(args, args.output_dir)
+                        return _run_inner(args, specs, task, device(), logger,
+                                          prof.path)
+                finally:
+                    if watchdog is not None:
+                        watchdog.stop()
 
             try:
                 if args.max_restarts > 0:
@@ -417,8 +420,69 @@ def _start_heartbeat(args) -> Optional[Heartbeat]:
 
         slo_watchdog = SloWatchdog(SloConfig.from_file(slo_path),
                                    min_interval_s=60.0)
+    # A short interval: a retry must tell "a peer died with me" from "a
+    # peer is fine", so the staleness window (3x the interval) has to fit
+    # inside a restart backoff. Every beat exports the whole group's
+    # beacon ages (host_beacon_age_seconds{host=...}).
+    from photon_tpu_torch.parallel.distributed import process_count
+
     return Heartbeat(args.heartbeat_dir, interval_seconds=2.0,
-                     slo_watchdog=slo_watchdog).start()
+                     slo_watchdog=slo_watchdog,
+                     peer_gauges=range(process_count())).start()
+
+
+class RestartsUselessError(Exception):
+    """A peer process is gone, or never reached this attempt: an
+    in-process retry cannot succeed, so this escapes the retry loop (it is
+    not a retryable type) and fails the job fast; the scheduler restarts
+    every process and the checkpoint resume takes over."""
+
+
+def _enter_attempt(args, heartbeat, i: int):
+    """The peer checks before attempt ``i`` (with ``--heartbeat-dir``):
+    before a retry, the settle wait and the dead-peer check; then the
+    attempt-epoch barrier, which a retry passes only when every process
+    of the group advertises the same attempt; and, in a group, the live
+    :class:`~photon_tpu_torch.supervisor.PeerWatchdog`, armed only around
+    the attempt body (returned, for the caller to stop)."""
+    if heartbeat is None:
+        return None
+    from photon_tpu_torch.parallel.distributed import process_count
+
+    peers = range(process_count())
+    if i > 0:
+        # Let a freshly dead peer's last beat age past the staleness
+        # window before judging: the check runs backoff seconds after our
+        # failure, so top up to 3x the beat interval.
+        settle = max(0.0, 3.0 * heartbeat.interval_seconds - args.restart_backoff)
+        if settle:
+            time.sleep(settle)
+        report = heartbeat.check_peers(peers)
+        if not report.healthy:
+            raise RestartsUselessError(
+                f"peer hosts dead={report.dead} missing={report.missing}; "
+                "restart the job (checkpoint resume will fast-forward)")
+    # A process may (re-)enter the fit only once every peer advertises the
+    # same attempt: a lone retrier would issue collectives that a peer
+    # still blocked in the previous attempt never joins, and both would
+    # hang with fresh beacons. (Attempt 0 needs no barrier: the process
+    # group's bring-up synchronized the start.)
+    heartbeat.set_epoch(i)
+    if process_count() <= 1:
+        return None
+    if i > 0:
+        laggards = heartbeat.wait_for_epoch(
+            peers, i, timeout_seconds=max(30.0, 3 * args.restart_backoff))
+        if laggards:
+            raise RestartsUselessError(
+                f"peer hosts {laggards} never reached attempt epoch {i} "
+                "(wedged in a previous attempt's collective?); restart the "
+                "job (checkpoint resume will fast-forward)")
+    # A collective whose peer died blocks the main thread for good, so
+    # the between-attempts check above can never run while an attempt is
+    # wedged: the watchdog ends the process from its thread (exit 43).
+    return heartbeat.watchdog(
+        peers, logger=logging.getLogger("photon_tpu_torch.supervisor")).start()
 
 
 def _save_models(args, results, best, index_maps, shard_by_coordinate,
@@ -451,14 +515,20 @@ def _save_models(args, results, best, index_maps, shard_by_coordinate,
 def _mesh_for(args, device: torch.device):
     """``(mesh or None, data axis)`` of the run: ``--devices`` / ``--mesh``
     over this process's visible devices, and in a process group the
-    ``("dcn", "data")`` mesh whose outer axis is the group."""
+    ``("dcn", "data")`` mesh whose outer axis is the group (with the
+    ``model`` axis of ``--mesh``, when it has one)."""
     from photon_tpu_torch.parallel.distributed import multihost_mesh, process_count
+    from photon_tpu_torch.parallel.model_parallel import MODEL_AXIS
 
     mesh = mesh_from_flags(args.devices, args.mesh, device)
     if process_count() <= 1:
         return mesh, "data"
     local = mesh.local_devices if mesh is not None else [device]
-    return multihost_mesh({"data": len(local)}, devices=local), ("dcn", "data")
+    n_model = mesh.shape.get(MODEL_AXIS, 1) if mesh is not None else 1
+    axes = {"data": len(local) // n_model}
+    if n_model > 1:
+        axes[MODEL_AXIS] = n_model
+    return multihost_mesh(axes, devices=local), ("dcn", "data")
 
 
 def _run_inner(args, specs, task: TaskType, device: torch.device, logger,
@@ -550,6 +620,8 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger,
     mesh, data_axis = _mesh_for(args, device)
     if mesh is not None:
         logger.info("mesh: %s over %s", mesh, data_axis)
+    # A mesh with a model axis trains every fixed effect feature-sharded.
+    model_axis = "model" if mesh is not None and "model" in mesh.shape else None
     estimator = GameEstimator(
         task=task,
         coordinate_data_configs=data_configs,
@@ -561,6 +633,7 @@ def _run_inner(args, specs, task: TaskType, device: torch.device, logger,
         sweep_cache_mb=args.sweep_cache_mb,
         mesh=mesh,
         data_axis=data_axis,
+        model_axis=model_axis,
     )
     if args.tuning:
         if not (args.evaluators and validation is not None):

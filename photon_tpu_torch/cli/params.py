@@ -282,10 +282,10 @@ def visible_devices(device="cuda") -> list:
 def mesh_from_flags(n_devices: int, mesh_spec=None, device="cuda"):
     """Shared --devices/--mesh handling for the drivers: 0 = all visible
     devices, 1 = no mesh (None), N = a ``data`` mesh over the first N
-    distinct visible devices; ``mesh_spec`` ("data=4" or "data=2,dcn=2")
-    builds an explicit mesh. Negative counts and over-subscription fail
-    loud, with the JAX package's messages; a ``model`` axis is refused (it
-    comes with the elastic slice)."""
+    distinct visible devices; ``mesh_spec`` ("data=4", "data=2,dcn=2")
+    builds an explicit mesh, a ``model`` axis included ("data=2,model=2").
+    Negative counts and over-subscription fail loud, with the JAX package's
+    messages."""
     from photon_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 
     devices = visible_devices(device)
@@ -301,10 +301,6 @@ def mesh_from_flags(n_devices: int, mesh_spec=None, device="cuda"):
             raise ValueError(
                 f"--mesh must include the '{DATA_AXIS}' axis (got {sorted(axes)})"
             )
-        if "model" in axes:
-            raise NotImplementedError(
-                f"--mesh: the 'model' axis (feature-sharded fixed effects) "
-                f"{ELASTIC_SLICE}")
         total = 1
         for s in axes.values():
             total *= s
@@ -340,7 +336,6 @@ def add_distributed_flags(parser) -> None:
 
 
 # Why a flag of the JAX drivers is refused: the same words in every driver.
-ELASTIC_SLICE = "comes with the elastic multi-GPU slice (slice 16)"
 NO_COMPILED_PROGRAMS = (
     "refused for good: the port compiles no XLA programs (its kernels build "
     "once per source into photon_tpu_torch/_build/), so there is nothing to "
@@ -349,14 +344,12 @@ NO_COMPILED_PROGRAMS = (
 
 def refuse_unported(parser, args, table) -> None:
     """``parser.error`` (exit 2, before any work) for the first flag of
-    ``table`` that is set. ``table`` holds ``(flag, is_set(args), why)``:
-    ``why`` is either a later slice's words (``ELASTIC_SLICE``, after the
-    feature's name) or ``NO_COMPILED_PROGRAMS``. A refused flag is never ignored."""
+    ``table`` that is set. ``table`` holds ``(flag, is_set(args), why)``;
+    every ``why`` left is ``NO_COMPILED_PROGRAMS``. A refused flag is never
+    ignored."""
     for flag, is_set, why in table:
         if is_set(args):
-            if why == NO_COMPILED_PROGRAMS:
-                parser.error(f"{flag}: {why}")
-            parser.error(f"{flag}: not in the port yet; {why}")
+            parser.error(f"{flag}: {why}")
 
 
 def add_backend_policy_flag(parser) -> None:

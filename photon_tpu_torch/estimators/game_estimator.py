@@ -25,8 +25,10 @@ With a ``mesh`` (``parallel/mesh.py``) fixed effects train data-parallel
 over its ``data_axis`` (the batch cut into row shards once, each with its
 own layouts) and random effects entity-sharded over it, the sweep cache
 pinning per device; a factored random effect trains on one device, as in
-the JAX package. A mesh with a ``model`` axis (feature-sharded fixed
-effects) is refused: it comes with the elastic slice.
+the JAX package. With ``model_axis`` (or, unset, for a fixed effect wider
+than ``auto_p3_threshold`` on a mesh with a ``model`` axis) a fixed effect
+trains feature-sharded (``parallel/model_parallel.py``); FULL variances,
+other optimizers and normalization with a prior stay data-parallel.
 """
 from __future__ import annotations
 
@@ -72,6 +74,7 @@ from photon_tpu_torch.game.descent import (
     ValidationData,
 )
 from photon_tpu_torch.io.data_reader import GameDataBundle
+from photon_tpu_torch.parallel.model_parallel import MODEL_AXIS
 from photon_tpu_torch.types import TaskType
 from photon_tpu_torch.utils import threefry
 
@@ -162,13 +165,15 @@ class GameEstimator:
     # random effects entity-sharded over ``data_axis``.
     mesh: Optional[object] = None
     data_axis: object = "data"
+    # When set (with a mesh that has this axis), every fixed effect's
+    # coefficients, gradient and optimizer state shard over it
+    # (parallel/model_parallel.py). Unset, a mesh with a "model" axis
+    # routes a fixed effect there when its dimension exceeds
+    # ``auto_p3_threshold`` and fit_model_parallel supports its problem.
+    model_axis: Optional[str] = None
+    auto_p3_threshold: int = 1 << 20
 
     def __post_init__(self):
-        if self.mesh is not None and "model" in self.mesh.axis_names:
-            raise NotImplementedError(
-                "a mesh with a 'model' axis (feature-sharded fixed effects, "
-                "parallel/model_parallel.py) comes with the elastic slice "
-                "(slice 16)")
         if self.update_sequence is None:
             self.update_sequence = tuple(self.coordinate_data_configs)
         for cid in self.update_sequence:
@@ -412,6 +417,20 @@ class GameEstimator:
                     )
                 if sampler is not None:
                     batch = sampler.down_sample(key, batch)
+                model_axis = self.model_axis
+                if (
+                    model_axis is None
+                    and self.mesh is not None
+                    and MODEL_AXIS in self.mesh.axis_names
+                    and batch.dim > self.auto_p3_threshold
+                    # Route only what fit_model_parallel supports; the rest
+                    # stays data-parallel (replicated over the model axis)
+                    # instead of failing mid-sweep.
+                    and problem.optimizer_type.name in ("LBFGS", "OWLQN", "TRON")
+                    and problem.variance_type.name != "FULL"
+                    and not (norm is not None and problem.prior is not None)
+                ):
+                    model_axis = MODEL_AXIS
                 coordinates[cid] = FixedEffectCoordinate(
                     # Under a mesh the shards build their own layouts; the
                     # whole batch only scores (ell_matvec needs none).
@@ -422,6 +441,7 @@ class GameEstimator:
                     normalization=norm,
                     mesh=self.mesh,
                     data_axis=self.data_axis,
+                    model_axis=model_axis,
                 )
             elif isinstance(dcfg, FactoredRandomEffectDataConfig):
                 # Options the factored solve does not take fail loudly

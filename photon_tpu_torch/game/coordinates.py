@@ -5,9 +5,9 @@ trainable ``FixedEffectCoordinate``, ``RandomEffectCoordinate`` (with the
 device sweep cache's hook) and ``FactoredRandomEffectCoordinate``. With a
 ``mesh`` the fixed effect trains data-parallel (``parallel/data_parallel``:
 its batch cut into row shards once, the offsets re-cut each step) and the
-random effect entity-sharded; the factored random effect trains on one
-device, as in the JAX package. The feature-sharded model axis comes with
-the elastic slice. A coordinate owns its
+random effect entity-sharded; with a ``model_axis`` too the fixed effect
+trains feature-sharded (``parallel/model_parallel``); the factored random
+effect trains on one device, as in the JAX package. A coordinate owns its
 training data, its problem and its shard's normalization context (None
 without one) and exposes ``train(offsets, init) -> (model, result)`` and
 ``score(model) -> [N]``; offsets are per-row tensors in the global sample
@@ -63,6 +63,10 @@ class FixedEffectCoordinate:
     normalization: Optional[NormalizationContext] = None
     mesh: Optional[object] = None
     data_axis: object = "data"
+    # With a mesh that has this axis, the coefficients, gradient and
+    # optimizer state shard over it: the feature-sharded path for very
+    # wide feature spaces.
+    model_axis: Optional[str] = None
 
     def train(
         self, offsets: Tensor, init: Optional[FixedEffectModel] = None
@@ -76,7 +80,15 @@ class FixedEffectCoordinate:
         with trace_span("optim.fixed_solve", cat="optim",
                         shard=self.feature_shard, rows=batch.n_rows,
                         dim=batch.dim) as sp:
-            if self.mesh is not None:
+            if self.mesh is not None and self.model_axis is not None:
+                from photon_tpu_torch.parallel.model_parallel import (
+                    fit_model_parallel,
+                )
+
+                model, result = fit_model_parallel(
+                    self.problem, batch, w0, self.mesh, self.data_axis,
+                    self.model_axis, normalization=self.normalization)
+            elif self.mesh is not None:
                 from photon_tpu_torch.parallel.data_parallel import (
                     fit_data_parallel,
                 )

@@ -9,7 +9,7 @@ takes them; the host only fetches whether any lane still runs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -92,9 +92,17 @@ def check_convergence(it: int, f_prev: Tensor, f: Tensor, gnorm: Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """Common interface: ``optimize(value_and_grad, x0) -> OptimizerResult``."""
+    """Common interface: ``optimize(value_and_grad, x0) -> OptimizerResult``.
+
+    ``dot`` is the inner product of coefficient vectors, ``[E, P] × [E, P]
+    → [E]`` over lanes (None: the plain sum over the last axis). A
+    feature-sharded solve (``parallel/model_parallel.py``) passes one that
+    folds each shard's partial over the ``model`` axis, so every shard runs
+    the optimizer on its own block of the coefficients: the counterpart of
+    the JAX optimizers' ``axis_name``."""
 
     config: OptimizerConfig = OptimizerConfig()
+    dot: Optional[Callable[[Tensor, Tensor], Tensor]] = None
 
     def optimize(self, value_and_grad: ValueAndGrad, x0: Tensor, **kw) -> OptimizerResult:
         raise NotImplementedError

@@ -69,8 +69,8 @@ def _dot(a: Tensor, b: Tensor) -> Tensor:
     return torch.sum(a * b, dim=-1)
 
 
-def _norm(a: Tensor) -> Tensor:
-    return torch.sqrt(_dot(a, a))
+def _norm(a: Tensor, dot=_dot) -> Tensor:
+    return torch.sqrt(dot(a, a))
 
 
 def _pick(mask: Tensor, new: Tensor, old: Tensor) -> Tensor:
@@ -152,7 +152,8 @@ def empty_history(m: int, like: Tensor) -> LaneHistory:
                        count=torch.zeros(e, dtype=torch.int64, device=like.device))
 
 
-def two_loop_direction(g: Tensor, hist: LaneHistory, n_slots: int) -> Tensor:
+def two_loop_direction(g: Tensor, hist: LaneHistory, n_slots: int,
+                       dot=_dot) -> Tensor:
     """−H·g per lane by the two-loop recursion over each lane's valid
     pairs, steepest descent where a lane's history is empty. ``n_slots``
     bounds every lane's count (the iterations run so far, at most m); the
@@ -165,30 +166,30 @@ def two_loop_direction(g: Tensor, hist: LaneHistory, n_slots: int) -> Tensor:
     alpha = []
     for j in range(n_slots):
         k = m - 1 - j
-        a = torch.where(valid[:, j], hist.rho[:, k] * _dot(hist.s[:, k], q), 0.0)
+        a = torch.where(valid[:, j], hist.rho[:, k] * dot(hist.s[:, k], q), 0.0)
         q = q - a[:, None] * hist.y[:, k]
         alpha.append(a)
     # Initial Hessian scaling γ = sᵀy / yᵀy from the newest pair.
     s_new, y_new = hist.s[:, m - 1], hist.y[:, m - 1]
     gamma = torch.where(hist.count > 0,
-                        _dot(s_new, y_new) / torch.clamp(_dot(y_new, y_new), min=1e-30),
+                        dot(s_new, y_new) / torch.clamp(dot(y_new, y_new), min=1e-30),
                         1.0)
     r = gamma[:, None] * q
     for j in reversed(range(n_slots)):
         k = m - 1 - j
-        b = hist.rho[:, k] * _dot(hist.y[:, k], r)
+        b = hist.rho[:, k] * dot(hist.y[:, k], r)
         corr = torch.where(valid[:, j], alpha[j] - b, 0.0)
         r = r + corr[:, None] * hist.s[:, k]
     return -r
 
 
 def update_history(hist: LaneHistory, s: Tensor, y: Tensor,
-                   active: Tensor) -> LaneHistory:
+                   active: Tensor, dot=_dot) -> LaneHistory:
     """Push each active lane's curvature pair unless its sᵀy is not
     sufficiently positive."""
     m = hist.s.shape[1]
-    sy = _dot(s, y)
-    ok = active & (sy > 1e-10 * torch.sqrt(_dot(s, s)) * torch.sqrt(_dot(y, y)))
+    sy = dot(s, y)
+    ok = active & (sy > 1e-10 * torch.sqrt(dot(s, s)) * torch.sqrt(dot(y, y)))
 
     def push(old: Tensor, new: Tensor) -> Tensor:
         return _pick(ok, torch.cat([old[:, 1:], new[:, None]], dim=1), old)
@@ -241,24 +242,24 @@ def armijo_backtrack(probe: Callable[[Tensor], tuple[Tensor, Tensor, tuple]],
 
 
 def _lbfgs_loop(cfg: OptimizerConfig, x0: Tensor, f0: Tensor, g0: Tensor,
-                extra0, step_fn) -> OptimizerResult:
+                extra0, step_fn, dot=_dot) -> OptimizerResult:
     """The shared L-BFGS loop over lanes: direction, step via ``step_fn``,
     history update, convergence. ``step_fn(x, f, g, extra, d, it, active) →
     (x, f, g, extra, t_final, passes)``, per-lane tensors; ``t_final == 0``
     marks a fully failed line search."""
-    gnorm0 = _norm(g0)
+    gnorm0 = _norm(g0, dot)
     tr = _Track(f0, gnorm0, cfg.max_iterations, 2)    # the initial value+grad
     hist = empty_history(cfg.history_length, x0)
     x, f, g, extra = x0, f0, g0, extra0
     while tr.running():
         act = tr.active
-        d = two_loop_direction(g, hist, min(tr.it, cfg.history_length))
+        d = two_loop_direction(g, hist, min(tr.it, cfg.history_length), dot)
         # Not a descent direction: restart from −g.
-        d = _pick(_dot(d, g) < 0, d, -g)
+        d = _pick(dot(d, g) < 0, d, -g)
         x_new, f_new, g_new, extra_new, t, passes = step_fn(x, f, g, extra, d,
                                                             tr.it, act)
-        hist = update_history(hist, x_new - x, g_new - g, act)
-        gnorm = _norm(g_new)
+        hist = update_history(hist, x_new - x, g_new - g, act, dot)
+        gnorm = _norm(g_new, dot)
         reason = check_convergence(tr.it + 1, f, f_new, gnorm, gnorm0, cfg.tolerance)
         reason = torch.where((t == 0.0) & (reason == NOT_CONVERGED),
                              FUNCTION_VALUES_CONVERGED, reason).to(torch.int32)
@@ -266,17 +267,18 @@ def _lbfgs_loop(cfg: OptimizerConfig, x0: Tensor, f0: Tensor, g0: Tensor,
         if extra is not None:
             extra = _pick(act, extra_new, extra)
         tr.step(reason, f_new, gnorm, passes)
-    return tr.result(x, f, _norm(g))
+    return tr.result(x, f, _norm(g, dot))
 
 
 def lbfgs(cfg: OptimizerConfig, value_and_grad: LaneValueAndGrad,
-          x0: Tensor) -> OptimizerResult:
+          x0: Tensor, dot=_dot) -> OptimizerResult:
     """L-BFGS over lanes (``photon_tpu/optim/lbfgs.py`` ``optimize``): each
-    probe one fused value+grad of every lane (2 data passes)."""
+    probe one fused value+grad of every lane (2 data passes). ``dot`` is
+    the coefficient-space inner product (see ``Optimizer.dot``)."""
     f0, g0 = value_and_grad(x0)
 
     def step(x, f, g, extra, d, it, active):
-        dg = _dot(d, g)
+        dg = dot(d, g)
 
         def probe(t):
             ft, gt = value_and_grad(x + t[:, None] * d)
@@ -288,7 +290,7 @@ def lbfgs(cfg: OptimizerConfig, value_and_grad: LaneValueAndGrad,
         return (x_new, torch.where(accept, ft, f), _pick(accept, gt, g), extra,
                 t, 2 * n)
 
-    return _lbfgs_loop(cfg, x0, f0, g0, None, step)
+    return _lbfgs_loop(cfg, x0, f0, g0, None, step, dot)
 
 
 def lbfgs_scored(cfg: OptimizerConfig, so, x0: Tensor) -> OptimizerResult:
@@ -333,29 +335,29 @@ def pseudo_gradient(x: Tensor, g: Tensor, l1: Tensor) -> Tensor:
 
 
 def owlqn(cfg: OptimizerConfig, value_and_grad: LaneValueAndGrad, x0: Tensor,
-          l1: Tensor) -> OptimizerResult:
+          l1: Tensor, dot=_dot) -> OptimizerResult:
     """OWL-QN over lanes (Andrew & Gao 2007): ``value_and_grad`` the smooth
     part (loss + any L2 term),
     ``l1`` the ``[E, P]`` per-coefficient L1 weights."""
     l1 = l1.to(x0.dtype)
 
     def total(x, fs):
-        return fs + _dot(l1, torch.abs(x))
+        return fs + dot(l1, torch.abs(x))
 
     f0s, g0 = value_and_grad(x0)
     f0 = total(x0, f0s)
-    gnorm0 = _norm(pseudo_gradient(x0, g0, l1))
+    gnorm0 = _norm(pseudo_gradient(x0, g0, l1), dot)
     tr = _Track(f0, gnorm0, cfg.max_iterations, 2)
     hist = empty_history(cfg.history_length, x0)
     x, f, g = x0, f0, g0
     while tr.running():
         act = tr.active
         pg = pseudo_gradient(x, g, l1)
-        d = two_loop_direction(pg, hist, min(tr.it, cfg.history_length))
+        d = two_loop_direction(pg, hist, min(tr.it, cfg.history_length), dot)
         # Align with −pg (zero the disagreeing parts); steepest descent where
         # nothing is left.
         d = torch.where(d * (-pg) > 0.0, d, 0.0)
-        d = _pick(_dot(d, d) > 0.0, d, -pg)
+        d = _pick(dot(d, d) > 0.0, d, -pg)
         xi = torch.where(x != 0.0, torch.sign(x), torch.sign(-pg))
 
         def probe(t):
@@ -364,53 +366,53 @@ def owlqn(cfg: OptimizerConfig, value_and_grad: LaneValueAndGrad, x0: Tensor,
             xt = x + t[:, None] * d
             xt = torch.where(xt * xi >= 0.0, xt, 0.0)
             fts, gt = value_and_grad(xt)
-            return total(xt, fts), f + 1e-4 * _dot(pg, xt - x), (gt, xt)
+            return total(xt, fts), f + 1e-4 * dot(pg, xt - x), (gt, xt)
 
         _, ft, (gt, xt), accept, n = armijo_backtrack(
             probe, f, (g, x), act, cfg.max_line_search_iterations)
         x_new, f_new, g_new = _pick(accept, xt, x), torch.where(accept, ft, f), \
             _pick(accept, gt, g)
-        hist = update_history(hist, x_new - x, g_new - g, act)
-        gnorm = _norm(pseudo_gradient(x_new, g_new, l1))
+        hist = update_history(hist, x_new - x, g_new - g, act, dot)
+        gnorm = _norm(pseudo_gradient(x_new, g_new, l1), dot)
         reason = check_convergence(tr.it + 1, f, f_new, gnorm, gnorm0, cfg.tolerance)
         reason = torch.where(~accept & (reason == NOT_CONVERGED),
                              FUNCTION_VALUES_CONVERGED, reason).to(torch.int32)
         x, f, g = _pick(act, x_new, x), _pick(act, f_new, f), _pick(act, g_new, g)
         tr.step(reason, f_new, gnorm, 2 * n)   # a probe is one value+grad
-    return tr.result(x, f, _norm(pseudo_gradient(x, g, l1)))
+    return tr.result(x, f, _norm(pseudo_gradient(x, g, l1), dot))
 
 
 # ------------------------------------------------------------------- TRON
 
 
-def _boundary_tau(p: Tensor, d: Tensor, delta: Tensor) -> Tensor:
+def _boundary_tau(p: Tensor, d: Tensor, delta: Tensor, dot=_dot) -> Tensor:
     """τ ≥ 0 with ‖p + τ·d‖ = delta, per lane."""
-    dd, pd, pp = _dot(d, d), _dot(p, d), _dot(p, p)
+    dd, pd, pp = dot(d, d), dot(p, d), dot(p, p)
     disc = torch.sqrt(torch.clamp(pd * pd + dd * (delta * delta - pp), min=0.0))
     return (-pd + disc) / torch.clamp(dd, min=1e-30)
 
 
 def steihaug_cg(hvp: Callable[[Tensor], Tensor], g: Tensor, delta: Tensor,
-                max_iters: int, tol: Tensor, active: Tensor):
+                max_iters: int, tol: Tensor, active: Tensor, dot=_dot):
     """Per-lane truncated CG for H p = −g inside ‖p‖ ≤ delta. A lane
     iterates while it is ``active``, has not hit the boundary, has run
     fewer than ``max_iters`` steps and its residual norm exceeds ``tol``;
     each round is one H·v of every lane. Returns ``(p, Hp, n_hvp)``."""
     r = -g
     d, p, hp = r, torch.zeros_like(g), torch.zeros_like(g)
-    rr = _dot(r, r)
+    rr = dot(r, r)
     n = torch.zeros(g.shape[0], dtype=torch.int32, device=g.device)
     cg = active & (torch.sqrt(rr) > tol) if max_iters > 0 else torch.zeros_like(active)
     for rnd in range(max_iters):
         hd = hvp(d)
-        dhd = _dot(d, hd)
+        dhd = dot(d, hd)
         alpha = rr / torch.where(dhd > 1e-30, dhd, 1.0)
         # Negative curvature or a step outside the region: walk to the edge.
         p_try = p + alpha[:, None] * d
-        hit = (dhd <= 1e-30) | (_norm(p_try) >= delta)
-        step = torch.where(hit, _boundary_tau(p, d, delta), alpha)[:, None]
+        hit = (dhd <= 1e-30) | (_norm(p_try, dot) >= delta)
+        step = torch.where(hit, _boundary_tau(p, d, delta, dot), alpha)[:, None]
         p_new, hp_new, r_new = p + step * d, hp + step * hd, r - step * hd
-        rr_new = _dot(r_new, r_new)
+        rr_new = dot(r_new, r_new)
         beta = rr_new / torch.clamp(rr, min=1e-30)
         d_new = r_new + beta[:, None] * d
         p, hp, r, d = (_pick(cg, p_new, p), _pick(cg, hp_new, hp),
@@ -424,28 +426,29 @@ def steihaug_cg(hvp: Callable[[Tensor], Tensor], g: Tensor, delta: Tensor,
 
 
 def tron(cfg: OptimizerConfig, value_and_grad: LaneValueAndGrad, x0: Tensor,
-         hvp_at: Callable[[Tensor], Callable[[Tensor], Tensor]]) -> OptimizerResult:
+         hvp_at: Callable[[Tensor], Callable[[Tensor], Tensor]],
+         dot=_dot) -> OptimizerResult:
     """TRON over lanes (LIBLINEAR's trust-region Newton with Steihaug CG,
     Lin, Weng & Keerthi 2008). ``hvp_at(x)`` gives ``v ↦ H(x)·v`` of
     every lane, its margins computed once per point (1 pass), each H·v 2
     passes."""
     f0, g0 = value_and_grad(x0)
-    gnorm0 = _norm(g0)
+    gnorm0 = _norm(g0, dot)
     tr = _Track(f0, gnorm0, cfg.max_iterations, 2)
     x, f, g, delta = x0, f0, g0, gnorm0
     while tr.running():
         act = tr.active
-        gnorm = _norm(g)
+        gnorm = _norm(g, dot)
         p, hp, n_hvp = steihaug_cg(hvp_at(x), g, delta, cfg.max_cg_iterations,
-                                   0.1 * gnorm, act)
+                                   0.1 * gnorm, act, dot)
         # Predicted reduction of the quadratic model: −(gᵀp + ½ pᵀHp).
-        pred = -(_dot(g, p) + 0.5 * _dot(p, hp))
+        pred = -(dot(g, p) + 0.5 * dot(p, hp))
         x_try = x + p
         f_try, g_try = value_and_grad(x_try)
         rho = (f - f_try) / torch.where(torch.abs(pred) > 1e-30, pred, 1.0)
         # A non-finite trial value takes the shrink branch.
         rho = torch.where(torch.isfinite(f_try), rho, -float("inf"))
-        pnorm = _norm(p)
+        pnorm = _norm(p, dot)
         delta_new = torch.where(
             rho < _ETA1,
             torch.clamp(_SIGMA1 * torch.minimum(pnorm, delta), min=1e-12),
@@ -455,7 +458,7 @@ def tron(cfg: OptimizerConfig, value_and_grad: LaneValueAndGrad, x0: Tensor,
         accept = rho > _ETA0
         x_new, f_new, g_new = (_pick(accept, x_try, x), torch.where(accept, f_try, f),
                                _pick(accept, g_try, g))
-        gnorm_new = _norm(g_new)
+        gnorm_new = _norm(g_new, dot)
         # The function-value test only means something on accepted steps.
         reason = torch.where(
             accept,
@@ -468,7 +471,7 @@ def tron(cfg: OptimizerConfig, value_and_grad: LaneValueAndGrad, x0: Tensor,
         delta = torch.where(act, delta_new, delta)
         # The hoisted margins, 2 per H·v, and the trial value+grad.
         tr.step(reason, f_new, gnorm_new, 1 + 2 * n_hvp + 2)
-    return tr.result(x, f, _norm(g))
+    return tr.result(x, f, _norm(g, dot))
 
 
 # ------------------------------------------------------- one solve, one lane
@@ -493,12 +496,17 @@ def _unbatched(r: OptimizerResult) -> OptimizerResult:
         grad_norms=r.grad_norms[0].cpu(), data_passes=int(passes))
 
 
+def _dot_of(opt: Optimizer):
+    return _dot if opt.dot is None else opt.dot
+
+
 @dataclasses.dataclass(frozen=True)
 class LBFGS(Optimizer):
     """Limited-memory BFGS on one ``[D]`` solve."""
 
     def optimize(self, value_and_grad: ValueAndGrad, x0: Tensor) -> OptimizerResult:
-        return _unbatched(lbfgs(self.config, _one_lane(value_and_grad), x0[None]))
+        return _unbatched(lbfgs(self.config, _one_lane(value_and_grad), x0[None],
+                                _dot_of(self)))
 
     def optimize_scored(self, so, x0: Tensor) -> OptimizerResult:
         """With the margins z = Xw + offsets maintained (``so`` a
@@ -522,7 +530,7 @@ class OWLQN(Optimizer):
         self, value_and_grad: ValueAndGrad, x0: Tensor, l1_weights: Tensor
     ) -> OptimizerResult:
         return _unbatched(owlqn(self.config, _one_lane(value_and_grad), x0[None],
-                                l1_weights[None]))
+                                l1_weights[None], _dot_of(self)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -542,4 +550,4 @@ class TRON(Optimizer):
             return lambda v: hv(v[0])[None]
 
         return _unbatched(tron(self.config, _one_lane(value_and_grad), x0[None],
-                               lane_hvp_at))
+                               lane_hvp_at, _dot_of(self)))

@@ -1,11 +1,12 @@
 """Parallelism: device meshes, data-parallel fitting, process groups.
 
-Port of ``photon_tpu/parallel/``'s static half: ``mesh.py`` (meshes, row
-shards, the deterministic fold), ``spmd_objective.py`` and
-``data_parallel.py`` (the fixed effect over row shards) and
-``distributed.py``'s bring-up, file shards and process-local batches. The
-elastic half (``model_parallel.py``, ``MeshMembership``, ``elastic.py``)
-comes with the elastic slice.
+Port of ``photon_tpu/parallel/``: ``mesh.py`` (meshes, row shards, the
+deterministic fold), ``spmd_objective.py`` and ``data_parallel.py`` (the
+fixed effect over row shards), ``model_parallel.py`` (the fixed effect over
+a ``data`` x ``model`` mesh, its coefficients sharded), ``distributed.py``
+(bring-up, file shards, process-local batches and the elastic
+``MeshMembership``) and ``elastic.py`` (elastic multi-host GAME training,
+``python -m photon_tpu_torch.parallel.elastic``).
 """
 from photon_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,

@@ -6,8 +6,8 @@ Port of ``photon_tpu/parallel/mesh.py``. PyTorch has no single-controller
 
   * ``data``    — batch rows (data parallelism; the gradient fold),
   * ``entity``  — random-effect entities (sharded lanes),
-  * ``feature`` — coefficient dimension (the model axis; not in the port
-    yet: ``parallel/model_parallel.py`` comes with the elastic slice),
+  * ``feature`` — coefficient dimension (``parallel/model_parallel.py``
+    names its axis ``model``, as the JAX package does),
   * ``dcn``     — the outer, cross-process axis, listed first.
 
 A mesh built by :func:`make_mesh` or :func:`make_multislice_mesh` lives in

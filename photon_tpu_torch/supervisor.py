@@ -21,10 +21,13 @@ checkpoint-restart (``checkpoint.py`` resumes bit-identically) plus:
   the scheduler's process restart resumes from the checkpoint.
 * :class:`Heartbeat`: a liveness beacon file, rewritten every interval by a
   daemon thread, which also runs the map-count and device-memory
-  watchdogs. Peer checks across processes, the attempt-epoch barrier and
-  the live peer watchdog (``peer_epochs`` / ``PeerWatchdog``) come with the
-  elastic slice (slice 16); until then they check only this process's own
-  beacon, as the JAX package does at ``process_count() == 1``.
+  watchdogs and exports every expected peer's beacon age. Across the
+  processes of a group, the retry loop checks its peers' beacons
+  (``check_peers``), waits for every peer to reach its attempt epoch
+  (``wait_for_epoch``: a lone retrier would issue collectives no peer
+  joins), and arms a :class:`PeerWatchdog` around each attempt, which ends
+  a process wedged in a collective whose peer died (exit
+  :data:`WATCHDOG_EXIT_CODE`).
 * :class:`MapCountWatchdog`: warns as the process's memory-map count nears
   ``vm.max_map_count``.
 """
@@ -51,6 +54,8 @@ __all__ = [
     "RunSupervisor",
     "Heartbeat",
     "PeerReport",
+    "PeerWatchdog",
+    "WATCHDOG_EXIT_CODE",
     "MapCountWatchdog",
     "arm_first_step_clock",
     "clear_executable_caches",
@@ -628,16 +633,28 @@ class Heartbeat:
     (``obs.analysis.slo.SloWatchdog``: SLO rules judged on the beat
     cadence, rate-limited by the watchdog's own ``min_interval_s``, from
     the thread that survives a wedged main thread). ``process_id`` is the
-    beacon's process (0 without a process group)."""
+    beacon's process (default: this process's rank in its group, 0
+    without one). ``peer_gauges``, the expected process ids, are exported
+    on every beat as ``host_beacon_age_seconds{host=...}`` (-1: no beacon
+    file), so the fleet report shows a dead host as a climbing age.
+    Staleness is judged by the files' mtimes on the shared filesystem: one
+    clock for every reader."""
 
-    def __init__(self, directory: str, process_id: int = 0,
+    def __init__(self, directory: str, process_id: Optional[int] = None,
                  interval_seconds: float = 10.0, slo_watchdog=None,
-                 memory_guard="auto"):
+                 memory_guard="auto",
+                 peer_gauges: Optional[Sequence[int]] = None):
+        if process_id is None:
+            from photon_tpu_torch.parallel.distributed import process_index
+
+            process_id = process_index()
         self.directory = directory
         self.process_id = int(process_id)
         self.interval_seconds = interval_seconds
         self.slo_watchdog = slo_watchdog
         self.memory_guard = memory_guard
+        self.peer_gauges = (None if peer_gauges is None
+                            else [int(p) for p in peer_gauges])
         self.epoch = 0
         self._stop = None
         self._thread = None
@@ -668,9 +685,43 @@ class Heartbeat:
         os.replace(tmp, self._path(self.process_id))
 
     def set_epoch(self, epoch: int) -> None:
-        """Advertise this process's attempt index (and beat at once)."""
+        """Advertise this process's attempt index (and beat at once).
+
+        In-process retry across processes is safe only when every process
+        re-enters the attempt together: one retrying alone issues
+        collectives that a peer still blocked in the previous attempt
+        never joins, and both then hang with fresh beacons. The epoch in
+        the beacon is what :meth:`wait_for_epoch` waits on."""
         self.epoch = int(epoch)
         self.beat_once()
+
+    def peer_epochs(self, expected: Sequence[int]) -> dict:
+        """Last advertised attempt epoch per peer (-1: no or unreadable
+        beacon)."""
+        out = {}
+        for pid in expected:
+            try:
+                with open(self._path(pid)) as f:
+                    out[pid] = int(json.load(f).get("epoch", -1))
+            except (OSError, ValueError):
+                out[pid] = -1
+        return out
+
+    def wait_for_epoch(self, expected: Sequence[int], epoch: int,
+                       timeout_seconds: float = 30.0,
+                       poll_seconds: Optional[float] = None) -> list:
+        """Block until every expected peer advertises ``epoch`` or newer;
+        returns the laggards (empty: the barrier passed). A peer wedged in
+        the previous attempt's collective never advances its epoch, so the
+        caller fails fast instead of retrying alone."""
+        poll = self.interval_seconds if poll_seconds is None else poll_seconds
+        deadline = time.monotonic() + timeout_seconds
+        while True:
+            laggards = [p for p, e in self.peer_epochs(expected).items()
+                        if e < epoch]
+            if not laggards or time.monotonic() >= deadline:
+                return laggards
+            time.sleep(poll)
 
     def start(self) -> "Heartbeat":
         if self._thread is not None:
@@ -691,6 +742,10 @@ class Heartbeat:
                     self.beat_once()
                 except OSError:
                     pass  # a filesystem hiccup; the next beat retries
+                try:
+                    self.export_peer_gauges()
+                except Exception:  # noqa: BLE001 - gauge export must
+                    pass  # never take the liveness beacon down with it
                 map_watch.check()
                 if mem_guard is not None:
                     try:
@@ -720,6 +775,36 @@ class Heartbeat:
     def __exit__(self, *exc) -> None:
         self.stop()
 
+    def export_peer_gauges(self, expected: Optional[Sequence[int]] = None) -> None:
+        """Export ``host_beacon_age_seconds{host=...}`` for each expected
+        peer (default the ``peer_gauges`` set; nothing when unset), judged
+        against this process's own beacon mtime; a host with no beacon
+        file exports -1."""
+        expected = self.peer_gauges if expected is None else expected
+        if not expected:
+            return
+        from photon_tpu_torch.obs.metrics import REGISTRY
+
+        gauge = REGISTRY.gauge(
+            "host_beacon_age_seconds",
+            "Seconds since each expected host's last liveness beacon "
+            "(-1: no beacon file); a frozen, climbing age is a dead host",
+        )
+        try:
+            now = os.path.getmtime(self._path(self.process_id))
+        except OSError:
+            now = time.time()
+        for pid in expected:
+            try:
+                age = max(0.0, now - os.path.getmtime(self._path(pid)))
+            except OSError:
+                age = -1.0
+            gauge.set(age, host=str(pid))
+
+    def watchdog(self, expected: Sequence[int], **kwargs) -> "PeerWatchdog":
+        """A :class:`PeerWatchdog` over this beacon."""
+        return PeerWatchdog(self, expected, **kwargs)
+
     def check_peers(self, expected: Sequence[int],
                     max_age_seconds: Optional[float] = None) -> PeerReport:
         """Classify each expected process id by beacon freshness (default
@@ -740,3 +825,106 @@ class Heartbeat:
                 continue
             (alive if age <= max_age_seconds else dead).append(pid)
         return PeerReport(alive=alive, dead=dead, missing=missing)
+
+
+WATCHDOG_EXIT_CODE = 43  # distinct from restart-budget exits; scheduler-visible
+
+
+class PeerWatchdog:
+    """Live peer monitor that ends a process hung in a collective whose
+    peer died.
+
+    Such a collective blocks inside the communication library, where no
+    Python exception reaches it, so the retry loop's between-attempts
+    ``check_peers`` never runs. This daemon thread checks the peers'
+    beacons every ``check_interval_seconds`` while an attempt runs; after
+    ``grace_checks`` consecutive unhealthy reports it calls
+    ``on_dead(report)``: by default it writes
+    ``<dir>/watchdog-abort.host-<id>.json``, logs, and ends the process
+    with ``os._exit(WATCHDOG_EXIT_CODE)`` (the main thread will never
+    unwind), handing recovery to the scheduler's process restart and the
+    checkpoint resume. A peer never seen counts as unhealthy only after
+    ``startup_grace_seconds``; one seen and then gone counts at once."""
+
+    def __init__(self, heartbeat: Heartbeat, expected: Sequence[int],
+                 check_interval_seconds: Optional[float] = None,
+                 max_age_seconds: Optional[float] = None,
+                 grace_checks: int = 2, startup_grace_seconds: float = 120.0,
+                 on_dead: Optional[Callable[[PeerReport], None]] = None,
+                 logger=None):
+        self.heartbeat = heartbeat
+        self.expected = [int(p) for p in expected]
+        self.check_interval_seconds = (heartbeat.interval_seconds
+                                       if check_interval_seconds is None
+                                       else check_interval_seconds)
+        self.max_age_seconds = max_age_seconds
+        self.grace_checks = max(1, int(grace_checks))
+        self.startup_grace_seconds = startup_grace_seconds
+        self.on_dead = on_dead if on_dead is not None else self._abort
+        self.logger = logger
+        self.fired: Optional[PeerReport] = None
+        self._seen: set = set()
+        self._stop = None
+        self._thread = None
+
+    def _abort(self, report: PeerReport) -> None:
+        try:
+            payload = {"process_id": self.heartbeat.process_id,
+                       "time": time.time(), "dead": report.dead,
+                       "missing": report.missing, "alive": report.alive}
+            path = os.path.join(
+                self.heartbeat.directory,
+                f"watchdog-abort.host-{self.heartbeat.process_id}.json")
+            with open(path + ".tmp", "w") as f:
+                json.dump(payload, f)
+            os.replace(path + ".tmp", path)
+        except OSError:
+            pass  # the exit below is the point; the breadcrumb is best-effort
+        if self.logger is not None:
+            self.logger.error(
+                "peer watchdog: dead=%s missing=%s — aborting for scheduler "
+                "restart (exit %d; checkpoint resume fast-forwards)",
+                report.dead, report.missing, WATCHDOG_EXIT_CODE)
+        os._exit(WATCHDOG_EXIT_CODE)
+
+    def start(self) -> "PeerWatchdog":
+        if self._thread is not None:
+            return self
+        self._stop = threading.Event()
+        started = time.monotonic()
+
+        def loop():
+            strikes = 0
+            while not self._stop.wait(self.check_interval_seconds):
+                try:
+                    report = self.heartbeat.check_peers(self.expected,
+                                                        self.max_age_seconds)
+                except OSError:
+                    continue  # a filesystem hiccup; the next check retries
+                self._seen.update(report.alive)
+                self._seen.update(report.dead)  # a stale file was still seen
+                in_grace = time.monotonic() - started < self.startup_grace_seconds
+                unhealthy = bool(report.dead) or any(
+                    (p in self._seen) or not in_grace for p in report.missing)
+                strikes = strikes + 1 if unhealthy else 0
+                if strikes >= self.grace_checks:
+                    self.fired = report
+                    self.on_dead(report)
+                    return
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="photon-peer-watchdog")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def __enter__(self) -> "PeerWatchdog":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

@@ -287,7 +287,7 @@ def test_scoring_driver_devices_through_the_seam(mesh_runs, tmp_path, monkeypatc
 @pytest.mark.parametrize("flags,message", [
     (["--devices", "2"], "--devices 2 > 1 visible devices"),
     (["--mesh", "data=2"], "--mesh needs 2 devices, have 1"),
-    (["--mesh", "data=2,model=2"], "slice 16"),
+    (["--mesh", "data=2,model=2"], "--mesh needs 4 devices, have 1"),
 ], ids=["devices", "mesh", "model_axis"])
 def test_game_driver_refuses_impossible_meshes(tmp_path, capsys, flags, message):
     from photon_tpu_torch.cli import game_training_driver

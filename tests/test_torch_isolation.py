@@ -11,7 +11,8 @@
   a tiny size, with the CPU as both devices);
   afterwards neither ``jax`` nor any
   ``photon_tpu`` (nor ``ml_dtypes``) module is loaded.
-* No source line of the port or of ``chip_smoke.py`` imports them.
+* No source line of the port, of ``chip_smoke.py`` or of
+  ``scripts/multihost_smoke_torch.py`` imports them.
 * Without a GPU, ``resolve_device()`` and the port's scoring, serving and
   online training drivers run without ``--device cpu`` raise instead of
   running on the CPU (the GPU is
@@ -220,8 +221,8 @@ def test_port_and_chip_smoke_run_without_jax(tmp_path):
 
 
 def _sources():
-    """The package's own .py files (not its gitignored ``_build`` output)
-    and chip_smoke.py."""
+    """The package's own .py files (not its gitignored ``_build`` output),
+    chip_smoke.py and the port's elastic drill."""
     root = os.path.dirname(photon_tpu_torch.__file__)
     for dirpath, dirs, files in os.walk(root):
         dirs[:] = [d for d in dirs if d != "_build"]
@@ -229,6 +230,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "scripts", "multihost_smoke_torch.py")
 
 
 def test_no_source_line_imports_jax_or_the_jax_package():

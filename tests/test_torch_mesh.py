@@ -222,8 +222,7 @@ def test_mesh_from_flags_semantics(monkeypatch):
         params.mesh_from_flags(1, "entity=2")
     with pytest.raises(ValueError, match="needs 8 devices, have 4"):
         params.mesh_from_flags(1, "data=8")
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        params.mesh_from_flags(1, "data=2,model=2")
+    assert params.mesh_from_flags(1, "data=2,model=2").shape == {"data": 2, "model": 2}
 
 
 def test_visible_devices_on_the_cpu_is_one():
