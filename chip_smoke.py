@@ -132,9 +132,13 @@ result line:
    with ``--chunk-rows 65536`` and 0 (scores within 1e-5) and the training
    driver on the 2^19 rows, with their stage times.
 13. bf16_kernels, glm_driver, bf16_feed: the kernels' bf16 entry points
-   against their f32 kernels, the GLM driver in-core and out of core, and
-   the GAME driver with ``--bf16-feed``, its model files byte for byte those
-   of the f32 driver on bf16-rounded values (see each phase's docstring).
+   against their f32 kernels (the transposes over row panels beside the
+   merge path and cuSPARSE, in turns, at five layouts, each also held to
+   the ELL arrays' plain transpose, and the route each takes held to those
+   times), the GLM driver in-core (its bf16 transposes over row panels) and
+   out of core, and the GAME driver with ``--bf16-feed``, its model files
+   byte for byte those of the f32 driver on bf16-rounded values (see each
+   phase's docstring).
 14. factored: a factored per-user random effect at phase 6's widths
    (``phase_factored``): its steps timed, the projection gradient bit-equal
    on repeat and against cpu, an f64 witness, the model saved and scored.
@@ -180,9 +184,11 @@ result line:
    unsharded; f64 witnesses (fit A at 8,192 users and the out-of-core
    solve, 4 shards against 1 within 1e-12); two processes on the card over
    gloo with 2 shards each (within 1e-12 of the 4-shard fit, bit-equal to
-   each other) and one NCCL rank (``phase_mesh``). Each kernel's launches
-   on the mesh path are the kernels line's ``mesh``; speed across cards is
-   not measured (one card).
+   each other) and one NCCL rank (``phase_mesh``); beside the f32 fit's gap,
+   how far one f32 ulp of the unsharded fit's offsets moves its per-user
+   coefficients (``offset_ulp_sensitivity``). Each kernel's launches on the
+   mesh path are the kernels line's ``mesh``; speed across cards is not
+   measured (one card).
 21. model_axis (after mesh): the ``model`` axis on the one card
    (``make_mesh({"data": 2, "model": 2}, devices=[cuda] * 4)``): phase
    training's 2^19 x 2^18 logistic L-BFGS with SIMPLE variances, 10
@@ -240,18 +246,27 @@ TPU_ENTRY = {"ell_panel_matvec": "matvec_pallas (pallas_sparse.py:331)",
              "csc_rmatvec": "rmatvec_pallas (pallas_sparse.py:313)",
              "csc_sq_rmatvec": "rmatvec_pallas(square_vals=True) (pallas_sparse.py:313)"}
 RTOL_F32, ATOL_F32_REL, ATOL_F64 = 1e-5, 1e-5, 1e-12
+# The route of the bf16 transposes against their times in one call: a
+# layout sent to the row panels must have measured faster than the merge
+# path in both transposes; one kept on the merge path must not have measured
+# the row panels faster by more than this share in both (timing noise).
+ROUTE_MARGIN = 0.1
 
 
-# perf_counter at main()'s start: each phase line carries its end as "at_s"
-_START = [None]
+# perf_counter at main()'s start and at the last phase's end: each phase
+# line carries its end as "at_s" and its own seconds as "phase_s"
+_START = [None, None]
 
 
 def emit(obj: dict) -> None:
     if "phase" in obj and _START[0] is not None:
-        obj = {**obj, "at_s": time.perf_counter() - _START[0]}
+        now = time.perf_counter()
+        obj = {**obj, "at_s": now - _START[0],
+               "phase_s": now - (_START[1] if _START[1] is not None else _START[0])}
+        _START[1] = now
         # the progress on the error stream too, whose end a stopped run shows
-        print(f"chip_smoke: phase {obj['phase']} done at {obj['at_s']:.1f}s",
-              file=sys.stderr, flush=True)
+        print(f"chip_smoke: phase {obj['phase']} done at {obj['at_s']:.1f}s "
+              f"({obj['phase_s']:.1f}s)", file=sys.stderr, flush=True)
     print(json.dumps(obj), flush=True)
 
 
@@ -351,7 +366,7 @@ def kernel_bound(name: str, n: int, k: int, dim: int, nnz: int, dtype: str,
         rows = ((idx >= 0) & (idx < dim)).any(1).nonzero().flatten()
         nbytes = ((dim + 1) * 8 + nnz * (4 + vb) + sectors_touched(rows, n, xb)
                   + dim * xb)
-        ops = (3 if name == "csc_sq_rmatvec" else 2) * nnz
+        ops = (3 if name.startswith("csc_sq") else 2) * nnz
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -411,16 +426,22 @@ def process_state() -> dict:
             "gc_tracked": len(gc.get_objects())}
 
 
-def time_pair(torch, fn, other, rounds=3) -> tuple:
-    """``time_ms`` of ``fn`` and of ``other`` in alternating turns (fn,
-    other, other, fn, ...): the median of each over ``rounds``. Two calls
-    compared in turns see the same host and card, which matters where a
-    call's time is its host work."""
-    a, b = [], []
+def time_turns(torch, fns: list, rounds=3) -> list:
+    """``time_ms`` of each of ``fns`` in alternating turns (in order, then
+    in reverse, ...): the median of each over ``rounds``. Calls compared in
+    turns see the same host and card, which matters where a call's time is
+    its host work."""
+    times = [[] for _ in fns]
     for r in range(rounds):
-        for f, out in ((fn, a), (other, b)) if r % 2 == 0 else ((other, b), (fn, a)):
-            out.append(time_ms(torch, f))
-    return statistics.median(a), statistics.median(b)
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            times[i].append(time_ms(torch, fns[i]))
+    return [statistics.median(t) for t in times]
+
+
+def time_pair(torch, fn, other, rounds=3) -> tuple:
+    """``time_turns`` of ``fn`` and ``other``."""
+    return tuple(time_turns(torch, [fn, other], rounds))
 
 
 def _close(torch, got, ref, dtype: str) -> float:
@@ -453,11 +474,17 @@ def library_calls(torch, idx, val, w, v, csc, dim) -> dict:
     at2 = torch.sparse_csr_tensor(csc.colptr.int(), csc.rows, csc.vals * csc.vals,
                                   size=(dim, n))
     return {"ell_panel_matvec": lambda: a @ w, "ell_matvec": lambda: a @ w,
-            "csc_rmatvec": lambda: at @ v, "csc_sq_rmatvec": lambda: at2 @ v}
+            "csc_rmatvec": lambda: at @ v, "csc_sq_rmatvec": lambda: at2 @ v,
+            "csc_panel_rmatvec": lambda: at @ v, "csc_sq_panel_rmatvec": lambda: at2 @ v}
 
 
-def kernel_calls(cs, idx, val, w, v, csc, panels, dim) -> dict:
-    """Each kernel's wrapper and its plain version, on the same inputs."""
+def kernel_calls(cs, idx, val, w, v, csc, panels, dim, row_panels=None) -> dict:
+    """Each kernel's wrapper and its plain version, on the same inputs; the
+    transposes over row panels too where ``row_panels`` is given."""
+    rp = {} if row_panels is None else {
+        name: (lambda sq=sq: cs.csc_panel_rmatvec(row_panels, v, square=sq),
+               lambda sq=sq: cs.csc_panel_rmatvec_plain(row_panels, v, square=sq))
+        for name, sq in (("csc_panel_rmatvec", False), ("csc_sq_panel_rmatvec", True))}
     return {
         "ell_panel_matvec": (lambda: cs.ell_panel_matvec(panels, w),
                              lambda: cs.ell_panel_matvec_plain(panels, w)),
@@ -467,6 +494,7 @@ def kernel_calls(cs, idx, val, w, v, csc, panels, dim) -> dict:
                         lambda: cs.csc_rmatvec_plain(csc, v)),
         "csc_sq_rmatvec": (lambda: cs.csc_rmatvec(csc, v, square=True),
                            lambda: cs.csc_rmatvec_plain(csc, v, square=True)),
+        **rp,
     }
 
 
@@ -524,8 +552,28 @@ def check_case(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
     return out
 
 
+def within_sum_bound(got, ref, mass, n_terms: int, u_out: float, what: str) -> dict:
+    """``got`` against ``ref``, two float64 sums of the same ``n_terms``
+    products in different orders, each rounded once to a type of unit
+    roundoff ``u_out`` (0 for float64): elementwise within
+    2·γ_n·``mass`` + u_out·(|got| + |ref|), γ_n = n·u / (1 − n·u), u =
+    2^-53, ``mass`` the sum of the terms' magnitudes (``check_bounded``).
+    Raises past the bound; returns the largest error and its share of
+    the bound."""
+    gamma = n_terms * 2.0 ** -53 / (1 - n_terms * 2.0 ** -53)
+    got, ref = got.double(), ref.double()
+    err = (got - ref).abs()
+    bound = 2 * gamma * mass + u_out * (got.abs() + ref.abs())
+    ratio = float((err / bound.clamp(min=1e-300)).max()) if err.numel() else 0.0
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"{what}: {ratio} of the bound")
+    return {"max_abs_err": float(err.max()) if err.numel() else 0.0, "of_bound": ratio}
+
+
 def check_bounded(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
-    """The four kernels on one layout, in f32 and f64, each against its
+    """The kernels on one layout, in f32 and f64 (the transposes over row
+    panels in f32, the only type they take beside bf16; the panel matvec
+    where ``build_panels`` builds its layout), each against its
     plain version within the error bound of a reordered sum. Both sum the
     same n products in float64 (n the terms of the output, plus 2 for the
     products' roundings) and round once to the values' type: each f64 sum
@@ -535,8 +583,11 @@ def check_bounded(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
     2·γ_n·Σ|terms| + u_T·(|kernel| + |plain|), elementwise. The bound
     scales with the terms, where a fixed tolerance cannot hold long
     columns whose sums cancel; a kernel that drops, repeats or misplaces
-    an entry is off by that entry, far outside it. Each kernel runs twice,
-    bit-equal."""
+    an entry is off by that entry, far outside it. The transposes over row
+    panels are held so against the plain transpose of the ELL arrays too
+    (``ell_rmatvec_plain``), which reads no layout: a layout built wrong on
+    the card fails there though kernel and plain version agree. Each
+    kernel runs twice, bit-equal."""
     rng = np.random.default_rng(seed)
     w_np, v_np = rng.normal(size=dim), rng.normal(size=idx_np.shape[0])
     idx = torch.from_numpy(idx_np).to(dev)
@@ -548,8 +599,12 @@ def check_bounded(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
         val = torch.from_numpy(val_np).to(dev, tdt)
         w = torch.from_numpy(w_np).to(dev, tdt)
         v = torch.from_numpy(v_np).to(dev, tdt)
-        calls = kernel_calls(cs, idx, val, w, v, cs.build_csc(idx, val, dim),
-                             cs.build_panels(idx, val, dim), dim)
+        panels = cs.build_panels(idx, val, dim)
+        calls = kernel_calls(cs, idx, val, w, v, cs.build_csc(idx, val, dim), panels, dim,
+                             cs.row_panel_layout(idx, val, dim) if dtype == "float32"
+                             else None)
+        if panels is None:         # the panel matvec does not take this layout
+            del calls["ell_panel_matvec"]
         a, aw, av = val.double().abs(), w.double().abs(), v.double().abs()
         aw = torch.cat([aw, aw.new_zeros(1)])          # the ghost column
 
@@ -561,24 +616,24 @@ def check_bounded(torch, cs, dev, idx_np, val_np, dim, seed) -> dict:
                 "csc_rmatvec": cols(a * av[:, None]),
                 "csc_sq_rmatvec": cols(a * a * av[:, None])}
         mass["ell_matvec"] = mass["ell_panel_matvec"]
+        mass["csc_panel_rmatvec"] = mass["csc_rmatvec"]
+        mass["csc_sq_panel_rmatvec"] = mass["csc_sq_rmatvec"]
         res = {}
         for name, (kern, plain) in calls.items():
             n = (out["row_terms"] if name.startswith("ell") else col_terms) + 2
-            gamma = n * 2.0 ** -53 / (1 - n * 2.0 ** -53)
             got = kern()
             again = kern()
             _sync(torch, dev)
             if not torch.equal(got, again):
                 raise AssertionError(f"{name}: two runs differ ({dtype})")
-            got, ref = got.double(), plain().double()
-            err = (got - ref).abs()
-            bound = 2 * gamma * mass[name] + u_out * (got.abs() + ref.abs())
-            ratio = float((err / bound.clamp(min=1e-300)).max())
-            if not bool((err <= bound).all()):
-                raise AssertionError(f"{name} disagrees with its plain version "
-                                     f"({dtype}): {ratio} of the bound")
-            res[name] = {"max_abs_err": float(err.max()), "of_bound": ratio,
+            res[name] = {**within_sum_bound(got, plain(), mass[name], n, u_out,
+                                            f"{name} disagrees with its plain version ({dtype})"),
                          "bit_equal_repeat": True}
+            if name in cs.PANEL_TRANSPOSES:
+                ell = cs.ell_rmatvec_plain(idx, val, v, dim, square="_sq_" in name)
+                res[name]["ell_plain"] = within_sum_bound(
+                    got, ell, mass[name], n, u_out,
+                    f"{name} disagrees with the ELL arrays' plain transpose ({dtype})")
         out[dtype] = res
     return out
 
@@ -849,7 +904,7 @@ COEF_RTOL_F64 = 1e-10        # coefficients, cuda against cpu, float64
 # and transcendentals differently, and 20 L-BFGS iterations carry that on.
 DRIVER_COEF_RTOL_F32 = 1e-3
 OUR_KERNELS = ("ell_panel_kernel", "ell_matvec_kernel", "csc_tile_kernel",
-               "csc_fixup_kernel")
+               "csc_fixup_kernel", "csc_panel_kernel", "csc_band_fixup_kernel")
 
 
 def bench_data(n_rows, dim, k, seed=0, **_):
@@ -1558,7 +1613,35 @@ def re_step_vs_ref(torch, ests, bundles, re_shard, variance, ref_result,
     return out
 
 
-def compare_game_fits(torch, run, ref, split_at: int) -> dict:
+def offset_ulp_sensitivity(torch, est, bundle, fit: dict, re_config) -> dict:
+    """How far a fit's f32 per-user coefficients move when the fixed
+    effect's offsets move by one f32 ulp, on one device, unsharded: the
+    random-effect step alone (``train_random_effects``, ``re_config``'s
+    problem, the datasets ``est`` prepared for ``bundle``) at the offsets of
+    ``fit``'s final fixed effect and at each offset's next float up. Reports
+    max |Δ| over the largest coefficient (as ``compare_game_fits``' gaps),
+    the lanes whose Newton iterations differ, and each bucket's plan."""
+    from photon_tpu_torch.functions.objective import intercept_reg_mask
+    from photon_tpu_torch.game import random_effect as re_mod
+    from photon_tpu_torch.types import TaskType
+
+    problem = re_config.problem(TaskType.LOGISTIC_REGRESSION)
+    ds = est._prepare_cached(bundle)["datasets"]["perUser"]
+    offsets = bundle.features["global"].with_matvec_layout().matvec(
+        fit["results"][0].model["fixed"].model.coefficients.means)
+    mask = intercept_reg_mask(ds.global_dim, None, device=offsets.device)
+    runs = []
+    for o in (offsets, torch.nextafter(offsets, torch.full_like(offsets, float("inf")))):
+        runs.append(re_mod.train_random_effects(problem, ds, o, global_reg_mask=mask))
+    (m0, r0), (m1, r1) = runs
+    return {"coef_rel_err": _stack_rel_err(torch, m1.bucket_coefs, m0.bucket_coefs),
+            "lanes": sum(int(r.iterations.numel()) for r in r0),
+            "lanes_iterations_differ": sum(int((a.iterations != b.iterations).sum())
+                                           for a, b in zip(r0, r1)),
+            "plans": [(b["solver"], b["chunk"]) for b in re_mod.bucket_records()]}
+
+
+def compare_game_fits(torch, run, ref, split_at: int, sensitivity=None) -> dict:
     """A GAME fit on the card against the same fit on the CPU. Asserted:
     every lane's final objective at the end of each configuration's last
     random-effect step (each bucket's sum is reported); each fixed-effect step
@@ -1570,13 +1653,16 @@ def compare_game_fits(torch, run, ref, split_at: int) -> dict:
     stops resolving a change, so a step that stops an iteration apart on the
     two devices (``fixed_steps``) leaves its coefficients apart by that
     iteration's step. Every comparison is made and reported before any
-    failure is raised."""
+    failure is raised. ``sensitivity`` (``offset_ulp_sensitivity``), where
+    given, is reported beside the coefficients' gaps."""
     out = {"coef_rel_err": _coef_errs(torch, run, ref, split_at),
            "coef_bar": COEF_BAR_F32,
            "fixed_steps": _fixed_steps(torch, run, ref),
            "bucket_objective_rel_err": [],
            "lane_objective_rel_err": _lane_objective_err(run, ref),
            "metric_abs_err": 0.0, "failures": []}
+    if sensitivity is not None:
+        out["offset_ulp_sensitivity"] = sensitivity
     out["coef_bar_met"] = max(out["coef_rel_err"].values()) <= COEF_BAR_F32
     for st in out["fixed_steps"]:
         same = st["iterations"][0] == st["iterations"][1] and \
@@ -2813,12 +2899,14 @@ BF16_FEED_METRIC_ATOL = 1e-2
 BF16_LIBRARY_CALL = "cuSPARSE SpMV, bf16 values and vector (torch.sparse_csr @)"
 
 
-def bf16_case(torch, cs, dev, idx_np, val_np, dim, seed, names) -> dict:
+def bf16_case(torch, cs, dev, idx_np, val_np, dim, seed, names, f32_row=False) -> dict:
     """The bf16 entry points of ``names`` on one layout, values rounded to
     bf16: each bit-equal to its f32 kernel on the upcast values, bit-equal
     on repeat, within the f32 tolerance of its plain version; times of the
     bf16 kernel and of the f32 kernel (in turns), the plain version, the
-    library call; the bound from the bf16 layout's bytes."""
+    library call; the bound from the bf16 layout's bytes. With the
+    transposes in ``names``, the transposes over row panels too
+    (``panel_transposes``, ``f32_row`` passed on)."""
     import dataclasses
 
     n, k = idx_np.shape
@@ -2860,15 +2948,123 @@ def bf16_case(torch, cs, dev, idx_np, val_np, dim, seed, names) -> dict:
         if name == "ell_matvec":
             plan = cs.ell_tile_plan(k, torch.bfloat16)
             out[name].update(tile_rows=plan.tile_rows, group=plan.group)
+    if "csc_rmatvec" in names:
+        out.update(panel_transposes(torch, cs, idx, vb, v, dim, csc_b, csc_up, lib,
+                                    f32_row=f32_row))
     return out
 
 
+def panel_transposes(torch, cs, idx, vb, v, dim, csc_b, csc_up, lib,
+                     f32_row: bool = False) -> dict:
+    """The transposes over row panels (``row_panel_layout``, built on the
+    card) on one layout of bf16 values ``vb``: the bf16 kernels bit-equal to
+    their f32 form on the same layout's upcast values and on repeat, within
+    the f32 tolerance of their plain version and within ``within_sum_bound``
+    of the plain transpose of the ELL arrays (no layout read, so a layout
+    built wrong fails); the bf16 kernel, the bf16 merge path, cuSPARSE's
+    bf16 SpMV and the f32 form timed in turns; the route
+    ``transpose_route`` takes here, held to those times (``ROUTE_MARGIN``);
+    the bound as the merge path's (the function's bytes) beside the bytes
+    the panel layout streams. With ``f32_row``, the f32 form's own row too
+    (its plain version, cuSPARSE in f32, its bound): the kernels line's
+    witness rows."""
+    import dataclasses
+
+    n, k = idx.shape
+    t0 = time.perf_counter()
+    rp_b = cs.row_panel_layout(idx, vb, dim)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rp_f = dataclasses.replace(rp_b, vals=rp_b.vals.float())
+    lib_f32 = library_calls(torch, idx, vb.float(), v, v, csc_up, dim) if f32_row else {}
+    rows = (idx >= 0) & (idx < dim)
+    touched = sectors_touched(rows.any(1).nonzero().flatten(), n, 4)
+    layout_bytes = (rp_b.codes.numel() * 4 + rp_b.vals.numel() * 2
+                    + rp_b.offsets.numel() * 8 + touched + dim * 4)
+    # the terms a column sums and their magnitudes, from the ELL arrays
+    flat = torch.where(rows, idx, dim).flatten().long()
+    col_terms = int(torch.bincount(flat, minlength=dim + 1)[:dim].max()) if dim else 0
+    av = (vb.double().abs() * v.double().abs()[:, None]).flatten()
+    av2 = (vb.double().abs() ** 2 * v.double().abs()[:, None]).flatten()
+    mass = {sq: torch.zeros(dim + 1, dtype=torch.float64, device=idx.device)
+            .index_add_(0, flat, a)[:dim] for sq, a in ((False, av), (True, av2))}
+    del av, av2
+    out = {"route": cs.transpose_route(idx, vb, dim),
+           "row_panel_layout": {
+               "build_s": build_s, "tile_cols": rp_b.tile_cols,
+               "panel_rows": rp_b.panel_rows, "tiles": rp_b.n_tiles,
+               "panels": rp_b.n_panels, "blocks": int(rp_b.starts.shape[0]) - 1,
+               "bands": int(rp_b.bands.shape[0]), "split_tiles": int(rp_b.fixups.shape[0]),
+               "stored_entries": int(rp_b.codes.numel()),
+               "streamed_bytes": layout_bytes}}
+    for name, merge, sq in (("csc_panel_rmatvec", "csc_rmatvec", False),
+                            ("csc_sq_panel_rmatvec", "csc_sq_rmatvec", True)):
+        def kb(sq=sq):
+            return cs.csc_panel_rmatvec(rp_b, v, square=sq)
+
+        def kf(sq=sq):
+            return cs.csc_panel_rmatvec(rp_f, v, square=sq)
+
+        def mb(sq=sq):
+            return cs.csc_rmatvec(csc_b, v, square=sq)
+
+        got, ref, again = kb(), kf(), kb()
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or not torch.equal(got, ref):
+            raise AssertionError(f"{name}_bf16 at {n} x {k} is not its f32 form on the "
+                                 "upcast values bit for bit")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}_bf16 at {n} x {k}: two runs differ")
+        ms, merge_ms, lib_ms, f32_ms = time_turns(torch, [kb, mb, lib[merge], kf])
+        bound = kernel_bound(name, n, k, dim, csc_up.nnz, "bfloat16", idx)
+        out[name] = {
+            "bit_equal_f32_on_upcast": True, "bit_equal_repeat": True,
+            "max_abs_err": _close(torch, got, cs.csc_panel_rmatvec_plain(rp_b, v, sq),
+                                  "float32"),
+            "ell_plain": within_sum_bound(
+                got, cs.ell_rmatvec_plain(idx, vb, v, dim, sq), mass[sq], col_terms + 2,
+                2.0 ** -24, f"{name}_bf16 at {n} x {k} disagrees with the ELL arrays' "
+                "plain transpose"),
+            "ms": ms, "merge_ms": merge_ms, "over_merge": ms / merge_ms,
+            "library_ms": lib_ms, "library_ratio": ms / lib_ms,
+            "plain_ms": time_ms(torch, lambda sq=sq: cs.csc_panel_rmatvec_plain(rp_b, v, sq)),
+            "layout_bytes": layout_bytes, **bound,
+            # the f32 form, the witness, on the upcast values
+            "f32": {"ms": f32_ms,
+                    "max_abs_err": _close(torch, ref, cs.csc_panel_rmatvec_plain(rp_f, v, sq),
+                                          "float32")}}
+        if f32_row:
+            out[name]["f32"].update(
+                library_ms=time_ms(torch, lib_f32[merge]),
+                plain_ms=time_ms(torch, lambda sq=sq: cs.csc_panel_rmatvec_plain(rp_f, v, sq)),
+                **kernel_bound(name, n, k, dim, csc_up.nnz, "float32", idx))
+    faster = [out[name]["over_merge"] < 1 for name in cs.PANEL_TRANSPOSES]
+    clearly = [out[name]["over_merge"] < 1 - ROUTE_MARGIN for name in cs.PANEL_TRANSPOSES]
+    if out["route"] == "panel" and not all(faster):
+        raise AssertionError(f"the route sends {n} x {k} to the row panels, measured "
+                             f"slower than the merge path: {_over_merge(out, cs)}")
+    if out["route"] == "merge" and all(clearly):
+        raise AssertionError(f"the route keeps {n} x {k} on the merge path, measured "
+                             f"more than {ROUTE_MARGIN:.0%} slower than the row panels: "
+                             f"{_over_merge(out, cs)}")
+    return out
+
+
+def _over_merge(out: dict, cs) -> dict:
+    """Each row-panel transpose's time over the merge path's."""
+    return {name: out[name]["over_merge"] for name in cs.PANEL_TRANSPOSES}
+
+
 def phase_bf16_kernels(torch, cs, dev, lanes) -> dict:
-    """The four kernels' bf16 entry points (``bf16_case``) at the 2^19-row
+    """The kernels' bf16 entry points (``bf16_case``) at the 2^19-row
     scoring layout (all four), at fit C's lanes (``lanes``: the block-
     diagonal layout of phase ``game_training_vmapped``'s biggest fit C
-    bucket; ``ell_matvec`` and the transposes, as the lanes run them) and at
-    the drivers' 32,768 rows x 33 (the same three)."""
+    bucket; ``ell_matvec`` and the transposes, as the lanes run them), at
+    the drivers' 32,768 rows x 33 (the same three), at the GLM driver's
+    in-core layout (2^19 rows x 33 with an intercept over 327,681 columns,
+    phase ``glm_driver``'s widths: the transposes) and at its first 65,536
+    rows, the out-of-core chunk; at each the transposes over row panels
+    beside the merge path (``panel_transposes``)."""
     idx_np, val_np, dim, _, _ = game_arrays(**FULL)
     out = {"game": bf16_case(torch, cs, dev, idx_np, val_np, dim, 21, cs.KERNELS)}
     three = ("ell_matvec", "csc_rmatvec", "csc_sq_rmatvec")
@@ -2879,6 +3075,17 @@ def phase_bf16_kernels(torch, cs, dev, lanes) -> dict:
     out["drivers"] = bf16_case(
         torch, cs, dev, np.concatenate([np.zeros((n, 1), np.int32), d_idx], 1),
         np.concatenate([np.ones((n, 1), np.float32), d_val], 1), d_dim, 23, three)
+    g_idx, g_val, g_dim, _, _ = game_arrays(**dict(FULL, rows_per_user=INGEST_ROWS_PER_USER),
+                                            col0=1)
+    n = g_idx.shape[0]
+    g_idx = np.concatenate([np.zeros((n, 1), np.int32), g_idx], 1)
+    g_val = np.concatenate([np.ones((n, 1), np.float32), g_val], 1)
+    transposes = ("csc_rmatvec", "csc_sq_rmatvec")
+    out["glm"] = bf16_case(torch, cs, dev, g_idx, g_val, g_dim, 24, transposes,
+                           f32_row=True)
+    c = GLM_CHUNK_ROWS
+    out["chunk"] = bf16_case(torch, cs, dev, np.ascontiguousarray(g_idx[:c]),
+                             np.ascontiguousarray(g_val[:c]), g_dim, 25, transposes)
     return out
 
 
@@ -4446,7 +4653,9 @@ def phase_runtime_guards(torch, cs, keep: dict, root: str, big: str, probe: dict
 PROFILE_SYMBOLS = {"ell_panel_matvec": "ell_panel_kernel",
                    "ell_matvec": "ell_matvec_kernel",
                    "csc_rmatvec": "csc_tile_kernel",
-                   "csc_sq_rmatvec": "csc_tile_kernel"}
+                   "csc_sq_rmatvec": "csc_tile_kernel",
+                   "csc_panel_rmatvec": "csc_panel_kernel",
+                   "csc_sq_panel_rmatvec": "csc_panel_kernel"}
 
 
 def _trace_doc(path: str) -> dict:
@@ -4480,7 +4689,8 @@ def profile_census(path: str, launches: dict) -> dict:
         row[1] += float(e.get("dur", 0.0))
     by_symbol = {sym: sum(n for name, (n, _) in by_name.items()
                           if re.search(rf"\b{sym}\b", name))
-                 for sym in set(PROFILE_SYMBOLS.values()) | {"csc_fixup_kernel"}}
+                 for sym in set(PROFILE_SYMBOLS.values()) | {"csc_fixup_kernel",
+                                                              "csc_band_fixup_kernel"}}
     need: dict = {}
     for entry, count in launches.items():
         if count:
@@ -6254,7 +6464,9 @@ def _f64_witness(run: dict, ref: dict, keys: list) -> dict:
 
 KERNEL_SYMBOLS = {"ell_panel_kernel": "ell_panel_matvec",
                   "ell_matvec_kernel": "ell_matvec",
-                  "csc_tile_kernel": "csc_rmatvec", "csc_fixup_kernel": "csc_fixup"}
+                  "csc_tile_kernel": "csc_rmatvec", "csc_fixup_kernel": "csc_fixup",
+                  "csc_panel_kernel": "csc_panel_rmatvec",
+                  "csc_band_fixup_kernel": "csc_band_fixup"}
 
 
 # --------------------------------------------------------------------- mesh
@@ -6423,31 +6635,14 @@ def phase_mesh(torch, cs, keep: dict, dev, root: str, big: str, sizes=GAME,
         if not all(torch.equal(a, b) for a, b in zip(
                 _game_tensors(first["results"][0]), _game_tensors(four["results"][0]))):
             failures.append("fit A: two mesh fits differ")
-        cmp = compare_game_fits(torch, four, one, sizes["d_global"])
+        # how far the unsharded fit's f32 per-user coefficients move when its
+        # fixed effect's offsets move by one f32 ulp (the RE step alone)
+        sens = offset_ulp_sensitivity(torch, one_est, keep["data"][0], one,
+                                      cfgs[0]["perUser"])
+        cmp = compare_game_fits(torch, four, one, sizes["d_global"], sensitivity=sens)
         failures += [f"fit A: {f}" for f in cmp.pop("failures")]
-        # the unsharded fit pinned to the mesh's plan: a Newton budget of
-        # the shards' together prices the whole bucket as the mesh prices
-        # one shard's block, so the gap to the mesh is the shards' alone
-        from photon_tpu_torch.game import newton_re
-
-        budget = float(os.environ.get("PHOTON_RE_NEWTON_BUDGET_MB",
-                                      newton_re._DEFAULT_BUDGET_MB)) * MESH_SHARDS
-        with _env("PHOTON_RE_NEWTON_BUDGET_MB", str(budget)):
-            pinned = game_fit(torch, cs, one_est, *keep["data"], cfgs)
-        cmp_pinned = compare_game_fits(torch, four, pinned, sizes["d_global"])
-        failures += [f"fit A pinned: {f}" for f in cmp_pinned.pop("failures")]
-        plan_of = [(b["solver"], b["chunk"]) for b in four["buckets"]]
-        pinned_plan = [(b["solver"], b["chunk"]) for b in pinned["buckets"]]
-        if pinned_plan != plan_of:
-            failures.append(f"fit A pinned: plan {pinned_plan} is not the "
-                            f"mesh's {plan_of}")
-        gaps = {"unsharded_plan": cmp["coef_rel_err"],
-                "pinned_to_mesh_plan": cmp_pinned["coef_rel_err"],
-                "bar": COEF_BAR_F32, "pinned_budget_mb": budget,
-                "pinned_plan": pinned_plan,
-                "pinned_within_bar": max(cmp_pinned["coef_rel_err"].values())
-                <= COEF_BAR_F32}
-        del pinned
+        gaps = {"mesh_vs_unsharded": cmp["coef_rel_err"], "bar": COEF_BAR_F32,
+                "one_ulp_offsets": sens}
 
         def step(run, cid):
             return [s for s in run["steps"] if s["coordinate"] == cid]
@@ -6469,8 +6664,7 @@ def phase_mesh(torch, cs, keep: dict, dev, root: str, big: str, sizes=GAME,
                             for b in four["buckets"]]},
             "fold": dict(pm.FOLD_STATS),
             "re_placement": dict(re_mod.MESH_STATS),
-            "vs_unsharded": cmp, "vs_unsharded_pinned": cmp_pinned,
-            "f32_gaps": gaps, "launches": fit_launches}
+            "vs_unsharded": cmp, "f32_gaps": gaps, "launches": fit_launches}
         del one, first, four, one_est, four_est
 
         # (b) out of core over the ingest phase's 2^19 rows
@@ -6827,21 +7021,22 @@ def _mesh_scoring(torch, cs, dev, mesh, full) -> dict:
 
 def ptxas_usage(log: str) -> dict:
     """Registers, shared memory (static bytes) and spills of each compiled
-    kernel, from nvcc's ``-Xptxas -v`` log, keyed ``name<type>`` (the
-    transposes' tile kernel as ``csc_rmatvec<f32>`` and
-    ``csc_sq_rmatvec<f32>``)."""
+    kernel, from nvcc's ``-Xptxas -v`` log, keyed ``name<value type>`` (the
+    transposes' kernels squared as ``csc_sq_rmatvec<f32>`` and
+    ``csc_sq_panel_rmatvec<bf16>``)."""
+    types = {"f": "f32", "d": "f64", "13__nv_bfloat16": "bf16"}
     out, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             current = None
-            k = re.search(r"(ell_panel_kernel|ell_matvec_kernel|csc_tile_kernel|"
-                          r"csc_fixup_kernel)I([fd])E?(Lb([01])E)?", m.group(1))
+            k = re.search(r"(" + "|".join(KERNEL_SYMBOLS) + r")(?:I(f|d|13__nv_bfloat16))?"
+                          r"\w*?(Lb([01])E)?E", m.group(1))
             if k:
                 name = KERNEL_SYMBOLS[k.group(1)]
                 if k.group(4) == "1":
-                    name = "csc_sq_rmatvec"
-                current = f"{name}<{'f32' if k.group(2) == 'f' else 'f64'}>"
+                    name = name.replace("csc_", "csc_sq_", 1)
+                current = f"{name}<{types.get(k.group(2), 'f32')}>"
                 out[current] = {}
             continue
         if current is None:
@@ -7002,8 +7197,15 @@ def main() -> int:
     emit({"phase": "bf16_feed", "launches": bf_launches, "matvec_kernel": chosen, **bf})
     # every kernel in both value types on the GLM driver's path; the bf16
     # feed's fixed effect through the bf16 kernels
-    missing = [k for k in ("ell_panel_matvec", "ell_matvec", "csc_rmatvec",
-                           *cs.BF16_KERNELS) if gl_launches[k] < 1]
+    # (in core the bf16 transposes take the row panels at these 2^19 rows,
+    # the route phase bf16_kernels records; out of core the merge path)
+    on_glm_path = [*(k for k in cs.KERNELS if k != "csc_sq_rmatvec"),
+                   "ell_panel_matvec_bf16", "ell_matvec_bf16", "csc_rmatvec_bf16",
+                   *(f"{k}_bf16" for k in cs.PANEL_TRANSPOSES)]
+    if bk["glm"]["route"] != "panel":
+        raise AssertionError(f"the route sends the GLM driver's in-core layout to "
+                             f"{bk['glm']['route']}, not the row panels")
+    missing = [k for k in on_glm_path if gl_launches[k] < 1]
     missing += [f"bf16_feed:{k}" for k in (f"{chosen}_bf16", "csc_rmatvec_bf16")
                 if bf_launches[k] < 1]
     if missing:
@@ -7158,6 +7360,42 @@ def main() -> int:
                     "bound_by", "max_abs_err")} | {"rows": bk[shape]["rows"],
                                                    "k": bk[shape]["k"]}
         rows.append(row)
+    for name in cs.PANEL_TRANSPOSES:
+        # the transposes over row panels: bf16 values where the route sends
+        # a layout (the GLM driver's in-core layout), and the f32 form, their
+        # witness, which no production route takes
+        for bname, key in ((f"{name}_bf16", None), (name, "f32")):
+            g = bk["glm"][name] if key is None else bk["glm"][name][key]
+            row = {
+                "name": bname, "route": "cuda", "source": sources, "replaces": REPLACES,
+                "via": TPU_ENTRY[name.replace("_panel", "")] + (
+                    " on bf16 values, where the route takes row panels" if key is None
+                    else " on float32 values: the bf16 kernels' witness"),
+                "status": "redesigned for bf16 values: v staged in shared memory by row "
+                          "panel over a column-tile layout",
+                "launches": sum(c[bname] for c in by_phase.values()),
+                "launches_by_phase": {k: c[bname] for k, c in by_phase.items()},
+                "mesh": ms_launches[bname], "model": md_launches[bname],
+                "elastic": el_launches[bname],
+                "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
+                "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+                "library_ms": g["library_ms"],
+                "library_call": bk["glm"]["library_call"] if key is None else
+                "cuSPARSE SpMV, f32 (torch.sparse_csr @)",
+                "layout": "GLM driver in-core (2^19 x 33 over 327,681)",
+                "route_taken": {shape: bk[shape]["route"]
+                                for shape in ("game", "glm", "chunk", "lanes", "drivers")}}
+            if key is None:
+                row.update(merge_ms=g["merge_ms"], over_merge=g["over_merge"],
+                           f32_kernel_ms=g["f32"]["ms"], layout_bytes=g["layout_bytes"],
+                           bound_bytes=g["bytes"])
+            for shape in ("game", "chunk", "lanes", "drivers"):
+                h = bk[shape][name]
+                row[f"{shape}_shape"] = ({k: h[k] for k in (
+                    "ms", "merge_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_abs_err")} if key is None else h[key]) | {
+                    "rows": bk[shape]["rows"], "k": bk[shape]["k"]}
+            rows.append(row)
     emit({"kernels": rows})
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)

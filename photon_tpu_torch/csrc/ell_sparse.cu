@@ -19,6 +19,10 @@
 //                        over a host-built, column-sorted entry list
 //                        (colptr[D+1], rows, vals), as a merge-path
 //                        segmented reduction (below).
+//   csc_panel_rmatvec<V, SQ>  the same sum over a row-panel transpose
+//                        layout (below): v staged in shared memory one row
+//                        panel at a time; the bf16 transposes' route where
+//                        the host's rule finds it pays.
 //
 // Each kernel is a template on the stored value type V and on T, the type
 // of the vector and the result: V = T in float or double (the `_f32` /
@@ -61,7 +65,7 @@
 // (`build_panels`) by (tile, panel), stably, so that within a segment the
 // rows ascend and each row keeps its ELL order; each entry is one 32-bit
 // code (row in tile << 16 | column in panel) and its value, and each
-// segment is padded with skip entries (kPadRow, value 0) to a multiple of 4
+// segment is padded with skip entries (kPadKey, value 0) to a multiple of 4
 // so that every segment starts 16-byte aligned. One block takes one tile:
 //   1. the panels of w holding the tile's entries come into a two-stage
 //      ring in shared memory by TMA bulk copies (cp.async.bulk, completing
@@ -160,6 +164,40 @@
 // latency of each other's gathers (small tiles, 32 registers a thread,
 // 8 blocks an SM).
 //
+// The transpose over row panels (`csc_panel_kernel`, replacing
+// `rmatvec_pallas`, photon_tpu/ops/pallas_sparse.py:313, for the bf16
+// transposes where `transpose_panels_pay_off` sends a layout). The merge
+// path above gathers v[rows[e]] for every entry from rows spread over all
+// of v: each 4-byte gather pulls a 32-byte L2 sector (at 2^19 rows x 33
+// entries ~550 MB of sectors against ~100 MB of streamed bf16 entries), and
+// a 2-byte value saves 2 of ~38 bytes an entry. This kernel is the panel
+// matvec's mirror: the columns are cut into tiles of C columns (a power of
+// two in [1,024, 8,192]) and the rows into panels of kPanelBytes / 4 rows
+// (16,384: one shared-memory stage of the float v). The host's layout
+// (`row_panel_layout`, built on the device) sorts the entries once by
+// (tile, panel) and, within a segment, by (column, row), stably; each entry
+// is one 32-bit code (column in tile << 16 | row in panel) and its value,
+// and each segment is padded with skip entries (kPadKey, value 0) to a
+// multiple of 4, so that it starts 16-byte aligned. A band is one tile over
+// a run of consecutive panels. The host cuts the sequence of segments, in
+// (tile, panel) order, into one run a block (132 blocks, one an SM, all in
+// one wave) of about the same work, counted as the entries plus a fixed
+// cost a non-empty segment and a band (a panel's wait and a chunk's scan,
+// the accumulators' clearing and flushing: a run of sparse segments is
+// work too), and each run into bands at the tiles' edges. Each block walks
+// its bands in order, running the matvec's panel loop (`panel_sum`) with
+// the column as the key: the band's panels of v come into a two-stage ring
+// by TMA bulk copies (an empty panel skipped; the ring carries on from
+// band to band), its entries stream in chunks by 16-byte loads, each
+// gather of v hits shared memory, and exactly one thread adds each
+// column's panel partial into the column's double accumulator, in panel
+// order. A tile held whole by one band rounds each column once and writes
+// g; the bands of a tile cut between blocks write their double partials to
+// a scratch row each, and `csc_band_fixup_kernel` sums them in
+// band order and rounds once. The order of every sum depends only on the
+// layout. v crosses L2 once per tile in whole lines, n_tiles * n_rows * 4
+// bytes, against nnz * 32 bytes of sectors for the merge path's gathers.
+//
 // Interface: plain C, loaded with ctypes. Every pointer and the stream are
 // passed as void*; each entry point launches on the caller's stream,
 // allocates nothing (the caller passes the transpose's scratch buffer),
@@ -204,9 +242,16 @@ constexpr int kPanelWarps = kPanelThreads / kWarp;
 constexpr int kPanelChunk = kPanelThreads * kPanelItems;
 constexpr int kPanelBytes = 64 * 1024;
 constexpr int kMaxTileRows = 8192;
-constexpr int kCodeShift = 16;             // code = row << 16 | column
-constexpr uint32_t kColMask = (1u << kCodeShift) - 1;
-constexpr int kPadRow = 0xFFFF;            // row field of a skip entry
+constexpr int kCodeShift = 16;             // code = key << 16 | index
+constexpr uint32_t kIdxMask = (1u << kCodeShift) - 1;
+constexpr int kPadKey = 0xFFFF;            // key field of a skip entry
+// A segment with fewer entries gathers its vector from device memory: its
+// sectors (32 bytes a gather at most) cost less than staging the panel.
+constexpr int kStageMin = kPanelBytes / 32;
+// Transpose over row panels (TILE_COLS bounds, PANEL_ROWS, PAD_COL in
+// cuda_sparse.py): a tile of at most kMaxTileCols columns keeps a double
+// accumulator a column beside the two stages of v.
+constexpr int kMaxTileCols = 8192;
 
 // Row-tile matvec (ELL_THREADS, ELL_ITEMS in cuda_sparse.py, which also
 // picks the tile's rows R, the group G and the stage's entries): a block of
@@ -378,6 +423,15 @@ __device__ __forceinline__ void load_panel(T* dst, const T* __restrict__ w,
 // The next panel after p with entries in this tile (n_panels if none).
 __device__ __forceinline__ int next_panel(const int64_t* off, int p, int n_panels) {
   for (++p; p < n_panels && off[p + 1] == off[p]; ++p) {
+  }
+  return p;
+}
+
+// The next panel after p with at least `least` entries in this tile: the
+// panels the ring stages (n_panels if none).
+__device__ __forceinline__ int next_staged(const int64_t* off, int p, int n_panels,
+                                           int least) {
+  for (++p; p < n_panels && off[p + 1] - off[p] < least; ++p) {
   }
   return p;
 }
@@ -647,6 +701,156 @@ ell_matvec_kernel(const int32_t* __restrict__ idx, const V* __restrict__ val,
   }
 }
 
+// The panel loop shared by the matvec over column panels (key: row in the
+// tile, gathered: w by column in the panel) and the transpose over row
+// panels (key: column in the tile, gathered: v by row in the panel): one
+// block sums the segments off[0 .. n_panels) of its tile, local panel q
+// being panel p_base + q of the gathered vector x (x_len entries), into
+// s_acc[key] (acc_len accumulators, zeroed by the caller). The caller has
+// initialised s_full's two barriers, loaded `off` into shared memory and
+// synchronised; on return every panel is summed and added, in panel order,
+// and the block must synchronise before it reads s_acc. SQUARE squares
+// each value after its upcast (the Hessian diagonal's val^2). With DIRECT, a
+// segment of fewer than kStageMin entries gathers x straight from device
+// memory (its few sectors, held in L2) and its panel is not staged (the
+// transpose's tiles of few columns; the matvec's segments are all staged:
+// its tiles hold thousands of rows). `j` is the ring's
+// position, the staged panels the block has summed before this call (stage
+// j & 1, barrier phase (j >> 1) & 1); returns it advanced.
+template <typename V, typename T, bool SQUARE, bool DIRECT>
+__device__ __forceinline__ int panel_sum(const uint32_t* __restrict__ codes,
+                                         const V* __restrict__ vals, const int64_t* off,
+                                         int n_panels, int p_base,
+                                         const T* __restrict__ x, int64_t x_len, T* s_x,
+                                         Acc* s_acc, int acc_len, uint64_t* s_full,
+                                         Acc* s_scan, Acc* s_wsum, int* s_wkey, int j) {
+  constexpr int kCols = kPanelBytes / (int)sizeof(T);
+  const int tid = threadIdx.x;
+
+  // p: the panel being summed (in stage j & 1 where staged); ahead: the
+  // last staged panel asked for.
+  const int min_staged = DIRECT ? kStageMin : 1;
+  int p = next_panel(off, -1, n_panels);
+  int ahead = DIRECT ? next_staged(off, -1, n_panels, min_staged) : p;
+  if (ahead < n_panels) {
+    load_panel(s_x + (j & 1) * kCols, x, x_len, p_base + ahead, &s_full[j & 1]);
+    const int q = next_staged(off, ahead, n_panels, min_staged);
+    if (q < n_panels) {
+      load_panel(s_x + ((j + 1) & 1) * kCols, x, x_len, p_base + q, &s_full[(j + 1) & 1]);
+      ahead = q;
+    }
+  }
+  __syncthreads();
+
+  // A key's panel partial goes into its accumulator once; skip entries
+  // (kPadKey) and the "no key yet" -1 emit nothing.
+  auto emit = [&](int key, Acc value) {
+    if ((unsigned)key < (unsigned)acc_len) s_acc[key] += value;
+  };
+
+  if (p < n_panels) {
+    int64_t s0 = off[p], s1 = off[p + 1], pos = s0;   // segment, chunk start
+    const int64_t tile_end = off[n_panels];
+    int64_t fetched = pos;   // thread 0: entries asked of L2 so far
+    PanelChunk<V> chunk;
+    load_chunk(chunk, codes, vals, pos, (int)min((int64_t)kPanelChunk, s1 - pos));
+    bool staged = !DIRECT || s1 - s0 >= kStageMin;
+    if (staged) mbar_wait(&s_full[j & 1], (j >> 1) & 1);
+    for (;;) {
+      const int n = (int)min((int64_t)kPanelChunk, s1 - pos);
+      const bool last = pos + n == s1;
+      int p2 = p;
+      int64_t pos2 = pos + n, s0_2 = s0, s1_2 = s1;
+      if (last) {
+        p2 = next_panel(off, p, n_panels);
+        if (p2 < n_panels) {
+          s0_2 = pos2 = off[p2];
+          s1_2 = off[p2 + 1];
+        }
+      }
+      // Walk this thread's entries; the key starts at the entry before
+      // them (the previous thread's last key), -1 at a segment's start.
+      const int d = tid * kPanelItems;
+      int key = (pos + min(d, n) - 1 >= s0) ? (int)(chunk.prev >> kCodeShift) : -1;
+      const int first_key = key;
+      SegmentWalk walk;
+      if (tid == 0 && pos > s0) walk.run = s_scan[kPanelThreads - 1];   // carry
+      auto walk_items = [&](auto gather) {
+#pragma unroll
+        for (int k = 0; k < kPanelItems; ++k) {
+          if (d + k < n) {
+            const uint32_t c = chunk.code[k];
+            const int ck = (int)(c >> kCodeShift);
+            if (ck != key) {
+              walk.close(key, emit);
+              key = ck;
+            }
+            if (ck != kPadKey) {
+              Acc a = upcast(chunk.val[k]);
+              if (SQUARE) a = __dmul_rn(a, a);   // after the upcast
+              walk.run = walk.run + __dmul_rn(a, (Acc)gather(c & kIdxMask));
+            }
+          }
+        }
+      };
+      if (!DIRECT || staged) {
+        const T* xs = s_x + (j & 1) * kCols;
+        walk_items([&](uint32_t i) { return xs[i]; });
+      } else {
+        const T* xg = x + (int64_t)(p_base + p) * kCols;
+        walk_items([&](uint32_t i) { return __ldg(xg + i); });
+      }
+      // This chunk's entries are walked: load the next one into the same
+      // registers, in flight during the scan.
+      if (p2 < n_panels) {
+        const int n2 = (int)min((int64_t)kPanelChunk, s1_2 - pos2);
+        load_chunk(chunk, codes, vals, pos2, n2);
+        // the tile's segments are contiguous: keep kPanelPrefetch chunks
+        // of the stream beyond the register loads on their way into L2
+        if (kPanelPrefetch > 0 && tid == 0) {
+          const int64_t want = min(pos2 + n2 + (int64_t)kPanelPrefetch * kPanelChunk,
+                                   tile_end);
+          prefetch_entries(codes, vals, max(fetched, pos2 + n2), want);
+          fetched = max(fetched, want);
+        }
+      }
+
+      const Acc s = block_segmented_scan(walk.run, key, s_wsum, s_wkey, s_scan);
+      if (walk.emitted) emit(first_key, walk.head_value(s_scan));
+      if (last && tid == kPanelThreads - 1) emit(key, s);   // the open key
+
+      if (last) {
+        __syncthreads();   // panel p summed: its stage, if any, is free
+        if constexpr (DIRECT) {
+          if (staged) {
+            const int p3 = next_staged(off, ahead, n_panels, kStageMin);
+            if (p3 < n_panels) {
+              load_panel(s_x + (j & 1) * kCols, x, x_len, p_base + p3, &s_full[j & 1]);
+              ahead = p3;
+            }
+            ++j;
+          }
+        } else {
+          // every non-empty panel is staged: the one after p2 goes into p's
+          const int p3 = p2 < n_panels ? next_panel(off, p2, n_panels) : n_panels;
+          if (p3 < n_panels) {
+            load_panel(s_x + (j & 1) * kCols, x, x_len, p_base + p3, &s_full[j & 1]);
+          }
+          ++j;
+        }
+        if (p2 >= n_panels) break;
+        staged = !DIRECT || s1_2 - s0_2 >= kStageMin;
+        if (staged) mbar_wait(&s_full[j & 1], (j >> 1) & 1);
+      }
+      p = p2;
+      pos = pos2;
+      s0 = s0_2;
+      s1 = s1_2;
+    }
+  }
+  return j;
+}
+
 // One block per row tile; see "The matvec over column panels" above.
 // offsets[tile, p] .. offsets[tile, p + 1] is segment (tile, p).
 template <typename V, typename T>
@@ -655,7 +859,6 @@ ell_panel_kernel(const uint32_t* __restrict__ codes, const V* __restrict__ vals,
                  const int64_t* __restrict__ offsets, const T* __restrict__ w,
                  T* __restrict__ z, int64_t n_rows, int64_t dim, int tile_rows,
                  int n_panels) {
-  constexpr int kCols = kPanelBytes / (int)sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   T* s_w = reinterpret_cast<T*>(smem);                           // [2][kCols]
   Acc* s_acc = reinterpret_cast<Acc*>(smem + 2 * kPanelBytes);   // [tile_rows]
@@ -680,100 +883,84 @@ ell_panel_kernel(const uint32_t* __restrict__ codes, const V* __restrict__ vals,
     off[q] = offsets[(int64_t)blockIdx.x * (n_panels + 1) + q];
   }
   __syncthreads();
-
-  // p: the panel being summed, j: its ordinal among the tile's non-empty
-  // panels (stage j & 1, barrier phase (j >> 1) & 1).
-  int p = next_panel(off, -1, n_panels);
-  if (p < n_panels) {
-    load_panel(s_w, w, dim, p, &s_full[0]);
-    const int q = next_panel(off, p, n_panels);
-    if (q < n_panels) load_panel(s_w + kCols, w, dim, q, &s_full[1]);
-  }
-  __syncthreads();
-
-  // A row's panel partial goes into its accumulator once; skip entries
-  // (kPadRow) and the "no row yet" key -1 emit nothing.
-  auto emit = [&](int row, Acc value) {
-    if ((unsigned)row < (unsigned)tile_rows) s_acc[row] += value;
-  };
-
-  if (p < n_panels) {
-    int j = 0;
-    int64_t s0 = off[p], s1 = off[p + 1], pos = s0;   // segment, chunk start
-    const int64_t tile_end = off[n_panels];
-    int64_t fetched = pos;   // thread 0: entries asked of L2 so far
-    PanelChunk<V> chunk;
-    load_chunk(chunk, codes, vals, pos, (int)min((int64_t)kPanelChunk, s1 - pos));
-    mbar_wait(&s_full[0], 0);
-    for (;;) {
-      const int n = (int)min((int64_t)kPanelChunk, s1 - pos);
-      const bool last = pos + n == s1;
-      int p2 = p;
-      int64_t pos2 = pos + n, s0_2 = s0, s1_2 = s1;
-      if (last) {
-        p2 = next_panel(off, p, n_panels);
-        if (p2 < n_panels) {
-          s0_2 = pos2 = off[p2];
-          s1_2 = off[p2 + 1];
-        }
-      }
-      // Walk this thread's entries; the key starts at the entry before
-      // them (the previous thread's last row), -1 at a segment's start.
-      const T* wp = s_w + (j & 1) * kCols;
-      const int d = tid * kPanelItems;
-      int key = (pos + min(d, n) - 1 >= s0) ? (int)(chunk.prev >> kCodeShift) : -1;
-      const int first_key = key;
-      SegmentWalk walk;
-      if (tid == 0 && pos > s0) walk.run = s_scan[kPanelThreads - 1];   // carry
-#pragma unroll
-      for (int k = 0; k < kPanelItems; ++k) {
-        if (d + k < n) {
-          const uint32_t c = chunk.code[k];
-          const int row = (int)(c >> kCodeShift);
-          if (row != key) {
-            walk.close(key, emit);
-            key = row;
-          }
-          if (row != kPadRow) {
-            walk.run = walk.run + __dmul_rn(upcast(chunk.val[k]), (Acc)wp[c & kColMask]);
-          }
-        }
-      }
-      // This chunk's entries are walked: load the next one into the same
-      // registers, in flight during the scan.
-      if (p2 < n_panels) {
-        const int n2 = (int)min((int64_t)kPanelChunk, s1_2 - pos2);
-        load_chunk(chunk, codes, vals, pos2, n2);
-        // the tile's segments are contiguous: keep kPanelPrefetch chunks
-        // of the stream beyond the register loads on their way into L2
-        if (kPanelPrefetch > 0 && tid == 0) {
-          const int64_t want = min(pos2 + n2 + (int64_t)kPanelPrefetch * kPanelChunk,
-                                   tile_end);
-          prefetch_entries(codes, vals, max(fetched, pos2 + n2), want);
-          fetched = max(fetched, want);
-        }
-      }
-
-      const Acc s = block_segmented_scan(walk.run, key, s_wsum, s_wkey, s_scan);
-      if (walk.emitted) emit(first_key, walk.head_value(s_scan));
-      if (last && tid == kPanelThreads - 1) emit(key, s);   // the open row
-
-      if (last) {
-        __syncthreads();   // panel p summed: its stage is free
-        const int p3 = p2 < n_panels ? next_panel(off, p2, n_panels) : n_panels;
-        if (p3 < n_panels) load_panel(s_w + (j & 1) * kCols, w, dim, p3, &s_full[j & 1]);
-        ++j;
-        if (p2 >= n_panels) break;
-        mbar_wait(&s_full[j & 1], (j >> 1) & 1);
-      }
-      p = p2;
-      pos = pos2;
-      s0 = s0_2;
-      s1 = s1_2;
-    }
-  }
+  panel_sum<V, T, false, false>(codes, vals, off, n_panels, 0, w, dim, s_w, s_acc,
+                                tile_rows, s_full, s_scan, s_wsum, s_wkey, 0);
   __syncthreads();
   for (int r = tid; r < rows; r += kPanelThreads) z[row0 + r] = (T)s_acc[r];
+}
+
+// Persistent blocks over the row-panel transpose layout's bands; see "The
+// transpose over row panels" above. Block b takes bands starts[b] ..
+// starts[b + 1] - 1 in order; bands[i] = (tile, first panel, end panel,
+// slot): the block sums segments (tile, first .. end - 1) and writes g for
+// the tile's columns, or (slot >= 0, a tile cut into several bands) its
+// float64 partials to row `slot` of `partials` for csc_band_fixup_kernel.
+template <typename V, bool SQUARE>
+__global__ void __launch_bounds__(kPanelThreads, 1)
+csc_panel_kernel(const uint32_t* __restrict__ codes, const V* __restrict__ vals,
+                 const int64_t* __restrict__ offsets, const int64_t* __restrict__ bands,
+                 const int64_t* __restrict__ starts, const float* __restrict__ v,
+                 float* __restrict__ g, double* __restrict__ partials, int64_t n_rows,
+                 int64_t dim, int tile_cols, int n_panels) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_v = reinterpret_cast<float*>(smem);                   // [2][kRows]
+  Acc* s_acc = reinterpret_cast<Acc*>(smem + 2 * kPanelBytes);   // [tile_cols]
+  int64_t* off = reinterpret_cast<int64_t*>(s_acc + tile_cols);  // [band panels+1]
+  __shared__ __align__(8) uint64_t s_full[2];
+  __shared__ Acc s_scan[kPanelThreads];
+  __shared__ Acc s_wsum[kPanelWarps];
+  __shared__ int s_wkey[kPanelWarps];
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&s_full[0], 1);
+    mbar_init(&s_full[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  int j = 0;   // the ring's position, carried from band to band
+  for (int64_t i = starts[blockIdx.x]; i < starts[blockIdx.x + 1]; ++i) {
+    const int64_t* band = bands + 4 * i;
+    const int64_t tile = band[0], slot = band[3];
+    const int p_lo = (int)band[1], n_local = (int)(band[2] - band[1]);
+    const int64_t col0 = tile * tile_cols;
+    const int cols = (int)min((int64_t)tile_cols, dim - col0);
+    // each thread zeroes the accumulators it flushed for the last band
+    for (int c = tid; c < tile_cols; c += kPanelThreads) s_acc[c] = Acc(0);
+    for (int q = tid; q <= n_local; q += kPanelThreads) {
+      off[q] = offsets[tile * (n_panels + 1) + p_lo + q];
+    }
+    __syncthreads();
+    j = panel_sum<V, float, SQUARE, true>(codes, vals, off, n_local, p_lo, v, n_rows, s_v,
+                                          s_acc, tile_cols, s_full, s_scan, s_wsum, s_wkey,
+                                          j);
+    __syncthreads();
+    if (slot < 0) {
+      for (int c = tid; c < cols; c += kPanelThreads) g[col0 + c] = (float)s_acc[c];
+    } else {
+      double* out = partials + slot * tile_cols;
+      for (int c = tid; c < cols; c += kPanelThreads) out[c] = s_acc[c];
+    }
+  }
+}
+
+// Finish the columns of the tiles cut into bands: fixups[q] = (tile, first
+// slot, bands); each column sums its bands' partials in panel order, in
+// double, and rounds once.
+__global__ void __launch_bounds__(kThreads)
+csc_band_fixup_kernel(const int64_t* __restrict__ fixups, int64_t n_fixups,
+                      const double* __restrict__ partials, float* __restrict__ g,
+                      int64_t dim, int tile_cols) {
+  const int64_t total = n_fixups * tile_cols;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+    const int64_t q = i / tile_cols, c = i % tile_cols;
+    const int64_t tile = fixups[3 * q], first = fixups[3 * q + 1], nb = fixups[3 * q + 2];
+    const int64_t col = tile * tile_cols + c;
+    if (col >= dim) continue;
+    Acc acc = Acc(0);
+    for (int64_t b = 0; b < nb; ++b) acc += partials[(first + b) * tile_cols + c];
+    g[col] = (float)acc;
+  }
 }
 
 template <typename V, typename T, bool SQUARE>
@@ -968,6 +1155,42 @@ int launch_panel_matvec(const void* codes, const void* vals, const void* offsets
   return (int)cudaGetLastError();
 }
 
+template <typename V, bool SQUARE>
+int launch_panel_rmatvec(const void* codes, const void* vals, const void* offsets,
+                         const void* bands, const void* starts, const void* fixups,
+                         const void* v, void* g, void* partials, int64_t n_rows,
+                         int64_t dim, int64_t tile_cols, int64_t n_tiles, int64_t n_panels,
+                         int64_t panel_rows, int64_t n_bands, int64_t n_blocks,
+                         int64_t n_fixups, int64_t max_band_panels, void* stream) {
+  constexpr int64_t kRows = kPanelBytes / (int64_t)sizeof(float);
+  if (panel_rows != kRows || n_rows < 1 || dim < 1 || tile_cols < 1 ||
+      tile_cols > kMaxTileCols || n_tiles != (dim + tile_cols - 1) / tile_cols ||
+      n_panels != (n_rows + kRows - 1) / kRows || n_bands < n_tiles || n_blocks < 1 ||
+      n_blocks > INT_MAX || n_fixups < 0 || n_fixups > n_tiles || max_band_panels < 0 ||
+      max_band_panels > n_panels ||
+      ((uintptr_t)codes | (uintptr_t)vals | (uintptr_t)v) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t smem = 2 * kPanelBytes + tile_cols * (int64_t)sizeof(Acc) +
+                       (max_band_panels + 1) * (int64_t)sizeof(int64_t);
+  if (smem > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      csc_panel_kernel<V, SQUARE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  csc_panel_kernel<V, SQUARE><<<(unsigned)n_blocks, kPanelThreads, (size_t)smem, st>>>(
+      (const uint32_t*)codes, (const V*)vals, (const int64_t*)offsets,
+      (const int64_t*)bands, (const int64_t*)starts, (const float*)v, (float*)g,
+      (double*)partials, n_rows, dim, (int)tile_cols, (int)n_panels);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_fixups == 0) return (int)err;
+  csc_band_fixup_kernel<<<(unsigned)blocks_for((n_fixups * tile_cols + kWarp - 1) / kWarp),
+                          kThreads, 0, st>>>((const int64_t*)fixups, n_fixups,
+                                             (const double*)partials, (float*)g, dim,
+                                             (int)tile_cols);
+  return (int)cudaGetLastError();
+}
+
 template <typename V, typename T, bool SQUARE>
 int launch_rmatvec(const void* colptr, const void* rows, const void* vals,
                    const void* v, const void* tiles, const void* splits,
@@ -1087,6 +1310,26 @@ int csc_sq_rmatvec_bf16(const void* colptr, const void* rows, const void* vals,
   return launch_rmatvec<Bf16, float, true>(colptr, rows, vals, v, tiles, splits,
       partials, g, n_tiles, n_splits, n_rows, tile_items, stream);
 }
+
+// The transpose over row panels (csc_panel_kernel): bfloat16 values, the
+// bf16 transposes' route where transpose_panels_pay_off sends a layout,
+// and float values, their bit-for-bit witness on the upcast values.
+#define PANEL_RMATVEC_ENTRY(NAME, V, SQ)                                                  \
+  int NAME(const void* codes, const void* vals, const void* offsets, const void* bands, \
+           const void* starts, const void* fixups, const void* v, void* g,               \
+           void* partials, int64_t n_rows, int64_t dim, int64_t tile_cols,                \
+           int64_t n_tiles, int64_t n_panels, int64_t panel_rows, int64_t n_bands,       \
+           int64_t n_blocks, int64_t n_fixups, int64_t max_band_panels, void* stream) {  \
+    return launch_panel_rmatvec<V, SQ>(codes, vals, offsets, bands, starts, fixups, v,   \
+                                       g, partials, n_rows, dim, tile_cols, n_tiles,      \
+                                       n_panels, panel_rows, n_bands, n_blocks,          \
+                                       n_fixups, max_band_panels, stream);               \
+  }
+
+PANEL_RMATVEC_ENTRY(csc_panel_rmatvec_f32, float, false)
+PANEL_RMATVEC_ENTRY(csc_sq_panel_rmatvec_f32, float, true)
+PANEL_RMATVEC_ENTRY(csc_panel_rmatvec_bf16, Bf16, false)
+PANEL_RMATVEC_ENTRY(csc_sq_panel_rmatvec_bf16, Bf16, true)
 
 const char* ell_sparse_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -16,13 +16,17 @@ stored one.
 ``SparseFeatures`` is padded ELL: ``idx[N, K] int32`` / ``val[N, K]`` with
 K = max nnz per row; padding slots point at column ``dim`` (the zero "ghost"
 column) with value 0. On CUDA, ``with_accelerator_paths`` attaches the
-column-sorted layout of the transposes (``build_csc``) and, where it pays,
+column-sorted layout of the transposes (``build_transpose``) and, where it pays,
 the panel layout of the matvec (``build_panels``). Then ``matvec`` launches
 ``ell_panel_matvec`` (else ``ell_matvec``) and ``rmatvec`` / ``sq_rmatvec``
-launch ``csc_rmatvec`` / ``csc_sq_rmatvec`` (``ops/cuda_sparse.py``). On the
-CPU the plain versions run. A CUDA batch without the CSC layout raises in
-``rmatvec``: it never builds a layout on the fly and never computes on the
-host. Each pass is recorded by ``ops/pass_counter.py``.
+launch ``csc_rmatvec`` / ``csc_sq_rmatvec`` (``ops/cuda_sparse.py``). Where
+the route rule (``cuda_sparse.transpose_route``) sends bfloat16 values to
+the transpose over row panels, the row-panel layout is attached in place
+of the CSC one and the transposes launch ``csc_panel_rmatvec`` /
+``csc_sq_panel_rmatvec``. On the CPU the plain versions run. A CUDA batch
+without a transpose layout raises in ``rmatvec``: it never builds a layout
+on the fly and never computes on the host. Each pass is recorded by
+``ops/pass_counter.py``.
 """
 from __future__ import annotations
 
@@ -37,10 +41,12 @@ from photon_tpu_torch.ops import pass_counter
 from photon_tpu_torch.ops.cuda_sparse import (
     CscLayout,
     PanelLayout,
+    RowPanelLayout,
     as_value_dtype,
-    build_csc,
     build_panels,
+    build_transpose,
     compute_dtype,
+    csc_panel_rmatvec,
     csc_rmatvec,
     ell_matvec,
     ell_panel_matvec,
@@ -102,7 +108,8 @@ class SparseFeatures:
     ``idx[N, K]`` holds column ids in [0, dim]; id == dim marks padding (its
     value must be 0). ``dim`` is the true feature dimension D. ``panels``
     (the matvec's panel layout) and ``csc`` (the transposes' column-sorted
-    layout) hold the same entries, once attached.
+    layout) or ``row_panels`` (their row-panel layout, where the route takes
+    it) hold the same entries, once attached.
     """
 
     idx: Tensor
@@ -110,6 +117,7 @@ class SparseFeatures:
     dim: int
     panels: Optional[PanelLayout] = None
     csc: Optional[CscLayout] = None
+    row_panels: Optional[RowPanelLayout] = None
 
     @property
     def device(self) -> torch.device:
@@ -126,32 +134,39 @@ class SparseFeatures:
         return self.idx.shape[0]
 
     def with_layouts(self) -> "SparseFeatures":
-        """On CUDA, attach the transposes' CSC layout (always) and the
-        matvec's panel layout (see ``with_matvec_layout``), each built
-        once; the values keep their dtype. On the CPU nothing is
-        attached."""
-        if self.device.type != "cuda" or self.csc is not None:
+        """On CUDA, attach the transposes' layout (always: the one
+        ``build_transpose`` picks, the CSC one or, where the route rule
+        sends these values, the row-panel one) and the matvec's panel
+        layout (see ``with_matvec_layout``), each built once; the values
+        keep their dtype. On the CPU nothing is attached."""
+        if self.device.type != "cuda" or self.csc is not None or \
+                self.row_panels is not None:
             return self
         out = self.with_matvec_layout()
-        return dataclasses.replace(out, csc=build_csc(self.idx, self.val, self.dim))
+        t = build_transpose(self.idx, self.val, self.dim)
+        if isinstance(t, RowPanelLayout):
+            return dataclasses.replace(out, row_panels=t)
+        return dataclasses.replace(out, csc=t)
 
     def with_accelerator_paths(self) -> "SparseFeatures":
-        """``with_layouts``, then, under ``PHOTON_VALUE_DTYPE``
-        (``bfloat16``), the values of the data and of both layouts narrowed
+        """Under ``PHOTON_VALUE_DTYPE`` (``bfloat16``) the values narrowed
         (``with_value_dtype``), as the JAX package narrows on its
-        accelerators: a shard's batch for the GLM driver, the fixed effect
-        and scoring. Random-effect lanes attach ``with_layouts`` and stay
-        float32. On the CPU nothing is attached and nothing narrows."""
+        accelerators, then ``with_layouts``: a shard's batch for the GLM
+        driver, the fixed effect and scoring. Random-effect lanes attach
+        ``with_layouts`` and stay float32. On the CPU nothing is attached
+        and nothing narrows."""
         if self.device.type != "cuda":
             return self
-        out = self.with_layouts()
         vd = os.environ.get("PHOTON_VALUE_DTYPE")
-        return out.with_value_dtype(vd) if vd else out
+        out = self.with_value_dtype(vd) if vd else self
+        return out.with_layouts()
 
     def with_value_dtype(self, dtype) -> "SparseFeatures":
         """Store the values as ``dtype`` (``torch.bfloat16`` or
-        ``"bfloat16"``; the current dtype is a no-op), the attached panel and
-        CSC layouts' values too. Port of JAX's ``with_value_dtype``: only
+        ``"bfloat16"``; the current dtype is a no-op), the attached layouts'
+        values too. The transposes' route is decided where their layout is
+        built (``with_layouts``), so narrow first: an attached CSC layout
+        keeps the merge path. Port of JAX's ``with_value_dtype``: only
         storage narrows; the kernels upcast each value on load and sum in
         float64, so the passes give float32 results (JAX keeps its
         accumulation in the operand precision). One-hot and small-integer
@@ -166,12 +181,16 @@ class SparseFeatures:
                 f"with_value_dtype narrows float32 values to bfloat16; got "
                 f"{self.val.dtype} -> {dt}")
         out = dataclasses.replace(self, val=self.val.to(dt))
+
+        def narrowed(layout):
+            return dataclasses.replace(layout, vals=layout.vals.to(dt))
+
         if out.panels is not None:
-            out = dataclasses.replace(
-                out, panels=dataclasses.replace(out.panels, vals=out.panels.vals.to(dt)))
+            out = dataclasses.replace(out, panels=narrowed(out.panels))
+        if out.row_panels is not None:
+            out = dataclasses.replace(out, row_panels=narrowed(out.row_panels))
         if out.csc is not None:
-            out = dataclasses.replace(
-                out, csc=dataclasses.replace(out.csc, vals=out.csc.vals.to(dt)))
+            out = dataclasses.replace(out, csc=narrowed(out.csc))
         return out
 
     def with_matvec_layout(self) -> "SparseFeatures":
@@ -201,7 +220,8 @@ class SparseFeatures:
 
     def rmatvec(self, v: Tensor) -> Tensor:
         """Aᵀ·v — accumulate per-row coefficients ``v`` into feature space:
-        kernel ``csc_rmatvec`` on CUDA, its plain version on the CPU."""
+        kernel ``csc_rmatvec`` (``csc_panel_rmatvec`` over row panels) on
+        CUDA, its plain version on the CPU."""
         pass_counter.record("rmatvec")
         return self._transpose(v, square=False)
 
@@ -214,9 +234,13 @@ class SparseFeatures:
     def _transpose(self, v: Tensor, square: bool) -> Tensor:
         if self.csc is not None:
             return csc_rmatvec(self.csc, v, square=square)
+        if self.row_panels is not None:
+            if v.data_ptr() % 16:
+                v = v.clone()    # the panels of v come by 16-byte bulk copies
+            return csc_panel_rmatvec(self.row_panels, v, square=square)
         if self.device.type != "cpu":
             raise RuntimeError(
-                f"SparseFeatures on {self.device} has no CSC layout attached: "
+                f"SparseFeatures on {self.device} has no transpose layout attached: "
                 "call with_accelerator_paths() once before rmatvec / "
                 "sq_rmatvec (the layout is built once per dataset, never "
                 "per call)"

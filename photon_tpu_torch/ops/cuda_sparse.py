@@ -66,10 +66,13 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("ell_panel_matvec", "ell_matvec", "csc_rmatvec", "csc_sq_rmatvec")
-# The four kernels' bf16-value entry points, counted apart: ``KERNELS`` counts
-# the float32 and float64 ones.
-BF16_KERNELS = tuple(f"{name}_bf16" for name in KERNELS)
-ALL_KERNELS = KERNELS + BF16_KERNELS
+# The transposes over row panels (``csc_panel_rmatvec``): counted here, their
+# float32 entry points, the bit-for-bit witness of the bf16 ones (no float32
+# or float64 production route takes them).
+PANEL_TRANSPOSES = ("csc_panel_rmatvec", "csc_sq_panel_rmatvec")
+# Every kernel's bf16-value entry points, counted apart.
+BF16_KERNELS = tuple(f"{name}_bf16" for name in KERNELS + PANEL_TRANSPOSES)
+ALL_KERNELS = KERNELS + PANEL_TRANSPOSES + BF16_KERNELS
 # Launches per kernel since the last reset_launch_counts(); a wrapper adds one
 # where it launches its kernel and nowhere else.
 LAUNCHES = {name: 0 for name in ALL_KERNELS}
@@ -191,6 +194,11 @@ def _lib() -> ctypes.CDLL:
                 for name in ("csc_rmatvec", "csc_sq_rmatvec"):
                     fn = getattr(lib, f"{name}_{sfx}")
                     fn.argtypes = [vp] * 8 + [i64] * 4 + [vp]
+                    fn.restype = ctypes.c_int
+            for sfx in ("f32", "bf16"):
+                for name in PANEL_TRANSPOSES:
+                    fn = getattr(lib, f"{name}_{sfx}")
+                    fn.argtypes = [vp] * 9 + [i64] * 10 + [vp]
                     fn.restype = ctypes.c_int
             lib.ell_sparse_error_string.argtypes = [ctypes.c_int]
             lib.ell_sparse_error_string.restype = ctypes.c_char_p
@@ -495,6 +503,49 @@ class PanelLayout:
         return self.codes.device
 
 
+def _pack_segments(seg: Tensor, sort_key: Tensor, code: Tensor, values: Tensor,
+                   n_major: int, n_minor: int) -> tuple[Tensor, Tensor, Tensor]:
+    """Entries sorted stably by ``sort_key`` (whose order refines their
+    segment's, ``seg`` = major · n_minor + minor), each segment padded with
+    skip entries (key field 0xFFFF, index 0, value 0) to a multiple of
+    ``SEGMENT_ALIGN``: the packed codes (int32 storage of the uint32 codes),
+    values and the ``[n_major, n_minor + 1]`` segment offsets
+    (``offsets[t, n_minor] == offsets[t + 1, 0]``)."""
+    dev = seg.device
+    n_seg = n_major * n_minor
+    order = torch.sort(sort_key, stable=True).indices
+    seg = seg[order]
+    counts = torch.bincount(seg, minlength=n_seg)
+    padded = (counts + SEGMENT_ALIGN - 1) // SEGMENT_ALIGN * SEGMENT_ALIGN
+    start = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+    start[1:] = torch.cumsum(padded, 0)
+    first = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
+    first[1:] = torch.cumsum(counts, 0)
+    dest = start[seg] + torch.arange(seg.shape[0], device=dev) - first[seg]
+    total = int(start[-1])
+    codes = torch.full((total,), PAD_ROW << CODE_SHIFT, dtype=torch.int64, device=dev)
+    codes[dest] = code[order]
+    vals = torch.zeros(total, dtype=values.dtype, device=dev)
+    vals[dest] = values[order]
+    if n_seg:
+        windows = (torch.arange(n_major, device=dev)[:, None] * n_minor
+                   + torch.arange(n_minor + 1, device=dev))
+        offsets = start[windows]
+    else:
+        offsets = torch.zeros((n_major, n_minor + 1), dtype=torch.int64, device=dev)
+    codes = torch.where(codes >= 1 << 31, codes - (1 << 32), codes)   # as uint32
+    return codes.to(torch.int32), vals, offsets.contiguous()
+
+
+def _real_entries(idx: Tensor, dim: int) -> tuple[Tensor, Tensor, Tensor]:
+    """The ELL entries whose column lies in [0, dim), in row-major order:
+    their flat positions, rows and columns."""
+    k = idx.shape[1]
+    flat = idx.reshape(-1).long()
+    pos = torch.nonzero((flat >= 0) & (flat < dim)).reshape(-1)
+    return pos, pos // max(k, 1), flat[pos]
+
+
 def panel_layout(idx: Tensor, val: Tensor, dim: int, tile_rows: int,
                  panel_cols: int) -> PanelLayout:
     """Sort the ELL entries into (tile, panel) segments, with torch ops on
@@ -506,39 +557,16 @@ def panel_layout(idx: Tensor, val: Tensor, dim: int, tile_rows: int,
     if not (1 <= tile_rows < PAD_ROW and 1 <= panel_cols <= 1 << CODE_SHIFT):
         raise ValueError(f"tile_rows {tile_rows} / panel_cols {panel_cols} "
                          "do not fit the 16-bit fields of a code")
-    n, k = idx.shape
-    dev = idx.device
+    n = idx.shape[0]
     n_tiles = -(-n // tile_rows)
     n_panels = -(-dim // panel_cols)
-    n_seg = n_tiles * n_panels
-    flat = idx.reshape(-1).long()
-    pos = torch.nonzero((flat >= 0) & (flat < dim)).reshape(-1)
-    cols = flat[pos]
-    rows = pos // max(k, 1)
+    pos, rows, cols = _real_entries(idx, dim)
     seg = (rows // tile_rows) * n_panels + cols // panel_cols
-    seg, order = torch.sort(seg, stable=True)
-    counts = torch.bincount(seg, minlength=n_seg)
-    padded = (counts + SEGMENT_ALIGN - 1) // SEGMENT_ALIGN * SEGMENT_ALIGN
-    start = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
-    start[1:] = torch.cumsum(padded, 0)
-    first = torch.zeros(n_seg + 1, dtype=torch.int64, device=dev)
-    first[1:] = torch.cumsum(counts, 0)
-    dest = start[seg] + torch.arange(seg.shape[0], device=dev) - first[seg]
-    rows, cols = rows[order], cols[order]
-    total = int(start[-1])
-    codes = torch.full((total,), PAD_ROW << CODE_SHIFT, dtype=torch.int64, device=dev)
-    codes[dest] = (rows % tile_rows) << CODE_SHIFT | cols % panel_cols
-    vals = torch.zeros(total, dtype=val.dtype, device=dev)
-    vals[dest] = val.reshape(-1)[pos[order]]
-    if n_seg:
-        windows = (torch.arange(n_tiles, device=dev)[:, None] * n_panels
-                   + torch.arange(n_panels + 1, device=dev))
-        offsets = start[windows]
-    else:
-        offsets = torch.zeros((n_tiles, n_panels + 1), dtype=torch.int64, device=dev)
-    codes = torch.where(codes >= 1 << 31, codes - (1 << 32), codes)   # as uint32
+    codes, vals, offsets = _pack_segments(
+        seg, seg, (rows % tile_rows) << CODE_SHIFT | cols % panel_cols,
+        val.reshape(-1)[pos], n_tiles, n_panels)
     return PanelLayout(
-        codes=codes.to(torch.int32), vals=vals, offsets=offsets.contiguous(),
+        codes=codes, vals=vals, offsets=offsets,
         n_rows=n, dim=dim, tile_rows=tile_rows, panel_cols=panel_cols,
     )
 
@@ -559,24 +587,29 @@ def build_panels(idx: Tensor, val: Tensor, dim: int) -> PanelLayout | None:
     return panel_layout(idx, val, dim, tile_rows_for(n), panel_cols(val.dtype))
 
 
-def _decode(panels: PanelLayout) -> tuple[Tensor, Tensor, Tensor]:
-    """Each stored entry's (row, column, is a real entry)."""
-    lengths = panels.offsets.diff(dim=1).reshape(-1)
-    seg = torch.repeat_interleave(
-        torch.arange(lengths.shape[0], device=panels.device), lengths)
-    code = panels.codes.long() & 0xFFFFFFFF
-    local_row, local_col = code >> CODE_SHIFT, code & ((1 << CODE_SHIFT) - 1)
-    real = local_row != PAD_ROW
-    n_panels = max(panels.n_panels, 1)
-    row = (seg // n_panels) * panels.tile_rows + local_row
-    col = (seg % n_panels) * panels.panel_cols + local_col
-    return row, col, real
+def _decode(codes: Tensor, offsets: Tensor, key_tile: int,
+            idx_panel: int) -> tuple[Tensor, Tensor, Tensor]:
+    """Each stored entry of a segmented layout (segments (t, p) at
+    ``offsets[t, p] : offsets[t, p + 1]``, codes key in tile << 16 | index
+    in panel): its global key (t·key_tile + key), global index
+    (p·idx_panel + index) and whether it is a real entry."""
+    lengths = offsets.diff(dim=1).reshape(-1)
+    seg = torch.repeat_interleave(torch.arange(lengths.shape[0], device=codes.device),
+                                  lengths)
+    code = codes.long() & 0xFFFFFFFF
+    local_key, local_idx = code >> CODE_SHIFT, code & ((1 << CODE_SHIFT) - 1)
+    real = local_key != PAD_ROW
+    n_panels = max(int(offsets.shape[1]) - 1, 1)
+    key = (seg // n_panels) * key_tile + local_key
+    index = (seg % n_panels) * idx_panel + local_idx
+    return key, index, real
 
 
 def ell_panel_matvec_plain(panels: PanelLayout, w: Tensor) -> Tensor:
     """z = A·w from the panel layout's entries, decoded: a float64 segment
     sum by row, rounded once, as the kernel does."""
-    row, col, real = _decode(panels)
+    row, col, real = _decode(panels.codes, panels.offsets, panels.tile_rows,
+                             panels.panel_cols)
     prod = panels.vals.double()[real] * w.double()[col[real]]
     out = torch.zeros(panels.n_rows, dtype=torch.float64, device=w.device)
     out.index_add_(0, row[real], prod)
@@ -779,4 +812,304 @@ def csc_rmatvec(csc: CscLayout, v: Tensor, square: bool = False) -> Tensor:
             csc.vals.data_ptr(), v.data_ptr(), csc.tiles.data_ptr(),
             csc.splits.data_ptr(), partials.data_ptr(), g.data_ptr(),
             n_tiles, n_splits, csc.n_rows, TILE_ITEMS)
+    return g
+
+
+# ------------------------------------------------- transpose over row panels
+
+# The row-panel transpose (``csc_panel_rmatvec``): a panel is one
+# shared-memory stage of the float32 v (PANEL_ROWS rows), a tile at most
+# MAX_TILE_COLS columns (kMaxTileCols in ell_sparse.cu; a double accumulator
+# a column beside the two stages). A segment of fewer than STAGE_MIN
+# entries gathers v from device memory instead of staging its panel
+# (kStageMin). The segments are cut into one run a block (one block an
+# SM), each of about the same work in units of one entry: a segment costs
+# SEGMENT_COST more, a band BAND_COST, and an entry of a run of LONG_RUN
+# or more entries of one column in a segment (an intercept's)
+# LONG_RUN_COST more (a fit to per-block times measured on an H100); no
+# block is given under MIN_BLOCK_WORK. Each run is cut into
+# bands at the tiles' edges and every MAX_BAND_PANELS panels (a band's
+# offsets sit in shared memory).
+PANEL_ROWS = PANEL_BYTES // 4
+MAX_TILE_COLS = 8192
+STAGE_MIN = PANEL_BYTES // L2_SECTOR_BYTES
+PAD_COL = PAD_ROW            # column field of a skip entry (value 0)
+SEGMENT_COST = 16384
+BAND_COST = 10240
+LONG_RUN, LONG_RUN_COST = 1024, 0.7
+MIN_BLOCK_WORK = 4 * PANEL_THREADS * PANEL_ITEMS
+MAX_BAND_PANELS = 2048
+
+
+def tile_cols_for(dim: int) -> int:
+    """Columns of one transpose tile: MAX_TILE_COLS (the fewest tiles, so
+    the fewest reloads of v), or all of a narrower matrix's."""
+    return max(1, min(MAX_TILE_COLS, dim))
+
+
+def transpose_smem_bytes(tile_cols: int, band_panels: int) -> int:
+    """The row-panel transpose's dynamic shared memory: two v stages, a
+    float64 accumulator a column and the band's segment offsets."""
+    return 2 * PANEL_BYTES + 8 * tile_cols + 8 * (band_panels + 1)
+
+
+def transpose_panels_pay_off(n_rows: int, dim: int, nnz: int,
+                             segments: int | None = None) -> bool:
+    """Whether the row-panel transpose should take a layout from the
+    merge path, from L2 bytes and shared memory:
+
+    * the blocks fill the card: nnz ≥ 132 · MIN_BLOCK_WORK. Below that the
+      one-block-an-SM panel kernel leaves SMs idle, where the merge path's
+      small blocks (8 an SM) spread any layout over every SM;
+    * a tile's own costs are paid off: at least PANEL_ROWS entries a tile.
+      Each tile's band clears and flushes C float64 accumulators in shared
+      memory and waits for its first panel of v, where the merge path pays
+      one merge item a column (at fit C's lanes, ~8,000 entries a tile of
+      8,192 columns, the panel kernel ran 2.1x the merge path's time);
+    * staging v moves fewer L2 bytes than the merge path's gathers: each
+      non-empty (tile, panel) segment reloads its panel of v (``segments``;
+      every tile's every panel where not given) and each block's two cut
+      tiles write and read a float64 partial row, against one 32-byte
+      sector per gathered entry, nnz · 32 bytes;
+    * a band's tile fits the kernel's shared memory."""
+    if n_rows < 1 or dim < 1:
+        return False
+    cols = tile_cols_for(dim)
+    n_tiles = -(-dim // cols)
+    n_panels = -(-n_rows // PANEL_ROWS)
+    if segments is None:
+        segments = n_tiles * n_panels
+    reload = segments * min(n_rows, PANEL_ROWS) * 4
+    split = 2 * 2 * H100_SMS * cols * 8
+    return (nnz >= H100_SMS * MIN_BLOCK_WORK
+            and nnz >= n_tiles * PANEL_ROWS
+            and reload + split < nnz * L2_SECTOR_BYTES
+            and transpose_smem_bytes(cols, min(n_panels, MAX_BAND_PANELS))
+            <= PANEL_SMEM_BYTES)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPanelLayout:
+    """An ELL matrix's entries sorted by (column tile, row panel), for the
+    transpose over row panels.
+
+    Columns are cut into tiles of ``tile_cols`` and rows into panels of
+    ``panel_rows``. Segment (t, p) holds the entries of tile t's columns
+    whose row falls in panel p, sorted by (column, row) and stable (a row's
+    duplicates keep their ELL order), at ``offsets[t, p] : offsets[t, p +
+    1]`` (``[T, P+1]`` int64). Each entry is one 32-bit code in ``codes``
+    (int32 storage), column in tile << 16 | row in panel, and its value in
+    ``vals``; every segment is padded with skip entries (column field
+    ``PAD_COL``, row 0, value 0) to a multiple of ``SEGMENT_ALIGN``. Ghost
+    and out-of-range entries are dropped.
+
+    ``bands [B, 4]`` int64 in (tile, panel) order: (tile, first panel, end
+    panel, slot), slot -1 for a band that holds its whole tile, else the
+    band's row of float64 partials; block b of the kernel takes bands
+    ``starts[b] : starts[b + 1]`` (``[G + 1]`` int64). ``fixups [F, 3]``
+    (tile, first slot, bands) for each tile cut into several bands, summed
+    in band order. ``n_slots`` partial rows in all; ``max_band_panels`` the
+    longest band.
+    """
+
+    codes: Tensor
+    vals: Tensor
+    offsets: Tensor
+    bands: Tensor
+    starts: Tensor
+    fixups: Tensor
+    n_rows: int
+    dim: int
+    tile_cols: int
+    panel_rows: int
+    n_slots: int
+    max_band_panels: int
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.offsets.shape[0])
+
+    @property
+    def n_panels(self) -> int:
+        return int(self.offsets.shape[1]) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+
+def transpose_bands(offsets: Tensor, long_entries: Tensor | None = None) -> dict:
+    """Cut the segments, in (tile, panel) order, into one run a block of
+    about the same work (entries, plus ``SEGMENT_COST`` a non-empty
+    segment, ``BAND_COST`` a tile and ``LONG_RUN_COST`` each of a
+    segment's ``long_entries``, ``[T, P]``; at most 132 blocks, one an
+    SM, each at least ``MIN_BLOCK_WORK``), and each run into bands at the
+    tiles' edges and every ``MAX_BAND_PANELS`` panels. Returns
+    ``RowPanelLayout``'s ``bands``, ``starts``, ``fixups``, ``n_slots`` and
+    ``max_band_panels``. With torch ops on ``offsets``' device."""
+    dev = offsets.device
+    n_tiles, n_panels = int(offsets.shape[0]), int(offsets.shape[1]) - 1
+    i64 = dict(dtype=torch.int64, device=dev)
+    n_seg = n_tiles * n_panels
+    if n_seg == 0:     # no rows or no columns: each tile (if any) one empty band
+        tiles = torch.arange(n_tiles, **i64)
+        bands = torch.stack([tiles, tiles * 0, tiles * 0, tiles * 0 - 1], 1)
+        return {"bands": bands.contiguous(), "starts": torch.tensor([0, n_tiles], **i64),
+                "fixups": torch.zeros((0, 3), **i64), "n_slots": 0, "max_band_panels": 0}
+    counts = offsets.diff(dim=1).reshape(-1)
+    cost = counts + torch.where(counts > 0, SEGMENT_COST, 0)
+    if long_entries is not None:
+        cost += (long_entries.reshape(-1).double() * LONG_RUN_COST).long()
+    cost[::n_panels] += BAND_COST
+    before = torch.cumsum(cost, 0) - cost
+    total = int(cost.sum())
+    blocks = max(1, min(H100_SMS, total // MIN_BLOCK_WORK))
+    # block k's run starts at the first segment with k/blocks of the work before it
+    firsts = torch.searchsorted(before, torch.arange(blocks, **i64) * total // blocks)
+    firsts = firsts.clamp(max=n_seg - 1)
+    firsts[0] = 0
+    seg = torch.arange(n_seg, **i64)
+    cut = (seg % n_panels) % MAX_BAND_PANELS == 0
+    cut[firsts] = True
+    start = torch.nonzero(cut).reshape(-1)
+    length = torch.diff(start, append=torch.tensor([n_seg], **i64))
+    tile, p_lo = start // n_panels, start % n_panels
+    per = torch.bincount(tile, minlength=n_tiles)
+    split = per[tile] >= 2
+    slot = torch.where(split, torch.cumsum(split.long(), 0) - 1, -1)
+    heads = torch.nonzero(split & (p_lo == 0)).reshape(-1)
+    block = torch.searchsorted(firsts, start, right=True) - 1
+    return {"bands": torch.stack([tile, p_lo, p_lo + length, slot], 1).contiguous(),
+            "starts": torch.searchsorted(block, torch.arange(blocks + 1, **i64)),
+            "fixups": torch.stack([tile[heads], slot[heads], per[tile[heads]]], 1)
+            .contiguous(),
+            "n_slots": int(split.sum()), "max_band_panels": int(length.max())}
+
+
+def row_panel_layout(idx: Tensor, val: Tensor, dim: int) -> RowPanelLayout:
+    """Sort the ELL entries into (column tile, row panel) segments, tiles of
+    ``tile_cols_for(dim)`` columns, and cut them into the blocks' bands
+    (``transpose_bands``), with torch ops on ``idx``'s device (a sort of
+    the entries, no host copy of them)."""
+    _check_ell(idx, val, dim)
+    _check_same_device(("idx", idx), ("val", val))
+    cols_t = tile_cols_for(dim)
+    n = idx.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"{n} rows exceed the kernel's int32 panel arithmetic")
+    n_tiles = -(-dim // cols_t)
+    n_panels = -(-n // PANEL_ROWS)
+    pos, rows, cols = _real_entries(idx, dim)
+    seg = (cols // cols_t) * n_panels + rows // PANEL_ROWS
+    local = rows % PANEL_ROWS
+    pair = seg * cols_t + cols % cols_t
+    codes, vals, offsets = _pack_segments(
+        seg, pair, (cols % cols_t) << CODE_SHIFT | local,
+        val.reshape(-1)[pos], n_tiles, n_panels)
+    # each segment's entries in runs of LONG_RUN or more of one column
+    runs, lengths = torch.unique(pair, return_counts=True)
+    long = lengths >= LONG_RUN
+    long_entries = torch.zeros(n_tiles * n_panels, dtype=torch.int64, device=idx.device)
+    long_entries.index_add_(0, runs[long] // cols_t, lengths[long])
+    return RowPanelLayout(codes=codes, vals=vals, offsets=offsets, n_rows=n, dim=dim,
+                          tile_cols=cols_t, panel_rows=PANEL_ROWS,
+                          **transpose_bands(offsets, long_entries))
+
+
+def transpose_route(idx: Tensor, val: Tensor, dim: int) -> str:
+    """The route rule of the transposes: ``"panel"`` for bfloat16 values
+    where ``transpose_panels_pay_off`` finds the row panels pay (counting
+    this layout's non-empty segments, on ``idx``'s device), else
+    ``"merge"`` (the float32 and float64 transposes keep the merge path)."""
+    if val.dtype != torch.bfloat16:
+        return "merge"
+    tile = tile_cols_for(dim)
+    pos, rows, cols = _real_entries(idx, dim)
+    n_panels = -(-idx.shape[0] // PANEL_ROWS)
+    n_seg = -(-dim // tile) * n_panels
+    seg = (cols // tile) * n_panels + rows // PANEL_ROWS
+    segments = int(torch.count_nonzero(torch.bincount(seg, minlength=n_seg)))
+    pays = transpose_panels_pay_off(idx.shape[0], dim, int(pos.numel()), segments)
+    return "panel" if pays else "merge"
+
+
+def build_transpose(idx: Tensor, val: Tensor, dim: int) -> CscLayout | RowPanelLayout:
+    """The transposes' layout, where ``transpose_route`` sends these values:
+    ``row_panel_layout`` for the transpose over row panels, else
+    ``build_csc``'s column-sorted list for the merge path."""
+    _check_ell(idx, val, dim)
+    if transpose_route(idx, val, dim) == "panel":
+        return row_panel_layout(idx, val, dim)
+    return build_csc(idx, val, dim)
+
+
+def csc_panel_rmatvec_plain(layout: RowPanelLayout, v: Tensor,
+                            square: bool = False) -> Tensor:
+    """g = Aᵀ·v (with ``square``, (A∘A)ᵀ·v) from the row-panel layout's
+    entries, decoded: a float64 segment sum by column, rounded once, as the
+    kernel does (bfloat16 values upcast first, and square after)."""
+    col, row, real = _decode(layout.codes, layout.offsets, layout.tile_cols,
+                             layout.panel_rows)
+    x = layout.vals.double()[real]
+    if square:
+        x = x * x
+    out = torch.zeros(layout.dim, dtype=torch.float64, device=v.device)
+    out.index_add_(0, col[real], x * v.double()[row[real]])
+    return out.to(v.dtype)
+
+
+def csc_panel_rmatvec(layout: RowPanelLayout, v: Tensor, square: bool = False) -> Tensor:
+    """g[c] = Σ_{entries of column c} val·v[row] (val² with ``square``) —
+    kernels ``csc_panel_rmatvec`` / ``csc_sq_panel_rmatvec`` on CUDA, over a
+    layout from ``row_panel_layout``, for float32 or bfloat16 values with a
+    float32 v. Replaces ``rmatvec_pallas`` (photon_tpu/ops/pallas_sparse.py)
+    where ``build_transpose`` routes a layout here.
+
+    Persistent blocks, each over its run of bands: a band's panels of v
+    come into shared memory by TMA bulk copies, each column's panel partial
+    comes from a block segmented reduction, and one thread adds it to the
+    column's float64 accumulator in panel order; the bands of a tile cut
+    between blocks are summed in band order by a second launch, from
+    float64 partials in a scratch buffer allocated here. Deterministic: the
+    order depends only on the layout.
+    """
+    if v.dim() != 1 or v.shape[0] != layout.n_rows:
+        raise ValueError(f"v must be [{layout.n_rows}], got {tuple(v.shape)}")
+    _check_values(layout.vals, v, "panel values", "v")
+    named = (("codes", layout.codes), ("vals", layout.vals),
+             ("offsets", layout.offsets), ("bands", layout.bands),
+             ("starts", layout.starts), ("fixups", layout.fixups), ("v", v))
+    dev = _check_same_device(*named)
+    _check_contiguous(*named)
+    if dev.type == "cpu":
+        return csc_panel_rmatvec_plain(layout, v, square)
+    if v.dtype != torch.float32:
+        raise TypeError(f"the row-panel transpose takes float32 or bfloat16 values "
+                        f"with a float32 v, got {layout.vals.dtype} values")
+    if layout.panel_rows != PANEL_ROWS or not 1 <= layout.tile_cols <= MAX_TILE_COLS:
+        raise ValueError(f"panel_rows {layout.panel_rows} / tile_cols "
+                         f"{layout.tile_cols} are not the kernel's")
+    if transpose_smem_bytes(layout.tile_cols, layout.max_band_panels) > PANEL_SMEM_BYTES:
+        raise ValueError(f"a band of {layout.max_band_panels} panels over "
+                         f"{layout.tile_cols} columns does not fit shared memory")
+    for what, t in (named[0], named[1], named[6]):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} must be 16-byte aligned for the TMA copies")
+    g = torch.empty(layout.dim, dtype=torch.float32, device=dev)
+    if layout.dim == 0:
+        return g
+    if layout.n_rows == 0:
+        return g.zero_()
+    partials = torch.empty(max(layout.n_slots, 1) * layout.tile_cols,
+                           dtype=torch.float64, device=dev)
+    name = "csc_sq_panel_rmatvec" if square else "csc_panel_rmatvec"
+    _launch(_counted(name, layout.vals.dtype), dev,
+            getattr(_lib(), f"{name}_{_VALUE_SUFFIX[layout.vals.dtype]}"),
+            layout.codes.data_ptr(), layout.vals.data_ptr(),
+            layout.offsets.data_ptr(), layout.bands.data_ptr(),
+            layout.starts.data_ptr(), layout.fixups.data_ptr(), v.data_ptr(),
+            g.data_ptr(), partials.data_ptr(), layout.n_rows, layout.dim,
+            layout.tile_cols, layout.n_tiles, layout.n_panels, layout.panel_rows,
+            int(layout.bands.shape[0]), int(layout.starts.shape[0]) - 1,
+            int(layout.fixups.shape[0]), layout.max_band_panels)
     return g

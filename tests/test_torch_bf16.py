@@ -8,7 +8,10 @@ Tolerances:
   ``tests/test_torch_sparse.py`` (5e-5), both sides reading the same
   rounded values;
 * bf16 against f32 on the upcast values, plain on the CPU and the kernels
-  on the card (tests marked ``cuda``): bit-equal;
+  on the card (tests marked ``cuda``): bit-equal; the transposes over row
+  panels against their f32 form on the same layout, and within
+  ``chip_smoke.check_bounded``'s bound (a reordered f64 sum) of their plain
+  version;
 * ``host_feed_array`` against JAX's: bit-equal on float32 and float64
   inputs, values on a float32 or a bfloat16 rounding tie included;
 * the GAME driver with ``--bf16-feed``, on values bfloat16 holds exactly:
@@ -321,13 +324,62 @@ def test_bf16_kernels_bit_equal_f32_kernels_on_card(name, cuda_device):
     for square in (False, True):
         pairs.append((cs.csc_rmatvec(cb, dzt, square), cs.csc_rmatvec(cf, dzt, square)))
     torch.cuda.synchronize()
-    assert cs.launch_counts() == {name: 1 for name in cs.ALL_KERNELS}
+    panels = set(cs.PANEL_TRANSPOSES) | {f"{k}_bf16" for k in cs.PANEL_TRANSPOSES}
+    assert cs.launch_counts() == {name: int(name not in panels) for name in cs.ALL_KERNELS}
     for got, want in pairs:
         assert got.dtype == torch.float32
         assert torch.equal(got, want)
     ref = cs.ell_matvec_plain(_t(idx), vb.cpu(), _t(w), d)
     np.testing.assert_allclose(pairs[0][0].cpu().numpy(), ref.numpy(), rtol=0,
                                atol=ATOL_F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BF16_CASES + ["hot_panels", "split_tiles"])
+def test_bf16_panel_transposes_on_card(name, cuda_device):
+    """The transposes over row panels on bf16 values: each against its f32
+    form on the same layout's upcast values, bit for bit, one launch each;
+    bit-equal on repeat; and (``chip_smoke.check_bounded``, on the upcast
+    values) within the bound of a reordered f64 sum of their plain version
+    and of the ELL arrays' plain transpose, beside the other kernels."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    if name == "hot_panels":        # a column in every row of three panels
+        rng = np.random.default_rng(31)
+        d = 9000
+        idx, val = _random_ell(rng, 40000, d, 3)
+        idx[:, 0] = 5
+    elif name == "split_tiles":     # tiles cut between blocks, a ragged tile
+        rng = np.random.default_rng(32)
+        d = 2 * cs.MAX_TILE_COLS + 17
+        idx, val = _random_ell(rng, 70000, d, 9)
+        idx[:, 0] = 0
+    else:
+        idx, val, d, _, _ = _case(name)
+    dz = np.random.default_rng(33).normal(size=idx.shape[0]).astype(np.float32)
+    i = _t(idx).to(cuda_device)
+    vb = _t(val).to(cuda_device).to(torch.bfloat16)
+    lb = cs.row_panel_layout(i, vb, d)
+    lf = cs.row_panel_layout(i, vb.float(), d)
+    v = _t(dz).to(cuda_device)
+    for square, name_f in ((False, "csc_panel_rmatvec"), (True, "csc_sq_panel_rmatvec")):
+        cs.reset_launch_counts()
+        got, want = cs.csc_panel_rmatvec(lb, v, square), cs.csc_panel_rmatvec(lf, v, square)
+        torch.cuda.synchronize()
+        assert cs.launch_counts() == {k: int(k in (name_f, f"{name_f}_bf16"))
+                                      for k in cs.ALL_KERNELS}
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+        assert torch.equal(got, cs.csc_panel_rmatvec(lb, v, square))
+    bounded = chip_smoke.check_bounded(torch, cs, cuda_device, idx,
+                                       val.astype(ml_dtypes.bfloat16).astype(np.float32),
+                                       d, seed=34)
+    for kernel in cs.PANEL_TRANSPOSES:
+        assert bounded["float32"][kernel]["of_bound"] <= 1.0
+        assert bounded["float32"][kernel]["ell_plain"]["of_bound"] <= 1.0
 
 
 @pytest.mark.cuda
